@@ -1,0 +1,1 @@
+"""Converters from the JAX package's parameter trees."""

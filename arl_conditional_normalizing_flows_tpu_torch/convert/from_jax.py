@@ -1,0 +1,130 @@
+"""Flax ``ConvCFlow`` params -> the port's ``ConvCFlow`` state_dict.
+
+The flax tree is given as nested dicts of numpy arrays (e.g. a JAX
+checkpoint loaded with numpy), so this module needs neither jax nor flax.
+Name map, per coupling ``couplings_i`` and subnet ``net_ab``/``net_a``/
+``net_b``:
+
+==============================================  =============================
+flax                                            port
+==============================================  =============================
+``Conv_0``                                      ``conv_in``
+``DilatedResidualBlock_r/Conv_0``               ``blocks.r.conv_pre``
+``DilatedResidualBlock_r/Conv_j`` (1 <= j <= n) ``blocks.r.branches.{j-1}``
+``DilatedResidualBlock_r/Conv_{n+1}``           ``blocks.r.conv_post``
+``DilatedResidualBlock_r/FlatLayerNorm_i``      ``blocks.r.norms.i``
+``FlatLayerNorm_0``                             ``norm``
+``Conv_1``                                      ``head``
+``tanh_scale``                                  ``tanh_scale``
+==============================================  =============================
+
+with ``n`` the block's number of dilated branches. Conv kernels go from
+HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)``; LayerNorm
+``LayerNorm_0/scale`` and ``bias`` become ``weight`` and ``bias``.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _index(name, stem):
+    m = re.fullmatch(rf"{stem}_(\d+)", name)
+    return None if m is None else int(m.group(1))
+
+
+def _leaf(path, value, n_convs):
+    """(port key, tensor) for one flax leaf, or None when unmapped.
+
+    ``n_convs`` maps a residual block's flax path to its number of
+    ``Conv_*`` modules (branches + 2)."""
+    if len(path) < 3 or _index(path[0], "couplings") is None:
+        return None
+    if path[1] not in ("net_ab", "net_a", "net_b"):
+        return None
+    prefix = f"couplings.{_index(path[0], 'couplings')}.{path[1]}"
+    rest = path[2:]
+    if rest == ("tanh_scale",):
+        return f"{prefix}.tanh_scale", np.asarray(value, np.float32)
+
+    r = _index(rest[0], "DilatedResidualBlock")
+    if r is not None:
+        prefix, rest = f"{prefix}.blocks.{r}", rest[1:]
+        j = _index(rest[0], "Conv") if rest else None
+        nc = n_convs.get(path[:3], 0)
+        module = (None if j is None else
+                  "conv_pre" if j == 0 else
+                  "conv_post" if j == nc - 1 else
+                  f"branches.{j - 1}")
+        i = _index(rest[0], "FlatLayerNorm") if rest else None
+        if i is not None:
+            module = f"norms.{i}"
+    else:
+        j = _index(rest[0], "Conv")
+        module = {0: "conv_in", 1: "head"}.get(j)
+        if rest[0] == "FlatLayerNorm_0":
+            module = "norm"
+    if module is None:
+        return None
+    rest = rest[1:]
+    if module.startswith("norm"):
+        param = {("LayerNorm_0", "scale"): "weight", ("LayerNorm_0", "bias"): "bias"}.get(rest)
+        arr = np.asarray(value, np.float32)
+    else:
+        param = {("kernel",): "weight", ("bias",): "bias"}.get(rest)
+        arr = np.asarray(value, np.float32)
+        if param == "weight":
+            if arr.ndim != 4:
+                return None
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if param is None:
+        return None
+    return f"{prefix}.{module}.{param}", arr
+
+
+def state_dict_from_flax(params, model) -> dict:
+    """The state_dict for ``model`` (a port ``ConvCFlow``) holding the flax
+    ``params`` tree (``variables["params"]``, nested dicts of arrays).
+
+    Raises ``KeyError`` on a flax leaf it does not map or a port parameter
+    left unset, and ``ValueError`` on a shape mismatch.
+    """
+    leaves = list(_flatten(params))
+    n_convs = {}
+    for path, _ in leaves:
+        if len(path) >= 5 and _index(path[2], "DilatedResidualBlock") is not None:
+            if _index(path[3], "Conv") is not None:
+                n_convs[path[:3]] = n_convs.get(path[:3], set()) | {path[3]}
+    n_convs = {k: len(v) for k, v in n_convs.items()}
+
+    target = model.state_dict()
+    out = {}
+    unmapped = []
+    for path, value in leaves:
+        mapped = _leaf(path, value, n_convs)
+        if mapped is None or mapped[0] not in target:
+            unmapped.append("/".join(path))
+            continue
+        key, arr = mapped
+        if tuple(arr.shape) != tuple(target[key].shape):
+            raise ValueError(f"{'/'.join(path)} -> {key}: shape {arr.shape} "
+                             f"!= {tuple(target[key].shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=target[key].device, dtype=target[key].dtype)
+    if unmapped:
+        raise KeyError(f"flax params with no port counterpart: {unmapped}")
+    unset = sorted(set(target) - set(out))
+    if unset:
+        raise KeyError(f"port parameters not set from the flax params: {unset}")
+    return out

@@ -1,0 +1,204 @@
+"""Coupling-function subnets of the conv flow (port of the JAX
+``models/subnets.py`` conv path).
+
+A subnet is a dilated grouped-conv ResNeXt stack
+(conv_cINN_base_functions.py:330-627, conv_cINN_make_model.py:1076-1213):
+entry k x k conv -> ``num_res_blocks`` x :class:`DilatedResidualBlock` ->
+LeakyReLU -> [:class:`FlatLayerNorm`] -> k x k head. Parity details kept from
+the JAX package: LeakyReLU slope 0.3, LayerNorm over all h*w*d elements with
+eps 1e-3, orthogonal(0.1) kernels drawn over the ``(k*k*cin, cout)`` matrix,
+zero biases, a linear b head and a tanh A head with a learned scale that
+starts at 1.0.
+
+Subnets take and return the JAX layout ``(B, h, w, c)``; inside, convs run on
+``x.permute(0, 3, 1, 2)``, a channels-last NCHW view. Like flax's
+``nn.Conv(dtype=...)``, each conv casts its input, kernel and bias to the
+compute dtype and leaves its output there; the head is cast to float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LEAKY_SLOPE = 0.3  # Keras LeakyReLU default alpha
+
+
+def leaky_relu(x):
+    return F.leaky_relu(x, negative_slope=LEAKY_SLOPE)
+
+
+def orthogonal(shape, scale, generator):
+    """Orthogonal(gain) draw of ``shape`` (HWIO) over the
+    ``(prod(shape[:-1]), shape[-1])`` matrix, as flax's
+    ``nn.initializers.orthogonal`` does (same distribution, torch's RNG)."""
+    rows, cols = math.prod(shape[:-1]), shape[-1]
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    return (scale * q).reshape(shape).float()
+
+
+class Conv(nn.Module):
+    """SAME-padded, stride-1 (dilated, grouped) conv computed in ``dtype``.
+
+    ``weight`` is OIHW ``(cout, cin/groups, k, k)``. ``init_groups`` > 1
+    draws that many output-column blocks of the kernel independently (the
+    JAX ``per_group_orthogonal``) instead of one orthogonal matrix.
+    """
+
+    def __init__(self, cin, cout, ksize, *, dilation=1, groups=1, dtype,
+                 generator, init_scale=0.1, init_groups=1):
+        super().__init__()
+        hwio = (ksize, ksize, cin // groups)
+        w = torch.cat([orthogonal(hwio + (cout // init_groups,), init_scale, generator)
+                       for _ in range(init_groups)], dim=-1)
+        self.weight = nn.Parameter(w.permute(3, 2, 0, 1).contiguous())
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dilation = dilation
+        self.groups = groups
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        # torch's "same" pads total//2 low and the rest high, as XLA's SAME
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        padding="same", dilation=self.dilation, groups=self.groups)
+
+
+class FlatLayerNorm(nn.Module):
+    """LayerNorm over all h*w*d elements jointly (the reference's flatten ->
+    LayerNorm -> reshape, conv_cINN_base_functions.py:345-361), eps 1e-3.
+
+    Takes and returns NCHW; the statistics, and the output, are float32 (as
+    flax's LayerNorm with float32 params).
+    """
+
+    def __init__(self, h, w, d):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(h * w * d))
+        self.bias = nn.Parameter(torch.zeros(h * w * d))
+
+    def forward(self, y):
+        nhwc = y.permute(0, 2, 3, 1)
+        flat = nhwc.reshape(nhwc.shape[0], -1).float()
+        out = F.layer_norm(flat, flat.shape[-1:], self.weight, self.bias, eps=1e-3)
+        return out.reshape(nhwc.shape).permute(0, 3, 1, 2)
+
+
+class DilatedResidualBlock(nn.Module):
+    """Pre-activation ResNeXt bottleneck with parallel dilated grouped convs
+    and an identity shortcut (conv_cINN_base_functions.py:502-627).
+
+    Branch ``i`` (dilation ``d``) reads the first ``nb/d`` channels and
+    convolves them in ``cardinality`` groups (``ref_compat_group_slice``:
+    every group reads the LAST group's channel slice, the reference's
+    late-bound Lambda, conv_cINN_base_functions.py:401).
+    """
+
+    def __init__(self, hw, nb_channels, dilations, ksize, cardinality,
+                 layer_norm, *, ref_compat_group_slice=False,
+                 ref_compat_group_init=False, dtype, generator, init_scale=0.1):
+        super().__init__()
+        h, w = hw
+        nb = nb_channels
+        widths = [nb // d for d in dilations]
+        for wd in widths:
+            assert wd % cardinality == 0, (wd, cardinality)
+        common = dict(dtype=dtype, generator=generator, init_scale=init_scale)
+        self.norms = (
+            nn.ModuleList([FlatLayerNorm(h, w, nb), FlatLayerNorm(h, w, nb),
+                           FlatLayerNorm(h, w, sum(widths))])
+            if layer_norm else None
+        )
+        self.conv_pre = Conv(nb, nb, 1, **common)
+        groups = 1 if ref_compat_group_slice else cardinality
+        self.branches = nn.ModuleList([
+            Conv(wd // cardinality * groups, wd, ksize, dilation=d, groups=groups,
+                 init_groups=cardinality if ref_compat_group_init else 1,
+                 **common)
+            for wd, d in zip(widths, dilations)
+        ])
+        self.conv_post = Conv(sum(widths), nb, 1, **common)
+        self.widths = widths
+        self.cardinality = cardinality
+        self.ref_compat_group_slice = ref_compat_group_slice
+
+    def _common(self, t, i):
+        t = leaky_relu(t)
+        return t if self.norms is None else self.norms[i](t)
+
+    def _branch_input(self, y, width):
+        if self.ref_compat_group_slice:
+            d = width // self.cardinality
+            return y[:, (self.cardinality - 1) * d : self.cardinality * d]
+        return y[:, :width]
+
+    def forward(self, y):
+        shortcut = y
+        y = self.conv_pre(self._common(y, 0))
+        y = self._common(y, 1)
+        y = torch.cat([conv(self._branch_input(y, wd))
+                       for conv, wd in zip(self.branches, self.widths)], dim=1)
+        y = self.conv_post(self._common(y, 2))
+        return shortcut + y
+
+
+class ConvCouplingNet(nn.Module):
+    """One head-stack of the conv coupling function
+    (conv_cINN_make_model.py:1076-1213).
+
+    ``n_heads=2`` emits (A, b) from one trunk (the fused option); with
+    ``n_heads=1`` the net is the A net when ``scale_head`` else the b net.
+    The A head is ``tanh(head) * tanh_scale``.
+    """
+
+    def __init__(self, in_shape, out_channels, num_kernels, num_res_blocks,
+                 cardinality, ksize, dilations: Tuple[int, ...], layer_norm, *,
+                 scale_head=False, n_heads=1, ref_compat_group_slice=False,
+                 ref_compat_group_init=False, dtype=torch.float32, generator,
+                 init_scale=0.1):
+        super().__init__()
+        assert n_heads in (1, 2)
+        h, w, cin = in_shape
+        common = dict(dtype=dtype, generator=generator, init_scale=init_scale)
+        self.conv_in = Conv(cin, num_kernels, ksize, **common)
+        self.blocks = nn.ModuleList([
+            DilatedResidualBlock(
+                (h, w), num_kernels, dilations, ksize, cardinality, layer_norm,
+                ref_compat_group_slice=ref_compat_group_slice,
+                ref_compat_group_init=ref_compat_group_init, **common)
+            for _ in range(num_res_blocks)
+        ])
+        self.norm = FlatLayerNorm(h, w, num_kernels) if layer_norm else None
+        self.head = Conv(num_kernels, out_channels * n_heads, ksize, **common)
+        self.tanh_scale = (
+            nn.Parameter(torch.ones(())) if scale_head or n_heads == 2 else None
+        )
+        self.out_channels = out_channels
+        self.n_heads = n_heads
+        self.dtype = dtype
+
+    def _scale(self, a):
+        return torch.tanh(a) * self.tanh_scale.to(a.dtype)
+
+    def forward(self, u1):
+        """u1 (B, h, w, cin) -> A or b (B, h, w, out), or (A, b) when fused."""
+        y = self.conv_in(u1.to(self.dtype).permute(0, 3, 1, 2))
+        for blk in self.blocks:
+            y = blk(y)
+        y = leaky_relu(y)
+        if self.norm is not None:
+            y = self.norm(y)
+        head = self.head(y).float().permute(0, 2, 3, 1)
+        if self.n_heads == 1:
+            return self._scale(head) if self.tanh_scale is not None else head
+        c = self.out_channels
+        return self._scale(head[..., :c]), head[..., c:]

@@ -1,0 +1,40 @@
+"""Fudged-logit pixel transform (port of the JAX ``ops/logit.py``).
+
+Forward (conv_cINN_base_functions.py:174-231): x in [0,1] -> logit(a +
+(1-a)*b*x), rescaled from [logit(a), logit(1-a)] to [0,1], with
+b = (1-2a)/(1-a). Inverse (conv_cINN_base_functions.py:287-318): the exact
+algebraic inverse, used to recover pixels from samples.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _logit(x):
+    return torch.log(x / (1.0 - x))
+
+
+def _logit_a(x, a):
+    # logit(a) in the wider of x's dtype and float32, as the JAX version
+    dt = torch.promote_types(x.dtype, torch.float32)
+    return _logit(torch.tensor(a, dtype=dt, device=x.device))
+
+
+def logitify(x, a=0.01):
+    """x in [0,1] -> fudged logit rescaled to [0,1]."""
+    b = (1.0 - 2.0 * a) / (1.0 - a)
+    lo = _logit_a(x, a)
+    hi = -lo  # logit(1-a) = -logit(a)
+    z = _logit(a + (1.0 - a) * b * x)
+    return (z - lo) / (hi - lo)
+
+
+def de_logitify(x, a=0.01):
+    """Inverse of :func:`logitify`."""
+    b = (1.0 - 2.0 * a) / (1.0 - a)
+    lo = _logit_a(x, a)
+    hi = -lo
+    z = x * (hi - lo) + lo
+    logistic = 1.0 / (1.0 + torch.exp(-z))
+    return (logistic - a) / (b * (1.0 - a))

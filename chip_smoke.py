@@ -1,0 +1,406 @@
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``csrc/`` with nvcc, holds each kernel
+against its plain PyTorch version at the shapes of the main path, then drives
+the serving path of the flagship conv cINN at full width (batch 128, random
+weights from a seed): conditional-sampling requests through
+``make_image_serving_fn`` and a ``log_loss`` density evaluation, with the
+kernels' launch counts read around that run. It checks that every output is
+finite, that ``forward(inverse(zy))`` gives zy back and that the same
+weights at float32 agree with the CPU. Each phase prints its elapsed seconds.
+
+Any failed check raises and the script exits non-zero; without a CUDA card
+it exits 1 and prints no result. On success the line before the last is a
+JSON object with one entry per kernel, and the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
+    ConvFlowConfig,
+    arch_string,
+)
+from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
+from arl_conditional_normalizing_flows_tpu_torch.ops import logit
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
+    affine_coupling as kernels,
+)
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import build
+from arl_conditional_normalizing_flows_tpu_torch.serve.export import (
+    make_image_serving_fn,
+)
+
+#: the flagship of the JAX bench (bench.py), on the coupling-kernel lowering
+FLAGSHIP = ConvFlowConfig(
+    io_shape=(28, 28, 2), x_d=1, squeeze_factor_blocks=(0, 1, 0, 0),
+    res_blocks=(3, 3, 3, 3), num_kernels=(64, 64, 32, 32),
+    cardinality=(8, 8, 4, 4), ksize=3, fused_subnet=True,
+    compute_dtype="bfloat16", experimental_lowering="pallas_coupling",
+)
+BATCH = 128
+REQUESTS = 4
+NUM_CLASSES = 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+
+KERNELS = {
+    "affine_forward": dict(
+        wrapper=kernels.fused_affine_forward,
+        plain=kernels.affine_forward_reference,
+        replaces="arl_conditional_normalizing_flows_tpu/ops/pallas/affine_coupling.py:90",
+        # reads a, b, u2; writes v2 and 4 bytes of log-det a row
+        bytes=lambda rows, n, item: 4 * rows * n * item + 4 * rows,
+        # exp, multiply, add, and the log-det add per element
+        ops=lambda rows, n: 4 * rows * n,
+    ),
+    "affine_inverse": dict(
+        wrapper=kernels.fused_affine_inverse,
+        plain=kernels.affine_inverse_reference,
+        replaces="arl_conditional_normalizing_flows_tpu/ops/pallas/affine_coupling.py:190",
+        bytes=lambda rows, n, item: 4 * rows * n * item,
+        # negate, exp, subtract, multiply per element
+        ops=lambda rows, n: 4 * rows * n,
+    ),
+}
+SOURCE = "arl_conditional_normalizing_flows_tpu_torch/csrc/affine_coupling.cu"
+# float32: expf against torch.exp, a few ulps; bf16: the same float32 value
+# rounded once, at most one bf16 ulp (2**-8 relative) apart; log-det: the
+# float32 row sums in another order
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LD_TOL = 1e-4
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+class Phases:
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.last = self.t0
+
+    def done(self, name, **info):
+        now = time.perf_counter()
+        extra = "".join(f" {k}={v}" for k, v in info.items())
+        print(f"[phase] {name}: {now - self.last:.2f} s (total {now - self.t0:.2f} s){extra}",
+              flush=True)
+        self.last = now
+
+
+def device_time_ms(fn, iters=50, reps=11):
+    """Median device time of one ``fn()`` call: ``iters`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so host launch
+    overhead is not counted. Inputs stay in L2 between calls, as they do on
+    the main path (the coupling law reads what the head conv just wrote)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def law_inputs(rows, n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.tanh(torch.randn(rows, n, generator=g, device="cuda")).to(dtype)
+    b = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
+    u = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
+    return a, b, u
+
+
+def check_kernels(phases):
+    """Each kernel against its plain version at the main path's shapes (both
+    dtypes) and a ragged one; times at the main path's float32 shapes."""
+    results = {name: dict(max_abs_err=0.0, timings={}) for name in KERNELS}
+    for rows, n in ((BATCH, 784), (BATCH, 392), (3, 1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, u = law_inputs(rows, n, dtype, seed=rows * n)
+            with torch.no_grad():
+                v2, ld = kernels.fused_affine_forward(a, b, u)
+                v2_ref, ld_ref = kernels.affine_forward_reference(a, b, u)
+                u2 = kernels.fused_affine_inverse(a, b, v2_ref)
+                u2_ref = kernels.affine_inverse_reference(a, b, v2_ref)
+            torch.cuda.synchronize()
+            errs = {
+                "affine_forward": max((v2.float() - v2_ref.float()).abs().max().item(),
+                                      (ld - ld_ref).abs().max().item()),
+                "affine_inverse": (u2.float() - u2_ref.float()).abs().max().item(),
+            }
+            tol = TOL[dtype]
+            check(ld.dtype == torch.float32, "log-det is float32")
+            check(torch.allclose(v2.float(), v2_ref.float(), rtol=tol, atol=tol),
+                  f"affine_forward v2 {rows}x{n} {dtype}")
+            check(torch.allclose(ld, ld_ref, rtol=1e-5, atol=LD_TOL),
+                  f"affine_forward log-det {rows}x{n} {dtype}")
+            check(torch.allclose(u2.float(), u2_ref.float(), rtol=tol, atol=tol),
+                  f"affine_inverse {rows}x{n} {dtype}")
+            for name, err in errs.items():
+                print(f"[kernel] {name} {rows}x{n} {str(dtype)[6:]}: max_abs_err={err:.3g} "
+                      f"(tolerance {tol:g} abs + {tol:g} rel; log-det {LD_TOL:g})", flush=True)
+                if dtype == torch.float32 and rows == BATCH:
+                    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            if dtype != torch.float32 or rows != BATCH:
+                continue
+            with torch.no_grad():
+                for name, k in KERNELS.items():
+                    third = u if name == "affine_forward" else v2_ref
+                    ms = device_time_ms(lambda: k["wrapper"](a, b, third))
+                    plain_ms = device_time_ms(lambda: k["plain"](a, b, third))
+                    nbytes = k["bytes"](rows, n, a.element_size())
+                    bytes_s = nbytes / HBM_BYTES_PER_S
+                    ops_s = k["ops"](rows, n) / F32_FLOPS_PER_S
+                    bound_s = max(bytes_s, ops_s)
+                    results[name]["timings"][n] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+                        bound_by="bytes" if bytes_s >= ops_s else "operations")
+                    print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card "
+                          f"(bound {bound_s * 1e6:.2f} us for {nbytes} bytes at 3.35 TB/s), "
+                          f"plain version {plain_ms * 1e3:.2f} us", flush=True)
+    phases.done("kernels against their plain versions")
+    return results
+
+
+def class_planes(request):
+    """y' planes of BATCH class-conditional requests: evenly spaced class
+    labels in [0, 1] (conv_cINN.py:222-228) broadcast over 28 x 28 x 1."""
+    labels = torch.arange(NUM_CLASSES, dtype=torch.float32) / (NUM_CLASSES - 1)
+    idx = (torch.arange(BATCH) + request) % NUM_CLASSES
+    h, w, _ = FLAGSHIP.io_shape
+    return labels[idx].view(BATCH, 1, 1, 1).expand(BATCH, h, w, 1).contiguous().cuda()
+
+
+def run_main_path(phases):
+    """The serving path at full width: REQUESTS sampling requests and one
+    density evaluation, with the launch counts read around them."""
+    h, w, _ = FLAGSHIP.io_shape
+    model = ConvCFlow(FLAGSHIP, seed=0)  # no device: the card
+    check(model.device.type == "cuda", "the model lies on the card")
+    serve = make_image_serving_fn(model, FLAGSHIP.x_d, de_logit=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    zs = [torch.randn(BATCH, h, w, 1, generator=g, device="cuda") for _ in range(REQUESTS)]
+    ys = [class_planes(r) for r in range(REQUESTS)]
+    x_data = torch.rand(BATCH, h, w, 1, generator=g, device="cuda")
+    xy = torch.cat([logit.logitify(x_data), ys[0]], dim=-1)
+    phases.done("flagship built", arch=arch_string(FLAGSHIP),
+                params=sum(p.numel() for p in model.parameters()))
+
+    # first calls pick cuDNN algorithms; kept out of the counted run
+    t = time.perf_counter()
+    serve(zs[0], ys[0])
+    torch.cuda.synchronize()
+    first_request_s = time.perf_counter() - t
+    with torch.inference_mode():
+        model.log_loss(xy)
+    torch.cuda.synchronize()
+    phases.done("warm-up", first_request_ms=f"{first_request_s * 1e3:.1f}")
+
+    kernels.reset_launches()
+    latencies, outputs = [], []
+    for z, y in zip(zs, ys):
+        t = time.perf_counter()
+        x = serve(z, y)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t)
+        outputs.append(x)
+    after_requests = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        comps = model.log_loss(xy)
+    torch.cuda.synchronize()
+    density_first_s = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+
+    per_pass = len(model.couplings)  # 16 at the flagship
+    check(after_requests == {"affine_forward": 0, "affine_inverse": per_pass * REQUESTS},
+          f"{per_pass} inverse launches per sampling pass, got {after_requests}")
+    check(launches["affine_forward"] == per_pass,
+          f"{per_pass} forward launches per density pass, got {launches}")
+    for x in outputs:
+        check(x.shape == (BATCH, h, w, 1) and bool(torch.isfinite(x).all()),
+              "served images are finite and (128, 28, 28, 1)")
+    for k, v in comps.items():
+        check(v.shape == () and bool(torch.isfinite(v)), f"log_loss {k} is finite")
+    phases.done("main path", launches=json.dumps(launches),
+                loss=f"{comps['loss'].item():.4f}")
+
+    density = []
+    with torch.inference_mode():
+        for _ in range(5):
+            t = time.perf_counter()
+            model.log_loss(xy)
+            torch.cuda.synchronize()
+            density.append(time.perf_counter() - t)
+    density.append(density_first_s)
+    request_ms = statistics.median(latencies) * 1e3
+    serving = dict(
+        request_ms_median=request_ms,
+        request_ms_all=[round(s * 1e3, 3) for s in latencies],
+        sampling_samples_per_s=BATCH / statistics.median(latencies),
+        density_ms_median=statistics.median(density) * 1e3,
+        density_samples_per_s=BATCH / statistics.median(density),
+        first_request_ms=first_request_s * 1e3,
+    )
+    print("[serving] " + json.dumps(serving), flush=True)
+    phases.done("timing")
+
+    # where a request's and a density pass's device time goes; busy share
+    # is device-busy time over the unprofiled latency
+    for name, fn, wall_ms in (
+        ("request", lambda: serve(zs[0], ys[0]), request_ms),
+        ("density", lambda: model.log_loss(xy), serving["density_ms_median"]),
+    ):
+        with torch.inference_mode():
+            br = kernel_breakdown(fn)
+        br["device_busy_share"] = br["device_busy_ms"] / wall_ms
+        print(f"[profile] {name} " + json.dumps(br), flush=True)
+    phases.done("profile")
+    return model, xy, zs, ys, launches
+
+
+def kernel_breakdown(fn):
+    """Device time of one ``fn()`` by kernel, from torch.profiler: launches,
+    busy milliseconds (union of kernel intervals), the share of coupling
+    kernels and convolutions, and the top kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e - s, n + 1)
+    total = sum(t for t, _ in by_name.values()) or float("nan")
+
+    def share(pred):
+        return sum(t for name, (t, _) in by_name.items() if pred(name.lower())) / total
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(
+        kernel_launches=len(spans),
+        device_busy_ms=busy_us / 1e3,
+        coupling_kernel_share=share(lambda n: "affine_" in n),
+        conv_share=share(lambda n: any(k in n for k in ("conv", "xmma", "gemm", "cutlass", "sm90"))),
+        top=[dict(name=name[:80], ms=t / 1e3, count=n) for name, (t, n) in top],
+    )
+
+
+def check_round_trip_and_cpu(model, xy, zs, ys, phases):
+    """forward(inverse(zy)) == zy on the card, and the card against the CPU
+    at float32 on a sub-batch of 8 with the same weights."""
+    zy = torch.cat([zs[0], ys[0]], dim=-1)
+    with torch.inference_mode():
+        back, _ = model(model.inverse(zy))
+    err = (back - zy).abs().max().item()
+    # bf16 subnets: a float32 perturbation that flips a bf16 rounding in the
+    # inverse's subnet input changes A and b by a bf16 ulp of values ~1e-2
+    print(f"[check] round trip forward(inverse(zy)): max_abs_err={err:.3g} (tolerance 1e-3)",
+          flush=True)
+    check(err <= 1e-3, "round trip forward(inverse(zy)) == zy")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(FLAGSHIP, compute_dtype="float32")
+    state = model.state_dict()
+    gpu32 = ConvCFlow(cfg32)
+    gpu32.load_state_dict(state)
+    cpu32 = ConvCFlow(cfg32, device="cpu")
+    cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
+    sub, zy8 = xy[:8], zy[:8]
+    with torch.inference_mode():
+        zy_g, ld_g = gpu32(sub)
+        zy_c, ld_c = cpu32(sub.cpu())
+        x_g = gpu32.inverse(zy8)
+        x_c = cpu32.inverse(zy8.cpu())
+    # float32 convs in other orders on the two devices, through 16 couplings
+    errs = dict(zy=(zy_g.cpu() - zy_c).abs().max().item(),
+                log_det=(ld_g.cpu() - ld_c).abs().max().item(),
+                inverse=(x_g.cpu() - x_c).abs().max().item())
+    print(f"[check] card vs CPU at float32, batch 8: {json.dumps(errs)} "
+          "(tolerance 1e-4 abs + 1e-4 rel; log-det 1e-3 abs + 1e-4 rel)", flush=True)
+    check(torch.allclose(zy_g.cpu(), zy_c, rtol=1e-4, atol=1e-4), "card vs CPU zy")
+    check(torch.allclose(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-3), "card vs CPU log-det")
+    check(torch.allclose(x_g.cpu(), x_c, rtol=1e-4, atol=1e-4), "card vs CPU inverse")
+    phases.done("round trip and CPU comparison")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phases = Phases()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    print(f"[device] {kind} x{count}, torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    phases.done("device")
+
+    cached = build.library_path("affine_coupling").is_file()
+    t = time.perf_counter()
+    build.load_libraries("affine_coupling")
+    phases.done("build", seconds=f"{time.perf_counter() - t:.2f}",
+                nvcc=build.nvcc_path(), cached=cached)
+
+    results = check_kernels(phases)
+    model, xy, zs, ys, launches = run_main_path(phases)
+    check_round_trip_and_cpu(model, xy, zs, ys, phases)
+
+    entries = []
+    for name, k in KERNELS.items():
+        t784 = results[name]["timings"][784]
+        entries.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=k["replaces"],
+            launches=launches[name], max_abs_err=results[name]["max_abs_err"],
+            ms=t784["ms"], plain_ms=t784["plain_ms"], bound_ms=t784["bound_ms"],
+            bound_by=t784["bound_by"], library_ms=None,
+            shape=[BATCH, 784], dtype="float32",
+            ms_at_392=results[name]["timings"][392]["ms"],
+            plain_ms_at_392=results[name]["timings"][392]["plain_ms"],
+            bound_ms_at_392=results[name]["timings"][392]["bound_ms"],
+        ))
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,245 @@
+"""The port's serving slice as a whole against the JAX model: ``ConvCFlow``
+forward/inverse, ``log_loss``, ``sample_xy`` and ``make_image_serving_fn``
+with weights transplanted by ``convert/from_jax.py``. The JAX side runs its
+Pallas coupling kernels in interpret mode; the port's CPU tensors take the
+kernels' plain versions."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from arl_conditional_normalizing_flows_tpu.models import ConvCFlow as JConvCFlow  # noqa: E402
+from arl_conditional_normalizing_flows_tpu.models import ConvFlowConfig as JConfig  # noqa: E402
+from arl_conditional_normalizing_flows_tpu.ops.pallas import affine_coupling as jac  # noqa: E402
+from arl_conditional_normalizing_flows_tpu.sample import sampler as jsampler  # noqa: E402
+from arl_conditional_normalizing_flows_tpu.serve.export import (  # noqa: E402
+    make_image_serving_fn as j_serving_fn,
+)
+from arl_conditional_normalizing_flows_tpu_torch.convert.from_jax import (  # noqa: E402
+    state_dict_from_flax,
+)
+from arl_conditional_normalizing_flows_tpu_torch.models.arch import ConvFlowConfig  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
+    affine_coupling as tac,
+)
+from arl_conditional_normalizing_flows_tpu_torch.sample import sampler as tsampler  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.serve.export import (  # noqa: E402
+    make_image_serving_fn,
+)
+
+# the small arch of tests/test_fused_subnet.py
+ARCH = dict(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1),
+            res_blocks=(1, 1), num_kernels=(16, 16), cardinality=(2, 2), ksize=3)
+B = 4
+PALLAS = "pallas_coupling"
+
+
+def to_numpy_tree(tree):
+    if hasattr(tree, "items"):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def perturb(tree, rng):
+    if isinstance(tree, dict):
+        return {k: perturb(v, rng) for k, v in tree.items()}
+    if tree.ndim == 0:
+        return np.asarray(1.2, np.float32)
+    if tree.ndim == 1:
+        return (tree + 0.05 * rng.normal(size=tree.shape)).astype(np.float32)
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def models(fused_subnet, lowering):
+    """(jax model, flax params as numpy, port model on the CPU) sharing
+    weights."""
+    kw = dict(ARCH, fused_subnet=fused_subnet, experimental_lowering=lowering)
+    jm = JConvCFlow(JConfig(**kw))
+    rng = np.random.default_rng(1)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((2,) + ARCH["io_shape"]))["params"]
+    params = perturb(to_numpy_tree(params), rng)
+    tm = ConvCFlow(ConvFlowConfig(**kw), device="cpu", seed=3)
+    tm.load_state_dict(state_dict_from_flax(params, tm))
+    return jm, params, tm
+
+
+def inputs():
+    """xy' (uniform x, class-plane y'), and z and y for sampling."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(size=(B, 8, 8, 1))
+    y = np.broadcast_to(rng.uniform(size=(B, 1, 1, 1)), (B, 8, 8, 1))
+    xy = np.concatenate([x, y], axis=-1).astype(np.float32)
+    z = rng.normal(size=(B, 8, 8, 1)).astype(np.float32)
+    return xy, z, np.full((B, 8, 8, 1), 0.5, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_results(fused_subnet, lowering):
+    """The JAX model's outputs on :func:`inputs`, its Pallas coupling
+    kernels run in interpret mode."""
+    jm, params, _ = models(fused_subnet, lowering)
+
+    @jax.jit  # one program for all outputs: far quicker than eager interpret
+    def run(params, xy, z, y):
+        v = {"params": params}
+        zy, ld = jm.apply(v, xy)
+        out = dict(zy=zy, ld=ld, back=jm.apply(v, zy, method="inverse"))
+        if lowering is not None:
+            out["loss"] = jm.apply(v, xy, method="log_loss")
+            out["sample"] = jm.apply(v, z, y, method="sample_xy")
+            out["served"] = j_serving_fn(jm, v, 1, de_logit=True)(z, y)
+        return out
+
+    old = jac.INTERPRET
+    jac.INTERPRET = True
+    try:
+        out = run(params, *inputs())
+    finally:
+        jac.INTERPRET = old
+    return {k: ({n: float(c) for n, c in r.items()} if k == "loss" else np.asarray(r))
+            for k, r in out.items()}
+
+
+@pytest.mark.parametrize("fused_subnet,lowering", [
+    (True, PALLAS), (False, PALLAS), (True, None)])
+def test_forward_inverse_match_jax(fused_subnet, lowering):
+    _, _, tm = models(fused_subnet, lowering)
+    ref = jax_results(fused_subnet, lowering)
+    xy = inputs()[0]
+    with torch.no_grad():
+        zy_t, ld_t = tm(torch.from_numpy(xy))
+        back_t = tm.inverse(zy_t)
+    assert zy_t.shape == xy.shape and ld_t.shape == (B,)
+    np.testing.assert_allclose(zy_t.numpy(), ref["zy"], rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(ld_t.numpy(), ref["ld"], rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(back_t.numpy(), ref["back"], rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(back_t.numpy(), xy, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("fused_subnet", [True, False])
+def test_log_loss_matches_jax(fused_subnet):
+    _, _, tm = models(fused_subnet, PALLAS)
+    ref = jax_results(fused_subnet, PALLAS)
+    xy = torch.from_numpy(inputs()[0])
+    with torch.no_grad():
+        comps, zy = tm.log_loss_with_latent(xy)
+        again = tm.log_loss(xy)
+    assert set(comps) == set(ref["loss"]) == {"loss", "z_loss", "y_loss", "detJ_loss"}
+    for k, v in ref["loss"].items():
+        np.testing.assert_allclose(float(comps[k]), v, rtol=1e-5, atol=3e-4)
+        assert torch.equal(comps[k], again[k])
+    np.testing.assert_allclose(zy.numpy(), ref["zy"], rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("fused_subnet", [True, False])
+def test_sample_xy_and_serving_fn_match_jax(fused_subnet):
+    _, _, tm = models(fused_subnet, PALLAS)
+    ref = jax_results(fused_subnet, PALLAS)
+    _, z, y = (torch.from_numpy(a) for a in inputs())
+    with torch.no_grad():
+        xy_t = tm.sample_xy(z, y)
+    np.testing.assert_allclose(xy_t.numpy(), ref["sample"], rtol=3e-5, atol=3e-5)
+    x_t = make_image_serving_fn(tm, 1, de_logit=True)(z, y)
+    assert x_t.shape == (B, 8, 8, 1)
+    np.testing.assert_allclose(x_t.numpy(), ref["served"], rtol=3e-5, atol=3e-5)
+    q_t = make_image_serving_fn(tm, 1, de_logit=True, quantize_uint8=True)(z, y)
+    assert q_t.dtype == torch.uint8
+    # JAX's quantize_uint8 on its served values; values within 3e-5 of each
+    # other may still round to neighbouring levels
+    q_j = np.round(np.clip(ref["served"], 0.0, 1.0) * 255.0).astype(int)
+    assert np.abs(q_t.numpy().astype(int) - q_j).max() <= 1
+
+
+def test_sample_conditional_images_and_moments():
+    jm, params, tm = models(True, PALLAS)
+    y_image = np.full((8, 8, 1), 0.25, np.float32)
+    g = torch.Generator().manual_seed(0)
+    x = tsampler.sample_conditional_images(tm, y_image, 16, 1, generator=g, de_logit=True)
+    assert x.shape == (16, 8, 8, 1) and torch.isfinite(x).all()
+    # same z through the JAX sampler's pieces gives the same images
+    g = torch.Generator().manual_seed(0)
+    z = torch.randn((16, 8, 8, 1), generator=g)
+    y = np.broadcast_to(y_image, (16, 8, 8, 1))
+    xy_j = jm.apply({"params": params}, jnp.asarray(z.numpy()), jnp.asarray(y),
+                    method="sample_xy")
+    x_j = jsampler.postprocess_sampled_xy(xy_j, jnp.asarray(y), 1, de_logit=True)
+    np.testing.assert_allclose(x.numpy(), np.asarray(x_j), rtol=3e-5, atol=3e-5)
+    mt = tsampler.conditional_moments(x)
+    mj = jsampler.conditional_moments(jnp.asarray(x.numpy()))
+    for k in ("mean", "std", "skew"):
+        np.testing.assert_allclose(mt[k].numpy(), np.asarray(mj[k]), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_postprocess_matches_jax(rng, residual):
+    xy = rng.uniform(size=(2, 4, 4, 3)).astype(np.float32)
+    y = rng.uniform(size=(2, 4, 4, 2)).astype(np.float32)
+    out_t = tsampler.postprocess_sampled_xy(torch.from_numpy(xy), torch.from_numpy(y), 1,
+                                            de_logit=True, residual=residual)
+    out_j = jsampler.postprocess_sampled_xy(jnp.asarray(xy), jnp.asarray(y), 1,
+                                            de_logit=True, residual=residual)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-6, atol=1e-6)
+
+
+def test_flow_takes_the_kernel_wrappers():
+    """With pallas_coupling every coupling calls the kernel wrappers (on the
+    CPU they return the plain versions, so no launch is counted); without
+    it, the plain law."""
+    _, _, tm = models(True, PALLAS)
+    assert all(c.use_kernel for c in tm.couplings) and len(tm.couplings) == 8
+    _, _, tm_plain = models(True, None)
+    assert not any(c.use_kernel for c in tm_plain.couplings)
+    before = dict(tac.LAUNCHES)
+    with torch.no_grad():
+        tm(torch.from_numpy(inputs()[0]))
+    assert tac.LAUNCHES == before
+
+
+def test_converter_raises_on_missing_and_extra_keys():
+    _, params, tm = models(True, PALLAS)
+    missing = {k: dict(v) for k, v in params.items()}
+    del missing["couplings_0"]["net_ab"]["tanh_scale"]
+    with pytest.raises(KeyError, match="not set"):
+        state_dict_from_flax(missing, tm)
+    extra = dict(params, couplings_99={"net_ab": {"tanh_scale": np.float32(1.0)}})
+    with pytest.raises(KeyError, match="no port counterpart"):
+        state_dict_from_flax(extra, tm)
+    extra_leaf = {k: dict(v) for k, v in params.items()}
+    extra_leaf["couplings_1"]["net_ab"] = dict(extra_leaf["couplings_1"]["net_ab"],
+                                               Conv_7={"kernel": np.zeros((1, 1, 1, 1))})
+    with pytest.raises(KeyError, match="no port counterpart"):
+        state_dict_from_flax(extra_leaf, tm)
+
+
+@pytest.mark.parametrize("override", [
+    dict(experimental_lowering="fused_dilated"),
+    dict(experimental_lowering="dense_groups"),
+    dict(experimental_lowering="pallas_subnet"),
+    dict(flow_in_compute_dtype=True),
+])
+def test_unported_options_raise(override):
+    cfg = ConvFlowConfig(**dict(ARCH, **override))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ConvCFlow(cfg, device="cpu")
+
+
+def test_bf16_subnets_run_and_invert():
+    """bf16 subnet compute keeps a float32 flow: finite outputs, float32
+    log-det, exact-enough round trip (the subnets see identical inputs
+    both ways)."""
+    cfg = ConvFlowConfig(**dict(ARCH, fused_subnet=True, compute_dtype="bfloat16",
+                                experimental_lowering="pallas_coupling"))
+    tm = ConvCFlow(cfg, device="cpu", seed=0)
+    xy = torch.from_numpy(inputs()[0])
+    with torch.no_grad():
+        zy, ld = tm(xy)
+        back = tm.inverse(zy)
+    assert zy.dtype == ld.dtype == torch.float32
+    torch.testing.assert_close(back, xy, rtol=2e-4, atol=2e-4)

@@ -1,0 +1,56 @@
+"""The port stands alone: importing all of it, and ``chip_smoke``, loads no
+jax, flax or JAX-package module; and an entry point with no ``device`` does
+not quietly run on the CPU when there is no card."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import arl_conditional_normalizing_flows_tpu_torch as port  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models.arch import ConvFlowConfig  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+CHECK = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "arl_conditional_normalizing_flows_tpu"))
+assert not bad, bad
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def port_modules():
+    names = [port.__name__]
+    for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    names = port_modules() + ["chip_smoke"]
+    assert len(names) > 15
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", CHECK, *names], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"ok {len(names)}"
+
+
+def test_entry_point_without_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ConvFlowConfig(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1),
+                         res_blocks=(1, 1), num_kernels=(16, 16), cardinality=(2, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConvCFlow(cfg)
+    assert ConvCFlow(cfg, device="cpu").device.type == "cpu"
