@@ -20,7 +20,10 @@ flax                                            port
 
 with ``n`` the block's number of dilated branches. Conv kernels go from
 HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)``; LayerNorm
-``LayerNorm_0/scale`` and ``bias`` become ``weight`` and ``bias``.
+``LayerNorm_0/scale`` and ``bias`` become ``weight`` and ``bias``. The
+``pallas_subnet`` lowering's subnets keep the same leaves under dotted names
+(``DilatedResidualBlock_0.Conv_1.kernel``); each is split into its path
+parts, so both trees map to the same port parameters.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ import torch
 
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
+        path = prefix + tuple(k.split("."))
         if isinstance(v, dict):
-            yield from _flatten(v, prefix + (k,))
+            yield from _flatten(v, path)
         else:
-            yield prefix + (k,), v
+            yield path, v
 
 
 def _index(name, stem):
@@ -117,6 +121,8 @@ def state_dict_from_flax(params, model) -> dict:
             unmapped.append("/".join(path))
             continue
         key, arr = mapped
+        if key in out:
+            raise KeyError(f"two flax params map to {key}: {'/'.join(path)}")
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(f"{'/'.join(path)} -> {key}: shape {arr.shape} "
                              f"!= {tuple(target[key].shape)}")

@@ -14,8 +14,10 @@ through the same ops first. Consecutive couplings with complementary masks
 are fused: the second consumes the first one's compressed halves directly.
 
 With ``experimental_lowering="pallas_coupling"`` the coupling law goes
-through the hand-written kernels of ``ops/kernels/affine_coupling.py`` (on
-CUDA tensors; on CPU tensors their plain versions).
+through the hand-written kernels of ``ops/kernels/affine_coupling.py``; with
+``"pallas_subnet"`` each coupling subnet's conv chain runs as one launch of
+the kernel of ``ops/kernels/fused_subnet.py`` (:class:`FusedChainCouplingNet`)
+and the law is the plain one. On CPU tensors the kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -32,7 +34,10 @@ from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
     ConvFlowConfig,
     derive_blocks,
 )
-from arl_conditional_normalizing_flows_tpu_torch.models.subnets import ConvCouplingNet
+from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
+    ConvCouplingNet,
+    FusedChainCouplingNet,
+)
 from arl_conditional_normalizing_flows_tpu_torch.ops import coupling as coupling_ops
 from arl_conditional_normalizing_flows_tpu_torch.ops import masks as mask_ops
 from arl_conditional_normalizing_flows_tpu_torch.ops import squeeze as squeeze_ops
@@ -55,10 +60,6 @@ def check_ported(cfg: ConvFlowConfig) -> None:
         raise NotImplementedError(
             f"experimental_lowering={cfg.experimental_lowering!r} is not "
             "ported yet (ROADMAP A.18)")
-    if cfg.experimental_lowering == "pallas_subnet":
-        raise NotImplementedError(
-            "experimental_lowering='pallas_subnet' (the fused conv-chain "
-            "kernel) is not ported yet (ROADMAP B.4)")
     if cfg.flow_in_compute_dtype or cfg.late_head_cast:
         raise NotImplementedError(
             "flow_in_compute_dtype and late_head_cast are not ported yet "
@@ -74,14 +75,14 @@ class ConvCouplingLayer(nn.Module):
 
     def __init__(self, in_shape, which_mask, num_res_blocks, cardinality,
                  num_kernels, ksize, dilations: Tuple[int, ...], layer_norm, *,
-                 fused_subnet=False, use_kernel=False,
+                 fused_subnet=False, use_kernel=False, fused_chain=False,
                  ref_compat_group_slice=False, ref_compat_group_init=False,
                  dtype=torch.float32, generator):
         super().__init__()
         m = which_mask
         u1c_shape = mask_ops.compressed_shape(in_shape, m)
         u2c_shape = mask_ops.compressed_shape(in_shape, mask_ops.COMPLEMENT[m])
-        common = dict(
+        shared = dict(
             in_shape=u1c_shape,
             out_channels=u2c_shape[-1],
             # checkerboard-compressed inputs have 2x channels / half the
@@ -92,17 +93,22 @@ class ConvCouplingLayer(nn.Module):
             cardinality=cardinality,
             ksize=ksize,
             dilations=dilations,
-            layer_norm=layer_norm,
-            ref_compat_group_slice=ref_compat_group_slice,
-            ref_compat_group_init=ref_compat_group_init,
             dtype=dtype,
             generator=generator,
         )
-        if fused_subnet:
-            self.net_ab = ConvCouplingNet(n_heads=2, **common)
+        if fused_chain:
+            # the JAX PallasFusedCouplingNet: layer norm off, default groups
+            net, common = FusedChainCouplingNet, shared
         else:
-            self.net_a = ConvCouplingNet(scale_head=True, **common)
-            self.net_b = ConvCouplingNet(scale_head=False, **common)
+            net, common = ConvCouplingNet, dict(
+                shared, layer_norm=layer_norm,
+                ref_compat_group_slice=ref_compat_group_slice,
+                ref_compat_group_init=ref_compat_group_init)
+        if fused_subnet:
+            self.net_ab = net(n_heads=2, **common)
+        else:
+            self.net_a = net(scale_head=True, **common)
+            self.net_b = net(scale_head=False, **common)
         self.which_mask = m
         self.fused_subnet = fused_subnet
         self.use_kernel = use_kernel
@@ -181,6 +187,7 @@ class ConvCFlow(nn.Module):
                     cfg.layer_norm,
                     fused_subnet=cfg.fused_subnet,
                     use_kernel=cfg.use_pallas_coupling,
+                    fused_chain=cfg.fused_pallas_subnet,
                     ref_compat_group_slice=cfg.ref_compat_group_slice,
                     ref_compat_group_init=cfg.ref_compat_group_init,
                     dtype=dtype,

@@ -14,6 +14,8 @@ Subnets take and return the JAX layout ``(B, h, w, c)``; inside, convs run on
 ``x.permute(0, 3, 1, 2)``, a channels-last NCHW view. Like flax's
 ``nn.Conv(dtype=...)``, each conv casts its input, kernel and bias to the
 compute dtype and leaves its output there; the head is cast to float32.
+:class:`FusedChainCouplingNet` runs the same chain as one kernel launch
+(``ops/kernels/fused_subnet.py``), with a float32 trunk.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import fused_subnet
 
 LEAKY_SLOPE = 0.3  # Keras LeakyReLU default alpha
 
@@ -197,8 +201,77 @@ class ConvCouplingNet(nn.Module):
         y = leaky_relu(y)
         if self.norm is not None:
             y = self.norm(y)
-        head = self.head(y).float().permute(0, 2, 3, 1)
+        return self._heads(self.head(y).float().permute(0, 2, 3, 1))
+
+    def _heads(self, head):
+        """The float32 head (B, h, w, out * n_heads) -> A or b, or (A, b)."""
         if self.n_heads == 1:
             return self._scale(head) if self.tanh_scale is not None else head
         c = self.out_channels
         return self._scale(head[..., :c]), head[..., c:]
+
+
+class FusedChainCouplingNet(ConvCouplingNet):
+    """``ConvCouplingNet`` whose whole conv chain runs as one call of
+    :func:`~arl_conditional_normalizing_flows_tpu_torch.ops.kernels.fused_subnet.subnet_apply`
+    (the JAX ``PallasFusedCouplingNet``, models/subnets.py:415-486): one
+    kernel launch on the card, the plain version on the CPU.
+
+    Its parameters, their names and their seeded init are those of
+    ``ConvCouplingNet`` with layer norm off and the default group semantics,
+    so a ``state_dict`` carries between the two unchanged. The chain keeps
+    its trunk in float32 between stages, where ``ConvCouplingNet`` leaves
+    each conv's output in the compute dtype: the two agree at float32 only.
+    """
+
+    def __init__(self, in_shape, out_channels, num_kernels, num_res_blocks,
+                 cardinality, ksize, dilations: Tuple[int, ...], *,
+                 scale_head=False, n_heads=1, dtype=torch.float32, generator,
+                 init_scale=0.1):
+        super().__init__(in_shape, out_channels, num_kernels, num_res_blocks,
+                         cardinality, ksize, dilations, False, scale_head=scale_head,
+                         n_heads=n_heads, dtype=dtype, generator=generator,
+                         init_scale=init_scale)
+        h, w, cin = in_shape
+        self.spec = fused_subnet.SubnetSpec(
+            h=h, w=w, cin=cin, kernels=num_kernels, res_blocks=num_res_blocks,
+            cardinality=cardinality, ksize=ksize, dilations=tuple(dilations),
+            out_total=out_channels * n_heads, compute_dtype=str(dtype).removeprefix("torch."))
+        self._packed = None
+        self._packed_key = None
+
+    def flax_ordered_weights(self):
+        """The chain's parameters with flax's HWIO shapes, in
+        ``flax_param_order``'s order."""
+        def hwio(conv):
+            return [conv.weight.permute(2, 3, 1, 0), conv.bias]
+
+        out = hwio(self.conv_in)
+        for blk in self.blocks:
+            out += hwio(blk.conv_pre)
+            for conv in blk.branches:
+                out += hwio(conv)
+            out += hwio(blk.conv_post)
+        return out + hwio(self.head)
+
+    def packed(self):
+        """The kernel's packed weights. Packed once and kept while no
+        parameter changes (keyed on each one's version counter and storage);
+        when a gradient may flow to the parameters, packed anew each call so
+        that it does."""
+        params = list(self.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return fused_subnet.pack(self.spec, self.flax_ordered_weights())
+        key = tuple((p._version, p.data_ptr(), p.device) for p in params)
+        if key != self._packed_key:
+            # normal tensors even under inference_mode, so that a later
+            # autograd-enabled CPU call may use them
+            with torch.inference_mode(False), torch.no_grad():
+                self._packed = fused_subnet.pack(self.spec, self.flax_ordered_weights())
+            self._packed_key = key
+        return self._packed
+
+    def forward(self, u1):
+        """u1 (B, h, w, cin) -> A or b (B, h, w, out), or (A, b) when fused."""
+        return self._heads(fused_subnet.subnet_apply(
+            self.spec, u1.float().contiguous(), self.packed()))

@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``csrc/`` with nvcc, holds each kernel
-against its plain PyTorch version at the shapes of the main path, then drives
-the serving path of the flagship conv cINN at full width (batch 128, random
-weights from a seed): conditional-sampling requests through
-``make_image_serving_fn`` and a ``log_loss`` density evaluation, with the
-kernels' launch counts read around that run. It checks that every output is
-finite, that ``forward(inverse(zy))`` gives zy back and that the same
-weights at float32 agree with the CPU. Each phase prints its elapsed seconds.
+Builds the port's CUDA kernels from ``csrc/`` with nvcc (one process per
+source, all at once) and holds each kernel against its plain PyTorch version
+at the shapes of the main path: the coupling law (K1/K2) and the coupling
+subnet's conv chain (K3, first at a small size, synchronised, then at the
+flagship's four specs). Then it drives two serving paths of the flagship
+conv cINN at full width (batch 128, random weights from a seed), the
+``pallas_coupling`` lowering (K1/K2) and the ``pallas_subnet`` lowering (K3):
+conditional-sampling requests through ``make_image_serving_fn`` and a
+``log_loss`` density evaluation each, with the kernels' launch counts set to
+0 just before and read just after. It checks that every output is finite,
+that ``forward(inverse(zy))`` gives zy back and that the same weights at
+float32 agree with the CPU. Each phase prints its elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,11 +38,18 @@ from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
     arch_string,
 )
 from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
+from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
+    ConvCouplingNet,
+    FusedChainCouplingNet,
+)
 from arl_conditional_normalizing_flows_tpu_torch.ops import logit
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
     affine_coupling as kernels,
 )
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import build
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
+    fused_subnet as chain,
+)
 from arl_conditional_normalizing_flows_tpu_torch.serve.export import (
     make_image_serving_fn,
 )
@@ -49,11 +61,14 @@ FLAGSHIP = ConvFlowConfig(
     cardinality=(8, 8, 4, 4), ksize=3, fused_subnet=True,
     compute_dtype="bfloat16", experimental_lowering="pallas_coupling",
 )
+#: the same model on the conv-chain kernel's lowering
+FLAGSHIP_SUBNET = dataclasses.replace(FLAGSHIP, experimental_lowering="pallas_subnet")
 BATCH = 128
 REQUESTS = 4
 NUM_CLASSES = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
 KERNELS = {
     "affine_forward": dict(
@@ -75,6 +90,16 @@ KERNELS = {
     ),
 }
 SOURCE = "arl_conditional_normalizing_flows_tpu_torch/csrc/affine_coupling.cu"
+CHAIN_SOURCE = "arl_conditional_normalizing_flows_tpu_torch/csrc/fused_subnet.cu"
+CHAIN_REPLACES = "arl_conditional_normalizing_flows_tpu/ops/pallas/fused_subnet.py:293"
+#: K3's first launch: a small odd size, an even kernel (asymmetric padding)
+CHAIN_SMALL = dict(h=6, w=6, cin=2, kernels=8, res_blocks=2, cardinality=2, ksize=4,
+                   dilations=(1, 2), out_total=4)
+# K3 against its plain version. float32: sums in another order. bf16: a
+# float32 sum in another order can land on the other side of a bf16 rounding
+# of an intermediate, which moves outputs of size ~1 by about a bf16 ulp
+# (2**-8) and its effect downstream
+CHAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # float32: expf against torch.exp, a few ulps; bf16: the same float32 value
 # rounded once, at most one bf16 ulp (2**-8 relative) apart; log-det: the
 # float32 row sums in another order
@@ -137,7 +162,7 @@ def law_inputs(rows, n, dtype, seed):
 
 
 def check_kernels(phases):
-    """Each kernel against its plain version at the main path's shapes (both
+    """K1/K2 against their plain versions at the main path's shapes (both
     dtypes) and a ragged one; times at the main path's float32 shapes."""
     results = {name: dict(max_abs_err=0.0, timings={}) for name in KERNELS}
     for rows, n in ((BATCH, 784), (BATCH, 392), (3, 1000)):
@@ -184,7 +209,104 @@ def check_kernels(phases):
                     print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card "
                           f"(bound {bound_s * 1e6:.2f} us for {nbytes} bytes at 3.35 TB/s), "
                           f"plain version {plain_ms * 1e3:.2f} us", flush=True)
-    phases.done("kernels against their plain versions")
+    phases.done("K1/K2 against their plain versions")
+    return results
+
+
+def chain_nets(spec, seed):
+    """A ``FusedChainCouplingNet`` at ``spec`` (two heads) with random
+    weights from ``seed`` — kernels N(0, 1/fan_in) so that activations stay
+    O(1) through the chain, biases N(0, 0.01) — and an eager
+    ``ConvCouplingNet`` with the same weights, both on the card."""
+    kw = dict(in_shape=(spec.h, spec.w, spec.cin), out_channels=spec.out_total // 2,
+              num_kernels=spec.kernels, num_res_blocks=spec.res_blocks,
+              cardinality=spec.cardinality, ksize=spec.ksize, dilations=spec.dilations,
+              n_heads=2, dtype=getattr(torch, spec.compute_dtype),
+              generator=torch.Generator().manual_seed(seed))
+    net = FusedChainCouplingNet(**kw)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.flax_ordered_weights():
+            scale = 0.1 if p.dim() == 1 else math.prod(p.shape[:-1]) ** -0.5
+            p.copy_(torch.randn(p.shape, generator=g) * scale)
+    eager = ConvCouplingNet(layer_norm=False, **kw)
+    eager.load_state_dict(net.state_dict())
+    check(net.spec == spec, f"net spec {net.spec} == {spec}")
+    return net.cuda(), eager.cuda()
+
+
+def compare_chain(spec, batch, seed):
+    """One K3 launch against its plain version on the same inputs, the
+    launch synchronised before anything else runs. Returns (max_abs_err,
+    x, packed, eager twin)."""
+    net, eager = chain_nets(spec, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(batch, spec.h, spec.w, spec.cin, generator=g, device="cuda")
+    with torch.no_grad():
+        packed = net.packed()
+        out = chain.subnet_apply(spec, x, packed)
+        torch.cuda.synchronize()
+        ref = chain.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = CHAIN_TOL[spec.compute_dtype]
+    where = f"{batch}x{spec.h}x{spec.w}x{spec.cin} K={spec.kernels} {spec.compute_dtype}"
+    print(f"[kernel] fused_subnet {where}: max_abs_err={err:.3g} (tolerance {tol:g} abs + "
+          f"{tol:g} rel; max |ref| {ref.abs().max().item():.3g})", flush=True)
+    check(out.shape == ref.shape == (batch, spec.h, spec.w, spec.out_total),
+          f"fused_subnet {where} shape")
+    check(torch.allclose(out, ref, rtol=tol, atol=tol), f"fused_subnet {where}")
+    return err, x, packed, eager
+
+
+def check_chain_small(phases):
+    """K3's first launches, at a small odd size in both dtypes: a fault
+    shows here, before any flagship-size launch."""
+    for dtype in ("bfloat16", "float32"):
+        compare_chain(chain.SubnetSpec(**CHAIN_SMALL, compute_dtype=dtype), 3, seed=1)
+    phases.done("K3 first launches at a small size")
+
+
+def chain_specs(model):
+    """The specs of the conv chains a model runs, in order of first use."""
+    specs = []
+    for module in model.modules():
+        if isinstance(module, FusedChainCouplingNet) and module.spec not in specs:
+            specs.append(module.spec)
+    return specs
+
+
+def check_chain_kernel(specs, phases):
+    """K3 against its plain version at each spec of the flagship, batch 128,
+    in bf16 and float32; times at bf16 (the main path's dtype)."""
+    results = []
+    for i, spec in enumerate(specs):
+        for dtype in ("bfloat16", "float32"):
+            s = dataclasses.replace(spec, compute_dtype=dtype)
+            err, x, packed, eager = compare_chain(s, BATCH, seed=10 + i)
+            if dtype == "float32":
+                results[-1]["max_abs_err_f32"] = err
+                continue
+            with torch.no_grad():
+                ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=20)
+                plain_ms = device_time_ms(
+                    lambda: chain.subnet_apply_reference(s, x, packed), iters=20)
+                eager_ms = device_time_ms(lambda: eager(x), iters=20)
+            flops, nbytes = chain.flops(s, BATCH), chain.io_bytes(s, BATCH)
+            ops_s, bytes_s = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+            results.append(dict(
+                shape=[BATCH, s.h, s.w, s.cin], kernels=s.kernels, dilations=list(s.dilations),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, eager_chain_ms=eager_ms,
+                bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="operations" if ops_s >= bytes_s else "bytes",
+                gflop=flops / 1e9, io_mb=nbytes / 1e6))
+            print(f"[kernel] fused_subnet {BATCH}x{s.h}x{s.w}x{s.cin} bf16: {ms * 1e3:.1f} us "
+                  f"on the card (bound {max(ops_s, bytes_s) * 1e6:.2f} us for "
+                  f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s and {nbytes / 1e6:.2f} MB at "
+                  f"3.35 TB/s), plain version {plain_ms * 1e3:.1f} us, eager "
+                  f"ConvCouplingNet chain {eager_ms * 1e3:.1f} us (many calls: a "
+                  "yardstick, not a library call)", flush=True)
+    phases.done("K3 against its plain version at the flagship's specs")
     return results
 
 
@@ -197,22 +319,44 @@ def class_planes(request):
     return labels[idx].view(BATCH, 1, 1, 1).expand(BATCH, h, w, 1).contiguous().cuda()
 
 
-def run_main_path(phases):
+def launch_counts():
+    return {**kernels.LAUNCHES, **chain.LAUNCHES}
+
+
+def reset_launches():
+    kernels.reset_launches()
+    chain.reset_launches()
+
+
+def expected_launches(model, cfg, requests, density_passes):
+    """Kernel launches of ``requests`` sampling passes and ``density_passes``
+    density passes: one coupling-law launch per coupling and pass under
+    pallas_coupling, one conv-chain launch per subnet and pass under
+    pallas_subnet, and nothing else."""
+    n = len(model.couplings)  # 16 at the flagship
+    if cfg.use_pallas_coupling:
+        return {"affine_forward": n * density_passes, "affine_inverse": n * requests,
+                "fused_subnet": 0}
+    nets = n * (1 if cfg.fused_subnet else 2)
+    return {"affine_forward": 0, "affine_inverse": 0,
+            "fused_subnet": nets * (requests + density_passes)}
+
+
+def run_main_path(model, cfg, phases):
     """The serving path at full width: REQUESTS sampling requests and one
     density evaluation, with the launch counts read around them."""
-    h, w, _ = FLAGSHIP.io_shape
-    model = ConvCFlow(FLAGSHIP, seed=0)  # no device: the card
+    h, w, _ = cfg.io_shape
+    lowering = cfg.experimental_lowering
     check(model.device.type == "cuda", "the model lies on the card")
-    serve = make_image_serving_fn(model, FLAGSHIP.x_d, de_logit=True)
+    serve = make_image_serving_fn(model, cfg.x_d, de_logit=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     zs = [torch.randn(BATCH, h, w, 1, generator=g, device="cuda") for _ in range(REQUESTS)]
     ys = [class_planes(r) for r in range(REQUESTS)]
     x_data = torch.rand(BATCH, h, w, 1, generator=g, device="cuda")
     xy = torch.cat([logit.logitify(x_data), ys[0]], dim=-1)
-    phases.done("flagship built", arch=arch_string(FLAGSHIP),
-                params=sum(p.numel() for p in model.parameters()))
 
-    # first calls pick cuDNN algorithms; kept out of the counted run
+    # first calls pick cuDNN algorithms and pack weights; kept out of the
+    # counted run
     t = time.perf_counter()
     serve(zs[0], ys[0])
     torch.cuda.synchronize()
@@ -220,9 +364,9 @@ def run_main_path(phases):
     with torch.inference_mode():
         model.log_loss(xy)
     torch.cuda.synchronize()
-    phases.done("warm-up", first_request_ms=f"{first_request_s * 1e3:.1f}")
+    phases.done(f"{lowering}: warm-up", first_request_ms=f"{first_request_s * 1e3:.1f}")
 
-    kernels.reset_launches()
+    reset_launches()
     latencies, outputs = [], []
     for z, y in zip(zs, ys):
         t = time.perf_counter()
@@ -230,25 +374,25 @@ def run_main_path(phases):
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t)
         outputs.append(x)
-    after_requests = dict(kernels.LAUNCHES)
+    after_requests = launch_counts()
     t = time.perf_counter()
     with torch.inference_mode():
         comps = model.log_loss(xy)
     torch.cuda.synchronize()
     density_first_s = time.perf_counter() - t
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
 
-    per_pass = len(model.couplings)  # 16 at the flagship
-    check(after_requests == {"affine_forward": 0, "affine_inverse": per_pass * REQUESTS},
-          f"{per_pass} inverse launches per sampling pass, got {after_requests}")
-    check(launches["affine_forward"] == per_pass,
-          f"{per_pass} forward launches per density pass, got {launches}")
+    want = expected_launches(model, cfg, REQUESTS, 0)
+    check(after_requests == want, f"{lowering}: launches of {REQUESTS} sampling passes "
+          f"{after_requests} == {want}")
+    want = expected_launches(model, cfg, REQUESTS, 1)
+    check(launches == want, f"{lowering}: launches with one density pass {launches} == {want}")
     for x in outputs:
         check(x.shape == (BATCH, h, w, 1) and bool(torch.isfinite(x).all()),
               "served images are finite and (128, 28, 28, 1)")
     for k, v in comps.items():
         check(v.shape == () and bool(torch.isfinite(v)), f"log_loss {k} is finite")
-    phases.done("main path", launches=json.dumps(launches),
+    phases.done(f"{lowering}: main path", launches=json.dumps(launches),
                 loss=f"{comps['loss'].item():.4f}")
 
     density = []
@@ -261,6 +405,7 @@ def run_main_path(phases):
     density.append(density_first_s)
     request_ms = statistics.median(latencies) * 1e3
     serving = dict(
+        lowering=lowering,
         request_ms_median=request_ms,
         request_ms_all=[round(s * 1e3, 3) for s in latencies],
         sampling_samples_per_s=BATCH / statistics.median(latencies),
@@ -269,7 +414,7 @@ def run_main_path(phases):
         first_request_ms=first_request_s * 1e3,
     )
     print("[serving] " + json.dumps(serving), flush=True)
-    phases.done("timing")
+    phases.done(f"{lowering}: timing")
 
     # where a request's and a density pass's device time goes; busy share
     # is device-busy time over the unprofiled latency
@@ -280,15 +425,17 @@ def run_main_path(phases):
         with torch.inference_mode():
             br = kernel_breakdown(fn)
         br["device_busy_share"] = br["device_busy_ms"] / wall_ms
-        print(f"[profile] {name} " + json.dumps(br), flush=True)
-    phases.done("profile")
-    return model, xy, zs, ys, launches
+        print(f"[profile] {lowering} {name} " + json.dumps(br), flush=True)
+    phases.done(f"{lowering}: profile")
+    check_round_trip_and_cpu(model, cfg, xy, zs, ys, phases)
+    return launches
 
 
 def kernel_breakdown(fn):
     """Device time of one ``fn()`` by kernel, from torch.profiler: launches,
-    busy milliseconds (union of kernel intervals), the share of coupling
-    kernels and convolutions, and the top kernels by time."""
+    busy milliseconds (union of kernel intervals), the shares of the
+    coupling-law kernels, the conv-chain kernel and cuDNN/cuBLAS
+    convolutions, and the top kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -314,48 +461,52 @@ def kernel_breakdown(fn):
         kernel_launches=len(spans),
         device_busy_ms=busy_us / 1e3,
         coupling_kernel_share=share(lambda n: "affine_" in n),
-        conv_share=share(lambda n: any(k in n for k in ("conv", "xmma", "gemm", "cutlass", "sm90"))),
+        chain_kernel_share=share(lambda n: "fused_subnet" in n),
+        conv_share=share(lambda n: "fused_subnet" not in n and any(
+            k in n for k in ("conv", "xmma", "gemm", "cutlass", "sm90"))),
         top=[dict(name=name[:80], ms=t / 1e3, count=n) for name, (t, n) in top],
     )
 
 
-def check_round_trip_and_cpu(model, xy, zs, ys, phases):
+def check_round_trip_and_cpu(model, cfg, xy, zs, ys, phases):
     """forward(inverse(zy)) == zy on the card, and the card against the CPU
     at float32 on a sub-batch of 8 with the same weights."""
+    lowering = cfg.experimental_lowering
     zy = torch.cat([zs[0], ys[0]], dim=-1)
     with torch.inference_mode():
         back, _ = model(model.inverse(zy))
     err = (back - zy).abs().max().item()
     # bf16 subnets: a float32 perturbation that flips a bf16 rounding in the
     # inverse's subnet input changes A and b by a bf16 ulp of values ~1e-2
-    print(f"[check] round trip forward(inverse(zy)): max_abs_err={err:.3g} (tolerance 1e-3)",
-          flush=True)
-    check(err <= 1e-3, "round trip forward(inverse(zy)) == zy")
+    print(f"[check] {lowering} round trip forward(inverse(zy)): max_abs_err={err:.3g} "
+          "(tolerance 1e-3)", flush=True)
+    check(err <= 1e-3, f"{lowering} round trip forward(inverse(zy)) == zy")
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = dataclasses.replace(FLAGSHIP, compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     state = model.state_dict()
     gpu32 = ConvCFlow(cfg32)
     gpu32.load_state_dict(state)
     cpu32 = ConvCFlow(cfg32, device="cpu")
     cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
     sub, zy8 = xy[:8], zy[:8]
+    before = launch_counts()
     with torch.inference_mode():
         zy_g, ld_g = gpu32(sub)
         zy_c, ld_c = cpu32(sub.cpu())
         x_g = gpu32.inverse(zy8)
         x_c = cpu32.inverse(zy8.cpu())
-    # float32 convs in other orders on the two devices, through 16 couplings
+    check(launch_counts() != before, f"{lowering}: the float32 card model ran its kernels")
+    # float32 sums in other orders on the two devices (TF32 off), through 16
+    # couplings
     errs = dict(zy=(zy_g.cpu() - zy_c).abs().max().item(),
                 log_det=(ld_g.cpu() - ld_c).abs().max().item(),
                 inverse=(x_g.cpu() - x_c).abs().max().item())
-    print(f"[check] card vs CPU at float32, batch 8: {json.dumps(errs)} "
+    print(f"[check] {lowering} card vs CPU at float32, batch 8: {json.dumps(errs)} "
           "(tolerance 1e-4 abs + 1e-4 rel; log-det 1e-3 abs + 1e-4 rel)", flush=True)
     check(torch.allclose(zy_g.cpu(), zy_c, rtol=1e-4, atol=1e-4), "card vs CPU zy")
     check(torch.allclose(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-3), "card vs CPU log-det")
     check(torch.allclose(x_g.cpu(), x_c, rtol=1e-4, atol=1e-4), "card vs CPU inverse")
-    phases.done("round trip and CPU comparison")
+    phases.done(f"{lowering}: round trip and CPU comparison")
 
 
 def main() -> int:
@@ -371,17 +522,27 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     print(f"[device] {kind} x{count}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    phases.done("device")
+    # every float32 reference in full float32: cuDNN convs default to TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phases.done("device", tf32="off")
 
-    cached = build.library_path("affine_coupling").is_file()
+    names = ("affine_coupling", "fused_subnet")
+    cached = {n: build.library_path(n).is_file() for n in names}
     t = time.perf_counter()
-    build.load_libraries("affine_coupling")
+    build.load_libraries(*names)
     phases.done("build", seconds=f"{time.perf_counter() - t:.2f}",
-                nvcc=build.nvcc_path(), cached=cached)
+                nvcc=build.nvcc_path(), cached=json.dumps(cached))
 
     results = check_kernels(phases)
-    model, xy, zs, ys, launches = run_main_path(phases)
-    check_round_trip_and_cpu(model, xy, zs, ys, phases)
+    check_chain_small(phases)
+    subnet_model = ConvCFlow(FLAGSHIP_SUBNET, seed=0)  # no device: the card
+    phases.done("flagship built", arch=arch_string(FLAGSHIP),
+                params=sum(p.numel() for p in subnet_model.parameters()))
+    chain_results = check_chain_kernel(chain_specs(subnet_model), phases)
+
+    launches = run_main_path(ConvCFlow(FLAGSHIP, seed=0), FLAGSHIP, phases)
+    chain_launches = run_main_path(subnet_model, FLAGSHIP_SUBNET, phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -396,6 +557,18 @@ def main() -> int:
             plain_ms_at_392=results[name]["timings"][392]["plain_ms"],
             bound_ms_at_392=results[name]["timings"][392]["bound_ms"],
         ))
+    # K3's main keys are those of its largest spec; every spec is listed
+    largest = max(chain_results, key=lambda r: r["gflop"])
+    entries.append(dict(
+        name="fused_subnet", route="cuda", source=CHAIN_SOURCE, replaces=CHAIN_REPLACES,
+        launches=chain_launches["fused_subnet"],
+        max_abs_err=max(r["max_abs_err"] for r in chain_results),
+        ms=largest["ms"], plain_ms=largest["plain_ms"], bound_ms=largest["bound_ms"],
+        bound_by=largest["bound_by"], library_ms=None,
+        shape=largest["shape"], dtype="bfloat16", eager_chain_ms=largest["eager_chain_ms"],
+        max_abs_err_f32=max(r["max_abs_err_f32"] for r in chain_results),
+        specs=chain_results,
+    ))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,8 +1,10 @@
 """The port's serving slice as a whole against the JAX model: ``ConvCFlow``
 forward/inverse, ``log_loss``, ``sample_xy`` and ``make_image_serving_fn``
-with weights transplanted by ``convert/from_jax.py``. The JAX side runs its
-Pallas coupling kernels in interpret mode; the port's CPU tensors take the
-kernels' plain versions."""
+with weights transplanted by ``convert/from_jax.py``, on the
+``pallas_coupling`` and ``pallas_subnet`` lowerings. The JAX side runs its
+Pallas coupling kernels in interpret mode and, off the TPU, its conv-chain
+kernel's plain version (``subnet_apply_ref``); the port's CPU tensors take
+the kernels' plain versions."""
 
 import functools
 
@@ -25,8 +27,14 @@ from arl_conditional_normalizing_flows_tpu_torch.convert.from_jax import (  # no
 )
 from arl_conditional_normalizing_flows_tpu_torch.models.arch import ConvFlowConfig  # noqa: E402
 from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (  # noqa: E402
+    FusedChainCouplingNet,
+)
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
     affine_coupling as tac,
+)
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
+    fused_subnet as tfs,
 )
 from arl_conditional_normalizing_flows_tpu_torch.sample import sampler as tsampler  # noqa: E402
 from arl_conditional_normalizing_flows_tpu_torch.serve.export import (  # noqa: E402
@@ -38,6 +46,15 @@ ARCH = dict(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1),
             res_blocks=(1, 1), num_kernels=(16, 16), cardinality=(2, 2), ksize=3)
 B = 4
 PALLAS = "pallas_coupling"
+SUBNET = "pallas_subnet"
+# the lowerings that run the serving tests; the ids of the pallas_coupling
+# cases are those of the tests before pallas_subnet was ported
+SERVING_CASES = [
+    pytest.param(True, PALLAS, id="True"),
+    pytest.param(False, PALLAS, id="False"),
+    pytest.param(True, SUBNET, id="True-pallas_subnet"),
+    pytest.param(False, SUBNET, id="False-pallas_subnet"),
+]
 
 
 def to_numpy_tree(tree):
@@ -108,7 +125,7 @@ def jax_results(fused_subnet, lowering):
 
 
 @pytest.mark.parametrize("fused_subnet,lowering", [
-    (True, PALLAS), (False, PALLAS), (True, None)])
+    (True, PALLAS), (False, PALLAS), (True, None), (True, SUBNET), (False, SUBNET)])
 def test_forward_inverse_match_jax(fused_subnet, lowering):
     _, _, tm = models(fused_subnet, lowering)
     ref = jax_results(fused_subnet, lowering)
@@ -123,10 +140,10 @@ def test_forward_inverse_match_jax(fused_subnet, lowering):
     np.testing.assert_allclose(back_t.numpy(), xy, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("fused_subnet", [True, False])
-def test_log_loss_matches_jax(fused_subnet):
-    _, _, tm = models(fused_subnet, PALLAS)
-    ref = jax_results(fused_subnet, PALLAS)
+@pytest.mark.parametrize("fused_subnet,lowering", SERVING_CASES)
+def test_log_loss_matches_jax(fused_subnet, lowering):
+    _, _, tm = models(fused_subnet, lowering)
+    ref = jax_results(fused_subnet, lowering)
     xy = torch.from_numpy(inputs()[0])
     with torch.no_grad():
         comps, zy = tm.log_loss_with_latent(xy)
@@ -138,10 +155,10 @@ def test_log_loss_matches_jax(fused_subnet):
     np.testing.assert_allclose(zy.numpy(), ref["zy"], rtol=3e-5, atol=3e-5)
 
 
-@pytest.mark.parametrize("fused_subnet", [True, False])
-def test_sample_xy_and_serving_fn_match_jax(fused_subnet):
-    _, _, tm = models(fused_subnet, PALLAS)
-    ref = jax_results(fused_subnet, PALLAS)
+@pytest.mark.parametrize("fused_subnet,lowering", SERVING_CASES)
+def test_sample_xy_and_serving_fn_match_jax(fused_subnet, lowering):
+    _, _, tm = models(fused_subnet, lowering)
+    ref = jax_results(fused_subnet, lowering)
     _, z, y = (torch.from_numpy(a) for a in inputs())
     with torch.no_grad():
         xy_t = tm.sample_xy(z, y)
@@ -202,6 +219,73 @@ def test_flow_takes_the_kernel_wrappers():
     assert tac.LAUNCHES == before
 
 
+def test_pallas_subnet_flow_takes_the_chain_wrapper():
+    """Under pallas_subnet every subnet is a FusedChainCouplingNet (on the
+    CPU its plain version runs, so no launch is counted) and the coupling
+    law is the plain one."""
+    for fused_subnet, names in ((True, ("net_ab",)), (False, ("net_a", "net_b"))):
+        _, _, tm = models(fused_subnet, SUBNET)
+        for c in tm.couplings:
+            assert not c.use_kernel
+            assert all(isinstance(getattr(c, n), FusedChainCouplingNet) for n in names)
+    before = dict(tfs.LAUNCHES), dict(tac.LAUNCHES)
+    with torch.no_grad():
+        tm(torch.from_numpy(inputs()[0]))
+    assert (tfs.LAUNCHES, tac.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("fused_subnet", [True, False])
+def test_default_state_dict_loads_into_pallas_subnet_model(fused_subnet):
+    """The default lowering's state_dict carries into a pallas_subnet model
+    unchanged and gives the same float32 results (the JAX
+    tests/test_fused_subnet.py::test_full_model_equivalence)."""
+    kw = dict(ARCH, fused_subnet=fused_subnet)
+    m0 = ConvCFlow(ConvFlowConfig(**kw), device="cpu", seed=5)
+    m1 = ConvCFlow(ConvFlowConfig(**kw, experimental_lowering=SUBNET), device="cpu", seed=6)
+    rng = np.random.default_rng(4)
+    with torch.no_grad():  # non-zero biases and tanh scales
+        for p in m0.parameters():
+            if p.dim() <= 1:
+                p.add_(torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)) * 0.05)
+    m1.load_state_dict(m0.state_dict())
+    xy = torch.from_numpy(inputs()[0])
+    with torch.no_grad():
+        z0, ld0 = m0(xy)
+        z1, ld1 = m1(xy)
+        x0, x1 = m0.inverse(z0), m1.inverse(z1)
+    torch.testing.assert_close(z1, z0, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(ld1, ld0, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(x1, x0, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(x1, xy, rtol=2e-4, atol=2e-4)
+
+
+def test_converter_takes_the_dotted_pallas_subnet_tree():
+    """pallas_subnet subnets name their leaves with dots
+    (``DilatedResidualBlock_0.Conv_1.kernel``); a missing or an extra dotted
+    leaf raises."""
+    _, params, tm = models(True, SUBNET)
+    assert "DilatedResidualBlock_0.Conv_1.kernel" in params["couplings_0"]["net_ab"]
+    state = state_dict_from_flax(params, tm)
+    w = params["couplings_0"]["net_ab"]["DilatedResidualBlock_0.Conv_1.kernel"]
+    assert torch.equal(state["couplings.0.net_ab.blocks.0.branches.0.weight"],
+                       torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
+    missing = {k: dict(v) for k, v in params.items()}
+    missing["couplings_2"] = {"net_ab": dict(params["couplings_2"]["net_ab"])}
+    del missing["couplings_2"]["net_ab"]["DilatedResidualBlock_0.Conv_2.bias"]
+    with pytest.raises(KeyError, match="not set"):
+        state_dict_from_flax(missing, tm)
+    extra = {k: dict(v) for k, v in params.items()}
+    extra["couplings_1"] = {"net_ab": dict(params["couplings_1"]["net_ab"], **{
+        "DilatedResidualBlock_0.Conv_9.kernel": np.zeros((1, 1, 1, 1), np.float32)})}
+    with pytest.raises(KeyError, match="no port counterpart"):
+        state_dict_from_flax(extra, tm)
+    twice = {k: dict(v) for k, v in params.items()}
+    twice["couplings_1"] = {"net_ab": dict(params["couplings_1"]["net_ab"],
+                                           Conv_0={"bias": w[0, 0, 0]})}
+    with pytest.raises(KeyError, match="two flax params"):
+        state_dict_from_flax(twice, tm)
+
+
 def test_converter_raises_on_missing_and_extra_keys():
     _, params, tm = models(True, PALLAS)
     missing = {k: dict(v) for k, v in params.items()}
@@ -221,7 +305,6 @@ def test_converter_raises_on_missing_and_extra_keys():
 @pytest.mark.parametrize("override", [
     dict(experimental_lowering="fused_dilated"),
     dict(experimental_lowering="dense_groups"),
-    dict(experimental_lowering="pallas_subnet"),
     dict(flow_in_compute_dtype=True),
 ])
 def test_unported_options_raise(override):

@@ -1,4 +1,5 @@
-"""The coupling kernels against their plain versions on a CUDA card.
+"""The hand-written kernels against their plain versions on a CUDA card:
+the coupling law (K1/K2) and the coupling subnet's conv chain (K3).
 
 Needs a card and imports no JAX, so it runs on a machine with a card and
 without jax, skipping the repo's conftest (which configures JAX):
@@ -15,6 +16,9 @@ torch = pytest.importorskip("torch")
 
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
     affine_coupling as tac,
+)
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
+    fused_subnet as tfs,
 )
 
 pytestmark = pytest.mark.gpu
@@ -68,3 +72,73 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         tac.fused_affine_inverse(a, b, u[:2])
     with pytest.raises(NotImplementedError, match="backward"):
         tac.fused_affine_forward(a.requires_grad_(), b, u)
+
+
+# a small odd size with an even kernel (asymmetric padding), then the four
+# specs of the flagship's couplings (batch 128 in chip_smoke.py)
+CHAIN_SPECS = {
+    "odd_6x6x2": dict(h=6, w=6, cin=2, kernels=8, res_blocks=2, cardinality=2, ksize=4,
+                      dilations=(1, 2), out_total=4),
+    "flagship_14x14x4": dict(h=14, w=14, cin=4, kernels=32, res_blocks=3, cardinality=8,
+                             ksize=3, dilations=(1, 2, 4), out_total=8),
+    "flagship_28x28x1": dict(h=28, w=28, cin=1, kernels=64, res_blocks=3, cardinality=8,
+                             ksize=3, dilations=(1, 2, 4), out_total=2),
+    "flagship_7x7x8": dict(h=7, w=7, cin=8, kernels=16, res_blocks=3, cardinality=4,
+                           ksize=3, dilations=(1, 2), out_total=16),
+    "flagship_14x14x2": dict(h=14, w=14, cin=2, kernels=32, res_blocks=3, cardinality=4,
+                             ksize=3, dilations=(1, 2), out_total=4),
+}
+
+
+def _chain_inputs(spec, batch, device):
+    """x and packed weights from numpy: kernels N(0, 1/fan_in) so that
+    activations stay O(1) through the chain, biases N(0, 0.01)."""
+    rng = np.random.default_rng(0)
+    flat = []
+    for _, shape in tfs.flax_param_order(spec):
+        scale = 0.1 if len(shape) == 1 else 1.0 / np.sqrt(np.prod(shape[:-1]))
+        flat.append(torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)))
+    x = rng.normal(size=(batch, spec.h, spec.w, spec.cin)).astype(np.float32)
+    return torch.from_numpy(x).to(device), [t.to(device) for t in tfs.pack(spec, flat)]
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """The plain version's float32 convs in full float32, not TF32."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(CHAIN_SPECS))
+def test_chain_kernel_matches_plain_version(cuda, no_tf32, name, dtype):
+    spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
+    batch = 3 if name.startswith("odd") else 16
+    x, packed = _chain_inputs(spec, batch, cuda)
+    before = tfs.LAUNCHES["fused_subnet"]
+    with torch.no_grad():
+        out = tfs.subnet_apply(spec, x, packed)
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    assert out.shape == (batch, spec.h, spec.w, spec.out_total) and out.dtype == torch.float32
+    # float32: sums in another order; bf16: a float32 sum in another order
+    # can land on the other side of a bf16 rounding of an intermediate,
+    # which moves outputs of size ~1 by about a bf16 ulp (2**-8)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+def test_chain_kernel_rejects_what_it_does_not_take(cuda):
+    spec = tfs.SubnetSpec(**CHAIN_SPECS["odd_6x6x2"], compute_dtype="float32")
+    x, (w, b) = _chain_inputs(spec, 2, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfs.subnet_apply(spec, x.transpose(1, 2), (w, b))
+    with pytest.raises(ValueError, match="float32 x"):
+        tfs.subnet_apply(spec, x, (w.to(torch.bfloat16), b))
+    with pytest.raises(ValueError, match="packed sizes"):
+        tfs.subnet_apply(spec, x, (w[:-1], b))
+    with pytest.raises(ValueError, match="is not"):
+        tfs.subnet_apply(spec, x[..., :1].contiguous(), (w, b))
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfs.subnet_apply(spec, x.requires_grad_(), (w, b))
