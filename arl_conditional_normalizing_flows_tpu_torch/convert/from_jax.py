@@ -19,7 +19,8 @@ flax                                            port
 ==============================================  =============================
 
 with ``n`` the block's number of dilated branches. Conv kernels go from
-HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)``; LayerNorm
+HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)`` (at cardinality
+1 a branch's kernel is ``(k, k, K, K/d)``, dense over the whole trunk); LayerNorm
 ``LayerNorm_0/scale`` and ``bias`` become ``weight`` and ``bias``. The
 ``pallas_subnet`` lowering's subnets keep the same leaves under dotted names
 (``DilatedResidualBlock_0.Conv_1.kernel``); each is split into its path

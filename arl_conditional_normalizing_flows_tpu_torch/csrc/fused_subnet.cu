@@ -20,28 +20,59 @@
 // Branch d (width w_d = K/dil_d) reads the first w_d trunk channels in
 // `card` groups of g_d = w_d/card: output j reads inputs [j/g_d*g_d, +g_d).
 //
-// Design. One block per sample: the chain is sequential within a sample and
-// independent across samples, so block barriers are all the ordering it
-// needs (128 samples fill 128 of the card's 132 SMs). The stage input t lives
-// in dynamic shared memory in dt (at most 28*28*64*2 = 98 KB at the flagship);
-// the f32 trunk y does not fit beside it and lives in a scratch tensor the
-// caller allocates (B*h*w*K floats, 25.7 MB at the largest flagship spec,
-// held by the 50 MB L2). The grouped convs are computed grouped, not expanded
-// block-diagonally as the TPU kernel does (4x the work at the flagship). Each
-// branch output is rounded to dt and multiplied into the post-1x1 pixel tile
-// by tile, so no branch output is concatenated or written to device memory.
+// Both instantiations give one block to one sample: the chain is sequential
+// within a sample and independent across samples, so block barriers are all
+// the ordering it needs (128 samples fill 128 of the card's 132 SMs). The
+// stage input t lives in dynamic shared memory in dt (at most 28*28*72*2 =
+// 113 KB at the flagship, rows padded); the f32 trunk y (196 KB a sample)
+// does not fit beside it and lives in a scratch tensor the caller allocates
+// (25.7 MB at the largest flagship spec, held by the 50 MB L2). It cannot
+// live in accumulator registers either: 16 warps of up to 128 registers are
+// the SM's whole register file, and the trunk alone would need 98 a thread.
+// chain_ablation.py (at the repo root) measures what the scratch costs. Grouped convs are
+// never expanded block-diagonally over the whole trunk as the TPU kernel does
+// (3.4x the work at the flagship).
 //
 // Bound: operations. At the flagship a pass needs 50.4 GFLOP of grouped
 // products (51 us on the tensor cores at 989 TFLOP/s) against ~1.3 MB of
-// inputs and outputs per launch. This first kernel runs the products as
-// float32 FMAs on CUDA cores (67 TFLOP/s), each thread computing kRows pixels
-// of one output channel so that each weight it loads serves kRows products;
-// wgmma, TMA and clusters are left to the PR that makes it fast.
+// inputs and outputs per launch.
 //
-// Barriers: every __syncthreads() is at the top level of the kernel or inside
-// loops whose trip counts (res_blocks, pixel tiles) are the same for every
-// thread of the block. The entry point returns cudaGetLastError(), and
-// cudaErrorInvalidValue for sizes it does not take, without launching.
+// bfloat16 (the main path): every product runs on the tensor cores, as
+// mma.sync.m16n8k16 bf16 x bf16 -> f32. Each stage is an implicit GEMM: M is a
+// tile of 16 pixels of the sample, N the output channels in n8 tiles, and K
+// the taps x input channels in k16 chunks of two "slices" (one tap, 8
+// consecutive channels). A warp owns the same pixel tiles in every stage, so
+//  - the trunk is kept in global scratch in the accumulator layout, each lane
+//    reading and writing only its own float4s (no barrier, coalesced);
+//  - the pre 1x1 takes its A operand straight from the trunk's accumulators
+//    (two n8 accumulator tiles are one k16 A fragment), as the post 1x1 takes
+//    its A from two branch-output tiles: no branch output is concatenated or
+//    leaves registers;
+//  - the k x k convs (entry, branches, head) gather their A fragments from
+//    the stage input in shared memory with ldmatrix.x4, rows padded so that
+//    8 consecutive pixels fall on distinct banks, a padding pixel pointed at
+//    a row of zeros.
+// A branch's n8 output tile reads the input window of the groups it covers,
+// so the block-diagonal expansion stays inside one n8 tile (exact where
+// g_d = 8); with the zero padding of K and N the tensor cores are given 1.31x
+// the grouped work at the flagship's largest spec (fused_subnet.mma_flops).
+// Each branch chunk's pixel rows are located once for all the branch's tiles,
+// which load their A fragments from their own channels. The
+// weights come packed by the wrapper in fragment order, K and N zero-padded;
+// each stage's (the entry, one residual block, the head) are copied into
+// shared memory before it runs, and each lane loads its B fragment as one
+// 8-byte load; nothing is reshuffled per call.
+//
+// float32: kept on CUDA cores (float32 FMAs, each thread kRows pixels of one
+// output channel). The tensor cores would take float32 only as TF32, which
+// keeps ~10 bits of mantissa and breaks the 1e-4 agreement with the CPU that
+// the float32 model is held to. Its weights are packed flat in flax's HWIO.
+//
+// Barriers: every __syncthreads() is at the top level of a kernel or inside
+// loops whose trip counts (res_blocks, pixel tiles of the float32 path) are
+// the same for every thread of the block. The entry point returns
+// cudaGetLastError(), and cudaErrorInvalidValue for sizes it does not take or
+// packed buffers of another size than its layout's, without launching.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,11 +82,17 @@ namespace {
 
 // Mirrored in ops/kernels/fused_subnet.py (a CPU test compares them).
 constexpr int kThreads = 512;
-constexpr int kTile = 32;  // pixels per tile of the 1x1 stages
-constexpr int kRows = 4;   // pixels per thread in the tiled stages
+constexpr int kTile = 32;  // float32: pixels per tile of the 1x1 stages
+constexpr int kRows = 4;   // float32: pixels per thread in the tiled stages
 constexpr int kMaxBranches = 4;
 constexpr int kMaxShared = 232448;  // dynamic shared memory a block may use
 constexpr int kMaxDevices = 64;
+constexpr int kMaxTrunkTiles = 8;  // bfloat16: n8 tiles of the trunk (K <= 64)
+constexpr int kMaxHeadTiles = 4;   // bfloat16: n8 tiles of the head (out_total <= 32)
+constexpr int kFrag = 128;         // bfloat16: elements of one k16 x n8 B fragment
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBranchTiles = kMaxBranches * kMaxTrunkTiles;
+constexpr int kMaxTableValue = 1073741824;  // bfloat16: 2**30, the layout's largest int
 constexpr float kSlope = 0.3f;
 static_assert(kTile % kRows == 0, "a tile holds whole row groups");
 
@@ -64,33 +101,52 @@ struct Dims {
   int dil[kMaxBranches];
 };
 
+__device__ __forceinline__ float lrelu(float v) { return v > 0.f ? v : kSlope * v; }
+
+bool dims_ok(const Dims& d) {
+  if (d.h < 1 || d.w < 1 || d.cin < 1 || d.K < 1 || d.res_blocks < 0 || d.card < 2 ||
+      d.ksize < 1 || d.nd < 1 || d.nd > kMaxBranches || d.out_total < 1)
+    return false;
+  for (int i = 0; i < d.nd; ++i)
+    if (d.dil[i] < 1 || d.K % d.dil[i] != 0 || (d.K / d.dil[i]) % d.card != 0) return false;
+  return true;
+}
+
+// Sets the kernel's dynamic shared memory limit to the card's most, once per
+// device, before its first launch (so never during stream capture).
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 // Offsets, in elements, of each weight and bias in the packed buffers. The
-// order is flax_param_order's: kernels in one dt buffer, biases in one f32
-// buffer, entry, then each residual block, then the head.
+// order is flax_param_order's: kernels in one buffer, biases in another,
+// entry, then each residual block, then the head.
 struct Layout {
   int sum_w;
   int width[kMaxBranches], group[kMaxBranches], col[kMaxBranches];
   int w_block0, w_block, w_branch[kMaxBranches], w_post, w_head;
   int b_block0, b_block, b_branch[kMaxBranches], b_post, b_head;
-  int act_elems, act_bytes, stage_bytes;
+  int64_t w_total, b_total;
+  int act_bytes, stage_bytes;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
-__device__ __forceinline__ float lrelu(float v) { return v > 0.f ? v : kSlope * v; }
-
-// SAME k x k conv at dilation 1 over act (h*w pixels of cs channels, dt) into
-// dst (h*w pixels of cout channels, f32), plus bias. No barrier inside.
-template <typename T>
-__device__ void conv_same(const Dims& d, const T* act, int cs, const T* __restrict__ wt,
+// SAME k x k conv at dilation 1 over act (h*w pixels of cs channels) into dst
+// (h*w pixels of cout channels), plus bias. No barrier inside.
+__device__ void conv_same(const Dims& d, const float* act, int cs, const float* __restrict__ wt,
                           const float* __restrict__ bias, int cout, float* dst) {
   const int hw = d.h * d.w, k = d.ksize, lo = (k - 1) / 2;
   for (int e = threadIdx.x; e < hw * cout; e += kThreads) {
@@ -103,21 +159,20 @@ __device__ void conv_same(const Dims& d, const T* act, int cs, const T* __restri
       for (int tx = 0; tx < k; ++tx) {
         const int ix = px + tx - lo;
         if (ix < 0 || ix >= d.w) continue;
-        const T* a = act + (iy * d.w + ix) * cs;
-        const T* wtap = wt + (ty * k + tx) * cs * cout + co;
-        for (int ci = 0; ci < cs; ++ci) acc = fmaf(to_f(a[ci]), to_f(wtap[ci * cout]), acc);
+        const float* a = act + (iy * d.w + ix) * cs;
+        const float* wtap = wt + (ty * k + tx) * cs * cout + co;
+        for (int ci = 0; ci < cs; ++ci) acc = fmaf(a[ci], wtap[ci * cout], acc);
       }
     }
     dst[e] = acc + bias[co];
   }
 }
 
-// rows [0, kTile) of `in` (n channels each, f32) times w (n x cout, dt):
-// calls put(pixel row, output channel, sum) for the first `np` rows. No
-// barrier inside.
-template <typename T, typename Put>
+// rows [0, kTile) of `in` (n channels each) times w (n x cout): calls put(pixel
+// row, output channel, sum) for the first `np` rows. No barrier inside.
+template <typename Put>
 __device__ __forceinline__ void tile_1x1(const float* in, int n, int np,
-                                         const T* __restrict__ w, int cout, Put put) {
+                                         const float* __restrict__ w, int cout, Put put) {
   const int groups = (np + kRows - 1) / kRows;
   for (int task = threadIdx.x; task < groups * cout; task += kThreads) {
     const int r0 = task / cout * kRows, co = task - task / cout * cout;
@@ -125,7 +180,7 @@ __device__ __forceinline__ void tile_1x1(const float* in, int n, int np,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
     for (int ci = 0; ci < n; ++ci) {
-      const float wv = to_f(w[ci * cout + co]);
+      const float wv = w[ci * cout + co];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[(r0 + r) * n + ci], wv, acc[r]);
     }
@@ -135,13 +190,12 @@ __device__ __forceinline__ void tile_1x1(const float* in, int n, int np,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_subnet_kernel(const float* __restrict__ x, const T* __restrict__ wts,
-                    const float* __restrict__ bias, float* trunk,
-                    float* __restrict__ out, const Dims d, const Layout L) {
+fused_subnet_f32_kernel(const float* __restrict__ x, const float* __restrict__ wts,
+                        const float* __restrict__ bias, float* trunk,
+                        float* __restrict__ out, const Dims d, const Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);                            // act_elems of dt
+  float* act = reinterpret_cast<float*>(smem);                    // stage input
   float* stage = reinterpret_cast<float*>(smem + L.act_bytes);    // kTile pixel rows
   const int hw = d.h * d.w, K = d.K, k = d.ksize, S = L.sum_w;
   const int64_t n = blockIdx.x;
@@ -151,30 +205,28 @@ fused_subnet_kernel(const float* __restrict__ x, const T* __restrict__ wts,
   float* y = trunk + n * hw * K;
   float* o = out + n * hw * d.out_total;
 
-  // entry conv: act <- dt(x); y <- conv_k(act, entry_w) + entry_b
-  for (int e = threadIdx.x; e < hw * d.cin; e += kThreads) act[e] = from_f<T>(xs[e]);
+  for (int e = threadIdx.x; e < hw * d.cin; e += kThreads) act[e] = xs[e];
   __syncthreads();
-  conv_same<T>(d, act, d.cin, wts, bias, K, y);
+  conv_same(d, act, d.cin, wts, bias, K, y);
   __syncthreads();
 
   for (int blk = 0; blk < d.res_blocks; ++blk) {
-    const T* wb = wts + L.w_block0 + blk * L.w_block;
+    const float* wb = wts + L.w_block0 + blk * L.w_block;
     const float* bb = bias + L.b_block0 + blk * L.b_block;
 
-    // pre 1x1, tile by tile: act <- dt(lrelu(dt(lrelu(y)) @ pre_w + pre_b))
+    // pre 1x1, tile by tile: act <- lrelu(lrelu(y) @ pre_w + pre_b)
     for (int p0 = 0; p0 < hw; p0 += kTile) {
       const int np = min(kTile, hw - p0);
-      for (int e = threadIdx.x; e < np * K; e += kThreads)
-        stage[e] = round_to<T>(lrelu(y[p0 * K + e]));
+      for (int e = threadIdx.x; e < np * K; e += kThreads) stage[e] = lrelu(y[p0 * K + e]);
       __syncthreads();
-      tile_1x1<T>(stage, K, np, wb, K, [&](int r, int co, float v) {
-        act[(p0 + r) * K + co] = from_f<T>(lrelu(v + bb[co]));
+      tile_1x1(stage, K, np, wb, K, [&](int r, int co, float v) {
+        act[(p0 + r) * K + co] = lrelu(v + bb[co]);
       });
       __syncthreads();
     }
 
     // branches then post 1x1, tile by tile:
-    // stage <- dt(lrelu(gconv(act) + bb)) for every branch column,
+    // stage <- lrelu(gconv(act) + bb) for every branch column,
     // y <- y + stage @ post_w + post_b
     for (int p0 = 0; p0 < hw; p0 += kTile) {
       const int np = min(kTile, hw - p0);
@@ -186,7 +238,7 @@ fused_subnet_kernel(const float* __restrict__ x, const T* __restrict__ wts,
         while (br + 1 < d.nd && col >= L.col[br + 1]) ++br;
         const int wd = L.width[br], g = L.group[br], dil = d.dil[br];
         const int j = col - L.col[br], ci0 = j / g * g, lo = dil * (k - 1) / 2;
-        const T* wbr = wb + L.w_branch[br] + j;  // (k, k, g, wd) from column j
+        const float* wbr = wb + L.w_branch[br] + j;  // (k, k, g, wd) from column j
         int py[kRows], px[kRows];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
@@ -207,21 +259,21 @@ fused_subnet_kernel(const float* __restrict__ x, const T* __restrict__ wts,
               in[r] = iy >= 0 && iy < d.h && ix >= 0 && ix < d.w;
               off[r] = in[r] ? (iy * d.w + ix) * K + ci0 : 0;
             }
-            const T* wtap = wbr + (ty * k + tx) * g * wd;
+            const float* wtap = wbr + (ty * k + tx) * g * wd;
             for (int c = 0; c < g; ++c) {
-              const float wv = to_f(wtap[c * wd]);
+              const float wv = wtap[c * wd];
 #pragma unroll
               for (int r = 0; r < kRows; ++r)
-                if (in[r]) acc[r] = fmaf(to_f(act[off[r] + c]), wv, acc[r]);
+                if (in[r]) acc[r] = fmaf(act[off[r] + c], wv, acc[r]);
             }
           }
         }
         const float b = bb[L.b_branch[br] + j];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) stage[(r0 + r) * S + col] = round_to<T>(lrelu(acc[r] + b));
+        for (int r = 0; r < kRows; ++r) stage[(r0 + r) * S + col] = lrelu(acc[r] + b);
       }
       __syncthreads();
-      tile_1x1<T>(stage, S, np, wb + L.w_post, K, [&](int r, int co, float v) {
+      tile_1x1(stage, S, np, wb + L.w_post, K, [&](int r, int co, float v) {
         const int i = (p0 + r) * K + co;
         y[i] = (y[i] + v) + bb[L.b_post + co];
       });
@@ -229,24 +281,19 @@ fused_subnet_kernel(const float* __restrict__ x, const T* __restrict__ wts,
     }
   }
 
-  // head: act <- dt(lrelu(y)); out <- conv_k(act, head_w) + head_b
-  for (int e = threadIdx.x; e < hw * K; e += kThreads) act[e] = from_f<T>(lrelu(y[e]));
+  // head: act <- lrelu(y); out <- conv_k(act, head_w) + head_b
+  for (int e = threadIdx.x; e < hw * K; e += kThreads) act[e] = lrelu(y[e]);
   __syncthreads();
-  conv_same<T>(d, act, K, wts + L.w_head, bias + L.b_head, d.out_total, o);
+  conv_same(d, act, K, wts + L.w_head, bias + L.b_head, d.out_total, o);
 }
 
 // Fills L from d; false for sizes the kernel does not take.
-template <typename T>
 bool make_layout(const Dims& d, Layout& L) {
-  if (d.h < 1 || d.w < 1 || d.cin < 1 || d.K < 1 || d.res_blocks < 0 || d.card < 2 ||
-      d.ksize < 1 || d.nd < 1 || d.nd > kMaxBranches || d.out_total < 1)
-    return false;
+  if (!dims_ok(d)) return false;
   const int64_t kk = static_cast<int64_t>(d.ksize) * d.ksize;
   int64_t sum_w = 0, branch_w = 0;
   for (int i = 0; i < d.nd; ++i) {
-    if (d.dil[i] < 1 || d.K % d.dil[i] != 0) return false;
     const int wd = d.K / d.dil[i];
-    if (wd % d.card != 0) return false;
     L.width[i] = wd;
     L.group[i] = wd / d.card;
     L.col[i] = static_cast<int>(sum_w);
@@ -258,11 +305,12 @@ bool make_layout(const Dims& d, Layout& L) {
   const int64_t hw = static_cast<int64_t>(d.h) * d.w;
   const int64_t w_entry = kk * d.cin * d.K;
   const int64_t w_block = static_cast<int64_t>(d.K) * d.K + branch_w + sum_w * d.K;
-  const int64_t w_total = w_entry + d.res_blocks * w_block + kk * d.K * d.out_total;
   const int64_t act_elems = hw * (d.cin > d.K ? d.cin : d.K);
-  const int64_t act_bytes = (act_elems * static_cast<int64_t>(sizeof(T)) + 15) / 16 * 16;
+  const int64_t act_bytes = (act_elems * 4 + 15) / 16 * 16;
   const int64_t stage_bytes = kTile * (sum_w > d.K ? sum_w : d.K) * 4;
-  if (w_total > INT32_MAX || hw * d.K > INT32_MAX || hw * d.out_total > INT32_MAX ||
+  L.w_total = w_entry + d.res_blocks * w_block + kk * d.K * d.out_total;
+  L.b_total = d.K + d.res_blocks * (2 * d.K + sum_w) + d.out_total;
+  if (L.w_total > INT32_MAX || hw * d.K > INT32_MAX || hw * d.out_total > INT32_MAX ||
       act_bytes + stage_bytes > kMaxShared)
     return false;
   L.sum_w = static_cast<int>(sum_w);
@@ -274,52 +322,502 @@ bool make_layout(const Dims& d, Layout& L) {
   L.b_block = static_cast<int>(2 * d.K + sum_w);
   L.b_post = static_cast<int>(d.K + sum_w);
   L.b_head = d.K + d.res_blocks * L.b_block;
-  L.act_elems = static_cast<int>(act_elems);
   L.act_bytes = static_cast<int>(act_bytes);
   L.stage_bytes = static_cast<int>(stage_bytes);
   return true;
 }
 
-template <typename T>
-int launch(const void* x, const void* wts, const void* bias, void* trunk, void* out,
-           int batch, const Dims& d, cudaStream_t stream) {
-  Layout L;
-  if (batch < 1 || !make_layout<T>(d, L)) return static_cast<int>(cudaErrorInvalidValue);
-  // raise the block's dynamic shared memory limit to the card's most, once
-  // per device, before its first launch (so never during stream capture)
-  static bool limit_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!limit_set[dev]) {
-    err = cudaFuncSetAttribute(fused_subnet_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    limit_set[dev] = true;
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+// One n8 output tile of a branch: the first channel of its input window (a
+// multiple of 8), the window's 8-channel slices per tap and its k16 chunks
+// (both the same for every tile of a branch), and its weights' and biases'
+// offsets within a block.
+struct BranchTile {
+  int lo8, q, chunks, w_off, b_off;
+};
+
+// The bf16 packing, derived only in ops/kernels/fused_subnet.py::mma_layout
+// and handed to every launch as a table of ints: weights in one buffer,
+// every stage as [k16 chunk][n8 tile][lane][4] B fragments (kFrag elements
+// each): the entry, then per residual block the pre 1x1, each branch tile in
+// order (branch by branch), the post 1x1; then the head. Biases in one f32
+// buffer, each stage's padded to its n8 tiles.
+struct MmaLayout {
+  int Kp, NT, NO;           // trunk width padded to 8, its n8 tiles, the head's
+  int xs, ts;               // row strides (elements) of x and t in shared memory
+  int qx, n_mt;             // x's 8-channel slices per tap; 16-pixel tiles
+  int ch_entry, ch_pre, ch_post, ch_head, n_tiles;
+  int w_block0, w_block, w_post, w_head, w_total;
+  int b_block0, b_block, b_post, b_head, b_total;
+  int trunk_per_sample;     // f32 scratch elements a sample
+  int act_bytes, w_stage;   // the stage input's bytes; the weights of the largest stage
+  int br_tile0[kMaxBranches], br_tiles[kMaxBranches];  // each branch's first tile, its tiles
+  BranchTile tile[kMaxBranchTiles];
+};
+
+// The wrapper's table (fused_subnet.py::layout_table) into L: the scalars in
+// this order (TABLE_FIELDS there), each of kMaxBranches branches' first tile
+// and tile count, then lo8, q, chunks, w_off, b_off a tile. False if the
+// table has another length or a value outside [0, kMaxTableValue].
+bool read_mma_layout(const int* t, int n, MmaLayout& L) {
+  int* head[] = {&L.Kp,       &L.NT,       &L.NO,      &L.xs,       &L.ts,
+                 &L.qx,       &L.n_mt,     &L.ch_entry, &L.ch_pre,  &L.ch_post,
+                 &L.ch_head,  &L.n_tiles,  &L.w_block0, &L.w_block, &L.w_post,
+                 &L.w_head,   &L.w_total,  &L.b_block0, &L.b_block, &L.b_post,
+                 &L.b_head,   &L.b_total,  &L.trunk_per_sample, &L.act_bytes, &L.w_stage};
+  constexpr int kHead = sizeof(head) / sizeof(head[0]), kBranches = kHead + 2 * kMaxBranches;
+  if (t == nullptr || n < kBranches) return false;
+  for (int i = 0; i < kHead; ++i) *head[i] = t[i];
+  if (L.n_tiles < 1 || L.n_tiles > kMaxBranchTiles || n != kBranches + 5 * L.n_tiles)
+    return false;
+  for (int i = 0; i < n; ++i)  // so that no sum of two overflows
+    if (t[i] < 0 || t[i] > kMaxTableValue) return false;
+  for (int i = 0; i < kMaxBranches; ++i) {
+    L.br_tile0[i] = t[kHead + 2 * i];
+    L.br_tiles[i] = t[kHead + 2 * i + 1];
   }
-  fused_subnet_kernel<T><<<batch, kThreads, L.act_bytes + L.stage_bytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const T*>(wts),
+  for (int i = 0; i < L.n_tiles; ++i) {
+    const int* v = t + kBranches + 5 * i;
+    L.tile[i] = BranchTile{v[0], v[1], v[2], v[3], v[4]};
+  }
+  return true;
+}
+
+// Whether the kernel, run with L on buffers of n_weights and n_biases
+// elements, stays inside them, its shared memory and its tiles, and covers
+// every tap, channel and n8 tile of each stage. Checks only: what L computes
+// is held to the chain on the CPU (tests/test_torch_fused_subnet.py) and on
+// the card.
+bool mma_layout_ok(const Dims& d, const MmaLayout& L, int64_t n_weights, int64_t n_biases) {
+  const int64_t hw = static_cast<int64_t>(d.h) * d.w, kk = static_cast<int64_t>(d.ksize) * d.ksize;
+  const int64_t f = kFrag;
+  const int64_t row = L.xs > L.ts ? L.xs : L.ts;
+  const bool sizes =
+      dims_ok(d) && L.NT >= 1 && L.NT <= kMaxTrunkTiles && L.Kp == 8 * L.NT && L.Kp >= d.K &&
+      L.NO >= 1 && L.NO <= kMaxHeadTiles && 8 * L.NO >= d.out_total && L.qx >= 1 &&
+      8LL * L.qx >= d.cin && L.xs >= 8 * L.qx && L.ts >= L.Kp && L.xs % 8 == 0 &&
+      L.ts % 8 == 0 && hw <= INT32_MAX / 16 && hw * d.out_total <= INT32_MAX &&
+      L.n_mt == (hw + 15) / 16 &&
+      L.trunk_per_sample == 16 * static_cast<int64_t>(L.n_mt) * L.Kp &&
+      L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * 2;
+  const bool stages =
+      2LL * L.ch_entry >= kk * L.qx && L.ch_pre == (L.NT + 1) / 2 &&
+      L.ch_post == (L.n_tiles + 1) / 2 && 2LL * L.ch_head >= kk * L.NT &&
+      L.w_block0 == f * L.ch_entry * L.NT && L.w_post % kFrag == 0 &&
+      L.w_post + L.ch_post * L.NT * f == L.w_block &&
+      L.w_head == L.w_block0 + d.res_blocks * static_cast<int64_t>(L.w_block) &&
+      L.w_total == n_weights && L.w_total - L.w_head == f * L.ch_head * L.NO &&
+      L.w_block0 <= L.w_stage && L.w_block <= L.w_stage && L.w_total - L.w_head <= L.w_stage &&
+      L.act_bytes + 2 * static_cast<int64_t>(L.w_stage) <= kMaxShared &&
+      L.b_block0 == L.Kp && L.b_post + L.Kp == L.b_block &&
+      L.b_head == L.b_block0 + d.res_blocks * static_cast<int64_t>(L.b_block) &&
+      L.b_total == n_biases && L.b_total == L.b_head + 8 * L.NO;
+  if (!sizes || !stages) return false;
+  // branch tiles: in order, branch by branch, one window size a branch, each
+  // window inside the trunk's channels, weights and biases between the pre
+  // and the post 1x1's
+  int next = 0;
+  for (int br = 0; br < d.nd; ++br) {
+    const int t0 = L.br_tile0[br], nt = L.br_tiles[br];
+    if (t0 != next || nt < 1 || nt > kMaxTrunkTiles || t0 + nt > L.n_tiles ||
+        8 * nt < d.K / d.dil[br])
+      return false;
+    for (int j = t0; j < t0 + nt; ++j) {
+      const BranchTile& t = L.tile[j];
+      if (t.q != L.tile[t0].q || t.chunks != L.tile[t0].chunks || t.q < 1 ||
+          2LL * t.chunks < kk * t.q || t.lo8 % 8 != 0 || t.lo8 + 8LL * t.q > L.Kp ||
+          t.w_off < L.ch_pre * L.NT * f || t.w_off % kFrag != 0 ||
+          t.w_off + t.chunks * f > L.w_post || t.b_off < L.Kp || t.b_off + 8 > L.b_post)
+        return false;
+    }
+    next = t0 + nt;
+  }
+  return next == L.n_tiles;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// lane's B fragment `frag` of the stage whose fragments start at `w` (shared)
+__device__ __forceinline__ uint2 frag_b(const __nv_bfloat16* w, int frag) {
+  return reinterpret_cast<const uint2*>(w + frag * kFrag)[threadIdx.x & 31];
+}
+
+// n (a multiple of kFrag) packed weights from src into shared memory at dst,
+// 16 bytes a thread and step. No barrier inside.
+__device__ __forceinline__ void stage_weights(const __nv_bfloat16* __restrict__ src, int n,
+                                              __nv_bfloat16* dst) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* o = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < n / 8; i += kThreads) o[i] = __ldg(s + i);
+}
+
+// The two pixel rows (g and g + 8) a lane holds of a 16-pixel tile.
+struct Rows {
+  int py[2], px[2];
+  bool ok[2];
+};
+
+__device__ __forceinline__ Rows tile_rows(const Dims& d, int mt) {
+  Rows r;
+  const int lane_row = (threadIdx.x & 31) >> 2, hw = d.h * d.w;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = mt * 16 + lane_row + 8 * i;
+    r.ok[i] = p < hw;
+    r.py[i] = p / d.w;
+    r.px[i] = p - r.py[i] * d.w;
+  }
+  return r;
+}
+
+// A SAME k x k conv's A operand, gathered from a stage input in shared memory
+// with ldmatrix.x4: K runs over slices (a tap, 8 channels = 16 bytes), two
+// slices a k16 chunk. Lane l gives the address of pixel row l % 8 + 8 (l / 8
+// % 2) of the tile in the chunk's slice l / 16, located once a tap; a pixel
+// outside the image, or past the last tap, reads a zero row.
+struct Gather {
+  uint32_t act, zero;  // shared addresses of the stage input and of the zero row
+  int stride;          // bytes per pixel
+  int py, px;
+  bool ok;
+  int q, dil, pad;
+  int ty, tx, c8;  // this lane's slice
+  uint32_t base;   // shared address of this lane's pixel at the slice's tap
+};
+
+__device__ __forceinline__ void locate(const Dims& d, Gather& G) {
+  const int iy = G.py + G.ty * G.dil - G.pad, ix = G.px + G.tx * G.dil - G.pad;
+  const bool in = G.ok && G.ty < d.ksize && iy >= 0 && iy < d.h && ix >= 0 && ix < d.w;
+  G.base = in ? G.act + (iy * d.w + ix) * G.stride : G.zero;
+}
+
+__device__ __forceinline__ void advance(const Dims& d, Gather& G) {
+  if (++G.c8 == G.q) {
+    G.c8 = 0;
+    if (++G.tx == d.ksize) {
+      G.tx = 0;
+      ++G.ty;
+    }
+    locate(d, G);
+  }
+}
+
+__device__ __forceinline__ Gather gather_at(const Dims& d, int mt, uint32_t act, uint32_t zero,
+                                            int stride, int q, int dil) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int p = mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  Gather G;
+  G.act = act;
+  G.zero = zero;
+  G.stride = 2 * stride;
+  G.ok = p < d.h * d.w;
+  G.py = p / d.w;
+  G.px = p - G.py * d.w;
+  G.q = q;
+  G.dil = dil;
+  G.pad = dil * (d.ksize - 1) / 2;
+  G.ty = G.tx = G.c8 = 0;
+  locate(d, G);
+  if (lane >> 4) advance(d, G);  // the chunk's second slice
+  return G;
+}
+
+// this lane's ldmatrix address for the next chunk (channel 0 of the slice),
+// and G moved on by a chunk
+__device__ __forceinline__ uint32_t take_chunk(const Dims& d, Gather& G) {
+  const uint32_t at = G.base + 16 * G.c8;
+  advance(d, G);
+  advance(d, G);
+  return at;
+}
+
+// the A fragment at this lane's address `at` (+ 2 bytes a channel of offset)
+__device__ __forceinline__ void fragment_a(uint32_t at, uint32_t (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(at));
+}
+
+// acc[0, nt) += conv(G) over `chunks` chunks with the stage's fragments at w
+template <int kMaxTiles>
+__device__ __forceinline__ void conv_tiles(const Dims& d, Gather G, int chunks,
+                                           const __nv_bfloat16* w, int nt,
+                                           float (&acc)[kMaxTiles][4]) {
+  // two chunks a step, both loaded first: their loads overlap
+  for (int c = 0; c < chunks; c += 2) {
+    uint32_t a0[4], a1[4];
+    fragment_a(take_chunk(d, G), a0);
+    fragment_a(take_chunk(d, G), a1);
+#pragma unroll
+    for (int j = 0; j < kMaxTiles; ++j)
+      if (j < nt) mma(acc[j], a0, frag_b(w, c * nt + j));
+    if (c + 1 < chunks) {
+#pragma unroll
+      for (int j = 0; j < kMaxTiles; ++j)
+        if (j < nt) mma(acc[j], a1, frag_b(w, (c + 1) * nt + j));
+    }
+  }
+}
+
+// u += the post 1x1's k16 chunk c, whose A fragment is a
+__device__ __forceinline__ void post_chunk(float (&u)[kMaxTrunkTiles][4], const uint32_t (&a)[4],
+                                           const __nv_bfloat16* w, int c, int nt) {
+#pragma unroll
+  for (int j = 0; j < kMaxTrunkTiles; ++j)
+    if (j < nt) mma(u[j], a, frag_b(w, c * nt + j));
+}
+
+// bias (f32 buffer at b) of this lane's two columns of n8 tile j
+__device__ __forceinline__ float2 bias2(const float* __restrict__ b, int j) {
+  return __ldg(reinterpret_cast<const float2*>(b + 8 * j + 2 * (threadIdx.x & 3)));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
+                        const float* __restrict__ bias, float4* trunk,
+                        float* __restrict__ out, const Dims d, const MmaLayout L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
+  // the running stage's weights (the entry, one residual block, the head)
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + L.act_bytes);
+  const int hw = d.h * d.w, NT = L.NT;
+  // a row of zeros after the stage input's rows: what a padding pixel reads
+  const int row = L.xs > L.ts ? L.xs : L.ts;
+  const uint32_t act_s = static_cast<uint32_t>(__cvta_generic_to_shared(act));
+  const uint32_t zero_s = act_s + 2 * hw * row;
+  for (int e = threadIdx.x; e < row; e += kThreads) act[hw * row + e] = __float2bfloat16(0.f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = blockIdx.x;
+  const float* xs = x + n * hw * d.cin;
+  // the trunk in accumulator layout, [pixel tile][n8 tile][lane] float4: each
+  // float4 is only ever read and written by its own lane
+  float4* y = trunk + n * (L.trunk_per_sample / 4);
+  float* o = out + n * hw * d.out_total;
+  auto y_at = [&](int mt, int j) -> float4& { return y[(mt * NT + j) * 32 + lane]; };
+
+  // x -> bf16 in shared memory, channels zero-padded to the slices
+  const int cin_p = 8 * L.qx;
+  for (int e = threadIdx.x; e < hw * cin_p; e += kThreads) {
+    const int p = e / cin_p, c = e - p * cin_p;
+    act[p * L.xs + c] = __float2bfloat16(c < d.cin ? xs[p * d.cin + c] : 0.f);
+  }
+  stage_weights(wts, L.w_block0, wsm);
+  __syncthreads();
+
+  // entry conv: y = conv_k(x) + entry_b
+  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+    float acc[kMaxTrunkTiles][4] = {};
+    conv_tiles(d, gather_at(d, mt, act_s, zero_s, L.xs, L.qx, 1), L.ch_entry, wsm, NT, acc);
+#pragma unroll
+    for (int j = 0; j < kMaxTrunkTiles; ++j) {
+      if (j >= NT) break;
+      const float2 b = bias2(bias, j);
+      y_at(mt, j) = make_float4(acc[j][0] + b.x, acc[j][1] + b.y, acc[j][2] + b.x,
+                                acc[j][3] + b.y);
+    }
+  }
+  __syncthreads();
+
+  for (int blk = 0; blk < d.res_blocks; ++blk) {
+    const float* bb = bias + L.b_block0 + static_cast<int64_t>(blk) * L.b_block;
+    stage_weights(wts + L.w_block0 + static_cast<int64_t>(blk) * L.w_block, L.w_block, wsm);
+    __syncthreads();
+    const __nv_bfloat16* wb = wsm;
+
+    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b)) into shared
+    // memory; accumulator tiles 2c and 2c+1 of y are chunk c's A fragment
+    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+      float acc[kMaxTrunkTiles][4] = {};
+#pragma unroll
+      for (int c = 0; c < kMaxTrunkTiles / 2; ++c) {
+        if (c >= L.ch_pre) break;
+        const float4 lo = y_at(mt, 2 * c);
+        const float4 hi = 2 * c + 1 < NT ? y_at(mt, 2 * c + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const uint32_t a[4] = {pack_bf16(lrelu(lo.x), lrelu(lo.y)),
+                               pack_bf16(lrelu(lo.z), lrelu(lo.w)),
+                               pack_bf16(lrelu(hi.x), lrelu(hi.y)),
+                               pack_bf16(lrelu(hi.z), lrelu(hi.w))};
+#pragma unroll
+        for (int j = 0; j < kMaxTrunkTiles; ++j)
+          if (j < NT) mma(acc[j], a, frag_b(wb, c * NT + j));
+      }
+      const Rows r = tile_rows(d, mt);
+#pragma unroll
+      for (int j = 0; j < kMaxTrunkTiles; ++j) {
+        if (j >= NT) break;
+        const float2 b = bias2(bb, j);
+        const int ch = 8 * j + 2 * (lane & 3);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (r.ok[i])
+            *reinterpret_cast<uint32_t*>(act + (r.py[i] * d.w + r.px[i]) * L.ts + ch) =
+                pack_bf16(lrelu(acc[j][2 * i] + b.x), lrelu(acc[j][2 * i + 1] + b.y));
+      }
+    }
+    __syncthreads();
+
+    // branches and post 1x1, branch by branch: a chunk's rows are located
+    // once and feed every n8 tile of the branch (independent chains); then
+    // s = bf16(lrelu(gconv(t) + bb)), two tiles a k16 chunk of the post 1x1's
+    // A operand; y = y + u + post_b
+    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+      float u[kMaxTrunkTiles][4] = {};
+      uint32_t pend[2] = {0u, 0u};  // an even tile's fragment half, waiting for its pair
+      for (int br = 0; br < d.nd; ++br) {
+        const int t0 = L.br_tile0[br], nt = L.br_tiles[br];
+        Gather G = gather_at(d, mt, act_s, zero_s, L.ts, L.tile[t0].q, d.dil[br]);
+        float s[kMaxTrunkTiles][4] = {};
+        for (int c = 0; c < L.tile[t0].chunks; ++c) {
+          const uint32_t at = take_chunk(d, G);
+#pragma unroll
+          for (int j = 0; j < kMaxTrunkTiles; ++j) {
+            if (j >= nt) break;
+            uint32_t a[4];
+            fragment_a(at + 2 * L.tile[t0 + j].lo8, a);
+            mma(s[j], a, frag_b(wb + L.tile[t0 + j].w_off, c));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kMaxTrunkTiles; ++j) {
+          if (j >= nt) break;
+          const int gt = t0 + j;
+          const float2 b = bias2(bb + L.tile[gt].b_off, 0);
+          const uint32_t lo = pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y));
+          const uint32_t hi = pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y));
+          if (gt % 2 == 0) {
+            pend[0] = lo;
+            pend[1] = hi;
+          } else {
+            const uint32_t a[4] = {pend[0], pend[1], lo, hi};
+            post_chunk(u, a, wb + L.w_post, gt / 2, NT);
+          }
+        }
+      }
+      if (L.n_tiles % 2) {
+        const uint32_t a[4] = {pend[0], pend[1], 0u, 0u};
+        post_chunk(u, a, wb + L.w_post, L.n_tiles / 2, NT);
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxTrunkTiles; ++j) {
+        if (j >= NT) break;
+        const float2 b = bias2(bb + L.b_post, j);
+        float4& v = y_at(mt, j);
+        const float4 old = v;
+        v = make_float4((old.x + u[j][0]) + b.x, (old.y + u[j][1]) + b.y,
+                        (old.z + u[j][2]) + b.x, (old.w + u[j][3]) + b.y);
+      }
+    }
+    __syncthreads();
+  }
+
+  // head: t = bf16(lrelu(y)) into shared memory; out = conv_k(t) + head_b
+  stage_weights(wts + L.w_head, L.w_total - L.w_head, wsm);
+  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+    const Rows r = tile_rows(d, mt);
+#pragma unroll
+    for (int j = 0; j < kMaxTrunkTiles; ++j) {
+      if (j >= NT) break;
+      const float4 v = y_at(mt, j);
+      const int ch = 8 * j + 2 * (lane & 3);
+      if (r.ok[0])
+        *reinterpret_cast<uint32_t*>(act + (r.py[0] * d.w + r.px[0]) * L.ts + ch) =
+            pack_bf16(lrelu(v.x), lrelu(v.y));
+      if (r.ok[1])
+        *reinterpret_cast<uint32_t*>(act + (r.py[1] * d.w + r.px[1]) * L.ts + ch) =
+            pack_bf16(lrelu(v.z), lrelu(v.w));
+    }
+  }
+  __syncthreads();
+  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+    const Rows r = tile_rows(d, mt);
+    float acc[kMaxHeadTiles][4] = {};
+    conv_tiles(d, gather_at(d, mt, act_s, zero_s, L.ts, NT, 1), L.ch_head, wsm, L.NO, acc);
+    const float* hb = bias + L.b_head;
+#pragma unroll
+    for (int j = 0; j < kMaxHeadTiles; ++j) {
+      if (j >= L.NO) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * (lane & 3) + (e & 1), i = e >> 1;
+        if (r.ok[i] && col < d.out_total)
+          o[(r.py[i] * d.w + r.px[i]) * d.out_total + col] = acc[j][e] + hb[col];
+      }
+    }
+  }
+}
+
+int launch_f32(const void* x, const void* wts, const void* bias, void* trunk, void* out,
+               int batch, const Dims& d, int64_t n_weights, int64_t n_biases,
+               int64_t n_trunk, cudaStream_t stream) {
+  Layout L;
+  if (batch < 1 || !make_layout(d, L) || L.w_total != n_weights || L.b_total != n_biases ||
+      n_trunk < static_cast<int64_t>(batch) * d.h * d.w * d.K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool limit_set[kMaxDevices] = {};
+  cudaError_t err = allow_shared(fused_subnet_f32_kernel, limit_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_subnet_f32_kernel<<<batch, kThreads, L.act_bytes + L.stage_bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wts),
       static_cast<const float*>(bias), static_cast<float*>(trunk), static_cast<float*>(out),
+      d, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, void* out,
+                int batch, const Dims& d, int64_t n_weights, int64_t n_biases,
+                int64_t n_trunk, const int* table, int n_table, cudaStream_t stream) {
+  MmaLayout L{};
+  if (batch < 1 || !read_mma_layout(table, n_table, L) ||
+      !mma_layout_ok(d, L, n_weights, n_biases) ||
+      n_trunk < static_cast<int64_t>(batch) * L.trunk_per_sample)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool limit_set[kMaxDevices] = {};
+  cudaError_t err = allow_shared(fused_subnet_mma_kernel, limit_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_subnet_mma_kernel<<<batch, kThreads, L.act_bytes + 2 * L.w_stage, stream>>>(
+      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(wts),
+      static_cast<const float*>(bias), static_cast<float4*>(trunk), static_cast<float*>(out),
       d, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (batch, h, w, cin) f32; weights: the packed dt kernels; biases: the packed
-// f32 biases; trunk: batch*h*w*K f32 scratch; out (batch, h, w, out_total) f32.
-// dtype: 0 = float32, 1 = bfloat16 (the type of weights and of the products'
-// operands). dil0..dil3: the first n_dil are the branches' dilations.
+// x (batch, h, w, cin) f32; weights: the packed dt kernels (n_weights
+// elements); biases: the packed f32 biases (n_biases); trunk: f32 scratch of
+// n_trunk elements; out (batch, h, w, out_total) f32. dtype: 0 = float32,
+// 1 = bfloat16 (the type of weights and of the products' operands; each has
+// its own packing). dil0..dil3: the first n_dil are the branches' dilations.
+// table, n_table: the bfloat16 layout (fused_subnet.py::layout_table), which
+// the float32 instantiation does not read.
 extern "C" int fused_subnet_forward(const void* x, const void* weights, const void* biases,
                                     void* trunk, void* out, int batch, int h, int w, int cin,
                                     int kernels, int res_blocks, int cardinality, int ksize,
                                     int n_dil, int dil0, int dil1, int dil2, int dil3,
-                                    int out_total, int dtype, void* stream) {
+                                    int out_total, int dtype, long long n_weights,
+                                    long long n_biases, long long n_trunk, const int* table,
+                                    int n_table, void* stream) {
   Dims d{h, w, cin, kernels, res_blocks, cardinality, ksize, n_dil, out_total,
          {dil0, dil1, dil2, dil3}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, weights, biases, trunk, out, batch, d, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, weights, biases, trunk, out, batch, d, s);
+  if (dtype == 0)
+    return launch_f32(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk, s);
+  if (dtype == 1)
+    return launch_bf16(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk,
+                       table, n_table, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

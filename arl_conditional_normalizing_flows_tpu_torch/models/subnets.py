@@ -20,6 +20,7 @@ compute dtype and leaves its output there; the head is cast to float32.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -33,7 +34,14 @@ LEAKY_SLOPE = 0.3  # Keras LeakyReLU default alpha
 
 
 def leaky_relu(x):
-    return F.leaky_relu(x, negative_slope=LEAKY_SLOPE)
+    """LeakyReLU with the slope in ``x``'s dtype, as JAX multiplies a bf16
+    tensor by the weakly typed 0.3 rounded to bf16 (0.30078125)."""
+    return F.leaky_relu(x, negative_slope=_slope(x.dtype))
+
+
+@functools.cache
+def _slope(dtype):
+    return torch.tensor(LEAKY_SLOPE, dtype=dtype).item()
 
 
 def orthogonal(shape, scale, generator):
@@ -72,9 +80,12 @@ class Conv(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        # torch's "same" pads total//2 low and the rest high, as XLA's SAME
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        padding="same", dilation=self.dilation, groups=self.groups)
+        # torch's "same" pads total//2 low and the rest high, as XLA's SAME.
+        # The bias is added after the conv's output is rounded to dt, as flax
+        # does: inside the conv it would be added before that rounding
+        y = F.conv2d(x.to(dt), self.weight.to(dt), padding="same",
+                     dilation=self.dilation, groups=self.groups)
+        return y + self.bias.to(dt)[:, None, None]
 
 
 class FlatLayerNorm(nn.Module):
@@ -104,7 +115,9 @@ class DilatedResidualBlock(nn.Module):
     Branch ``i`` (dilation ``d``) reads the first ``nb/d`` channels and
     convolves them in ``cardinality`` groups (``ref_compat_group_slice``:
     every group reads the LAST group's channel slice, the reference's
-    late-bound Lambda, conv_cINN_base_functions.py:401).
+    late-bound Lambda, conv_cINN_base_functions.py:401). At cardinality 1
+    a branch is one dense conv of the whole trunk to ``nb/d`` channels, as
+    the JAX ``_grouped_conv`` computes it.
     """
 
     def __init__(self, hw, nb_channels, dilations, ksize, cardinality,
@@ -125,7 +138,9 @@ class DilatedResidualBlock(nn.Module):
         self.conv_pre = Conv(nb, nb, 1, **common)
         groups = 1 if ref_compat_group_slice else cardinality
         self.branches = nn.ModuleList([
-            Conv(wd // cardinality * groups, wd, ksize, dilation=d, groups=groups,
+            # cardinality 1: one dense conv over the whole trunk
+            Conv(nb if cardinality == 1 else wd // cardinality * groups, wd, ksize,
+                 dilation=d, groups=groups,
                  init_groups=cardinality if ref_compat_group_init else 1,
                  **common)
             for wd, d in zip(widths, dilations)
@@ -140,6 +155,8 @@ class DilatedResidualBlock(nn.Module):
         return t if self.norms is None else self.norms[i](t)
 
     def _branch_input(self, y, width):
+        if self.cardinality == 1:
+            return y
         if self.ref_compat_group_slice:
             d = width // self.cardinality
             return y[:, (self.cardinality - 1) * d : self.cardinality * d]

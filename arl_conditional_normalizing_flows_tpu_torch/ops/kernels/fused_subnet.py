@@ -13,15 +13,22 @@ Bound on an H100: operations. At the flagship (batch 128, 16 launches a
 pass over four specs) a pass needs 50.4 GFLOP of grouped products, 51 us at
 989 TFLOP/s in bf16, against ~1.3 MB of inputs and outputs per launch
 (0.4 us at 3.35 TB/s). The design: one block per sample, the stage input in
-shared memory, the float32 trunk in an L2-resident scratch tensor, grouped
-convs computed grouped (the TPU kernel's block-diagonal expansion would be
-4x the work), and each branch output multiplied straight into the post-1x1
-so that no branch output reaches device memory. This first kernel runs the
-products as float32 FMAs on CUDA cores; the tensor cores are a later PR's.
+shared memory, the float32 trunk in an L2-resident scratch tensor, and each
+branch output multiplied straight into the post-1x1 so that no branch output
+reaches device memory. In bf16 every product runs on the tensor cores
+(``mma.sync`` m16n8k16, each stage an implicit GEMM over 16-pixel tiles,
+grouped convs expanded block-diagonally only inside an n8 output tile); in
+float32 the products stay float32 FMAs on CUDA cores, since the tensor cores
+would round them to TF32 (the source note in ``csrc/fused_subnet.cu``).
 
-Weights are packed once per parameter version (:func:`pack`): every kernel,
-in ``flax_param_order``'s order and flax's HWIO layout, in one
-``compute_dtype`` buffer, and every bias in one float32 buffer.
+Weights are packed once per parameter version (:func:`pack`), every kernel
+into one ``compute_dtype`` buffer and every bias into one float32 buffer. In
+float32 they stay in ``flax_param_order``'s order and flax's HWIO layout; in
+bf16 each stage is written in the tensor cores' B-fragment order with K and
+N zero-padded (:func:`mma_layout`), so the kernel reshuffles nothing. The
+bf16 layout is derived here only: each launch hands it to the kernel as a
+table of ints (:func:`layout_table`), which the C entry checks and does not
+derive again.
 
 Dispatch: a CPU tensor goes to the plain version :func:`subnet_apply_reference`;
 a CUDA tensor launches the kernel or raises. :func:`subnet_apply` counts its
@@ -37,6 +44,7 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,11 +55,15 @@ LAUNCHES = {"fused_subnet": 0}
 
 LEAKY_SLOPE = 0.3
 
-# launch limits, mirrored from csrc/fused_subnet.cu
+# launch limits and tile constants, mirrored from csrc/fused_subnet.cu
 THREADS = 512
-TILE = 32
+TILE = 32  # float32: pixels per tile of the 1x1 stages
 MAX_BRANCHES = 4
 MAX_SHARED_BYTES = 232448
+MAX_TRUNK_TILES = 8  # bf16: n8 tiles of the trunk (K <= 64)
+MAX_HEAD_TILES = 4  # bf16: n8 tiles of the head (out_total <= 32)
+FRAG = 128  # bf16: elements of one k16 x n8 B fragment (32 lanes x 4)
+MAX_TABLE_VALUE = 2**30  # bf16: the largest int of layout_table the C entry takes
 MAX_THREADS = 1024  # threads a block may have on the card
 _INT_MAX = 2**31 - 1
 _DTYPE_CODE = {"float32": 0, "bfloat16": 1}
@@ -121,11 +133,254 @@ def flax_param_order(spec: SubnetSpec) -> Tuple[Tuple[str, Tuple[int, ...]], ...
     return tuple(out)
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bank_stride(c: int) -> int:
+    """A shared-memory row stride of ``c`` channels (a multiple of 8) whose
+    32-bit words put 8 consecutive pixels on distinct banks."""
+    return c + 8 if (c // 8) % 2 == 0 else c
+
+
+@dataclasses.dataclass(frozen=True)
+class BranchTile:
+    """One n8 output tile of a branch in the bf16 kernel: columns
+    ``[c0, c0 + 8)`` of branch ``branch``, reading the input window of
+    ``q`` 8-channel slices per tap from channel ``lo8`` (``q`` and
+    ``chunks`` are the same for every tile of a branch)."""
+
+    branch: int
+    c0: int
+    dil: int
+    lo8: int
+    q: int
+    chunks: int  # k16 chunks: two slices each
+    w_off: int  # offsets within a residual block's weights and biases
+    b_off: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaLayout:
+    """The bf16 kernel's tiling and packing, its one source: the C entry
+    takes it as :func:`layout_table` and checks it. Weights: every stage as
+    ``[k16 chunk][n8 tile][lane][4]`` B fragments (:data:`FRAG` elements
+    each) — the entry, then per residual block the pre 1x1, each branch tile
+    in order, the post 1x1; then the head. Biases: each stage's padded to its
+    n8 tiles."""
+
+    kp: int  # trunk width K padded to 8
+    nt: int  # n8 tiles of the trunk
+    no: int  # n8 tiles of the head
+    xs: int  # row strides (elements) of x and t in shared memory
+    ts: int
+    qx: int  # x's 8-channel slices per tap
+    n_mt: int  # 16-pixel tiles of a sample
+    ch_entry: int
+    ch_pre: int
+    ch_post: int
+    ch_head: int
+    tiles: Tuple[BranchTile, ...]
+    w_block0: int
+    w_block: int
+    w_post: int
+    w_head: int
+    b_block0: int
+    b_block: int
+    b_post: int
+    b_head: int
+    w_total: int
+    b_total: int
+    trunk_per_sample: int  # float32 scratch elements a sample
+    act_bytes: int  # shared memory of the stage input and a row of zeros
+    w_stage: int  # weights of the largest stage (entry, a residual block, head)
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_layout(spec: SubnetSpec) -> MmaLayout:
+    """The bf16 kernel's layout of ``spec``."""
+    kk, K = spec.ksize ** 2, spec.kernels
+    kp = _ceil(K, 8) * 8
+    nt, no, qx = kp // 8, _ceil(spec.out_total, 8), _ceil(spec.cin, 8)
+    ch_pre = _ceil(nt, 2)
+    wb, bb = ch_pre * nt * FRAG, kp  # the pre 1x1 opens each block
+    tiles = []
+    for i, (w_, g, dil) in enumerate(zip(spec.widths, spec.groups, spec.dilations)):
+        # every tile of a branch takes the widest window's slices per tap, its
+        # window moved left where it would pass the row's end
+        windows = [(c0 // g * g // 8 * 8, (min(c0 + 8, w_) - 1) // g * g + g)
+                   for c0 in range(0, w_, 8)]
+        q = max(_ceil(hi - lo8, 8) for lo8, hi in windows)
+        chunks = _ceil(kk * q, 2)
+        for c0, (lo8, _) in zip(range(0, w_, 8), windows):
+            tiles.append(BranchTile(i, c0, dil, min(lo8, kp - 8 * q), q, chunks, wb, bb))
+            wb, bb = wb + chunks * FRAG, bb + 8
+    ch_post = _ceil(len(tiles), 2)
+    w_post, b_post = wb, bb
+    wb, bb = wb + ch_post * nt * FRAG, bb + kp
+    ch_entry, ch_head = _ceil(kk * qx, 2), _ceil(kk * nt, 2)
+    w_entry = ch_entry * nt * FRAG
+    w_head = w_entry + spec.res_blocks * wb
+    b_head = kp + spec.res_blocks * bb
+    xs, ts = _bank_stride(8 * qx), _bank_stride(kp)
+    n_mt = _ceil(spec.h * spec.w, 16)
+    w_total = w_head + ch_head * no * FRAG
+    return MmaLayout(
+        kp=kp, nt=nt, no=no, xs=xs, ts=ts, qx=qx, n_mt=n_mt, ch_entry=ch_entry,
+        ch_pre=ch_pre, ch_post=ch_post, ch_head=ch_head, tiles=tuple(tiles),
+        w_block0=w_entry, w_block=wb, w_post=w_post, w_head=w_head, b_block0=kp,
+        b_block=bb, b_post=b_post, b_head=b_head,
+        w_total=w_total, b_total=b_head + 8 * no, trunk_per_sample=n_mt * 16 * kp,
+        act_bytes=_ceil((spec.h * spec.w + 1) * max(xs, ts) * 2, 16) * 16,
+        w_stage=max(w_entry, wb, w_total - w_head))
+
+
+#: the scalars of :func:`layout_table`, in the order the C entry reads them
+#: (``read_mma_layout`` in ``csrc/fused_subnet.cu``)
+TABLE_FIELDS = ("kp", "nt", "no", "xs", "ts", "qx", "n_mt", "ch_entry", "ch_pre", "ch_post",
+                "ch_head", "n_tiles", "w_block0", "w_block", "w_post", "w_head", "w_total",
+                "b_block0", "b_block", "b_post", "b_head", "b_total", "trunk_per_sample",
+                "act_bytes", "w_stage")
+TILE_FIELDS = ("lo8", "q", "chunks", "w_off", "b_off")
+
+
+@functools.lru_cache(maxsize=None)
+def layout_table(spec: SubnetSpec):
+    """:func:`mma_layout` as the int32 array the C entry reads: the
+    :data:`TABLE_FIELDS`, then each of :data:`MAX_BRANCHES` branches' first
+    tile and tile count (0, 0 past the last branch), then the
+    :data:`TILE_FIELDS` of each tile."""
+    L = mma_layout(spec)
+    branches = [0, 0] * MAX_BRANCHES
+    for t_i, t in enumerate(L.tiles):
+        if branches[2 * t.branch + 1] == 0:
+            branches[2 * t.branch] = t_i
+        branches[2 * t.branch + 1] += 1
+    values = [getattr(L, f) for f in TABLE_FIELDS] + branches \
+        + [getattr(t, f) for t in L.tiles for f in TILE_FIELDS]
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _flat_offsets(spec: SubnetSpec):
+    """Offset of each flax param in the flat kernels (or biases), by name."""
+    offs, at = {}, {True: 0, False: 0}
+    for name, shape in flax_param_order(spec):
+        is_kernel = name.endswith("kernel")
+        offs[name] = at[is_kernel]
+        at[is_kernel] += math.prod(shape)
+    return offs
+
+
+def _fragments(src):
+    """A stage's B matrix of source indices (16 * chunks, 8 * tiles) in
+    fragment order: [chunk][n8 tile][lane][4], lane = 4 * n + k // 2 % 4,
+    holding rows 2t, 2t+1, 2t+8, 2t+9 of its column (t = lane % 4)."""
+    c, j, lane, e = np.meshgrid(np.arange(src.shape[0] // 16), np.arange(src.shape[1] // 8),
+                                np.arange(32), np.arange(4), indexing="ij")
+    rows = 16 * c + 2 * (lane % 4) + (e & 1) + 8 * (e >> 1)
+    return src[rows, 8 * j + lane // 4].reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_index(spec: SubnetSpec):
+    """For the bf16 packing: ``(w_src, b_src, w_inv, b_inv)`` — for each
+    packed element the index of the flat flax value it holds, -1 for
+    padding; and for each flat value its position in the packing."""
+    L, offs = mma_layout(spec), _flat_offsets(spec)
+    k2, K, cin, out = spec.ksize ** 2, spec.kernels, spec.cin, spec.out_total
+    w_src = np.full(L.w_total, -1, np.int64)
+    b_src = np.full(L.b_total, -1, np.int64)
+
+    def stage(rows, cols):
+        return np.full((rows, cols), -1, np.int64)
+
+    def slices(n_chunks, q):
+        """(tap, channel) of each K row of a k x k conv stage, tap k2 past
+        the last."""
+        r = np.arange(16 * n_chunks)
+        return r // 8 // q, 8 * (r // 8 % q) + r % 8
+
+    def dense(b, tap, ch, n_ch, n_out, off):
+        """rows of b whose (tap, ch) is real take the HWIO kernel at off"""
+        ok = (tap < k2) & (ch < n_ch)
+        b[ok, :n_out] = off + ((tap[ok] * n_ch + ch[ok]) * n_out)[:, None] + np.arange(n_out)
+        return b
+
+    tap, ch = slices(L.ch_entry, L.qx)
+    w_src[:L.w_block0] = _fragments(dense(stage(16 * L.ch_entry, 8 * L.nt), tap, ch, cin, K,
+                                          offs["Conv_0/kernel"]))
+    b_src[:K] = offs["Conv_0/bias"] + np.arange(K)
+    nd = len(spec.dilations)
+    for r in range(spec.res_blocks):
+        blk = f"DilatedResidualBlock_{r}"
+        w0, b0 = L.w_block0 + r * L.w_block, L.b_block0 + r * L.b_block
+        pre = stage(16 * L.ch_pre, 8 * L.nt)
+        pre[:K, :K] = offs[f"{blk}/Conv_0/kernel"] + np.arange(K * K).reshape(K, K)
+        w_src[w0: w0 + pre.size] = _fragments(pre)
+        b_src[b0: b0 + K] = offs[f"{blk}/Conv_0/bias"] + np.arange(K)
+        post = stage(16 * L.ch_post, 8 * L.nt)
+        rows_before = np.cumsum((0,) + spec.widths)
+        for i, t in enumerate(L.tiles):
+            w_, g = spec.widths[t.branch], spec.groups[t.branch]
+            kern = offs[f"{blk}/Conv_{1 + t.branch}/kernel"]
+            tap, ch = slices(t.chunks, t.q)
+            ch = ch + t.lo8
+            col = t.c0 + np.arange(8)
+            start = col // g * g
+            ok = (tap[:, None] < k2) & (col < w_) & (ch[:, None] >= start) \
+                & (ch[:, None] < start + g)
+            src = kern + ((tap[:, None] * g + ch[:, None] - start) * w_ + col)
+            w_src[w0 + t.w_off: w0 + t.w_off + t.chunks * FRAG] = \
+                _fragments(np.where(ok, src, -1))
+            real = col < w_
+            b_src[b0 + t.b_off: b0 + t.b_off + 8][real] = \
+                offs[f"{blk}/Conv_{1 + t.branch}/bias"] + col[real]
+            post[8 * i: 8 * i + 8][real, :K] = offs[f"{blk}/Conv_{1 + nd}/kernel"] \
+                + (rows_before[t.branch] + col[real])[:, None] * K + np.arange(K)
+        w_src[w0 + L.w_post: w0 + L.w_post + post.size] = _fragments(post)
+        b_src[b0 + L.b_post: b0 + L.b_post + K] = offs[f"{blk}/Conv_{1 + nd}/bias"] + np.arange(K)
+    tap, ch = slices(L.ch_head, L.nt)
+    w_src[L.w_head:] = _fragments(dense(stage(16 * L.ch_head, 8 * L.no), tap, ch, K, out,
+                                        offs["Conv_1/kernel"]))
+    b_src[L.b_head: L.b_head + out] = offs["Conv_1/bias"] + np.arange(out)
+
+    n_w, n_b = _flax_sizes(spec)
+    invs = []
+    for src, n in ((w_src, n_w), (b_src, n_b)):
+        real = np.flatnonzero(src >= 0)
+        # every flax value lies in exactly one place of the packing
+        assert len(real) == n and np.array_equal(np.sort(src[real]), np.arange(n))
+        inv = np.empty(n, np.int64)
+        inv[src[real]] = real
+        invs.append(inv)
+    return (torch.from_numpy(w_src), torch.from_numpy(b_src),
+            torch.from_numpy(invs[0]), torch.from_numpy(invs[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_index_on(spec: SubnetSpec, device: torch.device):
+    """:func:`_mma_index` on ``device``, copied there once (so that a CUDA
+    graph may capture :func:`unpack`)."""
+    return tuple(t.to(device) for t in _mma_index(spec))
+
+
+def _flax_sizes(spec: SubnetSpec) -> Tuple[int, int]:
+    sizes = {True: 0, False: 0}
+    for name, shape in flax_param_order(spec):
+        sizes[name.endswith("kernel")] += math.prod(shape)
+    return sizes[True], sizes[False]
+
+
 def pack(spec: SubnetSpec, flat):
     """``(weights, biases)``: the tensors of ``flat`` (flax shapes, in
     :func:`flax_param_order`'s order) packed for the kernel — every kernel
-    flattened into one ``compute_dtype`` buffer, every bias into one float32
-    buffer. Differentiable."""
+    into one ``compute_dtype`` buffer, every bias into one float32 buffer;
+    flat in flax's HWIO in float32, in B-fragment order (:func:`mma_layout`)
+    in bf16. Differentiable."""
     order = flax_param_order(spec)
     if len(flat) != len(order):
         raise ValueError(f"expected {len(order)} tensors, got {len(flat)}")
@@ -135,13 +390,21 @@ def pack(spec: SubnetSpec, flat):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         (kernels if name.endswith("kernel") else biases).append(t.reshape(-1))
     dt = getattr(torch, spec.compute_dtype)
-    return torch.cat(kernels).to(dt), torch.cat(biases).float()
+    kernels, biases = torch.cat(kernels), torch.cat(biases)
+    if spec.compute_dtype == "bfloat16":
+        w_src, b_src, _, _ = _mma_index_on(spec, kernels.device)
+        kernels = torch.where(w_src >= 0, kernels[w_src.clamp(min=0)], 0)
+        biases = torch.where(b_src >= 0, biases[b_src.clamp(min=0)], 0)
+    return kernels.to(dt), biases.float()
 
 
 def unpack(spec: SubnetSpec, packed):
-    """Inverse of :func:`pack`: views of the packed buffers with the flax
-    shapes, in :func:`flax_param_order`'s order."""
+    """Inverse of :func:`pack`: the weights with the flax shapes, in
+    :func:`flax_param_order`'s order (views of the buffers in float32)."""
     weights, biases = packed
+    if spec.compute_dtype == "bfloat16":
+        _, _, w_inv, b_inv = _mma_index_on(spec, weights.device)
+        weights, biases = weights[w_inv], biases[b_inv]
     out, offsets = [], {True: 0, False: 0}
     for name, shape in flax_param_order(spec):
         is_kernel = name.endswith("kernel")
@@ -153,10 +416,17 @@ def unpack(spec: SubnetSpec, packed):
 
 def packed_sizes(spec: SubnetSpec) -> Tuple[int, int]:
     """Elements of :func:`pack`'s two buffers: (kernels, biases)."""
-    sizes = {True: 0, False: 0}
-    for name, shape in flax_param_order(spec):
-        sizes[name.endswith("kernel")] += math.prod(shape)
-    return sizes[True], sizes[False]
+    if spec.compute_dtype == "bfloat16":
+        L = mma_layout(spec)
+        return L.w_total, L.b_total
+    return _flax_sizes(spec)
+
+
+def trunk_elements(spec: SubnetSpec, batch: int) -> int:
+    """float32 elements of the kernel's trunk scratch."""
+    if spec.compute_dtype == "bfloat16":
+        return batch * mma_layout(spec).trunk_per_sample
+    return batch * spec.h * spec.w * spec.kernels
 
 
 def flops(spec: SubnetSpec, batch: int) -> int:
@@ -169,10 +439,20 @@ def flops(spec: SubnetSpec, batch: int) -> int:
     return 2 * batch * spec.h * spec.w * per_pixel
 
 
+def mma_flops(spec: SubnetSpec, batch: int) -> int:
+    """Operations the bf16 kernel issues on the tensor cores in one call:
+    :func:`flops` plus the zeros of its padded and block-diagonal tiles."""
+    L = mma_layout(spec)
+    block = L.ch_pre * L.nt + sum(t.chunks for t in L.tiles) + L.ch_post * L.nt
+    mmas = L.ch_entry * L.nt + spec.res_blocks * block + L.ch_head * L.no
+    return 2 * 16 * 8 * 16 * mmas * L.n_mt * batch
+
+
 def io_bytes(spec: SubnetSpec, batch: int) -> int:
-    """Bytes one call must move: x, the packed weights and biases read once,
-    the head written once."""
-    n_w, n_b = packed_sizes(spec)
+    """Bytes one call must move: x, the weights and biases read once, the
+    head written once. The weights are counted as the function needs them
+    (grouped, flax's sizes), not with the bf16 packing's padding."""
+    n_w, n_b = _flax_sizes(spec)
     item = getattr(torch, spec.compute_dtype).itemsize
     pixels = batch * spec.h * spec.w
     return 4 * pixels * (spec.cin + spec.out_total) + item * n_w + 4 * n_b
@@ -230,32 +510,70 @@ def subnet_apply_reference(spec: SubnetSpec, x, packed):
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _library():
-    lib = build.load_libraries("fused_subnet")["fused_subnet"]
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_subnet_forward.argtypes = [p] * 5 + [i] * 15 + [p]
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/fused_subnet.cu``) with its entry point's
+    argument types set."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_subnet_forward.argtypes = [p] * 5 + [i] * 15 + [ll] * 3 \
+        + [ctypes.POINTER(ctypes.c_int), i, p]
     lib.fused_subnet_forward.restype = i
     return lib
 
 
+@functools.cache
+def _library():
+    return bind_library(build.load_libraries("fused_subnet")["fused_subnet"])
+
+
+def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out) -> None:
+    """One launch of ``lib``'s kernel into ``out`` with the scratch
+    ``trunk``, on the current stream: :func:`subnet_apply`'s launch without
+    its checks or its count (for tools that time altered builds); raises on
+    a CUDA error."""
+    weights, biases = packed
+    dil = list(spec.dilations) + [1] * (MAX_BRANCHES - len(spec.dilations))
+    table = layout_table(spec) if spec.compute_dtype == "bfloat16" else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_subnet_forward(
+            x.data_ptr(), weights.data_ptr(), biases.data_ptr(), trunk.data_ptr(),
+            out.data_ptr(), x.shape[0], spec.h, spec.w, spec.cin, spec.kernels,
+            spec.res_blocks, spec.cardinality, spec.ksize, len(spec.dilations), *dil,
+            spec.out_total, _DTYPE_CODE[spec.compute_dtype], weights.numel(), biases.numel(),
+            trunk.numel(), table, len(table) if table is not None else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_subnet kernel launch failed with CUDA error {err}")
+
+
 def shared_bytes(spec: SubnetSpec) -> int:
-    """Dynamic shared memory of one block: the stage input in the compute
-    dtype (16-byte aligned), then a tile of float32 rows."""
-    item = getattr(torch, spec.compute_dtype).itemsize
-    act = spec.h * spec.w * max(spec.cin, spec.kernels) * item
+    """Dynamic shared memory of one block. float32: the stage input
+    (16-byte aligned), then a tile of rows. bf16: the stage input, rows
+    padded, and a row of zeros, then the running stage's weights
+    (:func:`mma_layout`)."""
+    if spec.compute_dtype == "bfloat16":
+        L = mma_layout(spec)
+        return L.act_bytes + 2 * L.w_stage
+    act = spec.h * spec.w * max(spec.cin, spec.kernels) * 4
     return (act + 15) // 16 * 16 + TILE * max(sum(spec.widths), spec.kernels) * 4
 
 
 def check_launch(spec: SubnetSpec, batch: int) -> None:
     """Raise ``ValueError``, before any launch, on what the kernel cannot be
     launched with: too many threads or branches, too much shared memory,
-    sizes past int32."""
+    a trunk or head wider than the bf16 kernel's tiles, sizes past int32."""
     if THREADS > MAX_THREADS:
         raise ValueError(f"{THREADS} threads a block > {MAX_THREADS}")
     if len(spec.dilations) > MAX_BRANCHES:
         raise ValueError(f"{len(spec.dilations)} dilations: the kernel takes at most "
                          f"{MAX_BRANCHES}")
+    if spec.compute_dtype == "bfloat16":
+        L = mma_layout(spec)
+        if L.nt > MAX_TRUNK_TILES or L.no > MAX_HEAD_TILES:
+            raise ValueError(f"kernels {spec.kernels}, out_total {spec.out_total}: the bf16 "
+                             f"kernel takes at most {8 * MAX_TRUNK_TILES} and "
+                             f"{8 * MAX_HEAD_TILES}")
+        if max(layout_table(spec)) > MAX_TABLE_VALUE:
+            raise ValueError(f"sizes past the bf16 layout's ints: {spec}")
     if shared_bytes(spec) > MAX_SHARED_BYTES:
         raise ValueError(f"shared memory {shared_bytes(spec)} bytes > {MAX_SHARED_BYTES} "
                          f"for {spec}")
@@ -284,6 +602,8 @@ def _check_cuda(spec: SubnetSpec, x, weights, biases) -> None:
                          f"{tuple(biases.shape)} != ({n_w},), ({n_b},)")
     if not (x.is_contiguous() and weights.is_contiguous() and biases.is_contiguous()):
         raise ValueError("fused_subnet: inputs must be contiguous")
+    if weights.data_ptr() % 16 or biases.data_ptr() % 16:
+        raise ValueError("fused_subnet: the packed buffers must be 16-byte aligned")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weights, biases)):
         raise NotImplementedError(
             "fused_subnet: the CUDA kernel has no backward yet (ROADMAP B.5); "
@@ -299,20 +619,9 @@ def subnet_apply(spec: SubnetSpec, x, packed):
         return subnet_apply_reference(spec, x, packed)
     _check_cuda(spec, x, weights, biases)
     B = x.shape[0]
-    trunk = torch.empty(B * spec.h * spec.w * spec.kernels, dtype=torch.float32,
-                        device=x.device)
+    trunk = torch.empty(trunk_elements(spec, B), dtype=torch.float32, device=x.device)
     out = torch.empty(B, spec.h, spec.w, spec.out_total, dtype=torch.float32,
                       device=x.device)
-    dil = list(spec.dilations) + [1] * (MAX_BRANCHES - len(spec.dilations))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_subnet_forward(
-            x.data_ptr(), weights.data_ptr(), biases.data_ptr(), trunk.data_ptr(),
-            out.data_ptr(), B, spec.h, spec.w, spec.cin, spec.kernels, spec.res_blocks,
-            spec.cardinality, spec.ksize, len(spec.dilations), *dil, spec.out_total,
-            _DTYPE_CODE[spec.compute_dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"fused_subnet kernel launch failed with CUDA error {err}")
+    launch_library(_library(), spec, x, packed, trunk, out)
     LAUNCHES["fused_subnet"] += 1
     return out

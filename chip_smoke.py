@@ -95,6 +95,10 @@ CHAIN_REPLACES = "arl_conditional_normalizing_flows_tpu/ops/pallas/fused_subnet.
 #: K3's first launch: a small odd size, an even kernel (asymmetric padding)
 CHAIN_SMALL = dict(h=6, w=6, cin=2, kernels=8, res_blocks=2, cardinality=2, ksize=4,
                    dilations=(1, 2), out_total=4)
+#: then 15 pixels (no full 16-pixel tile of the bf16 kernel), cin 3, groups
+#: of 4, 2 and 1 channels
+CHAIN_TILES = dict(h=5, w=3, cin=3, kernels=32, res_blocks=2, cardinality=8, ksize=3,
+                   dilations=(1, 2, 4), out_total=4)
 # K3 against its plain version. float32: sums in another order. bf16: a
 # float32 sum in another order can land on the other side of a bf16 rounding
 # of an intermediate, which moves outputs of size ~1 by about a bf16 ulp
@@ -105,6 +109,14 @@ CHAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # float32 row sums in another order
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LD_TOL = 1e-4
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0]
 
 
 def check(ok, what):
@@ -262,23 +274,53 @@ def compare_chain(spec, batch, seed):
 def check_chain_small(phases):
     """K3's first launches, at a small odd size in both dtypes: a fault
     shows here, before any flagship-size launch."""
-    for dtype in ("bfloat16", "float32"):
-        compare_chain(chain.SubnetSpec(**CHAIN_SMALL, compute_dtype=dtype), 3, seed=1)
-    phases.done("K3 first launches at a small size")
+    for small in (CHAIN_SMALL, CHAIN_TILES):
+        for dtype in ("bfloat16", "float32"):
+            compare_chain(chain.SubnetSpec(**small, compute_dtype=dtype), 3, seed=1)
+    phases.done("K3 first launches at small sizes")
+
+
+def sass_summary():
+    """Per kernel of the built K3 library: its tensor-core instructions
+    (HMMA, HGMMA) in ``cuobjdump -sass`` and its registers and spills from
+    ``cuobjdump -res-usage``."""
+    cuobjdump = build.nvcc_path().removesuffix("nvcc") + "cuobjdump"
+    lib = str(build.library_path("fused_subnet"))
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    usage = subprocess.run([cuobjdump, "-res-usage", lib], capture_output=True, text=True,
+                           timeout=120, check=True).stdout
+    out, name = {}, None
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        lines = part.splitlines()
+        out[name] = dict(hmma=sum("HMMA" in ln for ln in lines),
+                         hgmma=sum("HGMMA" in ln for ln in lines),
+                         ffma=sum("FFMA" in ln for ln in lines))
+    for line in usage.splitlines():
+        if "Function" in line and ":" in line:
+            name = line.split("Function", 1)[1].split(":", 1)[0].strip()
+        elif "REG:" in line and name in out:
+            out[name]["resources"] = line.strip()
+    for name, info in out.items():
+        print(f"[sass] {name}: {json.dumps(info)}", flush=True)
+    return out
 
 
 def chain_specs(model):
-    """The specs of the conv chains a model runs, in order of first use."""
-    specs = []
+    """{spec: its launches a pass} of the conv chains a model runs, in order
+    of first use: each ``FusedChainCouplingNet`` launches K3 once a pass."""
+    counts = {}
     for module in model.modules():
-        if isinstance(module, FusedChainCouplingNet) and module.spec not in specs:
-            specs.append(module.spec)
-    return specs
+        if isinstance(module, FusedChainCouplingNet):
+            counts[module.spec] = counts.get(module.spec, 0) + 1
+    return counts
 
 
 def check_chain_kernel(specs, phases):
     """K3 against its plain version at each spec of the flagship, batch 128,
-    in bf16 and float32; times at bf16 (the main path's dtype)."""
+    in bf16 and float32; times at bf16 (the main path's dtype). ``specs``:
+    :func:`chain_specs`."""
     results = []
     for i, spec in enumerate(specs):
         for dtype in ("bfloat16", "float32"):
@@ -294,20 +336,32 @@ def check_chain_kernel(specs, phases):
                 eager_ms = device_time_ms(lambda: eager(x), iters=20)
             flops, nbytes = chain.flops(s, BATCH), chain.io_bytes(s, BATCH)
             ops_s, bytes_s = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+            bound_ms = max(ops_s, bytes_s) * 1e3
+            # grouped work over the time, and the work the tensor cores are
+            # given (with the zeros of padded and block-diagonal tiles)
+            tflops, issued = flops / ms / 1e9, chain.mma_flops(s, BATCH)
             results.append(dict(
                 shape=[BATCH, s.h, s.w, s.cin], kernels=s.kernels, dilations=list(s.dilations),
+                launches_per_pass=specs[spec],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, eager_chain_ms=eager_ms,
-                bound_ms=max(ops_s, bytes_s) * 1e3,
-                bound_by="operations" if ops_s >= bytes_s else "bytes",
-                gflop=flops / 1e9, io_mb=nbytes / 1e6))
+                bound_ms=bound_ms, bound_by="operations" if ops_s >= bytes_s else "bytes",
+                gflop=flops / 1e9, mma_gflop=issued / 1e9, io_mb=nbytes / 1e6,
+                achieved_tflops=tflops, bound_share=bound_ms / ms))
             print(f"[kernel] fused_subnet {BATCH}x{s.h}x{s.w}x{s.cin} bf16: {ms * 1e3:.1f} us "
-                  f"on the card (bound {max(ops_s, bytes_s) * 1e6:.2f} us for "
+                  f"on the card (bound {bound_ms * 1e3:.2f} us for "
                   f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s and {nbytes / 1e6:.2f} MB at "
-                  f"3.35 TB/s), plain version {plain_ms * 1e3:.1f} us, eager "
-                  f"ConvCouplingNet chain {eager_ms * 1e3:.1f} us (many calls: a "
-                  "yardstick, not a library call)", flush=True)
+                  f"3.35 TB/s; {tflops:.1f} TFLOP/s achieved, {bound_ms / ms:.3f} of the "
+                  f"bound; {issued / 1e9:.2f} GFLOP issued to the tensor cores), plain "
+                  f"version {plain_ms * 1e3:.1f} us, eager ConvCouplingNet chain "
+                  f"{eager_ms * 1e3:.1f} us (many calls: a yardstick, not a library call)",
+                  flush=True)
+    per_pass = {k: sum(r["launches_per_pass"] * r[k] for r in results)
+                for k in ("ms", "eager_chain_ms")}
+    print(f"[kernel] fused_subnet a pass's {sum(specs.values())} launches: "
+          f"{per_pass['ms'] * 1e3:.1f} us, the eager chains at the same specs "
+          f"{per_pass['eager_chain_ms'] * 1e3:.1f} us", flush=True)
     phases.done("K3 against its plain version at the flagship's specs")
-    return results
+    return results, per_pass
 
 
 def class_planes(request):
@@ -516,10 +570,7 @@ def main() -> int:
     phases = Phases()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(f"[device] {kind} x{count}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     # every float32 reference in full float32: cuDNN convs default to TF32
@@ -533,13 +584,17 @@ def main() -> int:
     build.load_libraries(*names)
     phases.done("build", seconds=f"{time.perf_counter() - t:.2f}",
                 nvcc=build.nvcc_path(), cached=json.dumps(cached))
+    sass = sass_summary()
+    check(any(v["hmma"] + v["hgmma"] > 0 for k, v in sass.items() if "mma_kernel" in k),
+          "the bf16 conv-chain kernel runs its products on the tensor cores")
+    phases.done("SASS of the conv-chain kernels")
 
     results = check_kernels(phases)
     check_chain_small(phases)
     subnet_model = ConvCFlow(FLAGSHIP_SUBNET, seed=0)  # no device: the card
     phases.done("flagship built", arch=arch_string(FLAGSHIP),
                 params=sum(p.numel() for p in subnet_model.parameters()))
-    chain_results = check_chain_kernel(chain_specs(subnet_model), phases)
+    chain_results, chain_pass = check_chain_kernel(chain_specs(subnet_model), phases)
 
     launches = run_main_path(ConvCFlow(FLAGSHIP, seed=0), FLAGSHIP, phases)
     chain_launches = run_main_path(subnet_model, FLAGSHIP_SUBNET, phases)
@@ -566,7 +621,9 @@ def main() -> int:
         ms=largest["ms"], plain_ms=largest["plain_ms"], bound_ms=largest["bound_ms"],
         bound_by=largest["bound_by"], library_ms=None,
         shape=largest["shape"], dtype="bfloat16", eager_chain_ms=largest["eager_chain_ms"],
+        achieved_tflops=largest["achieved_tflops"], bound_share=largest["bound_share"],
         max_abs_err_f32=max(r["max_abs_err_f32"] for r in chain_results),
+        pass_ms=chain_pass["ms"], eager_pass_ms=chain_pass["eager_chain_ms"],
         specs=chain_results,
     ))
     print(json.dumps({"kernels": entries}), flush=True)

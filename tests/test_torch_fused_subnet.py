@@ -4,6 +4,7 @@ Pallas kernel in interpret mode and against ``subnet_apply_ref``, the weight
 order and packing, and ``FusedChainCouplingNet`` against ``ConvCouplingNet``.
 The kernel itself needs a card (``tests/test_torch_kernels_gpu.py``)."""
 
+import math
 import re
 from pathlib import Path
 
@@ -183,12 +184,32 @@ def test_launch_guards_raise_before_launching():
 
 
 def test_launch_limits_mirror_the_cuda_source():
-    src = (Path(tfs.__file__).resolve().parents[2] / "csrc" / "fused_subnet.cu").read_text()
+    src = _cuda_source()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kThreads"]) == tfs.THREADS
     assert int(consts["kTile"]) == tfs.TILE
     assert int(consts["kMaxBranches"]) == tfs.MAX_BRANCHES
     assert int(consts["kMaxShared"]) == tfs.MAX_SHARED_BYTES
+    assert int(consts["kMaxTrunkTiles"]) == tfs.MAX_TRUNK_TILES
+    assert int(consts["kMaxHeadTiles"]) == tfs.MAX_HEAD_TILES
+    assert int(consts["kFrag"]) == tfs.FRAG
+    assert int(consts["kMaxTableValue"]) == tfs.MAX_TABLE_VALUE
+    # the bf16 kernel's B fragment: m16n8k16, 32 lanes x 4 values
+    assert tfs.FRAG == 16 * 8 and "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+
+
+def _cuda_source():
+    return (Path(tfs.__file__).resolve().parents[2] / "csrc" / "fused_subnet.cu").read_text()
+
+
+def test_layout_table_order_mirrors_the_cuda_source():
+    """The C entry reads the bf16 layout's table in the order
+    ``layout_table`` writes it: its scalars, then five ints a branch tile."""
+    src = _cuda_source()
+    head = re.search(r"int\* head\[\] = \{(.*?)\};", src, re.S).group(1)
+    assert tuple(f.lower() for f in re.findall(r"&L\.(\w+)", head)) == tfs.TABLE_FIELDS
+    tile = re.search(r"struct BranchTile \{\s*int ([\w, ]+);", src).group(1)
+    assert tuple(f.strip() for f in tile.split(",")) == tfs.TILE_FIELDS
 
 
 def test_flops_count_grouped_work():
@@ -199,6 +220,205 @@ def test_flops_count_grouped_work():
     total = sum(4 * tfs.flops(tfs.SubnetSpec(h, w, c, K, 3, card, 3, d, o), 128)
                 for h, w, c, K, card, d, o in specs)
     assert abs(total / 1e9 - 50.4) < 0.05
+    # bytes: x and the head, the weights and biases as the function needs
+    # them (grouped), not the bf16 packing with its padding
     spec = tfs.SubnetSpec(**BASE)
-    assert tfs.io_bytes(spec, 4) == 4 * 4 * 64 * (2 + 4) + 2 * tfs.packed_sizes(spec)[0] \
-        + 4 * tfs.packed_sizes(spec)[1]
+    n_w, n_b = (sum(math.prod(shape) for name, shape in tfs.flax_param_order(spec)
+                    if name.endswith(kind)) for kind in ("kernel", "bias"))
+    assert tfs.io_bytes(spec, 4) == 4 * 4 * 64 * (2 + 4) + 2 * n_w + 4 * n_b
+    assert tfs.packed_sizes(spec)[0] > n_w
+
+
+# the bf16 kernel's tiling at the flagship's four specs and at sizes that
+# fill no 16-pixel tile, with group widths 1, 2 and 3, trunk widths that are
+# no multiple of 16 or 8, cin 1 and 3, out_total 2, 4 and 9
+LAYOUT_SPECS = {
+    **SPECS,
+    "flagship_14x14x4": dict(h=14, w=14, cin=4, kernels=32, res_blocks=3, cardinality=8,
+                             ksize=3, dilations=(1, 2, 4), out_total=8),
+    "flagship_28x28x1": dict(h=28, w=28, cin=1, kernels=64, res_blocks=3, cardinality=8,
+                             ksize=3, dilations=(1, 2, 4), out_total=2),
+    "flagship_7x7x8": dict(h=7, w=7, cin=8, kernels=16, res_blocks=3, cardinality=4,
+                           ksize=3, dilations=(1, 2), out_total=16),
+    "flagship_14x14x2": dict(h=14, w=14, cin=2, kernels=32, res_blocks=3, cardinality=4,
+                             ksize=3, dilations=(1, 2), out_total=4),
+    "tiles_5x3x3": dict(h=5, w=3, cin=3, kernels=32, res_blocks=1, cardinality=8, ksize=3,
+                        dilations=(1, 2, 4), out_total=4),
+    "groups3_k12": dict(h=4, w=5, cin=1, kernels=12, res_blocks=1, cardinality=2, ksize=3,
+                        dilations=(1, 2), out_total=9),
+    # windows of 1-3 slices in one branch: the last tile's moves left
+    "groups3_k24": dict(h=3, w=4, cin=1, kernels=24, res_blocks=1, cardinality=8, ksize=3,
+                        dilations=(1,), out_total=2),
+}
+SMALL_LAYOUT_SPECS = [n for n in LAYOUT_SPECS if not n.startswith("flagship")]
+
+
+def _bf16_spec(name):
+    return tfs.SubnetSpec(**LAYOUT_SPECS[name], compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
+def test_bf16_unpack_of_pack_gives_the_weights(name):
+    """The fragment layout holds every flax value once: unpack gives back
+    the flax-shaped weights (rounded to bf16) and the biases."""
+    spec = _bf16_spec(name)
+    flat = [torch.from_numpy(w) for w in weights(spec)]
+    packed = tfs.pack(spec, flat)
+    assert tuple(t.numel() for t in packed) == tfs.packed_sizes(spec)
+    assert packed[0].dtype == torch.bfloat16 and packed[1].dtype == torch.float32
+    n_values = sum(w.numel() for w in flat)
+    assert int((packed[0] != 0).sum() + (packed[1] != 0).sum()) == n_values  # the rest is padding
+    for (pname, shape), w, back in zip(tfs.flax_param_order(spec), flat,
+                                       tfs.unpack(spec, packed)):
+        assert tuple(back.shape) == shape, pname
+        expect = w.to(torch.bfloat16) if pname.endswith("kernel") else w
+        assert torch.equal(back, expect), pname
+
+
+def _dense_b(buf, off, chunks, tiles):
+    """A stage's (16 * chunks, 8 * tiles) B matrix from its m16n8k16 B
+    fragments: lane l of fragment (c, j) holds B[16c + 2t + e % 2 + 8 (e // 2),
+    8j + l // 4] as value e, t = l % 4."""
+    frags = buf[off: off + chunks * tiles * tfs.FRAG].reshape(chunks, tiles, 32, 4)
+    b = np.zeros((16 * chunks, 8 * tiles), np.float32)
+    c, j, lane, e = np.meshgrid(np.arange(chunks), np.arange(tiles), np.arange(32),
+                                np.arange(4), indexing="ij")
+    b[16 * c + 2 * (lane % 4) + e % 2 + 8 * (e // 2), 8 * j + lane // 4] = frags
+    return b
+
+
+def test_bf16_packing_is_in_fragment_order():
+    """The pre 1x1 of the flagship's largest spec, read back through the
+    m16n8k16 fragment layout, is the flax (K, K) kernel; a branch tile is
+    the grouped kernel expanded block-diagonally inside its n8 tile."""
+    spec = _bf16_spec("flagship_28x28x1")
+    L = tfs.mma_layout(spec)
+    flat = weights(spec)
+    buf = tfs.pack(spec, [torch.from_numpy(w) for w in flat])[0].float().numpy()
+    pre = _dense_b(buf, L.w_block0, L.ch_pre, L.nt)
+    np.testing.assert_array_equal(pre, _bf16(flat[2][0, 0]))
+    # the third tile of the dilation-1 branch: columns 16..23, groups of 8
+    t = L.tiles[2]
+    assert (t.branch, t.c0, t.lo8, t.q, t.chunks) == (0, 16, 16, 1, 5)
+    b = _dense_b(buf, L.w_block0 + t.w_off, t.chunks, 1)
+    kern = _bf16(flat[4])  # (3, 3, 8, 64)
+    for tap in range(9):
+        np.testing.assert_array_equal(b[8 * tap: 8 * tap + 8], kern[tap // 3, tap % 3, :, 16:24])
+    assert not b[72:].any()  # the last chunk's second slice is past the last tap
+    # the dilation-4 branch (16 wide, groups of 2): block-diagonal in its tile
+    t = L.tiles[12]
+    assert (t.branch, t.c0, t.lo8, t.q) == (2, 0, 0, 1)
+    b = _dense_b(buf, L.w_block0 + t.w_off, t.chunks, 1)
+    kern = _bf16(flat[8])  # (3, 3, 2, 16)
+    for col in range(8):
+        g0 = col // 2 * 2
+        rows = b[:72, col].reshape(9, 8)
+        np.testing.assert_array_equal(rows[:, g0: g0 + 2], kern[:, :, :, col].reshape(9, 2))
+        assert not np.delete(rows, [g0, g0 + 1], axis=1).any()
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _im2col(t, q, lo8, dil, k, chunks):
+    """(B, h, w, 16 * chunks): the bf16 kernel's A operand of a SAME k x k
+    conv over t — slice s is tap s // q, channels lo8 + 8 (s % q) + [0, 8)."""
+    n, h, w, c = t.shape
+    total = dil * (k - 1)
+    lo = total // 2
+    tp = np.pad(t, ((0, 0), (lo, total - lo), (lo, total - lo), (0, max(0, 8 * q + lo8 - c))))
+    cols = []
+    for s in range(2 * chunks):
+        tap, c8 = divmod(s, q)
+        if tap >= k * k:
+            cols.append(np.zeros((n, h, w, 8), np.float32))
+            continue
+        ty, tx = divmod(tap, k)
+        ch = lo8 + 8 * c8
+        cols.append(tp[:, ty * dil: ty * dil + h, tx * dil: tx * dil + w, ch: ch + 8])
+    return np.concatenate(cols, axis=-1)
+
+
+def _mma_chain(spec, x, packed):
+    """The chain computed from the bf16 packing the way the kernel does: each
+    stage an implicit GEMM of im2col slices by the B fragments, operands
+    rounded to bf16 where the kernel rounds them."""
+    L, k = tfs.mma_layout(spec), spec.ksize
+    buf, bias = packed[0].float().numpy(), packed[1].numpy()
+    lrelu = lambda v: np.where(v > 0, v, np.float32(0.3) * v)  # noqa: E731
+
+    def pad_to(a, c):
+        return np.pad(a, ((0, 0),) * 3 + ((0, c - a.shape[-1]),))
+
+    xp = pad_to(_bf16(x), 8 * L.qx)
+    y = _im2col(xp, L.qx, 0, 1, k, L.ch_entry) @ _dense_b(buf, 0, L.ch_entry, L.nt) \
+        + bias[:L.kp]
+    for r in range(spec.res_blocks):
+        w0, b0 = L.w_block0 + r * L.w_block, L.b_block0 + r * L.b_block
+        a = pad_to(_bf16(lrelu(y)), 16 * L.ch_pre)
+        t = _bf16(lrelu(a @ _dense_b(buf, w0, L.ch_pre, L.nt) + bias[b0: b0 + L.kp]))
+        s = [_bf16(lrelu(_im2col(t, tile.q, tile.lo8, tile.dil, k, tile.chunks)
+                         @ _dense_b(buf, w0 + tile.w_off, tile.chunks, 1)
+                         + bias[b0 + tile.b_off: b0 + tile.b_off + 8])) for tile in L.tiles]
+        s = pad_to(np.concatenate(s, axis=-1), 16 * L.ch_post)
+        u = s @ _dense_b(buf, w0 + L.w_post, L.ch_post, L.nt)
+        y = y + u + bias[b0 + L.b_post: b0 + L.b_post + L.kp]
+    a = _bf16(lrelu(y))
+    out = _im2col(a, L.nt, 0, 1, k, L.ch_head) @ _dense_b(buf, L.w_head, L.ch_head, L.no) \
+        + bias[L.b_head: L.b_head + 8 * L.no]
+    return out[..., :spec.out_total]
+
+
+@pytest.mark.parametrize("name", SMALL_LAYOUT_SPECS)
+def test_bf16_layout_computes_the_chain(name):
+    """What the kernel computes from the fragment layout — its K slices,
+    input windows, padding and offsets, emulated at matrix level — is the
+    plain version's chain."""
+    spec = _bf16_spec(name)
+    x = x_for(spec, batch=2)
+    packed = tfs.pack(spec, [torch.from_numpy(w) for w in weights(spec)])
+    out = _mma_chain(spec, x, packed)
+    ref = tfs.subnet_apply_reference(spec, torch.from_numpy(x), packed).numpy()
+    # the same bf16 roundings; float32 sums in another order (the kernel's
+    # tolerance, CHAIN_TOL in chip_smoke.py)
+    np.testing.assert_allclose(out, ref, rtol=2e-2, atol=2e-2)
+    assert np.abs(out - ref).mean() < 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
+def test_bf16_layout_table_holds_the_layout(name):
+    """The table the kernel takes is ``mma_layout``: its scalars, each
+    branch's run of tiles in order (zeros past the last branch), each
+    tile's window and offsets."""
+    spec = _bf16_spec(name)
+    L, table = tfs.mma_layout(spec), list(tfs.layout_table(spec))
+    n_head = len(tfs.TABLE_FIELDS)
+    assert len(table) == n_head + 2 * tfs.MAX_BRANCHES + len(tfs.TILE_FIELDS) * L.n_tiles
+    assert table[:n_head] == [getattr(L, f) for f in tfs.TABLE_FIELDS]
+    runs = table[n_head: n_head + 2 * tfs.MAX_BRANCHES]
+    first = 0
+    for br in range(tfs.MAX_BRANCHES):
+        tiles = [t for t in L.tiles if t.branch == br]
+        assert runs[2 * br: 2 * br + 2] == ([first, len(tiles)] if tiles else [0, 0])
+        assert all(t is L.tiles[first + i] for i, t in enumerate(tiles))
+        first += len(tiles)
+    rows = np.reshape(table[n_head + 2 * tfs.MAX_BRANCHES:], (-1, len(tfs.TILE_FIELDS)))
+    for t, row in zip(L.tiles, rows, strict=True):
+        assert list(row) == [getattr(t, f) for f in tfs.TILE_FIELDS]
+    assert all(0 <= v <= tfs.MAX_TABLE_VALUE for v in table)  # what the C entry takes
+
+
+def test_bf16_launch_guards():
+    """The bf16 kernel's tiles take a trunk up to 64 wide and a head up to
+    32 wide; past that check_launch raises before any launch."""
+    wide = tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="at most 64"):
+        tfs.check_launch(wide, 1)
+    tfs.check_launch(tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="float32"), 1)
+    many_out = tfs.SubnetSpec(**dict(BASE, out_total=40), compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="at most 64 and 32"):
+        tfs.check_launch(many_out, 1)
+    # the flagship's largest spec: the stage input (rows of 72) and a zero
+    # row, then one residual block's weights (158 fragments)
+    assert tfs.shared_bytes(_bf16_spec("flagship_28x28x1")) == (28 * 28 + 1) * 72 * 2 + 158 * 256

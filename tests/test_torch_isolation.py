@@ -1,6 +1,7 @@
-"""The port stands alone: importing all of it, and ``chip_smoke``, loads no
-jax, flax or JAX-package module; and an entry point with no ``device`` does
-not quietly run on the CPU when there is no card."""
+"""The port stands alone: importing all of it, ``chip_smoke`` and
+``chain_ablation`` loads no jax, flax or JAX-package module; and an entry
+point with no ``device`` does not quietly run on the CPU when there is no
+card."""
 
 import os
 import pkgutil
@@ -38,7 +39,7 @@ def port_modules():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    names = port_modules() + ["chip_smoke"]
+    names = port_modules() + ["chip_smoke", "chain_ablation"]
     assert len(names) > 15
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", CHECK, *names], cwd=REPO, env=env,

@@ -9,6 +9,8 @@ without jax, skipping the repo's conftest (which configures JAX):
 Without a card every test here skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -74,8 +76,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         tac.fused_affine_forward(a.requires_grad_(), b, u)
 
 
-# a small odd size with an even kernel (asymmetric padding), then the four
-# specs of the flagship's couplings (batch 128 in chip_smoke.py)
+# a small odd size with an even kernel (asymmetric padding), the four specs
+# of the flagship's couplings at the main path's batch of 128, then pixel
+# counts that fill no 16-pixel tile of the bf16 kernel with cin 3 and 1 and
+# group widths 4, 3, 2 and 1
 CHAIN_SPECS = {
     "odd_6x6x2": dict(h=6, w=6, cin=2, kernels=8, res_blocks=2, cardinality=2, ksize=4,
                       dilations=(1, 2), out_total=4),
@@ -87,6 +91,13 @@ CHAIN_SPECS = {
                            ksize=3, dilations=(1, 2), out_total=16),
     "flagship_14x14x2": dict(h=14, w=14, cin=2, kernels=32, res_blocks=3, cardinality=4,
                              ksize=3, dilations=(1, 2), out_total=4),
+    "tiles_5x3x3": dict(h=5, w=3, cin=3, kernels=32, res_blocks=2, cardinality=8, ksize=3,
+                        dilations=(1, 2, 4), out_total=4),
+    "groups1_7x7x1": dict(h=7, w=7, cin=1, kernels=16, res_blocks=2, cardinality=8, ksize=3,
+                          dilations=(1, 2), out_total=2),
+    # groups of 3 channels: input windows of 1-3 slices, one moved left
+    "groups3_3x4x1": dict(h=3, w=4, cin=1, kernels=24, res_blocks=2, cardinality=8, ksize=3,
+                          dilations=(1,), out_total=2),
 }
 
 
@@ -102,6 +113,9 @@ def _chain_inputs(spec, batch, device):
     return torch.from_numpy(x).to(device), [t.to(device) for t in tfs.pack(spec, flat)]
 
 
+BATCH = 128
+
+
 @pytest.fixture
 def no_tf32(monkeypatch):
     """The plain version's float32 convs in full float32, not TF32."""
@@ -113,7 +127,7 @@ def no_tf32(monkeypatch):
 @pytest.mark.parametrize("name", list(CHAIN_SPECS))
 def test_chain_kernel_matches_plain_version(cuda, no_tf32, name, dtype):
     spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
-    batch = 3 if name.startswith("odd") else 16
+    batch = BATCH if name.startswith("flagship") else 3
     x, packed = _chain_inputs(spec, batch, cuda)
     before = tfs.LAUNCHES["fused_subnet"]
     with torch.no_grad():
@@ -142,3 +156,20 @@ def test_chain_kernel_rejects_what_it_does_not_take(cuda):
         tfs.subnet_apply(spec, x[..., :1].contiguous(), (w, b))
     with pytest.raises(NotImplementedError, match="backward"):
         tfs.subnet_apply(spec, x.requires_grad_(), (w, b))
+
+
+def test_bf16_chain_kernel_rejects_what_it_does_not_take(cuda):
+    """Past its tiles (a trunk over 64 wide) the bf16 kernel raises before
+    launching; a packed buffer of another layout's size raises too."""
+    wide = tfs.SubnetSpec(**dict(CHAIN_SPECS["odd_6x6x2"], kernels=72),
+                          compute_dtype="bfloat16")
+    x, packed = _chain_inputs(wide, 2, cuda)
+    with pytest.raises(ValueError, match="at most 64"):
+        with torch.no_grad():
+            tfs.subnet_apply(wide, x, packed)
+    spec = tfs.SubnetSpec(**CHAIN_SPECS["odd_6x6x2"], compute_dtype="bfloat16")
+    x, (w, b) = _chain_inputs(spec, 2, cuda)
+    f32 = dataclasses.replace(spec, compute_dtype="float32")
+    with pytest.raises(ValueError, match="packed sizes"):
+        with torch.no_grad():
+            tfs.subnet_apply(spec, x, (w[: tfs.packed_sizes(f32)[0]], b))

@@ -94,13 +94,44 @@ def test_subnet_ref_compat_group_slice(rng):
 
 @pytest.mark.parametrize("layer_norm", [False, True])
 def test_subnet_matches_flax_bf16(rng, layer_norm):
-    """bf16 convs round at other places in the two frameworks (torch adds
-    the bias inside the conv, flax after rounding it): held at 2e-2, a few
-    bf16 ulps (2**-8 relative) of outputs of order 1, through ten convs."""
+    """bf16 convs round where flax's do (the conv's output, then the bias
+    added in bf16; LeakyReLU's slope rounded to bf16), so every bf16 value
+    is the same: the b head is bit-exact, and the A head differs only by
+    float32 ulps of ``tanh`` (measured 1.1e-8 and 6.0e-8 on outputs up to
+    0.45)."""
     outs_j, outs_t = _nets(rng, n_heads=2, layer_norm=layer_norm, dtype="bfloat16")
     for oj, ot in zip(outs_j, outs_t):
         assert ot.dtype == np.float32  # the head is cast to float32
-        np.testing.assert_allclose(ot, oj.astype(np.float32), rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(ot, oj.astype(np.float32), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(outs_t[1], outs_j[1].astype(np.float32))
+
+
+def test_leaky_relu_bf16_is_bit_exact_with_flax(rng):
+    """On bf16 the slope is 0.3 rounded to bf16, as JAX's weakly typed
+    multiply; on float32 it is 0.3."""
+    v = rng.normal(size=(4096,)).astype(np.float32) * 10.0
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+        ref = np.asarray(jsubnets.leaky_relu(jnp.asarray(v).astype(jdt)).astype(jnp.float32))
+        out = tsubnets.leaky_relu(torch.from_numpy(v).to(tdt))
+        assert out.dtype == tdt
+        np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("ref_compat_group_slice", [False, True])
+@pytest.mark.parametrize("dilations", [(1, 2), (1,)])
+def test_subnet_cardinality1_matches_flax(rng, dilations, ref_compat_group_slice):
+    """At cardinality 1 each branch is one dense conv of the whole trunk
+    with a (k, k, K, K/d) kernel, whatever ref_compat_group_slice says (the
+    JAX ``_grouped_conv``); the converter carries that shape across."""
+    outs_j, outs_t = _nets(rng, n_heads=2, cardinality=1, dilations=dilations,
+                           ref_compat_group_slice=ref_compat_group_slice)
+    for oj, ot in zip(outs_j, outs_t):
+        np.testing.assert_allclose(ot, oj, rtol=1e-5, atol=1e-5)
+    net = tsubnets.ConvCouplingNet(IN_SHAPE, n_heads=2, layer_norm=False,
+                                   generator=torch.Generator().manual_seed(0),
+                                   **dict(KW, cardinality=1, dilations=dilations))
+    for conv, d in zip(net.blocks[0].branches, dilations):
+        assert tuple(conv.weight.shape) == (KW["num_kernels"] // d, KW["num_kernels"], 3, 3)
 
 
 def test_port_init_orthogonal_with_zero_bias():
