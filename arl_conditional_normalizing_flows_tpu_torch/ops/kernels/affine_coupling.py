@@ -14,16 +14,25 @@ The CUDA source is ``csrc/affine_coupling.cu``, built by ``build.py``.
 Bound on an H100 (3.35 TB/s): both are bound by device memory. The forward
 reads a, b, u2 and writes v2 (plus 4 bytes of log-det a row); the inverse
 reads three tensors and writes one. At the flagship's (128, 784) float32 that
-is 1.61 MB each, 0.48 us; at (128, 392), 0.24 us — well under a launch, so a
-coupling law costs one launch and one pass over memory. The design does what
-the bound asks: one kernel per coupling, no padded copies (the kernel masks
-its ragged end where the TPU kernel padded to full tiles), and the log-det
-summed in the same pass instead of a second read of ``a``.
+is 1.61 MB each, 0.48 us; at (128, 392), 0.24 us — under a launch's floor, so
+a coupling law costs one launch and one memory round trip for each element.
+The design (the note in the source): no padded copies, the log-det summed in
+the same pass instead of a second read of ``a``, 16-byte accesses with every
+load of a thread issued before its arithmetic, one block a row for the
+forward and a one-wave grid for the inverse. A misaligned view or a row that
+is not a whole number of 16-byte vectors takes the kernels' scalar path.
 
 Dispatch: a CPU tensor goes to the plain version beside the kernel; a CUDA
 tensor launches the kernel or raises. Each wrapper counts its launches in
-:data:`LAUNCHES`. The kernels have no backward yet, so a CUDA call that would
-need a gradient raises.
+:data:`LAUNCHES`.
+
+Gradients: :func:`fused_affine_forward` is a ``torch.autograd.Function``
+whose backward is :func:`affine_forward_vjp`, the JAX custom VJP
+``_forward_bwd`` in PyTorch ops (JAX computes it with XLA, outside any
+Pallas kernel). CPU and CUDA tensors take the same backward; the forward
+launches the kernel on the card whether or not a gradient will flow. The JAX
+``fused_affine_inverse`` defines no gradient, so a CUDA call of
+:func:`fused_affine_inverse` that would need one raises.
 """
 
 from __future__ import annotations
@@ -67,6 +76,18 @@ def affine_inverse_reference(a, b, v2):
     return u2.to(v2.dtype)
 
 
+def affine_forward_vjp(a, u2, g_v2, g_ld):
+    """``(da, db, du2)`` of ``(v2, ld)`` = :func:`fused_affine_forward` for
+    the cotangents ``g_v2`` of v2 and ``g_ld`` (B,) of the log-det: the JAX
+    ``_forward_bwd`` (``ops/pallas/affine_coupling.py:148-159``) in a's
+    dtype — ``g_ld`` broadcast over the non-batch axes, ``exp(a)``
+    recomputed instead of saved. ``da = g_v2*exp(a)*u2 + g_ld``,
+    ``db = g_v2``, ``du2 = g_v2*exp(a)``."""
+    g_ld = g_ld.reshape((a.shape[0],) + (1,) * (a.dim() - 1)).to(a.dtype)
+    g_ea = g_v2 * torch.exp(a)
+    return g_ea * u2 + g_ld, g_v2, g_ea
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -92,7 +113,8 @@ def _is_cpu(*ts) -> bool:
 
 def _check_cuda(name, *ts):
     """(rows, n, dtype code) for kernel inputs, or raise on what the kernel
-    does not take."""
+    does not take. Alignment is not asked for: the C entries send a
+    misaligned pointer to the scalar path."""
     a = ts[0]
     if a.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {a.device}")
@@ -104,10 +126,6 @@ def _check_cuda(name, *ts):
                          f"{[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP B.2); "
-            "call it under torch.no_grad()")
     rows, n = a.shape[0], a.numel() // max(a.shape[0], 1)
     if rows == 0 or n == 0 or rows > _INT_MAX or n > _INT_MAX:
         raise ValueError(f"{name}: unsupported size {tuple(a.shape)}")
@@ -119,9 +137,28 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
+class _AffineForward(torch.autograd.Function):
+    """K1 with the JAX custom VJP's residuals ``(a, u2)`` and backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, u2):
+        ctx.save_for_backward(a, u2)
+        return _affine_forward(a, b, u2)
+
+    @staticmethod
+    def backward(ctx, g_v2, g_ld):
+        a, u2 = ctx.saved_tensors
+        return affine_forward_vjp(a, u2, g_v2, g_ld)
+
+
 def fused_affine_forward(a, b, u2):
     """``v2 = exp(a)*u2 + b`` and the per-sample log-det ``sum(a)`` (B,)
-    float32. a, b, u2: one shape ``(B, ...)``, one dtype."""
+    float32. a, b, u2: one shape ``(B, ...)``, one dtype. Differentiable
+    (:func:`affine_forward_vjp`)."""
+    return _AffineForward.apply(a, b, u2)
+
+
+def _affine_forward(a, b, u2):
     if _is_cpu(a, b, u2):
         return affine_forward_reference(a, b, u2)
     rows, n, code = _check_cuda("affine_forward", a, b, u2)
@@ -138,10 +175,16 @@ def fused_affine_forward(a, b, u2):
 
 
 def fused_affine_inverse(a, b, v2):
-    """``u2 = exp(-a)*(v2 - b)``; a, b, v2: one shape, one dtype."""
+    """``u2 = exp(-a)*(v2 - b)``; a, b, v2: one shape, one dtype. No
+    gradient on the card, as the JAX function has none."""
     if _is_cpu(a, b, v2):
         return affine_inverse_reference(a, b, v2)
     rows, n, code = _check_cuda("affine_inverse", a, b, v2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, v2)):
+        raise NotImplementedError(
+            "affine_inverse: the JAX fused_affine_inverse defines no gradient (its "
+            "Pallas call has no VJP), and neither does this kernel; call it under "
+            "torch.no_grad()")
     u2 = torch.empty_like(v2)
     lib = _library()
     with torch.cuda.device(a.device):

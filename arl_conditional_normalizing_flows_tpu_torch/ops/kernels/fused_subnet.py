@@ -32,8 +32,17 @@ derive again.
 
 Dispatch: a CPU tensor goes to the plain version :func:`subnet_apply_reference`;
 a CUDA tensor launches the kernel or raises. :func:`subnet_apply` counts its
-launches in :data:`LAUNCHES`. The kernel has no backward yet, so a CUDA call
-that would need a gradient raises.
+launches in :data:`LAUNCHES`.
+
+Gradients: :func:`subnet_apply` is a ``torch.autograd.Function`` over ``x``
+and the packed buffers, the counterpart of the JAX ``make_subnet_fn``'s
+custom VJP. Its forward always launches the kernel on the card, whether or
+not a gradient will flow; no forward falls back to the plain version. Its
+backward (:func:`subnet_apply_vjp`) keeps only ``x`` and the packed buffers,
+as JAX's ``f_fwd`` keeps ``(x, flat)``, and recomputes the chain with
+:func:`subnet_apply_reference` under autograd (cuDNN convs on the card), as
+JAX's ``f_bwd`` recomputes it with XLA outside any Pallas kernel. Gradients
+reach the flax-shaped weights through :func:`pack`.
 """
 
 from __future__ import annotations
@@ -380,10 +389,32 @@ def pack(spec: SubnetSpec, flat):
     :func:`flax_param_order`'s order) packed for the kernel — every kernel
     into one ``compute_dtype`` buffer, every bias into one float32 buffer;
     flat in flax's HWIO in float32, in B-fragment order (:func:`mma_layout`)
-    in bf16. Differentiable."""
+    in bf16. Differentiable: the backward is :func:`unpack`."""
     order = flax_param_order(spec)
     if len(flat) != len(order):
         raise ValueError(f"expected {len(order)} tensors, got {len(flat)}")
+    return _Pack.apply(spec, *flat)
+
+
+class _Pack(torch.autograd.Function):
+    """:func:`pack` with :func:`unpack` as its backward. Every flax value
+    lies in exactly one packed slot (:func:`_mma_index` asserts it), so the
+    adjoint of the bf16 packing's gather is the gather by the inverse
+    indices: no scatter-add, and nothing for the padding."""
+
+    @staticmethod
+    def forward(ctx, spec, *flat):
+        ctx.spec, ctx.dtypes = spec, [t.dtype for t in flat]
+        return _pack(spec, flat)
+
+    @staticmethod
+    def backward(ctx, g_w, g_b):
+        grads = unpack(ctx.spec, (g_w, g_b))
+        return (None, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)))
+
+
+def _pack(spec: SubnetSpec, flat):
+    order = flax_param_order(spec)
     kernels, biases = [], []
     for (name, shape), t in zip(order, flat):
         if tuple(t.shape) != shape:
@@ -472,8 +503,16 @@ def subnet_apply_reference(spec: SubnetSpec, x, packed):
     operands rounded to ``compute_dtype``, then multiplied and summed in
     float32; the trunk and biases in float32. ``x`` (B, h, w, cin); returns
     (B, h, w, out_total) float32."""
+    return chain_math(spec, x, unpack(spec, packed))
+
+
+def chain_math(spec: SubnetSpec, x, flat):
+    """:func:`subnet_apply_reference` on the weights ``flat`` as
+    :func:`unpack` gives them (flax shapes, :func:`flax_param_order`'s
+    order): the chain that the plain version computes and that
+    :func:`subnet_apply_vjp` differentiates."""
     dt = getattr(torch, spec.compute_dtype)
-    it = iter(unpack(spec, packed))
+    it = iter(flat)
 
     def r(t):  # round to the compute dtype, compute in float32
         return t.to(dt).float()
@@ -604,24 +643,68 @@ def _check_cuda(spec: SubnetSpec, x, weights, biases) -> None:
         raise ValueError("fused_subnet: inputs must be contiguous")
     if weights.data_ptr() % 16 or biases.data_ptr() % 16:
         raise ValueError("fused_subnet: the packed buffers must be 16-byte aligned")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weights, biases)):
-        raise NotImplementedError(
-            "fused_subnet: the CUDA kernel has no backward yet (ROADMAP B.5); "
-            "call it under torch.no_grad()")
     check_launch(spec, x.shape[0])
+
+
+def subnet_apply_vjp(spec: SubnetSpec, x, packed, g, needs=(True, True, True)):
+    """The gradients of :func:`subnet_apply` for the cotangent ``g`` of its
+    output, with respect to ``x`` and the two packed buffers (None where
+    ``needs`` says no): the chain recomputed from its inputs by
+    :func:`chain_math` under autograd, as the JAX ``f_bwd`` recomputes
+    ``subnet_apply_ref`` under ``jax.vjp``. Nothing of the forward's trunk
+    is kept. The weights' gradients are taken in flax's shapes and packed
+    (each packed value is one flax value, padding zero)."""
+    need_x, need_w = needs[0], needs[1] or needs[2]
+    x = x.detach().requires_grad_(need_x)
+    flat = [t.detach().requires_grad_(need_w) for t in unpack(spec, packed)]
+    wanted = ([x] if need_x else []) + (flat if need_w else [])
+    if not wanted:
+        return None, None, None
+    with torch.enable_grad():
+        grads = list(torch.autograd.grad(chain_math(spec, x, flat), wanted, g))
+    g_x = grads.pop(0) if need_x else None
+    if not need_w:
+        return g_x, None, None
+    g_w, g_b = pack(spec, grads)
+    return g_x, g_w if needs[1] else None, g_b if needs[2] else None
+
+
+class _SubnetApply(torch.autograd.Function):
+    """K3 with the JAX custom VJP's residuals ``(x, weights)`` and its
+    recomputing backward."""
+
+    @staticmethod
+    def forward(ctx, spec, x, weights, biases):
+        ctx.spec = spec
+        ctx.save_for_backward(x, weights, biases)
+        return _subnet_forward(spec, x, weights, biases)
+
+    # the recompute's gradients are taken outside the caller's graph, so a
+    # second derivative through them raises instead of coming out wrong
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, weights, biases = ctx.saved_tensors
+        return (None, *subnet_apply_vjp(ctx.spec, x, (weights, biases), g,
+                                        ctx.needs_input_grad[1:]))
 
 
 def subnet_apply(spec: SubnetSpec, x, packed):
     """The chain's pre-tanh head (B, h, w, out_total) float32 for ``x``
-    (B, h, w, cin) float32 and ``packed`` = :func:`pack`'s output."""
+    (B, h, w, cin) float32 and ``packed`` = :func:`pack`'s output.
+    Differentiable (:func:`subnet_apply_vjp`)."""
     weights, biases = packed
+    return _SubnetApply.apply(spec, x, weights, biases)
+
+
+def _subnet_forward(spec: SubnetSpec, x, weights, biases):
     if {t.device for t in (x, weights, biases)} == {torch.device("cpu")}:
-        return subnet_apply_reference(spec, x, packed)
+        return subnet_apply_reference(spec, x, (weights, biases))
     _check_cuda(spec, x, weights, biases)
     B = x.shape[0]
     trunk = torch.empty(trunk_elements(spec, B), dtype=torch.float32, device=x.device)
     out = torch.empty(B, spec.h, spec.w, spec.out_total, dtype=torch.float32,
                       device=x.device)
-    launch_library(_library(), spec, x, packed, trunk, out)
+    launch_library(_library(), spec, x, (weights, biases), trunk, out)
     LAUNCHES["fused_subnet"] += 1
     return out

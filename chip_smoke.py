@@ -13,7 +13,12 @@ conditional-sampling requests through ``make_image_serving_fn`` and a
 ``log_loss`` density evaluation each, with the kernels' launch counts set to
 0 just before and read just after. It checks that every output is finite,
 that ``forward(inverse(zy))`` gives zy back and that the same weights at
-float32 agree with the CPU. Each phase prints its elapsed seconds.
+float32 agree with the CPU. Then it trains through both kernel lowerings
+(``[grad]``): every parameter's gradient of ``log_loss`` at full width,
+against the default lowering on the card and against the CPU, with the
+kernels' forward launches counted. ``[floor]`` is the device time of one
+launch of a one-element PyTorch op, the yardstick beside K1/K2's times. Each
+phase prints its elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -109,6 +114,14 @@ CHAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # float32 row sums in another order
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LD_TOL = 1e-4
+#: K1/K2's checks: (rows, n, misaligned) — the main path's two shapes, a
+#: ragged n, an odd n and misaligned views (both the kernels' scalar path),
+#: then the loops: rows wider than K1's 1024-thread block (8200: 2050 float32
+#: or 1025 bf16 vectors; 4099: odd, scalar) and a tensor larger than K2's
+#: one-wave grid (1024 x 4096), aligned and misaligned
+LAW_CASES = ((BATCH, 784, False), (BATCH, 392, False), (3, 1000, False), (5, 393, False),
+             (BATCH, 784, True), (4, 8200, False), (3, 4099, False), (1024, 4096, False),
+             (4, 8200, True), (1024, 4096, True))
 
 
 def card_line():
@@ -165,21 +178,41 @@ def device_time_ms(fn, iters=50, reps=11):
     return statistics.median(times)
 
 
-def law_inputs(rows, n, dtype, seed):
+def law_inputs(rows, n, dtype, seed, misaligned=False):
+    """a, b, u2 of (rows, n); ``misaligned``: each a contiguous view one
+    element past a 16-byte boundary."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    a = torch.tanh(torch.randn(rows, n, generator=g, device="cuda")).to(dtype)
-    b = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
-    u = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
-    return a, b, u
+    out = []
+    for t in (torch.tanh(torch.randn(rows, n, generator=g, device="cuda")),
+              torch.randn(rows, n, generator=g, device="cuda"),
+              torch.randn(rows, n, generator=g, device="cuda")):
+        t = t.to(dtype)
+        if misaligned:
+            view = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")[1:].view(rows, n)
+            t = view.copy_(t)
+            check(t.is_contiguous() and t.data_ptr() % 16 != 0, "a misaligned view")
+        out.append(t)
+    return out
+
+
+def launch_floor_ms():
+    """Device time of one launch of a one-element PyTorch elementwise op,
+    timed as the kernels are (:func:`device_time_ms`)."""
+    one = torch.ones(1, device="cuda")
+    return device_time_ms(lambda: torch.add(one, one))
 
 
 def check_kernels(phases):
-    """K1/K2 against their plain versions at the main path's shapes (both
-    dtypes) and a ragged one; times at the main path's float32 shapes."""
+    """K1/K2 against their plain versions at :data:`LAW_CASES` (both
+    dtypes); times at the main path's float32 shapes, beside the floor of a
+    launch."""
+    floor_ms = launch_floor_ms()
+    print(f"[floor] one launch of a 1-element torch.add: {floor_ms * 1e3:.2f} us on the card "
+          "(CUDA-graph replay between CUDA events, as the [kernel] times)", flush=True)
     results = {name: dict(max_abs_err=0.0, timings={}) for name in KERNELS}
-    for rows, n in ((BATCH, 784), (BATCH, 392), (3, 1000)):
+    for rows, n, misaligned in LAW_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            a, b, u = law_inputs(rows, n, dtype, seed=rows * n)
+            a, b, u = law_inputs(rows, n, dtype, seed=rows * n, misaligned=misaligned)
             with torch.no_grad():
                 v2, ld = kernels.fused_affine_forward(a, b, u)
                 v2_ref, ld_ref = kernels.affine_forward_reference(a, b, u)
@@ -199,12 +232,13 @@ def check_kernels(phases):
                   f"affine_forward log-det {rows}x{n} {dtype}")
             check(torch.allclose(u2.float(), u2_ref.float(), rtol=tol, atol=tol),
                   f"affine_inverse {rows}x{n} {dtype}")
+            where = f"{rows}x{n}{' misaligned' if misaligned else ''} {str(dtype)[6:]}"
             for name, err in errs.items():
-                print(f"[kernel] {name} {rows}x{n} {str(dtype)[6:]}: max_abs_err={err:.3g} "
+                print(f"[kernel] {name} {where}: max_abs_err={err:.3g} "
                       f"(tolerance {tol:g} abs + {tol:g} rel; log-det {LD_TOL:g})", flush=True)
-                if dtype == torch.float32 and rows == BATCH:
+                if dtype == torch.float32 and rows == BATCH and not misaligned:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-            if dtype != torch.float32 or rows != BATCH:
+            if dtype != torch.float32 or rows != BATCH or misaligned:
                 continue
             with torch.no_grad():
                 for name, k in KERNELS.items():
@@ -218,11 +252,13 @@ def check_kernels(phases):
                     results[name]["timings"][n] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
                         bound_by="bytes" if bytes_s >= ops_s else "operations")
-                    print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card "
-                          f"(bound {bound_s * 1e6:.2f} us for {nbytes} bytes at 3.35 TB/s), "
-                          f"plain version {plain_ms * 1e3:.2f} us", flush=True)
+                    print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card, "
+                          f"{(ms - floor_ms) * 1e3:.2f} us over the floor of "
+                          f"{floor_ms * 1e3:.2f} us (bound {bound_s * 1e6:.2f} us for {nbytes} "
+                          f"bytes at 3.35 TB/s, {bound_s * 1e3 / ms:.3f} of it), plain version "
+                          f"{plain_ms * 1e3:.2f} us", flush=True)
     phases.done("K1/K2 against their plain versions")
-    return results
+    return results, floor_ms
 
 
 def chain_nets(spec, seed):
@@ -485,11 +521,11 @@ def run_main_path(model, cfg, phases):
     return launches
 
 
-def kernel_breakdown(fn):
+def kernel_breakdown(fn, top=6):
     """Device time of one ``fn()`` by kernel, from torch.profiler: launches,
     busy milliseconds (union of kernel intervals), the shares of the
     coupling-law kernels, the conv-chain kernel and cuDNN/cuBLAS
-    convolutions, and the top kernels by time."""
+    convolutions, and the ``top`` kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -510,7 +546,7 @@ def kernel_breakdown(fn):
     def share(pred):
         return sum(t for name, (t, _) in by_name.items() if pred(name.lower())) / total
 
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(
         kernel_launches=len(spans),
         device_busy_ms=busy_us / 1e3,
@@ -518,7 +554,7 @@ def kernel_breakdown(fn):
         chain_kernel_share=share(lambda n: "fused_subnet" in n),
         conv_share=share(lambda n: "fused_subnet" not in n and any(
             k in n for k in ("conv", "xmma", "gemm", "cutlass", "sm90"))),
-        top=[dict(name=name[:80], ms=t / 1e3, count=n) for name, (t, n) in top],
+        top=[dict(name=name[:80], ms=t / 1e3, count=n) for name, (t, n) in ranked],
     )
 
 
@@ -537,11 +573,7 @@ def check_round_trip_and_cpu(model, cfg, xy, zs, ys, phases):
     check(err <= 1e-3, f"{lowering} round trip forward(inverse(zy)) == zy")
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    state = model.state_dict()
-    gpu32 = ConvCFlow(cfg32)
-    gpu32.load_state_dict(state)
-    cpu32 = ConvCFlow(cfg32, device="cpu")
-    cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
+    gpu32, cpu32 = twin(model, cfg32), twin(model, cfg32, device="cpu")
     sub, zy8 = xy[:8], zy[:8]
     before = launch_counts()
     with torch.inference_mode():
@@ -561,6 +593,154 @@ def check_round_trip_and_cpu(model, cfg, xy, zs, ys, phases):
     check(torch.allclose(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-3), "card vs CPU log-det")
     check(torch.allclose(x_g.cpu(), x_c, rtol=1e-4, atol=1e-4), "card vs CPU inverse")
     phases.done(f"{lowering}: round trip and CPU comparison")
+
+
+#: [grad] tolerances on the worst relative error of a parameter's gradient
+#: (max |diff| / max |reference|), about 5x what an H100 measured (the
+#: figures in brackets). pallas_coupling (bf16 subnets): the same eager
+#: subnets, K1's float32 law against the plain one, so a float32 ulp now and
+#: then flips a bf16 rounding downstream, and cuDNN's bf16 weight gradients
+#: sum in an order of their own (1.8e-3). pallas_subnet at float32, TF32
+#: off: float32 sums in another order (1.5e-5). pallas_subnet in bf16
+#: against the CPU: K3's bf16 output differs from the plain version's by a
+#: bf16 ulp here and there (CHAIN_TOL), which moves the next couplings'
+#: inputs (5.9e-3)
+GRAD_TOL = {"pallas_coupling": 1e-2, "pallas_subnet_f32": 1e-4, "pallas_subnet_cpu": 3e-2}
+GRAD_CPU_BATCH = 8
+
+
+def loss_grads(model, xy):
+    """{name: gradient} of ``model.log_loss(xy)["loss"]`` over every
+    parameter."""
+    named = dict(model.named_parameters())
+    loss = model.log_loss(xy)["loss"]
+    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+def worst_rel(got, want):
+    """(name, error) of the parameter whose gradient is furthest from
+    ``want``'s, relative to its largest value."""
+    errs = {k: ((got[k].float().cpu() - want[k].float().cpu()).abs().max()
+                / want[k].float().cpu().abs().max().clamp_min(1e-30)).item() for k in want}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def twin(model, cfg, device=None):
+    """A model of ``cfg`` with ``model``'s weights."""
+    out = ConvCFlow(cfg, device=device)
+    out.load_state_dict({k: v.to(out.device) for k, v in model.state_dict().items()})
+    return out
+
+
+def compare_grads(what, model, reference, xy, xy_ref, want_launches, tol):
+    """``model``'s gradients against ``reference``'s, with the launches of
+    ``model``'s forward and backward counted."""
+    reset_launches()
+    got = loss_grads(model, xy)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = loss_grads(reference, xy_ref)
+    name, err = worst_rel(got, want)
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    print(f"[grad] {what}: worst relative error {err:.3g} at {name} (tolerance {tol:g}), "
+          f"{len(got)} parameters, launches {json.dumps(launches)}", flush=True)
+    check(finite, f"{what}: finite gradients")
+    check(launches == want_launches, f"{what}: launches {launches} == {want_launches}")
+    check(err < tol, f"{what}: gradients within {tol:g}")
+    return dict(worst_rel_err=err, worst_param=name, tolerance=tol, launches=launches)
+
+
+def recomputes(model, batch):
+    """A function that runs K3's backward recompute
+    (``chain.subnet_apply_vjp``) once for each ``FusedChainCouplingNet`` of
+    ``model`` at ``batch``, as a backward pass does, on random inputs and
+    cotangents (its work does not depend on their values)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    calls = []
+    for net in model.modules():
+        if isinstance(net, FusedChainCouplingNet):
+            s = net.spec
+            x = torch.randn(batch, s.h, s.w, s.cin, generator=g, device="cuda")
+            cot = torch.randn(batch, s.h, s.w, s.out_total, generator=g, device="cuda")
+            with torch.no_grad():
+                packed = net.packed()
+            calls.append((s, x, packed, cot))
+    return lambda: [chain.subnet_apply_vjp(s, x, p, cot) for s, x, p, cot in calls]
+
+
+def check_grads(coupling_model, subnet_model, phases):
+    """[grad]: gradients through K1 and K3 at full width against the same
+    weights on paths without them, then a forward+backward's wall and device
+    time on both lowerings, and the share of the latter that K3's backward
+    recomputes take."""
+    h, w, _ = FLAGSHIP.io_shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x_data = torch.rand(BATCH, h, w, 1, generator=g, device="cuda")
+    xy = torch.cat([logit.logitify(x_data), class_planes(0)], dim=-1)
+    n = len(coupling_model.couplings)
+    out = {}
+
+    default = twin(coupling_model, dataclasses.replace(FLAGSHIP, experimental_lowering=None))
+    out["pallas_coupling"] = compare_grads(
+        f"pallas_coupling bf16, batch {BATCH}, against the default lowering on the card",
+        coupling_model, default, xy, xy,
+        {"affine_forward": n, "affine_inverse": 0, "fused_subnet": 0},
+        GRAD_TOL["pallas_coupling"])
+    del default
+    phases.done("grad: pallas_coupling")
+
+    f32 = dict(compute_dtype="float32")
+    subnet32 = twin(subnet_model, dataclasses.replace(FLAGSHIP_SUBNET, **f32))
+    default32 = twin(subnet_model, dataclasses.replace(FLAGSHIP, experimental_lowering=None, **f32))
+    out["pallas_subnet_f32"] = compare_grads(
+        f"pallas_subnet float32 (TF32 off), batch {BATCH}, against the default lowering on the card",
+        subnet32, default32, xy, xy, {"affine_forward": 0, "affine_inverse": 0, "fused_subnet": n},
+        GRAD_TOL["pallas_subnet_f32"])
+    del subnet32, default32
+    phases.done("grad: pallas_subnet float32")
+
+    cpu = twin(subnet_model, FLAGSHIP_SUBNET, device="cpu")
+    sub = xy[:GRAD_CPU_BATCH]
+    out["pallas_subnet_cpu"] = compare_grads(
+        f"pallas_subnet bf16, batch {GRAD_CPU_BATCH}, against the plain versions on the CPU",
+        subnet_model, cpu, sub, sub.cpu(),
+        {"affine_forward": 0, "affine_inverse": 0, "fused_subnet": n},
+        GRAD_TOL["pallas_subnet_cpu"])
+    del cpu
+    phases.done("grad: pallas_subnet bf16 against the CPU")
+
+    for model, cfg in ((coupling_model, FLAGSHIP), (subnet_model, FLAGSHIP_SUBNET)):
+        lowering = cfg.experimental_lowering
+        params = list(model.parameters())
+
+        def step():
+            return torch.autograd.grad(model.log_loss(xy)["loss"], params)
+
+        step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        reset_launches()
+        br = kernel_breakdown(step, top=12)
+        launches = launch_counts()
+        wall_ms = statistics.median(walls) * 1e3
+        br.update(lowering=lowering, wall_ms_median=wall_ms,
+                  wall_ms_all=[round(s * 1e3, 3) for s in walls],
+                  device_busy_share=br["device_busy_ms"] / wall_ms, forward_launches=launches)
+        if cfg.fused_pallas_subnet:
+            rec = kernel_breakdown(recomputes(model, BATCH))
+            br.update(recompute_launches=rec["kernel_launches"],
+                      recompute_device_ms=rec["device_busy_ms"],
+                      recompute_share=rec["device_busy_ms"] / br["device_busy_ms"])
+        print("[grad] forward+backward " + json.dumps(br), flush=True)
+        out[f"step_{lowering}"] = br
+    phases.done("grad: forward+backward timing")
+    return out
 
 
 def main() -> int:
@@ -589,15 +769,17 @@ def main() -> int:
           "the bf16 conv-chain kernel runs its products on the tensor cores")
     phases.done("SASS of the conv-chain kernels")
 
-    results = check_kernels(phases)
+    results, floor_ms = check_kernels(phases)
     check_chain_small(phases)
     subnet_model = ConvCFlow(FLAGSHIP_SUBNET, seed=0)  # no device: the card
     phases.done("flagship built", arch=arch_string(FLAGSHIP),
                 params=sum(p.numel() for p in subnet_model.parameters()))
     chain_results, chain_pass = check_chain_kernel(chain_specs(subnet_model), phases)
 
-    launches = run_main_path(ConvCFlow(FLAGSHIP, seed=0), FLAGSHIP, phases)
+    coupling_model = ConvCFlow(FLAGSHIP, seed=0)
+    launches = run_main_path(coupling_model, FLAGSHIP, phases)
     chain_launches = run_main_path(subnet_model, FLAGSHIP_SUBNET, phases)
+    grads = check_grads(coupling_model, subnet_model, phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -606,7 +788,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=k["replaces"],
             launches=launches[name], max_abs_err=results[name]["max_abs_err"],
             ms=t784["ms"], plain_ms=t784["plain_ms"], bound_ms=t784["bound_ms"],
-            bound_by=t784["bound_by"], library_ms=None,
+            bound_by=t784["bound_by"], library_ms=None, floor_ms=floor_ms,
             shape=[BATCH, 784], dtype="float32",
             ms_at_392=results[name]["timings"][392]["ms"],
             plain_ms_at_392=results[name]["timings"][392]["plain_ms"],
@@ -619,13 +801,15 @@ def main() -> int:
         launches=chain_launches["fused_subnet"],
         max_abs_err=max(r["max_abs_err"] for r in chain_results),
         ms=largest["ms"], plain_ms=largest["plain_ms"], bound_ms=largest["bound_ms"],
-        bound_by=largest["bound_by"], library_ms=None,
+        bound_by=largest["bound_by"], library_ms=None, floor_ms=floor_ms,
         shape=largest["shape"], dtype="bfloat16", eager_chain_ms=largest["eager_chain_ms"],
         achieved_tflops=largest["achieved_tflops"], bound_share=largest["bound_share"],
         max_abs_err_f32=max(r["max_abs_err_f32"] for r in chain_results),
         pass_ms=chain_pass["ms"], eager_pass_ms=chain_pass["eager_chain_ms"],
         specs=chain_results,
+        grad_f32=grads["pallas_subnet_f32"], grad_cpu=grads["pallas_subnet_cpu"],
     ))
+    entries[0]["grad"] = grads["pallas_coupling"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

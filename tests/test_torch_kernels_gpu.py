@@ -40,10 +40,52 @@ def _inputs(shape, dtype, device):
     return [torch.from_numpy(v.astype(np.float32)).to(device, dtype) for v in (a, b, u)]
 
 
+def _rel(got, want):
+    """max |got - want| over max |want|: the error on the tensor's scale."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+# the main path's rows, a ragged n, then odd n (the scalar path) at rank 4
+# and 2; then rows wider than K1's 1024-thread block (float32: 2050 vectors,
+# bf16: 1025; odd: 4099 scalars), looped, and a tensor larger than K2's
+# one-wave grid, looped
+LAW_SHAPES = [(128, 784), (128, 392), (3, 1000), (3, 5, 7, 3), (5, 393), (4, 8200),
+              (3, 4099), (1024, 4096)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(128, 784), (128, 392), (3, 1000), (3, 5, 7, 3)])
+@pytest.mark.parametrize("shape", LAW_SHAPES)
 def test_kernels_match_plain_versions(cuda, shape, dtype):
     a, b, u = _inputs(shape, getattr(torch, dtype), cuda)
+    _check_law(a, b, u, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["a", "u2", "all"])
+@pytest.mark.parametrize("shape", [(128, 784), (4, 8200), (1024, 4096)])
+def test_kernels_take_misaligned_views(cuda, shape, which, dtype):
+    """A contiguous view one element past a 16-byte boundary takes the
+    scalar path and gives the same values, at the main path's rows and at
+    the looped shapes of :data:`LAW_SHAPES`."""
+    a, b, u = _inputs(shape, getattr(torch, dtype), cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    if which in ("a", "all"):
+        a = shifted(a)
+    if which in ("u2", "all"):
+        u = shifted(u)
+    if which == "all":
+        b = shifted(b)
+    _check_law(a, b, u, shape, dtype)
+
+
+def _check_law(a, b, u, shape, dtype):
     before = dict(tac.LAUNCHES)
     with torch.no_grad():
         v2, ld = tac.fused_affine_forward(a, b, u)
@@ -62,6 +104,34 @@ def test_kernels_match_plain_versions(cuda, shape, dtype):
     torch.testing.assert_close(u2, u2r, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LAW_SHAPES)
+def test_affine_forward_gradients_match_plain_version(cuda, shape, dtype):
+    """Through K1 (counted), the autograd.Function's backward gives the
+    gradients of autograd through the plain version."""
+    ts = [t.requires_grad_() for t in _inputs(shape, getattr(torch, dtype), cuda)]
+
+    def grads(fn):
+        v2, ld = fn(*ts)
+        return torch.autograd.grad(v2.float().square().sum() + 2.0 * ld.sum(), ts)
+
+    before = tac.LAUNCHES["affine_forward"]
+    got = grads(tac.fused_affine_forward)
+    assert tac.LAUNCHES["affine_forward"] == before + 1
+    want = grads(tac.affine_forward_reference)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if dtype == "float32":
+            # as tests/test_pallas_kernels.py::test_fused_gradients_match_reference
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        else:
+            # the backward in bf16 ops (as JAX's) against autograd's float32
+            # ops rounded once: a few bf16 roundings, measured on the CPU at
+            # these shapes 6.5e-3 of the largest gradient
+            assert _rel(g, w) < 2e-2
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     a, b, u = _inputs((4, 6), torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -72,8 +142,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         tac.fused_affine_inverse(a, b, u.to(torch.bfloat16))
     with pytest.raises(ValueError, match="shapes"):
         tac.fused_affine_inverse(a, b, u[:2])
-    with pytest.raises(NotImplementedError, match="backward"):
-        tac.fused_affine_forward(a.requires_grad_(), b, u)
+    # the JAX fused_affine_inverse defines no gradient; K1 has one
+    with pytest.raises(NotImplementedError, match="defines no gradient"):
+        tac.fused_affine_inverse(a.requires_grad_(), b, u)
 
 
 # a small odd size with an even kernel (asymmetric padding), the four specs
@@ -101,14 +172,20 @@ CHAIN_SPECS = {
 }
 
 
-def _chain_inputs(spec, batch, device):
-    """x and packed weights from numpy: kernels N(0, 1/fan_in) so that
+def _chain_weights(spec, device, rng):
+    """Flax-shaped weights from numpy: kernels N(0, 1/fan_in) so that
     activations stay O(1) through the chain, biases N(0, 0.01)."""
-    rng = np.random.default_rng(0)
     flat = []
     for _, shape in tfs.flax_param_order(spec):
         scale = 0.1 if len(shape) == 1 else 1.0 / np.sqrt(np.prod(shape[:-1]))
         flat.append(torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)))
+    return [t.to(device) for t in flat]
+
+
+def _chain_inputs(spec, batch, device):
+    """x and packed weights (:func:`_chain_weights`) from numpy."""
+    rng = np.random.default_rng(0)
+    flat = _chain_weights(spec, "cpu", rng)
     x = rng.normal(size=(batch, spec.h, spec.w, spec.cin)).astype(np.float32)
     return torch.from_numpy(x).to(device), [t.to(device) for t in tfs.pack(spec, flat)]
 
@@ -154,8 +231,35 @@ def test_chain_kernel_rejects_what_it_does_not_take(cuda):
         tfs.subnet_apply(spec, x, (w[:-1], b))
     with pytest.raises(ValueError, match="is not"):
         tfs.subnet_apply(spec, x[..., :1].contiguous(), (w, b))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfs.subnet_apply(spec, x.requires_grad_(), (w, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["odd_6x6x2", "flagship_14x14x4", "tiles_5x3x3"])
+def test_chain_gradients_match_plain_version(cuda, no_tf32, name, dtype):
+    """Through K3 (counted), the autograd.Function's recomputing backward
+    gives the gradients of autograd through the plain version, for x and
+    the flax-shaped weights through pack. The loss's cotangent is the
+    forward's output, so the kernel's values reach the gradients."""
+    spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
+    batch = BATCH if name.startswith("flagship") else 3
+    x, _ = _chain_inputs(spec, batch, cuda)
+    flat = [t.requires_grad_() for t in _chain_weights(spec, cuda, np.random.default_rng(1))]
+    x.requires_grad_()
+
+    def grads(fn):
+        out = fn(spec, x, tfs.pack(spec, flat))
+        return torch.autograd.grad(out.square().sum() / 2, [x] + flat)
+
+    before = tfs.LAUNCHES["fused_subnet"]
+    got = grads(tfs.subnet_apply)
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    want = grads(tfs.subnet_apply_reference)
+    torch.cuda.synchronize()
+    # float32: the kernel's output within 1e-4 of the plain version's (sums
+    # in another order); bf16: within 2e-2, a bf16 ulp flipped here and there
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for (n, _), g, w in zip([("x", None)] + list(tfs.flax_param_order(spec)), got, want):
+        assert _rel(g, w) < tol, n
 
 
 def test_bf16_chain_kernel_rejects_what_it_does_not_take(cuda):
