@@ -127,7 +127,9 @@ def state_dict_from_flax(params, model) -> dict:
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(f"{'/'.join(path)} -> {key}: shape {arr.shape} "
                              f"!= {tuple(target[key].shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+        # np.array, not np.ascontiguousarray, which turns a 0-d tanh_scale
+        # into shape (1,); and a writable copy for torch
+        out[key] = torch.from_numpy(np.array(arr, order="C")).to(
             device=target[key].device, dtype=target[key].dtype)
     if unmapped:
         raise KeyError(f"flax params with no port counterpart: {unmapped}")
@@ -135,3 +137,33 @@ def state_dict_from_flax(params, model) -> dict:
     if unset:
         raise KeyError(f"port parameters not set from the flax params: {unset}")
     return out
+
+
+def load_optax_adam_state(state, mu, nu, count):
+    """Carry an optax Adam state across into ``state`` (a port ``TrainState``
+    whose optimizer is ``torch.optim.Adam``), in place, so that a JAX run in
+    the middle of training continues in the port; returns ``state``.
+
+    ``mu``, ``nu`` and ``count`` are the fields of optax's
+    ``ScaleByAdamState`` (``opt_state[0]`` of ``optax.adam``): ``mu`` and
+    ``nu`` are trees shaped like the flax params (``variables["params"]``,
+    nested dicts of arrays) and are mapped as :func:`state_dict_from_flax`
+    maps the weights; they become Adam's ``exp_avg`` and ``exp_avg_sq``, and
+    ``count`` its ``step``. Existing state tensors are written in place (a
+    captured CUDA graph holds their addresses).
+    """
+    model, optimizer = state.model, state.optimizer
+    mus, nus = state_dict_from_flax(mu, model), state_dict_from_flax(nu, model)
+    group_of = {p: g for g in optimizer.param_groups for p in g["params"]}
+    for name, p in model.named_parameters():
+        group = group_of[p]
+        on_device = group.get("capturable")
+        step = torch.tensor(float(np.asarray(count)), dtype=torch.float32,
+                            device=p.device if on_device else "cpu")
+        s = optimizer.state[p]
+        for key, value in (("step", step), ("exp_avg", mus[name]), ("exp_avg_sq", nus[name])):
+            if key in s:
+                s[key].copy_(value)
+            else:
+                s[key] = value.clone()
+    return state

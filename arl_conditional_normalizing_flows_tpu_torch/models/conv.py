@@ -59,11 +59,11 @@ def check_ported(cfg: ConvFlowConfig) -> None:
     if cfg.experimental_lowering in ("fused_dilated", "dense_groups"):
         raise NotImplementedError(
             f"experimental_lowering={cfg.experimental_lowering!r} is not "
-            "ported yet (ROADMAP A.18)")
+            "ported yet (ROADMAP A.12)")
     if cfg.flow_in_compute_dtype or cfg.late_head_cast:
         raise NotImplementedError(
             "flow_in_compute_dtype and late_head_cast are not ported yet "
-            "(ROADMAP A.18)")
+            "(ROADMAP A.12)")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 or "

@@ -3,11 +3,17 @@
 Forward (conv_cINN_base_functions.py:174-231): x in [0,1] -> logit(a +
 (1-a)*b*x), rescaled from [logit(a), logit(1-a)] to [0,1], with
 b = (1-2a)/(1-a). Inverse (conv_cINN_base_functions.py:287-318): the exact
-algebraic inverse, used to recover pixels from samples.
+algebraic inverse, used to recover pixels from samples. :func:`logitify_np`
+is the same forward in numpy, for data prepared on the host.
+
+:func:`logitify` builds a tensor from a Python float on every call, so it
+stays out of a captured CUDA graph: data sources apply the transform before
+batches reach a train step.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,6 +34,19 @@ def logitify(x, a=0.01):
     hi = -lo  # logit(1-a) = -logit(a)
     z = _logit(a + (1.0 - a) * b * x)
     return (z - lo) / (hi - lo)
+
+
+def logitify_np(x, a=0.01):
+    """Pure-numpy :func:`logitify` for host-side data preparation. Same
+    formula, float32 math."""
+    x = np.asarray(x, np.float32)
+    a = np.float32(a)
+    b = (1.0 - 2.0 * a) / (1.0 - a)
+    lo = np.float32(np.log(a / (1.0 - a), dtype=np.float32))
+    hi = -lo
+    arg = (a + (1.0 - a) * b * x).astype(np.float32)
+    z = np.log(arg / (1.0 - arg), dtype=np.float32)
+    return ((z - lo) / (hi - lo)).astype(np.float32)
 
 
 def de_logitify(x, a=0.01):

@@ -1,6 +1,6 @@
 """Serving entry for conv models (port of ``make_image_serving_fn`` from the
 JAX ``serve/export.py``; the artifact export, multidraw and pipelined
-sampler are not ported yet, ROADMAP A.16)."""
+sampler are not ported yet, ROADMAP A.7)."""
 
 from __future__ import annotations
 

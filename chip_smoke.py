@@ -17,8 +17,17 @@ float32 agree with the CPU. Then it trains through both kernel lowerings
 (``[grad]``): every parameter's gradient of ``log_loss`` at full width,
 against the default lowering on the card and against the CPU, with the
 kernels' forward launches counted. ``[floor]`` is the device time of one
-launch of a one-element PyTorch op, the yardstick beside K1/K2's times. Each
-phase prints its elapsed seconds.
+launch of a one-element PyTorch op, the yardstick beside K1/K2's times.
+``[train]`` takes optimizer steps: the JAX bench's cell (the flagship on the
+default lowering, batch 128, Adam 3e-4, no noise) through
+``make_scan_train_step``'s CUDA graph of 16 steps against 16 eager steps
+from the same state, with wall times, samples/s, device busy time and
+launches a step; graphs of 4 steps under ``pallas_coupling`` and
+``pallas_subnet``, whose replays must launch K1 or K3 16 times a step;
+``fit`` on ``ClassConditionalSource(synthetic_digits)`` (the ``cnf-conv``
+class workload: 1 annealing and 2 clean epochs of scanned stacks); and the
+structure of the flagship's shared-shape init. Each phase prints its
+elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -36,13 +45,19 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
+from arl_conditional_normalizing_flows_tpu_torch.data.images import (
+    ClassConditionalSource,
+    synthetic_digits,
+)
 from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
     ConvFlowConfig,
     arch_string,
 )
 from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
+from arl_conditional_normalizing_flows_tpu_torch.models.init_compat import check_shared_draw
 from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
     ConvCouplingNet,
     FusedChainCouplingNet,
@@ -57,6 +72,13 @@ from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
 )
 from arl_conditional_normalizing_flows_tpu_torch.serve.export import (
     make_image_serving_fn,
+)
+from arl_conditional_normalizing_flows_tpu_torch.train import (
+    create_train_state,
+    epoch_stacks,
+    fit,
+    make_scan_train_step,
+    make_step_fns,
 )
 
 #: the flagship of the JAX bench (bench.py), on the coupling-kernel lowering
@@ -533,8 +555,11 @@ def kernel_breakdown(fn, top=6):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # device events without the ranges of record_function annotations (an
+    # eager optimizer step shows one spanning all of its kernels and the
+    # host's gaps between them)
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy_us += max(0.0, e - max(s, end))
@@ -547,8 +572,11 @@ def kernel_breakdown(fn, top=6):
         return sum(t for name, (t, _) in by_name.items() if pred(name.lower())) / total
 
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    ours = {k: sum(n for name, (_, n) in by_name.items() if k + "_" in name)
+            for k in ("affine_forward", "affine_inverse", "fused_subnet")}
     return dict(
         kernel_launches=len(spans),
+        port_kernel_launches=ours,
         device_busy_ms=busy_us / 1e3,
         coupling_kernel_share=share(lambda n: "affine_" in n),
         chain_kernel_share=share(lambda n: "fused_subnet" in n),
@@ -743,6 +771,194 @@ def check_grads(coupling_model, subnet_model, phases):
     return out
 
 
+#: [train]: the JAX bench's cell (bench.py:113-146) — the flagship on the
+#: default lowering (eager cuDNN subnets, bf16), batch 128, Adam 3e-4, no
+#: noise, random-normal xy from numpy seed 0, 16 steps a call
+BENCH_CELL = dataclasses.replace(FLAGSHIP, experimental_lowering=None)
+TRAIN_LR = 3e-4
+TRAIN_INNER = 16
+TRAIN_CALLS = 5  # timed calls of the graph and of the eager steps, after the first
+LOWERING_INNER = 4  # steps a graph under pallas_coupling and pallas_subnet
+#: the cnf-conv class workload (drivers/conv.py defaults): the flagship arch
+#: in float32 with unfused subnets and the shared-shape init, classes 0-3,
+#: batch 32, fudged-logit pixels, the 2% noise floor, full instance noise
+FIT_CFG = ConvFlowConfig(io_shape=(28, 28, 2), x_d=1, ksize=3, ref_compat_shared_init=True)
+FIT_CLASSES = (0, 1, 2, 3)
+FIT_BATCH = 32
+FIT_INNER = 16
+#: graph against eager parameters after the same steps from the same state:
+#: every element within TRAIN_MAX and at least TRAIN_FRACTION of them within
+#: TRAIN_TIGHT. cuDNN's float32 weight gradients in K3's recompute sum with
+#: atomics, so pallas_subnet is not bit-equal. Measured on an NVIDIA H100
+#: 80GB HBM3 at 700 W in four runs: default and pallas_coupling bit-equal;
+#: pallas_subnet max 2.4e-6 to 1.73e-5, 0.999992 to 1.0 of elements within
+#: 1e-5. Adam moves an element by about lr a step (3e-4), above TRAIN_MAX,
+#: so a skipped or misapplied update shows
+TRAIN_MAX = 1e-4
+TRAIN_TIGHT = 1e-5
+TRAIN_FRACTION = 0.9999
+
+
+def param_agreement(a, b):
+    """(max |a - b|, the fraction of elements within TRAIN_TIGHT) over
+    every parameter of two models of one config."""
+    diffs = torch.cat([(p.detach().float() - q.detach().float()).abs().flatten()
+                       for p, q in zip(a.parameters(), b.parameters())])
+    return diffs.max().item(), (diffs <= TRAIN_TIGHT).float().mean().item()
+
+
+def walls(fn, n):
+    """Host seconds of ``n`` calls of ``fn``, each ended by a synchronize."""
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def bench_stack(cfg, inner):
+    """(inner, BATCH, 28, 28, 2) random-normal xy from numpy seed 0, as
+    bench.py makes its stack, on the card."""
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.normal(size=(inner, BATCH) + cfg.io_shape).astype(np.float32)).cuda()
+
+
+def train_graph_and_eager(cfg, inner, phases):
+    """One lowering's [train] line: a graph of ``inner`` steps against
+    ``inner`` eager steps from the same state, then TRAIN_CALLS timed calls
+    of each and a profile of each. Returns the line's dict."""
+    lowering = cfg.experimental_lowering or "default"
+    stack = bench_stack(cfg, inner)
+    graphed = ConvCFlow(cfg, seed=0)
+    eager = twin(graphed, cfg)
+    state_g = create_train_state(graphed, TRAIN_LR)
+    state_e = create_train_state(eager, TRAIN_LR)
+    multi = make_scan_train_step(graphed, inner, noise_mode="none")
+    train_step, _ = make_step_fns(eager, noise_mode="none")
+
+    reset_launches()
+    t = time.perf_counter()
+    multi.capture(state_g, stack)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    capture_launches = launch_counts()  # the warm-up steps and the capture
+    check(multi.graph is not None and state_g.step == 0,
+          f"{lowering}: captured, and the state is as it was before the warm-up")
+    state_g, first = multi(state_g, stack)
+    eager_losses = torch.stack([train_step(state_e, xy)[1]["loss"] for xy in stack])
+    torch.cuda.synchronize()
+    max_diff, tight = param_agreement(graphed, eager)
+    graph_loss, eager_loss = first["loss"].item(), eager_losses.mean().item()
+    print(f"[train] {lowering}: {inner} graph steps against {inner} eager steps from one state: "
+          f"parameters max |diff| {max_diff:.3g} (at most {TRAIN_MAX:g}), "
+          f"{tight:.6f} of elements within {TRAIN_TIGHT:g} (at least {TRAIN_FRACTION}); mean "
+          f"loss {graph_loss:.4f} against {eager_loss:.4f}", flush=True)
+    check(state_g.step == state_e.step == inner, f"{lowering}: {inner} optimizer steps each")
+    check(all(math.isfinite(v.item()) for v in first.values())
+          and bool(torch.isfinite(eager_losses).all()), f"{lowering}: finite losses")
+    check(max_diff <= TRAIN_MAX and tight >= TRAIN_FRACTION,
+          f"{lowering}: graph and eager parameters agree")
+    phases.done(f"train {lowering}: capture and the graph against eager steps")
+
+    def eager_steps():
+        for xy in stack:
+            train_step(state_e, xy)
+
+    losses = [graph_loss]
+
+    def graph_call():
+        losses.append(multi(state_g, stack)[1]["loss"].item())
+
+    graph_walls, eager_walls = walls(graph_call, TRAIN_CALLS), walls(eager_steps, TRAIN_CALLS)
+    graph_prof = kernel_breakdown(graph_call, top=8)
+    eager_prof = kernel_breakdown(lambda: train_step(state_e, stack[0]), top=8)
+    # the optimizer's share of an eager step: one more Adam update from the
+    # last step's gradients (the eager model serves timing only from here)
+    adam_prof = kernel_breakdown(state_e.optimizer.step, top=3)
+    check(all(math.isfinite(v) for v in losses), f"{lowering}: finite losses in the timed calls")
+    graph_ms, eager_ms = (statistics.median(w) * 1e3 for w in (graph_walls, eager_walls))
+    out = dict(
+        lowering=lowering, steps_a_call=inner, batch=BATCH, couplings=len(graphed.couplings),
+        capture_s=capture_s,
+        graph_call_ms_median=graph_ms, graph_call_ms_all=[round(w * 1e3, 3) for w in graph_walls],
+        graph_step_ms=graph_ms / inner, graph_samples_per_s=BATCH * inner / (graph_ms / 1e3),
+        eager_call_ms_median=eager_ms, eager_call_ms_all=[round(w * 1e3, 3) for w in eager_walls],
+        eager_step_ms=eager_ms / inner, eager_samples_per_s=BATCH * inner / (eager_ms / 1e3),
+        graph_busy_ms_a_step=graph_prof["device_busy_ms"] / inner,
+        graph_busy_share=graph_prof["device_busy_ms"] / graph_ms,
+        graph_launches_a_step=graph_prof["kernel_launches"] / inner,
+        graph_port_kernel_launches_a_step={k: v / inner for k, v in
+                                           graph_prof["port_kernel_launches"].items()},
+        eager_busy_ms_a_step=eager_prof["device_busy_ms"],
+        eager_busy_share=eager_prof["device_busy_ms"] / (eager_ms / inner),
+        eager_launches_a_step=eager_prof["kernel_launches"],
+        eager_port_kernel_launches_a_step=eager_prof["port_kernel_launches"],
+        eager_adam_launches=adam_prof["kernel_launches"],
+        eager_adam_busy_ms=adam_prof["device_busy_ms"],
+        wrapper_launches_warmup_and_capture=capture_launches,
+        loss_first=graph_loss, loss_last=losses[-1], max_param_diff=max_diff,
+        param_fraction_within_tight=tight, graph_top=graph_prof["top"],
+        eager_top=eager_prof["top"],
+    )
+    print("[train] " + json.dumps(out), flush=True)
+    phases.done(f"train {lowering}: timing and profile")
+    return out
+
+
+def train_fit(phases):
+    """``fit`` on the cnf-conv class workload with scanned stacks through
+    the CUDA graph, after checking the flagship's shared-shape draw."""
+    imgs, labels = synthetic_digits()
+    src = ClassConditionalSource(imgs, labels, FIT_CLASSES, FIT_BATCH, use_logits=True)
+    model = ConvCFlow(FIT_CFG, seed=0)
+    state = create_train_state(model, TRAIN_LR, seed=0)
+    counts = check_shared_draw(model.state_dict())
+    print(f"[train] shared-shape init on the flagship arch: {json.dumps(counts)}", flush=True)
+    phases.done("train: the flagship's shared-shape draw")
+
+    multi = make_scan_train_step(model, FIT_INNER, noise_mode="full")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    res = fit(state, multi, lambda gen, epoch: epoch_stacks(src.epoch(gen), FIT_INNER),
+              generator=g, num_epochs=2, num_annealing_epochs=1, verbose=False)
+    fit_s = time.perf_counter() - t
+    rows = res.history.rows
+    print(f"[train] fit, cnf-conv class workload ({len(FIT_CLASSES)} classes, batch "
+          f"{FIT_BATCH}, {src.num_batches // FIT_INNER} stacks of {FIT_INNER} an epoch): "
+          f"{fit_s:.2f} s, {json.dumps(rows)}", flush=True)
+    check([r["alpha"] for r in rows] == [0.0, 1.0, 1.0], "fit: alphas 0, 1, 1")
+    check(res.completed_epochs == 3 and not res.stopped_early, "fit: three epochs")
+    check(all(math.isfinite(r[k]) for r in rows for k in ("loss", "z_loss", "y_loss", "detJ_loss")),
+          "fit: finite losses")
+    phases.done("train: fit")
+    return dict(seconds=fit_s, rows=rows, shared_init=counts)
+
+
+def check_train(phases):
+    """[train]: the bench's cell, graphs under both kernel lowerings, and
+    fit. The kernels' wrappers count at capture only, so the launches inside
+    the replays come from the profiler. A training step runs no inverse, so
+    K2 must launch no time in any of them."""
+    out = {"default": train_graph_and_eager(BENCH_CELL, TRAIN_INNER, phases)}
+    for cfg, kernel in ((FLAGSHIP, "affine_forward"), (FLAGSHIP_SUBNET, "fused_subnet")):
+        line = train_graph_and_eager(cfg, LOWERING_INNER, phases)
+        n = line["couplings"]  # one launch a coupling and step (16 at the flagship)
+        per_step = line["graph_port_kernel_launches_a_step"]
+        check(per_step[kernel] == n and line["eager_port_kernel_launches_a_step"][kernel] == n,
+              f"{cfg.experimental_lowering}: {kernel} launches {n} times a step in the replays "
+              f"and eagerly ({per_step})")
+        out[cfg.experimental_lowering] = line
+        torch.cuda.empty_cache()
+    for lowering, line in out.items():
+        check(line["graph_port_kernel_launches_a_step"]["affine_inverse"] == 0
+              and line["eager_port_kernel_launches_a_step"]["affine_inverse"] == 0,
+              f"{lowering}: affine_inverse launches no time in a training step")
+    out["fit"] = train_fit(phases)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -780,6 +996,9 @@ def main() -> int:
     launches = run_main_path(coupling_model, FLAGSHIP, phases)
     chain_launches = run_main_path(subnet_model, FLAGSHIP_SUBNET, phases)
     grads = check_grads(coupling_model, subnet_model, phases)
+    del coupling_model, subnet_model
+    torch.cuda.empty_cache()
+    train = check_train(phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -810,6 +1029,13 @@ def main() -> int:
         grad_f32=grads["pallas_subnet_f32"], grad_cpu=grads["pallas_subnet_cpu"],
     ))
     entries[0]["grad"] = grads["pallas_coupling"]
+    # launches a training step inside the CUDA-graph replays (profiler)
+    entries[0]["launches_a_train_step"] = train["pallas_coupling"][
+        "graph_port_kernel_launches_a_step"]["affine_forward"]
+    entries[1]["launches_a_train_step"] = train["pallas_coupling"][
+        "graph_port_kernel_launches_a_step"]["affine_inverse"]
+    entries[2]["launches_a_train_step"] = train["pallas_subnet"][
+        "graph_port_kernel_launches_a_step"]["fused_subnet"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -55,3 +55,30 @@ def test_entry_point_without_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ConvCFlow(cfg)
     assert ConvCFlow(cfg, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_without_device_raise_without_a_card(monkeypatch):
+    """Training takes its device from the model, and a model lands on the
+    CPU only when asked to: with no card, ``create_train_state`` and
+    ``make_scan_train_step`` of a model built without a device raise; a
+    model built for the CPU gets the CPU's plain loop and a non-capturable
+    Adam, and the CUDA-graph path refuses CPU tensors rather than running
+    eager steps."""
+    from arl_conditional_normalizing_flows_tpu_torch.train import loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ConvFlowConfig(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1),
+                         res_blocks=(1, 1), num_kernels=(16, 16), cardinality=(2, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.create_train_state(ConvCFlow(cfg), 3e-4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.make_scan_train_step(ConvCFlow(cfg), 4)
+
+    model = ConvCFlow(cfg, device="cpu")
+    state = loop.create_train_state(model, 3e-4)
+    assert not state.optimizer.param_groups[0]["capturable"]
+    assert not isinstance(loop.make_scan_train_step(model, 4), loop._GraphedSteps)
+    graphed = loop._GraphedSteps(model, 4, None)
+    with pytest.raises(ValueError, match="on the card"):
+        graphed(state, torch.zeros((4, 2, 8, 8, 2)))
+    assert state.step == 0

@@ -1,5 +1,7 @@
 """The hand-written kernels against their plain versions on a CUDA card:
-the coupling law (K1/K2) and the coupling subnet's conv chain (K3).
+the coupling law (K1/K2) and the coupling subnet's conv chain (K3); and the
+train step replayed as a CUDA graph against eager steps, with K1/K3
+launching inside the replay.
 
 Needs a card and imports no JAX, so it runs on a machine with a card and
 without jax, skipping the repo's conftest (which configures JAX):
@@ -16,12 +18,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from arl_conditional_normalizing_flows_tpu_torch.models.arch import ConvFlowConfig  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow  # noqa: E402
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
     affine_coupling as tac,
 )
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
     fused_subnet as tfs,
 )
+
+from arl_conditional_normalizing_flows_tpu_torch.train import loop  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -277,3 +283,113 @@ def test_bf16_chain_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="packed sizes"):
         with torch.no_grad():
             tfs.subnet_apply(spec, x, (w[: tfs.packed_sizes(f32)[0]], b))
+
+
+# ---------------------------------------------------------------------------
+# the train step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+SMALL = dict(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1), res_blocks=(1, 1),
+             num_kernels=(16, 16), cardinality=(2, 2), ksize=3, fused_subnet=True)
+LOWERINGS = [None, "pallas_coupling", "pallas_subnet"]
+GRAPH_STEPS = 3
+LR = 1e-3
+
+
+def _small_model(device, lowering, seed=0):
+    return ConvCFlow(ConvFlowConfig(**SMALL, experimental_lowering=lowering), device=device,
+                     seed=seed)
+
+
+def _stack(device, n=GRAPH_STEPS, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(n, 4, 8, 8, 2)).astype(np.float32)).to(device)
+
+
+def _replay_kernels(fn):
+    """Names of the kernels ``fn()`` runs on the card, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("lowering", LOWERINGS)
+def test_graphed_steps_equal_eager_steps(cuda, no_tf32, lowering):
+    """k steps replayed from one captured step give the parameters and
+    losses of k eager steps from the same state, and the replays launch K1
+    (pallas_coupling) or K3 (pallas_subnet) once a coupling a step."""
+    graphed, eager = _small_model(cuda, lowering), _small_model(cuda, lowering)
+    xy = _stack(cuda)
+    multi = loop.make_scan_train_step(graphed, GRAPH_STEPS, noise_mode="none")
+    assert isinstance(multi, loop._GraphedSteps)
+    state_g = loop.create_train_state(graphed, LR)
+    state_g, out = multi(state_g, xy)
+    state_e = loop.create_train_state(eager, LR)
+    step, _ = loop.make_step_fns(eager, noise_mode="none")
+    losses = [float(step(state_e, b)[1]["loss"]) for b in xy]
+    torch.cuda.synchronize()
+    assert state_g.step == state_e.step == GRAPH_STEPS
+    # the same kernels in the same order: float32 sums that may land in
+    # another order where cuDNN's backward uses atomics
+    np.testing.assert_allclose(float(out["loss"]), np.mean(losses), rtol=1e-5)
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)
+
+    names = _replay_kernels(lambda: multi(state_g, xy))
+    per_step = len(graphed.couplings) * GRAPH_STEPS
+    assert sum("affine_forward" in n for n in names) == (
+        per_step if lowering == "pallas_coupling" else 0)
+    assert sum("fused_subnet" in n for n in names) == (
+        per_step if lowering == "pallas_subnet" else 0)
+
+
+def test_graphed_steps_update_what_eval_reads(cuda, no_tf32):
+    """The replays write the parameters in place; the conv-chain kernel's
+    packed weights, cached on the parameters' versions, follow them."""
+    model, twin = _small_model(cuda, "pallas_subnet"), _small_model(cuda, "pallas_subnet")
+    state = loop.create_train_state(model, LR)
+    state, _ = loop.make_scan_train_step(model, GRAPH_STEPS, noise_mode="none")(
+        state, _stack(cuda))
+    _, eval_step = loop.make_step_fns(model, noise_mode="none")
+    twin.load_state_dict(model.state_dict())
+    _, eval_twin = loop.make_step_fns(twin, noise_mode="none")
+    xy = _stack(cuda, n=1, seed=1)[0]
+    got = eval_step(state, xy)["loss"]
+    want = eval_twin(loop.create_train_state(twin, LR), xy)["loss"]
+    torch.testing.assert_close(got, want)
+
+
+def test_graphed_noise_is_drawn_anew_each_replay(cuda):
+    """At lr 0 the parameters stay put, so two calls on the same stack give
+    different losses only through the noise: the generator registered with
+    the graph advances with every replay."""
+    model = _small_model(cuda, None)
+    state = loop.create_train_state(model, 0.0)
+    multi = loop.make_scan_train_step(model, 2, noise_mode="full")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xy = _stack(cuda, n=2)
+    first = float(multi(state, xy, g, 0.5)[1]["loss"])
+    second = float(multi(state, xy, g, 0.5)[1]["loss"])
+    clean = float(multi(state, xy, g, 1.0)[1]["loss"])
+    assert first != second and np.isfinite([first, second]).all()
+    assert clean == float(multi(state, xy, g, 1.0)[1]["loss"])
+
+
+def test_capture_without_a_warm_up_raises(cuda, monkeypatch):
+    """No warm-up: the capture raises, and no eager step is taken in its
+    place."""
+    monkeypatch.setattr(loop, "_WARMUP_STEPS", 0)
+    model = _small_model(cuda, "pallas_subnet")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state = loop.create_train_state(model, LR)
+    multi = loop.make_scan_train_step(model, GRAPH_STEPS, noise_mode="none")
+    with pytest.raises(RuntimeError, match="warm-up"):
+        multi(state, _stack(cuda))
+    assert multi.graph is None and state.step == 0
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
