@@ -1,4 +1,4 @@
-"""Flax ``ConvCFlow`` params -> the port's ``ConvCFlow`` state_dict.
+"""Flax ``ConvCFlow`` params <-> the port's ``ConvCFlow`` state_dict.
 
 The flax tree is given as nested dicts of numpy arrays (e.g. a JAX
 checkpoint loaded with numpy), so this module needs neither jax nor flax.
@@ -25,6 +25,8 @@ HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)`` (at cardinality
 ``pallas_subnet`` lowering's subnets keep the same leaves under dotted names
 (``DilatedResidualBlock_0.Conv_1.kernel``); each is split into its path
 parts, so both trees map to the same port parameters.
+:func:`flax_from_state_dict` maps back, for ``.npz`` files that the JAX
+package reads.
 """
 
 from __future__ import annotations
@@ -137,6 +139,65 @@ def state_dict_from_flax(params, model) -> dict:
     if unset:
         raise KeyError(f"port parameters not set from the flax params: {unset}")
     return out
+
+
+def _flax_path(key, nets, n_branches):
+    """The flax path of the port parameter ``key``: the inverse of
+    :func:`_leaf`. ``nets`` maps a ``couplings.i.<net>`` prefix to whether
+    its leaves are dotted (the ``pallas_subnet`` lowering's subnets);
+    ``n_branches`` maps a residual block's prefix to its branch count."""
+    parts = key.split(".")
+    net = ".".join(parts[:3])
+    head = (f"couplings_{parts[1]}", parts[2])
+    rest, param = parts[3:-1], parts[-1]
+    if not rest:  # tanh_scale
+        return head + (param,)
+    if rest[0] == "blocks":
+        block = f"DilatedResidualBlock_{rest[1]}"
+        kind = rest[2]
+        if kind == "norms":
+            inner = (block, f"FlatLayerNorm_{rest[3]}", "LayerNorm_0")
+        else:
+            j = {"conv_pre": 0, "conv_post": n_branches[".".join(parts[:5])] + 1}.get(kind)
+            inner = (block, f"Conv_{int(rest[3]) + 1 if j is None else j}")
+    elif rest[0] == "norm":
+        inner = ("FlatLayerNorm_0", "LayerNorm_0")
+    else:
+        inner = ({"conv_in": "Conv_0", "head": "Conv_1"}[rest[0]],)
+    leaf = {"weight": "scale" if "LayerNorm_0" in inner else "kernel", "bias": "bias"}[param]
+    inner = inner + (leaf,)
+    return head + ((".".join(inner),) if nets[net] else inner)
+
+
+def flax_from_state_dict(state_dict, model) -> dict:
+    """The flax ``params`` tree (``variables["params"]``: nested dicts of
+    float32 numpy arrays) holding ``state_dict`` of ``model`` (a port
+    ``ConvCFlow``, or any module whose parameters sit at the same paths):
+    the exact inverse of :func:`state_dict_from_flax`. Conv kernels go from
+    OIHW back to HWIO; the subnets of the ``pallas_subnet`` lowering get
+    flax's dotted leaf names."""
+    from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
+        FusedChainCouplingNet,
+    )
+
+    nets, n_branches = {}, {}
+    for name, module in model.named_modules():
+        parts = name.split(".")
+        if len(parts) == 3 and parts[0] == "couplings":
+            nets[name] = isinstance(module, FusedChainCouplingNet)
+        if len(parts) == 5 and parts[3] == "blocks":
+            n_branches[name] = len(module.branches)
+    tree = {}
+    for key, value in state_dict.items():
+        arr = value.detach().cpu().float().numpy()
+        if key.endswith(".weight") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = tree
+        *path, leaf = _flax_path(key, nets, n_branches)
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(arr, order="C")
+    return tree
 
 
 def load_optax_adam_state(state, mu, nu, count):

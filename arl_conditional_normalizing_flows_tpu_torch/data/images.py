@@ -1,5 +1,5 @@
-"""Image datasets and the class-conditional batch source (port of the
-class-conditional half of the JAX ``data/images.py``).
+"""Image datasets and the class-conditional and super-resolution batch
+sources (port of the JAX ``data/images.py``).
 
 - class-conditional ("DISCRETE"): per-class sources, each truncated to a
   multiple of the batch size so every batch is CLASS-PURE
@@ -7,7 +7,11 @@ class-conditional half of the JAX ``data/images.py``).
   label becomes a constant H x W x 1 plane concatenated onto x
   (conv_cINN.py:250-268); labels are the class INDICES rescaled to [0,1]
   (conv_cINN.py:222-228); the permanent 2% instance-noise floor
-  (alpha=0.98, conv_cINN.py:307-315) is drawn anew every epoch.
+  (alpha=0.98, conv_cINN.py:307-315) is drawn anew every epoch;
+- super-resolution ("CONTINUOUS"): one combined source mapped through the
+  down/up resampling pairs of :func:`preprocess_sr`, with an optional
+  residual target (conv_cINN_base_functions.py:233-279), shuffled at the
+  example level, with the same noise floor.
 
 Dataset acquisition: a cached ``mnist.npz``/``fashion_mnist.npz`` archive is
 used when present (nothing is downloaded); otherwise :func:`synthetic_digits`
@@ -23,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from arl_conditional_normalizing_flows_tpu_torch.ops import resample
 from arl_conditional_normalizing_flows_tpu_torch.ops.logit import logitify_np
 
 
@@ -109,8 +114,32 @@ def class_labels_01(num_classes: int) -> np.ndarray:
     return idx / max(idx[-1], 1.0)
 
 
+def preprocess_sr(x_hires, model_type: str, residual: bool = True):
+    """SR pair construction (conv_cINN_base_functions.py:233-279), on a
+    tensor or numpy array of high-res images (..., H, W, D); returns a
+    tensor xy = concat([x, y], -1).
+
+    'SR4,2': x = down(hires) (14x14), y = up(down(down(hires)));
+    'SR2,1': x = hires (28x28),       y = up(down(hires)).
+    With ``residual``, x -= y (2x2 blocks of the residual sum to ~0,
+    conv_cINN.py:44-45).
+    """
+    x_hires = torch.as_tensor(x_hires)
+    if model_type == "SR4,2":
+        x = resample.down(x_hires)
+        y = resample.up(resample.down(resample.down(x_hires)))
+    elif model_type == "SR2,1":
+        x = x_hires
+        y = resample.up(resample.down(x_hires))
+    else:
+        raise ValueError(f"unknown SR model_type {model_type!r}")
+    if residual:
+        x = x - y
+    return torch.cat([x, y], dim=-1)
+
+
 # ---------------------------------------------------------------------------
-# epoch feeder
+# epoch feeders
 # ---------------------------------------------------------------------------
 
 
@@ -188,6 +217,48 @@ class ClassConditionalSource:
             idx = perm[slot * b:(slot + 1) * b]
             yplane = y_all[idx].view(b, 1, 1, 1).expand(b, h, w, 1)
             xy = torch.cat([x_all[idx], yplane], dim=-1)
+            if a < 1.0:
+                eps = torch.randn(xy.shape, generator=generator, dtype=xy.dtype, device=device)
+                xy = a * xy + (1 - a) * eps
+            yield xy
+
+
+@dataclasses.dataclass
+class SRSource:
+    """Example-shuffled batch feeder for continuous (super-resolution)
+    conditioning (conv_cINN.py:412-508)."""
+
+    images: np.ndarray  # (N, H, W, 1) hires in [0,1]
+    model_type: str  # 'SR4,2' | 'SR2,1'
+    batch_size: int
+    residual: bool = True
+    noise_floor_alpha: float = 0.98
+
+    def __post_init__(self):
+        xy = preprocess_sr(np.asarray(self.images, np.float32), self.model_type, self.residual)
+        n = (len(xy) // self.batch_size) * self.batch_size
+        if n == 0:
+            raise ValueError(f"dataset ({len(xy)} examples) smaller than batch_size "
+                             f"({self.batch_size}) - zero batches")
+        self._xy = xy[:n].contiguous()
+        self.num_batches = n // self.batch_size
+        self.xy_shape = tuple(self._xy.shape[1:])
+        self._on_device = {}
+
+    def epoch(self, generator):
+        """Yield the epoch's shuffled xy batches ``(B, H, W, 2*D)`` on the
+        generator's device, with a fresh noise floor. The permutation and
+        the noise are drawn from ``generator``, as
+        :meth:`ClassConditionalSource.epoch` draws them (so not JAX's
+        order)."""
+        device = generator.device
+        if device not in self._on_device:
+            self._on_device[device] = self._xy.to(device)
+        xy_all = self._on_device[device]
+        order = torch.randperm(len(xy_all), generator=generator, device=device)
+        b, a = self.batch_size, self.noise_floor_alpha
+        for i in range(self.num_batches):
+            xy = xy_all[order[i * b:(i + 1) * b]]
             if a < 1.0:
                 eps = torch.randn(xy.shape, generator=generator, dtype=xy.dtype, device=device)
                 xy = a * xy + (1 - a) * eps

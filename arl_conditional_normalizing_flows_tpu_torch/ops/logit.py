@@ -6,9 +6,9 @@ b = (1-2a)/(1-a). Inverse (conv_cINN_base_functions.py:287-318): the exact
 algebraic inverse, used to recover pixels from samples. :func:`logitify_np`
 is the same forward in numpy, for data prepared on the host.
 
-:func:`logitify` builds a tensor from a Python float on every call, so it
-stays out of a captured CUDA graph: data sources apply the transform before
-batches reach a train step.
+The constant logit(a) is computed on the CPU and enters as a Python float,
+so neither direction copies from the host to the card: both may run inside
+a captured CUDA graph (the serving graph de-logits its samples).
 """
 
 from __future__ import annotations
@@ -21,10 +21,11 @@ def _logit(x):
     return torch.log(x / (1.0 - x))
 
 
-def _logit_a(x, a):
-    # logit(a) in the wider of x's dtype and float32, as the JAX version
+def _logit_a(x, a) -> float:
+    # logit(a) in the wider of x's dtype and float32, as the JAX version;
+    # a Python float holds that value exactly
     dt = torch.promote_types(x.dtype, torch.float32)
-    return _logit(torch.tensor(a, dtype=dt, device=x.device))
+    return _logit(torch.tensor(a, dtype=dt)).item()
 
 
 def logitify(x, a=0.01):

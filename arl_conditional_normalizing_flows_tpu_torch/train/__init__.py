@@ -1,5 +1,12 @@
 """Training: the train state, step functions, the CUDA-graph multi-step,
-``fit`` and its metrics."""
+``fit``, its metrics, and checkpoints."""
+
+from arl_conditional_normalizing_flows_tpu_torch.train.checkpoints import (  # noqa: F401
+    CheckpointManager,
+    load_npz_extras,
+    load_params_npz,
+    save_params_npz,
+)
 
 from arl_conditional_normalizing_flows_tpu_torch.train.loop import (  # noqa: F401
     FitResult,

@@ -42,6 +42,7 @@ from arl_conditional_normalizing_flows_tpu_torch.train.metrics import (
     MeanMetrics,
     restore_params,
 )
+from arl_conditional_normalizing_flows_tpu_torch.utils import graphs
 
 #: eager steps on a side stream before a step is captured: they make every
 #: lazy first use (Adam's state, cuDNN plans, the conv-chain kernel's
@@ -216,6 +217,8 @@ class _GraphedSteps:
     def __init__(self, model, num_inner: int, add_noise):
         self.model, self.num_inner, self.add_noise = model, num_inner, add_noise
         self.graph = None
+        # the hand-written kernels' launches a replay (see capture)
+        self.launches = None
         # the capture's key, static input, loss sums and alpha
         self._key = self._xy = self._acc = self._alpha = None
 
@@ -229,9 +232,12 @@ class _GraphedSteps:
         self._acc.add_(torch.stack([out[k] for k in LOSS_KEYS]))
 
     def capture(self, state: TrainState, xy_stack, generator=None) -> None:
-        """Warm up on a side stream, capture one step, and restore the state
-        (parameters and optimizer state, in place) to what it was before the
-        warm-up. The warm-up draws noise from ``generator``."""
+        """Warm up on a side stream, capture one step (``utils.graphs.capture``),
+        and restore the state (parameters and optimizer state, in place) and
+        the generator to what they were before the warm-up, so that where
+        the capture falls (a resumed run captures at its first epoch) does
+        not move the noise stream. :attr:`launches` is what each replay
+        launches of the hand-written kernels."""
         _check_model(state, self.model)
         device = xy_stack.device
         if device.type != "cuda":
@@ -241,24 +247,23 @@ class _GraphedSteps:
         self._acc = torch.zeros(len(LOSS_KEYS), device=device)
         self._alpha = torch.ones((), device=device)
         saved = _snapshot(state)
-        try:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                for _ in range(_WARMUP_STEPS):
-                    self._step(state, generator)
-            torch.cuda.current_stream(device).wait_stream(side)
+        rng = generator.get_state() if generator is not None else None
+
+        def before_capture():
             params, _ = _state_tensors(state)
             if not all(state.optimizer.state.get(p) for p in params):
                 raise RuntimeError(
                     "CUDA graph capture of a train step needs a warm-up step first: the "
                     "optimizer has no state yet for some parameters")
-            graph = torch.cuda.CUDAGraph()
-            if self.add_noise is not None and generator is not None:
-                graph.register_generator_state(generator)
+            if rng is not None:
+                generator.set_state(rng)
             state.optimizer.zero_grad(set_to_none=True)
-            with torch.cuda.graph(graph):
-                self._step(state, generator)
+
+        try:
+            graph, _, self.launches = graphs.capture(
+                lambda: self._step(state, generator), device, warmup=_WARMUP_STEPS,
+                generator=generator if self.add_noise is not None else None,
+                before_capture=before_capture)
         finally:
             _restore(state, saved)
         self.graph = graph

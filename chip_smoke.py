@@ -26,8 +26,23 @@ launches a step; graphs of 4 steps under ``pallas_coupling`` and
 ``pallas_subnet``, whose replays must launch K1 or K3 16 times a step;
 ``fit`` on ``ClassConditionalSource(synthetic_digits)`` (the ``cnf-conv``
 class workload: 1 annealing and 2 clean epochs of scanned stacks); and the
-structure of the flagship's shared-shape init. Each phase prints its
-elapsed seconds.
+structure of the flagship's shared-shape init. ``[serve]`` serves the JAX
+bench's serving cell (16 draws of 128 class conditions a call, the latent
+drawn on the card from one seed, de-logit and uint8) through
+``export_seeded_multidraw_sampler`` under the default, ``pallas_coupling``
+and ``pallas_subnet`` lowerings: the call captured as one CUDA graph and
+replayed, bit-equal to the eager entry and to the saved and reloaded
+artifact, with K2 or K3 launching 16 times a replayed call (counted at the
+capture, the profiler's count beside it),
+the card memory that graphs of smaller batches reserve besides the 2,048
+one (they share its memory pool), a ``PipelinedSampler`` of 8 draws and 16
+graphs equal to sequential calls,
+and the eager single-draw request beside it; K3 is also held and timed at
+the serving batch of 2,048. ``[cli]`` runs the port's ``cnf-conv`` (class
+at the flagship arch through graphed stacks of 16 steps, resumed from its
+checkpoints; SR4,2 and SR2,1 at one residual block a level) and
+``cnf-eval`` with ``--export-multidraw``, whose artifact is loaded and
+called. Each phase prints its elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -40,9 +55,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,7 +88,12 @@ from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
     fused_subnet as chain,
 )
 from arl_conditional_normalizing_flows_tpu_torch.serve.export import (
+    PipelinedSampler,
+    export_seeded_multidraw_sampler,
+    load_artifact,
     make_image_serving_fn,
+    make_seeded_multidraw_fn,
+    save_artifact,
 )
 from arl_conditional_normalizing_flows_tpu_torch.train import (
     create_train_state,
@@ -91,6 +113,9 @@ FLAGSHIP = ConvFlowConfig(
 #: the same model on the conv-chain kernel's lowering
 FLAGSHIP_SUBNET = dataclasses.replace(FLAGSHIP, experimental_lowering="pallas_subnet")
 BATCH = 128
+#: the seeded serving entry's batch in [serve]: 16 draws of BATCH conditions
+SERVE_DRAWS = 16
+SERVE_BATCH = SERVE_DRAWS * BATCH
 REQUESTS = 4
 NUM_CLASSES = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -136,12 +161,14 @@ CHAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # float32 row sums in another order
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LD_TOL = 1e-4
-#: K1/K2's checks: (rows, n, misaligned) — the main path's two shapes, a
-#: ragged n, an odd n and misaligned views (both the kernels' scalar path),
-#: then the loops: rows wider than K1's 1024-thread block (8200: 2050 float32
-#: or 1025 bf16 vectors; 4099: odd, scalar) and a tensor larger than K2's
-#: one-wave grid (1024 x 4096), aligned and misaligned
-LAW_CASES = ((BATCH, 784, False), (BATCH, 392, False), (3, 1000, False), (5, 393, False),
+#: K1/K2's checks: (rows, n, misaligned) — the main path's two shapes, then
+#: the same at the seeded serving entry's batch, a ragged n, an odd n and
+#: misaligned views (both the kernels' scalar path), then the loops: rows
+#: wider than K1's 1024-thread block (8200: 2050 float32 or 1025 bf16
+#: vectors; 4099: odd, scalar) and a tensor larger than K2's one-wave grid
+#: (1024 x 4096), aligned and misaligned
+LAW_CASES = ((BATCH, 784, False), (BATCH, 392, False), (SERVE_BATCH, 784, False),
+             (SERVE_BATCH, 392, False), (3, 1000, False), (5, 393, False),
              (BATCH, 784, True), (4, 8200, False), (3, 4099, False), (1024, 4096, False),
              (4, 8200, True), (1024, 4096, True))
 
@@ -226,12 +253,13 @@ def launch_floor_ms():
 
 def check_kernels(phases):
     """K1/K2 against their plain versions at :data:`LAW_CASES` (both
-    dtypes); times at the main path's float32 shapes, beside the floor of a
-    launch."""
+    dtypes); times at the main path's and the serving entry's float32
+    shapes, beside the floor of a launch. ``max_abs_err`` is the worst over
+    those shapes."""
     floor_ms = launch_floor_ms()
     print(f"[floor] one launch of a 1-element torch.add: {floor_ms * 1e3:.2f} us on the card "
           "(CUDA-graph replay between CUDA events, as the [kernel] times)", flush=True)
-    results = {name: dict(max_abs_err=0.0, timings={}) for name in KERNELS}
+    results = {name: dict(max_abs_err=0.0, timings={}, serving_timings={}) for name in KERNELS}
     for rows, n, misaligned in LAW_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             a, b, u = law_inputs(rows, n, dtype, seed=rows * n, misaligned=misaligned)
@@ -258,9 +286,9 @@ def check_kernels(phases):
             for name, err in errs.items():
                 print(f"[kernel] {name} {where}: max_abs_err={err:.3g} "
                       f"(tolerance {tol:g} abs + {tol:g} rel; log-det {LD_TOL:g})", flush=True)
-                if dtype == torch.float32 and rows == BATCH and not misaligned:
+                if dtype == torch.float32 and rows in (BATCH, SERVE_BATCH) and not misaligned:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-            if dtype != torch.float32 or rows != BATCH or misaligned:
+            if dtype != torch.float32 or rows not in (BATCH, SERVE_BATCH) or misaligned:
                 continue
             with torch.no_grad():
                 for name, k in KERNELS.items():
@@ -271,7 +299,8 @@ def check_kernels(phases):
                     bytes_s = nbytes / HBM_BYTES_PER_S
                     ops_s = k["ops"](rows, n) / F32_FLOPS_PER_S
                     bound_s = max(bytes_s, ops_s)
-                    results[name]["timings"][n] = dict(
+                    at = "timings" if rows == BATCH else "serving_timings"
+                    results[name][at][n] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
                         bound_by="bytes" if bytes_s >= ops_s else "operations")
                     print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card, "
@@ -375,11 +404,37 @@ def chain_specs(model):
     return counts
 
 
+def chain_at_serving_batch(spec, launches, seed):
+    """K3 in bf16 at :data:`SERVE_BATCH` (the seeded serving entry's 16 draws
+    of 128 conditions): held against its plain version, timed beside it,
+    with the bound of that batch."""
+    s = dataclasses.replace(spec, compute_dtype="bfloat16")
+    err, x, packed, _ = compare_chain(s, SERVE_BATCH, seed)
+    with torch.no_grad():
+        ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=5, reps=7)
+        plain_ms = device_time_ms(lambda: chain.subnet_apply_reference(s, x, packed),
+                                  iters=2, reps=3)
+    flops, nbytes = chain.flops(s, SERVE_BATCH), chain.io_bytes(s, SERVE_BATCH)
+    ops_s, bytes_s = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms = max(ops_s, bytes_s) * 1e3
+    trunk_mb = chain.trunk_elements(s, SERVE_BATCH) * 4 / 1e6
+    row = dict(shape=[SERVE_BATCH, s.h, s.w, s.cin], kernels=s.kernels,
+               launches_per_pass=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by="operations" if ops_s >= bytes_s else "bytes",
+               gflop=flops / 1e9, io_mb=nbytes / 1e6, trunk_scratch_mb=trunk_mb,
+               achieved_tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
+    print(f"[kernel] fused_subnet {SERVE_BATCH}x{s.h}x{s.w}x{s.cin} bf16: {ms * 1e3:.1f} us on "
+          f"the card (bound {bound_ms * 1e3:.2f} us, {bound_ms / ms:.3f} of it; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; trunk scratch {trunk_mb:.1f} MB), plain version "
+          f"{plain_ms * 1e3:.1f} us", flush=True)
+    return row
+
+
 def check_chain_kernel(specs, phases):
     """K3 against its plain version at each spec of the flagship, batch 128,
-    in bf16 and float32; times at bf16 (the main path's dtype). ``specs``:
-    :func:`chain_specs`."""
-    results = []
+    in bf16 and float32, and at the serving batch in bf16; times at bf16
+    (the main path's dtype). ``specs``: :func:`chain_specs`."""
+    results, serving = [], []
     for i, spec in enumerate(specs):
         for dtype in ("bfloat16", "float32"):
             s = dataclasses.replace(spec, compute_dtype=dtype)
@@ -413,13 +468,16 @@ def check_chain_kernel(specs, phases):
                   f"version {plain_ms * 1e3:.1f} us, eager ConvCouplingNet chain "
                   f"{eager_ms * 1e3:.1f} us (many calls: a yardstick, not a library call)",
                   flush=True)
+        serving.append(chain_at_serving_batch(spec, specs[spec], seed=20 + i))
     per_pass = {k: sum(r["launches_per_pass"] * r[k] for r in results)
                 for k in ("ms", "eager_chain_ms")}
+    per_pass["serving_ms"] = sum(r["launches_per_pass"] * r["ms"] for r in serving)
     print(f"[kernel] fused_subnet a pass's {sum(specs.values())} launches: "
           f"{per_pass['ms'] * 1e3:.1f} us, the eager chains at the same specs "
-          f"{per_pass['eager_chain_ms'] * 1e3:.1f} us", flush=True)
+          f"{per_pass['eager_chain_ms'] * 1e3:.1f} us; at batch {SERVE_BATCH} "
+          f"{per_pass['serving_ms'] * 1e3:.1f} us", flush=True)
     phases.done("K3 against its plain version at the flagship's specs")
-    return results, per_pass
+    return results, serving, per_pass
 
 
 def class_planes(request):
@@ -429,6 +487,9 @@ def class_planes(request):
     idx = (torch.arange(BATCH) + request) % NUM_CLASSES
     h, w, _ = FLAGSHIP.io_shape
     return labels[idx].view(BATCH, 1, 1, 1).expand(BATCH, h, w, 1).contiguous().cuda()
+
+
+PORT_KERNELS = ("affine_forward", "affine_inverse", "fused_subnet")
 
 
 def launch_counts():
@@ -846,6 +907,7 @@ def train_graph_and_eager(cfg, inner, phases):
     capture_launches = launch_counts()  # the warm-up steps and the capture
     check(multi.graph is not None and state_g.step == 0,
           f"{lowering}: captured, and the state is as it was before the warm-up")
+    step_launches = multi.launches  # what each replay launches, counted at the capture
     state_g, first = multi(state_g, stack)
     eager_losses = torch.stack([train_step(state_e, xy)[1]["loss"] for xy in stack])
     torch.cuda.synchronize()
@@ -891,6 +953,7 @@ def train_graph_and_eager(cfg, inner, phases):
         graph_launches_a_step=graph_prof["kernel_launches"] / inner,
         graph_port_kernel_launches_a_step={k: v / inner for k, v in
                                            graph_prof["port_kernel_launches"].items()},
+        graph_port_kernel_launches_a_step_at_capture=step_launches,
         eager_busy_ms_a_step=eager_prof["device_busy_ms"],
         eager_busy_share=eager_prof["device_busy_ms"] / (eager_ms / inner),
         eager_launches_a_step=eager_prof["kernel_launches"],
@@ -939,23 +1002,250 @@ def train_fit(phases):
 def check_train(phases):
     """[train]: the bench's cell, graphs under both kernel lowerings, and
     fit. The kernels' wrappers count at capture only, so the launches inside
-    the replays come from the profiler. A training step runs no inverse, so
-    K2 must launch no time in any of them."""
+    a replay are those counted during the capture, which the graph holds
+    (the profiler's count of the replays is printed beside them). A training
+    step runs no inverse, so K2 must launch no time in any of them."""
     out = {"default": train_graph_and_eager(BENCH_CELL, TRAIN_INNER, phases)}
     for cfg, kernel in ((FLAGSHIP, "affine_forward"), (FLAGSHIP_SUBNET, "fused_subnet")):
         line = train_graph_and_eager(cfg, LOWERING_INNER, phases)
         n = line["couplings"]  # one launch a coupling and step (16 at the flagship)
-        per_step = line["graph_port_kernel_launches_a_step"]
+        per_step = line["graph_port_kernel_launches_a_step_at_capture"]
         check(per_step[kernel] == n and line["eager_port_kernel_launches_a_step"][kernel] == n,
               f"{cfg.experimental_lowering}: {kernel} launches {n} times a step in the replays "
               f"and eagerly ({per_step})")
         out[cfg.experimental_lowering] = line
         torch.cuda.empty_cache()
     for lowering, line in out.items():
-        check(line["graph_port_kernel_launches_a_step"]["affine_inverse"] == 0
+        check(line["graph_port_kernel_launches_a_step_at_capture"]["affine_inverse"] == 0
               and line["eager_port_kernel_launches_a_step"]["affine_inverse"] == 0,
               f"{lowering}: affine_inverse launches no time in a training step")
     out["fit"] = train_fit(phases)
+    return out
+
+
+#: [serve]: the JAX bench's serving cell (bench.py:270-357): the flagship
+#: (bf16 subnets, fused heads, weights from seed 0) behind
+#: make_image_serving_fn(de_logit, quantize_uint8), 16 draws of 128 class
+#: conditions a call with the latent drawn on the card from one seed; and a
+#: PipelinedSampler of 8 draws a call with 16 graphs in rotation
+SERVE_LOWERINGS = (None, "pallas_coupling", "pallas_subnet")
+SERVE_SEED = 7
+SERVE_CALLS = 5
+PIPE_DRAWS, PIPE_IN_FLIGHT, PIPE_TOTAL = 8, 16, 128
+#: conditions of the smaller calls whose graphs join the 2,048 graph's
+#: memory pool, and the most card memory they may reserve besides it (a
+#: pool of their own would hold the largest one's intermediates alone:
+#: 1,024 rows of activations, 100-400 MB)
+POOL_CONDITIONS, POOL_GROWTH_MIB = (8, 16, 32, 64), 32
+
+
+def serve_lowering(lowering, tmp, phases):
+    """One lowering's [serve] line: the seeded multidraw artifact's graphed
+    call against the eager entry, two seeds, the saved and loaded artifact,
+    launches and device time of a replayed call, the pipelined sampler
+    against sequential calls, and the eager single-draw request."""
+    cfg = dataclasses.replace(FLAGSHIP, experimental_lowering=lowering)
+    name = lowering or "default"
+    model = ConvCFlow(cfg, seed=0)
+    h, w, _ = cfg.io_shape
+    fn = make_image_serving_fn(model, cfg.x_d, de_logit=True, quantize_uint8=True)
+    art = export_seeded_multidraw_sampler(fn, SERVE_DRAWS, (h, w, 1), (h, w, 1))
+    y = class_planes(0)
+    n = len(model.couplings)  # K2 or K3 launches a pass (16 at the flagship)
+    per_pass = {"affine_forward": 0, "affine_inverse": n if cfg.use_pallas_coupling else 0,
+                "fused_subnet": n if cfg.fused_pallas_subnet else 0}
+
+    reset_launches()
+    t = time.perf_counter()
+    first = art.call(SERVE_SEED, y)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    # the wrappers count in the warm-up call and the capture, not in replays
+    wrapper_launches = launch_counts()
+    check(wrapper_launches == {k: 2 * v for k, v in per_pass.items()},
+          f"serve {name}: the warm-up and the capture launch {wrapper_launches}, "
+          f"twice {per_pass}")
+    eager = make_seeded_multidraw_fn(art.fn, SERVE_DRAWS, (h, w, 1))(SERVE_SEED, y)
+    other = art.call(SERVE_SEED + 1, y)
+    torch.cuda.synchronize()
+    check(first.shape == (SERVE_DRAWS, BATCH, h, w, 1) and first.dtype == torch.uint8,
+          f"serve {name}: uint8 ({SERVE_DRAWS}, {BATCH}, 28, 28, 1)")
+    check(torch.equal(first, eager), f"serve {name}: the graphed call is bit-equal to the "
+          "eager entry for the same seed")
+    check(not torch.equal(first, other), f"serve {name}: two seeds give other samples")
+    check(torch.equal(first, art.call(SERVE_SEED, y)),
+          f"serve {name}: a call's result stays as it was after later calls")
+    path = os.path.join(tmp, f"seeded_{name}.pt")
+    side = save_artifact(path, art, metadata={"lowering": name})
+    loaded = load_artifact(path)
+    check(torch.equal(loaded.call(SERVE_SEED, y), first),
+          f"serve {name}: the saved and loaded artifact gives the same bytes")
+    del loaded
+    phases.done(f"serve {name}: capture and checks", capture_s=f"{capture_s:.2f}")
+
+    call_walls = walls(lambda: art.call(SERVE_SEED, y), SERVE_CALLS)
+    prof = kernel_breakdown(lambda: art.call(SERVE_SEED, y), top=8)
+    # what a replay launches: the wrappers' counts during the capture; the
+    # profiler's count of a replay is printed beside it (it has dropped a
+    # record of a replay)
+    replay = art.graph(y.shape).launches
+    check(replay == per_pass, f"serve {name}: launches a replayed call {replay} == {per_pass}")
+    call_ms = statistics.median(call_walls) * 1e3
+
+    # call's graphs share one memory pool: those of smaller batches fit in
+    # what the 2,048 graph's intermediates leave free
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # what the warm-ups cached outside the pool
+    reserved = torch.cuda.memory_reserved()
+    for b in POOL_CONDITIONS:
+        check(art.call(SERVE_SEED, y[:b]).shape == (SERVE_DRAWS, b, h, w, 1),
+              f"serve {name}: a call of {b} conditions")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool_growth_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    check(pool_growth_mib <= POOL_GROWTH_MIB,
+          f"serve {name}: graphs of {POOL_CONDITIONS} conditions reserve {pool_growth_mib} MiB "
+          f"besides the 2,048 graph's (at most {POOL_GROWTH_MIB})")
+
+    art8 = export_seeded_multidraw_sampler(fn, PIPE_DRAWS, (h, w, 1), (h, w, 1))
+    pipe = PipelinedSampler(art8, PIPE_DRAWS, PIPE_IN_FLIGHT)
+    t = time.perf_counter()
+    pipe.sample(y, PIPE_TOTAL, start_seed=100)  # captures the graphs in rotation
+    pipe_first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pipelined = pipe.sample(y, PIPE_TOTAL, start_seed=100)
+    pipe_s = time.perf_counter() - t
+    calls = -(-PIPE_TOTAL // PIPE_DRAWS)
+    t = time.perf_counter()
+    sequential = torch.cat([art8.call(100 + k, y) for k in range(calls)]).cpu().numpy()
+    sequential_s = time.perf_counter() - t
+    check(pipelined.shape == (calls * PIPE_DRAWS, BATCH, h, w, 1)
+          and np.array_equal(pipelined, sequential),
+          f"serve {name}: the pipelined sampler equals {calls} sequential calls")
+    del art8, pipe
+    phases.done(f"serve {name}: pipelined sampler", first_s=f"{pipe_first_s:.2f}")
+
+    single = make_image_serving_fn(model, cfg.x_d, de_logit=True, quantize_uint8=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    z = torch.randn(BATCH, h, w, 1, generator=g, device="cuda")
+    single(z, y)
+    eager_walls = walls(lambda: single(z, y), SERVE_CALLS)
+    eager_ms = statistics.median(eager_walls) * 1e3
+    line = dict(
+        lowering=name, draws=SERVE_DRAWS, conditions=BATCH, batch=SERVE_BATCH,
+        capture_s=capture_s, call_ms_median=call_ms,
+        call_ms_all=[round(x * 1e3, 3) for x in call_walls],
+        samples_per_s=SERVE_BATCH / (call_ms / 1e3),
+        busy_ms=prof["device_busy_ms"], busy_share=prof["device_busy_ms"] / call_ms,
+        port_kernel_launches_a_call=replay,
+        profiled_call_launches=prof["kernel_launches"],
+        profiled_port_kernel_launches=prof["port_kernel_launches"],
+        coupling_kernel_share=prof["coupling_kernel_share"],
+        chain_kernel_share=prof["chain_kernel_share"], conv_share=prof["conv_share"],
+        wrapper_launches_warmup_and_capture=wrapper_launches,
+        artifact_bytes=side["nr_bytes"],
+        pool_growth_mib_for_conditions={str(POOL_CONDITIONS): pool_growth_mib},
+        pipelined=dict(draws_a_call=PIPE_DRAWS, in_flight=PIPE_IN_FLIGHT, calls=calls,
+                       first_s=pipe_first_s, seconds=pipe_s,
+                       samples_per_s=calls * PIPE_DRAWS * BATCH / pipe_s,
+                       sequential_s=sequential_s,
+                       sequential_samples_per_s=calls * PIPE_DRAWS * BATCH / sequential_s),
+        eager_request_ms_median=eager_ms,
+        eager_request_ms_all=[round(x * 1e3, 3) for x in eager_walls],
+        eager_request_samples_per_s=BATCH / (eager_ms / 1e3),
+        top=prof["top"],
+    )
+    print("[serve] " + json.dumps(line), flush=True)
+    phases.done(f"serve {name}: timing")
+    return line
+
+
+def check_serve(phases):
+    """[serve] under the three lowerings; K2 launches 16 times a replayed
+    call under pallas_coupling and K3 16 times under pallas_subnet."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for lowering in SERVE_LOWERINGS:
+            out[lowering or "default"] = serve_lowering(lowering, tmp, phases)
+            torch.cuda.empty_cache()
+    return out
+
+
+#: [cli]: the port's drivers through main(argv), on synthetic digits
+CLI_CLASS = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-class", "256",
+             "--annealing-epochs", "1", "--scan-steps", "16", "--checkpoint-every", "1",
+             "--eval-samples", "16"]
+CLI_SR = {"SR4,2": ["--squeeze-factor", "0", "0", "0", "0"], "SR2,1": []}
+
+
+def history_rows(outdir):
+    with open(os.path.join(outdir, "history.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_cli(phases):
+    """[cli]: cnf-conv on the class workload at the flagship arch (1
+    annealing and 1 clean epoch of graphed stacks of 16 steps, checkpoints
+    each epoch), a second cnf-conv that resumes from its checkpoints for one
+    more epoch, SR4,2 and SR2,1 at one residual block a level, then cnf-eval
+    of the class checkpoint with --export-multidraw, whose artifact is
+    loaded and called."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import evaluate as cnf_eval
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cls = os.path.join(tmp, "class")
+        t = time.perf_counter()
+        cnf_conv.main(CLI_CLASS + ["--epochs", "1", "--outdir", cls])
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        resumed = cnf_conv.main(CLI_CLASS + ["--epochs", "2", "--outdir", cls])
+        resume_s = time.perf_counter() - t
+        rows = history_rows(cls)
+        check([r["epoch"] for r in rows] == [0, 1, 2]
+              and [r["epoch"] for r in resumed.history.rows] == [2],
+              f"cli: the second cnf-conv resumed at epoch 2 ({[r['epoch'] for r in rows]})")
+        with open(os.path.join(cls, "eval.json")) as f:
+            final = json.load(f)
+        check(math.isfinite(final["val_bits_per_dim"]), "cli: eval.json has val_bits_per_dim")
+        out["class"] = dict(first_s=first_s, resume_s=resume_s, rows=rows,
+                            val_bits_per_dim=final["val_bits_per_dim"],
+                            sampling=final["sampling"])
+        phases.done("cli: cnf-conv class, then resumed")
+        for model_type, extra in CLI_SR.items():
+            outdir = os.path.join(tmp, model_type)
+            t = time.perf_counter()
+            cnf_conv.main(["--model-type", model_type, "--dataset", "synthetic",
+                           "--synthetic-per-class", "64", "--res-blocks", "1", "1", "1", "1",
+                           "--epochs", "1", "--annealing-epochs", "0", "--checkpoint-every",
+                           "0", "--eval-samples", "16", "--outdir", outdir, *extra])
+            with open(os.path.join(outdir, "eval.json")) as f:
+                final = json.load(f)
+            out[model_type] = dict(seconds=time.perf_counter() - t, rows=history_rows(outdir),
+                                   val_bits_per_dim=final["val_bits_per_dim"],
+                                   sampling=final["sampling"])
+            rows += out[model_type]["rows"]
+            phases.done(f"cli: cnf-conv {model_type}")
+        check(all(math.isfinite(r[k]) for r in rows for k in ("loss", "val_loss")),
+              "cli: finite losses in every history.jsonl")
+
+        artifact = os.path.join(tmp, "multidraw.pt")
+        t = time.perf_counter()
+        report = cnf_eval.main(["--checkpoint-dir", os.path.join(cls, "checkpoints"),
+                                "--dataset", "synthetic", "--synthetic-per-class", "256",
+                                "--eval-samples", "16", "--export-multidraw", artifact])
+        eval_s = time.perf_counter() - t
+        multi = load_artifact(artifact)
+        x = multi.call(torch.zeros(2, 3, 28, 28, 1), torch.full((3, 28, 28, 1), 0.5))
+        check(report["epoch"] == 2 and math.isfinite(report["bits_per_dim"]),
+              "cli: cnf-eval restored epoch 2 with a finite bits/dim")
+        check(x.shape == (2, 3, 28, 28, 1) and bool(torch.isfinite(x).all()),
+              "cli: the exported multidraw artifact serves (2, 3, 28, 28, 1)")
+        out["eval"] = dict(seconds=eval_s, bits_per_dim=report["bits_per_dim"],
+                           latent_normality=report["latent_normality"])
+    print("[cli] " + json.dumps(out), flush=True)
+    phases.done("cli: cnf-eval and its artifact")
     return out
 
 
@@ -990,7 +1280,8 @@ def main() -> int:
     subnet_model = ConvCFlow(FLAGSHIP_SUBNET, seed=0)  # no device: the card
     phases.done("flagship built", arch=arch_string(FLAGSHIP),
                 params=sum(p.numel() for p in subnet_model.parameters()))
-    chain_results, chain_pass = check_chain_kernel(chain_specs(subnet_model), phases)
+    chain_results, chain_serving, chain_pass = check_chain_kernel(chain_specs(subnet_model),
+                                                                  phases)
 
     coupling_model = ConvCFlow(FLAGSHIP, seed=0)
     launches = run_main_path(coupling_model, FLAGSHIP, phases)
@@ -999,6 +1290,9 @@ def main() -> int:
     del coupling_model, subnet_model
     torch.cuda.empty_cache()
     train = check_train(phases)
+    torch.cuda.empty_cache()
+    serve = check_serve(phases)
+    cli = check_cli(phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -1012,6 +1306,7 @@ def main() -> int:
             ms_at_392=results[name]["timings"][392]["ms"],
             plain_ms_at_392=results[name]["timings"][392]["plain_ms"],
             bound_ms_at_392=results[name]["timings"][392]["bound_ms"],
+            at_serving_batch={n: results[name]["serving_timings"][n] for n in (784, 392)},
         ))
     # K3's main keys are those of its largest spec; every spec is listed
     largest = max(chain_results, key=lambda r: r["gflop"])
@@ -1025,17 +1320,31 @@ def main() -> int:
         achieved_tflops=largest["achieved_tflops"], bound_share=largest["bound_share"],
         max_abs_err_f32=max(r["max_abs_err_f32"] for r in chain_results),
         pass_ms=chain_pass["ms"], eager_pass_ms=chain_pass["eager_chain_ms"],
-        specs=chain_results,
+        specs=chain_results, specs_at_serving_batch=chain_serving,
+        pass_ms_at_serving_batch=chain_pass["serving_ms"],
         grad_f32=grads["pallas_subnet_f32"], grad_cpu=grads["pallas_subnet_cpu"],
     ))
     entries[0]["grad"] = grads["pallas_coupling"]
-    # launches a training step inside the CUDA-graph replays (profiler)
+    # launches a training step inside the CUDA-graph replays (counted at the
+    # capture)
     entries[0]["launches_a_train_step"] = train["pallas_coupling"][
-        "graph_port_kernel_launches_a_step"]["affine_forward"]
+        "graph_port_kernel_launches_a_step_at_capture"]["affine_forward"]
     entries[1]["launches_a_train_step"] = train["pallas_coupling"][
-        "graph_port_kernel_launches_a_step"]["affine_inverse"]
+        "graph_port_kernel_launches_a_step_at_capture"]["affine_inverse"]
     entries[2]["launches_a_train_step"] = train["pallas_subnet"][
-        "graph_port_kernel_launches_a_step"]["fused_subnet"]
+        "graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"]
+    # launches a seeded serving call (16 draws x 128) inside the CUDA-graph
+    # replay (counted at the capture)
+    entries[0]["launches_a_serving_call"] = serve["pallas_coupling"][
+        "port_kernel_launches_a_call"]["affine_forward"]
+    entries[1]["launches_a_serving_call"] = serve["pallas_coupling"][
+        "port_kernel_launches_a_call"]["affine_inverse"]
+    entries[2]["launches_a_serving_call"] = serve["pallas_subnet"][
+        "port_kernel_launches_a_call"]["fused_subnet"]
+    print(f"[summary] serve samples/s a call: "
+          f"{json.dumps({k: v['samples_per_s'] for k, v in serve.items()})}; "
+          f"cli: {json.dumps({k: v.get('seconds', v.get('first_s')) for k, v in cli.items()})}",
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

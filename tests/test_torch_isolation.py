@@ -48,6 +48,15 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.strip() == f"ok {len(names)}"
 
 
+def test_the_isolation_check_imports_the_drivers_serving_and_checkpoints():
+    """The fresh process of the check above imports every port module,
+    among them cnf-conv, cnf-eval, serving, checkpoints and evaluation."""
+    names = set(port_modules())
+    for name in ("drivers.conv", "drivers.evaluate", "serve.export", "train.checkpoints",
+                 "evaluation.stats", "ops.resample", "utils.run_metadata"):
+        assert f"{port.__name__}.{name}" in names, name
+
+
 def test_entry_point_without_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ConvFlowConfig(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1),

@@ -1,7 +1,8 @@
 """The hand-written kernels against their plain versions on a CUDA card:
-the coupling law (K1/K2) and the coupling subnet's conv chain (K3); and the
+the coupling law (K1/K2) and the coupling subnet's conv chain (K3); the
 train step replayed as a CUDA graph against eager steps, with K1/K3
-launching inside the replay.
+launching inside the replay; and the seeded serving entry replayed as a
+CUDA graph against the eager entry, with K2/K3 launching inside the replay.
 
 Needs a card and imports no JAX, so it runs on a machine with a card and
 without jax, skipping the repo's conftest (which configures JAX):
@@ -27,7 +28,8 @@ from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E
     fused_subnet as tfs,
 )
 
-from arl_conditional_normalizing_flows_tpu_torch.train import loop  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.serve import export  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.train import CheckpointManager, loop  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -393,3 +395,144 @@ def test_capture_without_a_warm_up_raises(cuda, monkeypatch):
     assert multi.graph is None and state.step == 0
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def test_cpu_checkpoint_restores_into_a_capturable_adam(cuda, tmp_path):
+    """A checkpoint written on the CPU restores on the card into Adam that
+    stays capturable, and the graphed steps continue from it."""
+    cpu = loop.create_train_state(_small_model("cpu", None), LR)
+    step, _ = loop.make_step_fns(cpu.model, noise_mode="none")
+    step(cpu, _stack("cpu", n=1)[0])
+    mgr = CheckpointManager(str(tmp_path / "ck"), config=cpu.model.cfg)
+    mgr.save(0, cpu)
+    state = loop.create_train_state(_small_model(cuda, None, seed=1), LR)
+    mgr.restore(state)
+    assert state.optimizer.param_groups[0]["capturable"] and state.step == 1
+    state, out = loop.make_scan_train_step(state.model, 2, noise_mode="none")(
+        state, _stack(cuda, n=2))
+    assert state.step == 3 and np.isfinite(float(out["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the seeded serving entry as a CUDA graph
+# ---------------------------------------------------------------------------
+
+DRAWS = 3
+
+
+def _seeded(model):
+    fn = export.make_image_serving_fn(model, 1, de_logit=True, quantize_uint8=True)
+    return fn, export.export_seeded_multidraw_sampler(fn, DRAWS, (8, 8, 1), (8, 8, 1))
+
+
+def _planes(device, b=5):
+    return torch.linspace(0, 1, b, device=device).view(b, 1, 1, 1).expand(b, 8, 8, 1)
+
+
+@pytest.mark.parametrize("lowering", LOWERINGS)
+def test_graphed_seeded_call_equals_the_eager_entry(cuda, lowering):
+    """The graphed call gives the eager entry's bytes for the same seed; the
+    warm-up call and the capture launch K2 (pallas_coupling) or K3
+    (pallas_subnet) once a coupling each, replays count nothing in the
+    wrappers, and the graph's launches (those counted at its capture) are
+    one of K2 or K3 a coupling. (torch.profiler is not asked: in one card
+    run its profile of a replay here showed none of K3's launches, in the
+    next all of them.)"""
+    fn, art = _seeded(_small_model(cuda, lowering))
+    y = _planes(cuda)
+    tac.reset_launches()
+    tfs.reset_launches()
+    got = art.call(11, y)
+    art.call(11, y)
+    want = export.make_seeded_multidraw_fn(art.fn, DRAWS, (8, 8, 1))(11, y)
+    assert got.shape == (DRAWS, 5, 8, 8, 1) and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+    n = len(art.fn.model.couplings)
+    eager = {"affine_forward": 0, "affine_inverse": n if lowering == "pallas_coupling" else 0,
+             "fused_subnet": n if lowering == "pallas_subnet" else 0}
+    # the warm-up, the capture and the eager entry; not the two replays
+    assert {**tac.LAUNCHES, **tfs.LAUNCHES} == {k: 3 * v for k, v in eager.items()}
+    assert art.graph(y.shape).launches == eager
+
+
+def test_graphed_seed_does_not_depend_on_call_history(cuda):
+    """A seed's samples are those of a fresh artifact whatever calls came
+    before; another seed gives others; a returned result is a copy that later
+    replays leave as it was."""
+    model = _small_model(cuda, "pallas_subnet")
+    _, art = _seeded(model)
+    _, fresh = _seeded(model)
+    y = _planes(cuda)
+    first = art.call(3, y)
+    for seed in (4, 5, 6):
+        art.call(seed, y)
+    assert torch.equal(art.call(3, y), fresh.call(3, y))
+    other = art.call(4, y)
+    assert not torch.equal(first, other)
+    assert torch.equal(first, fresh.call(3, y))
+
+
+def test_graphs_are_cached_by_shape_and_pipelined_equals_sequential(cuda):
+    """Each batch gets its graph; the pipelined sampler's chunks are the
+    sequential calls' bytes."""
+    _, art = _seeded(_small_model(cuda, "pallas_coupling"))
+    for b in (1, 5, 2):
+        assert art.call(0, _planes(cuda, b)).shape == (DRAWS, b, 8, 8, 1)
+    assert len(art._graphs) == 3
+    y = _planes(cuda)
+    pipe = export.PipelinedSampler(art, DRAWS, n_in_flight=2)
+    got = pipe.sample(y, 8, start_seed=20)
+    want = torch.cat([art.call(20 + k, y) for k in range(3)]).cpu().numpy()
+    assert np.array_equal(got, want)
+
+
+def test_graphs_of_many_batch_sizes_share_their_memory(cuda):
+    """call's graphs share one memory pool: after the graph of the largest
+    batch, the graphs of a dozen smaller ones reserve no more than 4 MiB of
+    card memory between them, where a pool each would hold at least one
+    2 MiB block of the allocator each."""
+    _, art = _seeded(_small_model(cuda, "pallas_subnet"))
+    art.call(0, _planes(cuda, 64))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # what the warm-ups cached outside the pool
+    before = torch.cuda.memory_reserved(cuda)
+    for b in range(1, 13):
+        assert art.call(b, _planes(cuda, b)).shape == (DRAWS, b, 8, 8, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert len(art._graphs) == 13
+    assert torch.cuda.memory_reserved(cuda) - before <= 4 * 2**20
+
+
+def test_a_new_capture_does_not_move_the_noise_stream(cuda):
+    """A capture restores the generator after its warm-up steps: a second
+    call through a fresh capture (as a resumed run makes) draws the noise
+    that the first graph's replays would have drawn. At lr 0 only the noise
+    moves the loss."""
+    xy = _stack(cuda, n=2)
+    losses = []
+    for recapture in (False, True):
+        state = loop.create_train_state(_small_model(cuda, None), 0.0)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        multi = loop.make_scan_train_step(state.model, 2, noise_mode="full")
+        multi(state, xy, g, 0.5)
+        if recapture:
+            multi = loop.make_scan_train_step(state.model, 2, noise_mode="full")
+        losses.append(float(multi(state, xy, g, 0.5)[1]["loss"]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+
+
+def test_load_artifact_on_the_card(cuda, tmp_path):
+    """An artifact saved from the card loads on the card and on the CPU; the
+    card's reload serves the same bytes."""
+    _, art = _seeded(_small_model(cuda, "pallas_subnet"))
+    art = export.export_seeded_multidraw_sampler(art.fn, DRAWS, (8, 8, 1), (8, 8, 1),
+                                                 platforms=["cuda", "cpu"])
+    path = str(tmp_path / "seeded.pt")
+    export.save_artifact(path, art)
+    y = _planes(cuda)
+    loaded = export.load_artifact(path)
+    assert loaded.device.type == "cuda"
+    assert torch.equal(loaded.call(9, y), art.call(9, y))
+    on_cpu = export.load_artifact(path, device="cpu")
+    assert on_cpu.call(9, y.cpu()).shape == (DRAWS, 5, 8, 8, 1)
