@@ -1,8 +1,8 @@
-"""Flax ``ConvCFlow`` params <-> the port's ``ConvCFlow`` state_dict.
+"""Flax params <-> the port's state_dicts, for ``ConvCFlow`` and ``ToyCINN``.
 
 The flax tree is given as nested dicts of numpy arrays (e.g. a JAX
 checkpoint loaded with numpy), so this module needs neither jax nor flax.
-Name map, per coupling ``couplings_i`` and subnet ``net_ab``/``net_a``/
+Conv name map, per coupling ``couplings_i`` and subnet ``net_ab``/``net_a``/
 ``net_b``:
 
 ==============================================  =============================
@@ -25,6 +25,12 @@ HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)`` (at cardinality
 ``pallas_subnet`` lowering's subnets keep the same leaves under dotted names
 (``DilatedResidualBlock_0.Conv_1.kernel``); each is split into its path
 parts, so both trees map to the same port parameters.
+
+Toy: ``couplings_j/Dense_i`` is ``couplings.j.dense.i``, the Dense layers
+numbered in flax's creation order (the b stack, the b head, the A stack, the
+A head, ``models/subnets.py::DenseCouplingNet``); kernels go from ``(in,
+out)`` to ``(out, in)``.
+
 :func:`flax_from_state_dict` maps back, for ``.npz`` files that the JAX
 package reads.
 """
@@ -100,9 +106,31 @@ def _leaf(path, value, n_convs):
     return f"{prefix}.{module}.{param}", arr
 
 
+def _toy_leaf(path, value):
+    """(port key, array) for one leaf of a flax ``ToyCINN``, or None."""
+    if len(path) != 3:
+        return None
+    j, i = _index(path[0], "couplings"), _index(path[1], "Dense")
+    if j is None or i is None:
+        return None
+    arr = np.asarray(value, np.float32)
+    if path[2] == "kernel" and arr.ndim == 2:
+        return f"couplings.{j}.dense.{i}.weight", arr.T  # (in, out) -> (out, in)
+    if path[2] == "bias":
+        return f"couplings.{j}.dense.{i}.bias", arr
+    return None
+
+
+def _is_toy(model) -> bool:
+    from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
+
+    return isinstance(model, ToyCINN)
+
+
 def state_dict_from_flax(params, model) -> dict:
-    """The state_dict for ``model`` (a port ``ConvCFlow``) holding the flax
-    ``params`` tree (``variables["params"]``, nested dicts of arrays).
+    """The state_dict for ``model`` (a port ``ConvCFlow`` or ``ToyCINN``)
+    holding the flax ``params`` tree (``variables["params"]``, nested dicts
+    of arrays).
 
     Raises ``KeyError`` on a flax leaf it does not map or a port parameter
     left unset, and ``ValueError`` on a shape mismatch.
@@ -114,12 +142,13 @@ def state_dict_from_flax(params, model) -> dict:
             if _index(path[3], "Conv") is not None:
                 n_convs[path[:3]] = n_convs.get(path[:3], set()) | {path[3]}
     n_convs = {k: len(v) for k, v in n_convs.items()}
+    toy = _is_toy(model)
 
     target = model.state_dict()
     out = {}
     unmapped = []
     for path, value in leaves:
-        mapped = _leaf(path, value, n_convs)
+        mapped = _toy_leaf(path, value) if toy else _leaf(path, value, n_convs)
         if mapped is None or mapped[0] not in target:
             unmapped.append("/".join(path))
             continue
@@ -169,17 +198,31 @@ def _flax_path(key, nets, n_branches):
     return head + ((".".join(inner),) if nets[net] else inner)
 
 
+def _toy_flax_from_state_dict(state_dict) -> dict:
+    tree = {}
+    for key, value in state_dict.items():
+        _, j, _, i, param = key.split(".")  # couplings.j.dense.i.<param>
+        arr = value.detach().cpu().float().numpy()
+        leaf = {"weight": "kernel", "bias": "bias"}[param]
+        node = tree.setdefault(f"couplings_{j}", {}).setdefault(f"Dense_{i}", {})
+        node[leaf] = np.array(arr.T if leaf == "kernel" else arr, order="C")
+    return tree
+
+
 def flax_from_state_dict(state_dict, model) -> dict:
     """The flax ``params`` tree (``variables["params"]``: nested dicts of
     float32 numpy arrays) holding ``state_dict`` of ``model`` (a port
-    ``ConvCFlow``, or any module whose parameters sit at the same paths):
-    the exact inverse of :func:`state_dict_from_flax`. Conv kernels go from
-    OIHW back to HWIO; the subnets of the ``pallas_subnet`` lowering get
-    flax's dotted leaf names."""
+    ``ConvCFlow`` or ``ToyCINN``, or any module whose parameters sit at the
+    same paths): the exact inverse of :func:`state_dict_from_flax`. Conv
+    kernels go from OIHW back to HWIO, the subnets of the ``pallas_subnet``
+    lowering get flax's dotted leaf names; toy kernels go back to ``(in,
+    out)``."""
     from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
         FusedChainCouplingNet,
     )
 
+    if _is_toy(model):
+        return _toy_flax_from_state_dict(state_dict)
     nets, n_branches = {}, {}
     for name, module in model.named_modules():
         parts = name.split(".")

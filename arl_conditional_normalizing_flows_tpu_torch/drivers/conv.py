@@ -122,7 +122,7 @@ def refuse_unported(args) -> None:
             for k in ("coordinator", "num_processes", "process_id")):
         raise SystemExit("--data-parallel/--coordinator/--num-processes/--process-id: "
                          "multi-device runs are not ported yet (ROADMAP A.10)")
-    if args.plot:
+    if getattr(args, "plot", False):
         raise SystemExit("--plot: the plots are not ported yet (ROADMAP A.9)")
 
 

@@ -1,11 +1,13 @@
-"""Architecture config and static derivations for the conv flow.
+"""Architecture configs and static derivations for the conv and toy flows.
 
 A copy of ``arl_conditional_normalizing_flows_tpu/models/arch.py`` (the port
 may not import the JAX package, whose ``__init__`` pulls in jax). Every field
-of :class:`ConvFlowConfig` is kept so that a config carries across unchanged;
-:func:`derive_blocks`, :func:`_dilation_schedule` and :func:`arch_string`
-must give the same outputs as the JAX functions, because ``arch_string`` is
-the checkpoint and pre-training compatibility contract.
+of :class:`ConvFlowConfig` and :class:`ToyConfig` is kept so that a config
+carries across unchanged; :func:`derive_blocks`, :func:`_dilation_schedule`,
+:func:`arch_string` and :func:`shuffle_mask_indices` must give the same
+outputs as the JAX functions, because ``arch_string`` is the checkpoint and
+pre-training compatibility contract and the toy's layer order is part of its
+identity.
 
 Everything here is plain Python: per-block scales and io shapes
 (conv_cINN_make_model.py:1487-1536), the fixed per-block mask order
@@ -216,3 +218,38 @@ def arch_string(cfg: ConvFlowConfig) -> str:
         f"_KS{cfg.ksize}_D{int(cfg.dilations)}_LN{int(cfg.layer_norm)}"
         f"_IO{cfg.io_shape[0]}x{cfg.io_shape[1]}x{cfg.io_shape[2]}_XD{cfg.x_d}"
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ToyConfig:
+    """Hyperparameters of the dense toy cINN (TOYcINN.py:84-105,
+    TOYcINN_make_model.py:105-217)."""
+
+    io_shape: int = 3
+    x_d: int = 2
+    num_coupling_layers: int = 24
+    intermediate_dims: int = 32
+    num_layers: int = 6
+    lambda_y: float = 100.0
+    #: execution-order permutation of the coupling layers; layer j always uses
+    #: toy mask ``j % 6``. None -> identity order (the driver shuffles with an
+    #: explicit numpy Generator, :func:`shuffle_mask_indices`)
+    mask_indices: Optional[Tuple[int, ...]] = None
+
+    def ordered_indices(self) -> Tuple[int, ...]:
+        if self.mask_indices is not None:
+            assert sorted(self.mask_indices) == list(range(self.num_coupling_layers))
+            return tuple(self.mask_indices)
+        return tuple(range(self.num_coupling_layers))
+
+
+def shuffle_mask_indices(rng, num_coupling_layers: int) -> Tuple[int, ...]:
+    """Shuffle layer order within each group of 6, as the toy reference does
+    (TOYcINN_make_model.py:207-217), with an explicit numpy Generator: the
+    same permutation as the JAX function for the same generator state."""
+    import numpy as np
+
+    idx = np.arange(num_coupling_layers)
+    for g in range(num_coupling_layers // 6):
+        rng.shuffle(idx[6 * g : 6 * (g + 1)])
+    return tuple(int(i) for i in idx)

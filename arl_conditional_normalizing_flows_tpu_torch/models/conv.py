@@ -22,7 +22,6 @@ and the law is the plain one. On CPU tensors the kernels' plain versions run.
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import torch
@@ -38,19 +37,13 @@ from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
     ConvCouplingNet,
     FusedChainCouplingNet,
 )
+from arl_conditional_normalizing_flows_tpu_torch.models.toy import standard_normal_logprob
 from arl_conditional_normalizing_flows_tpu_torch.ops import coupling as coupling_ops
 from arl_conditional_normalizing_flows_tpu_torch.ops import masks as mask_ops
 from arl_conditional_normalizing_flows_tpu_torch.ops import squeeze as squeeze_ops
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
     affine_coupling as coupling_kernels,
 )
-
-
-def standard_normal_logprob(z, axis=-1):
-    """log N(z; 0, I) summed over ``axis`` (copy of the JAX
-    ``models/toy.py`` function, TOYcINN_make_model.py:147-149)."""
-    d = z.shape[axis]
-    return -0.5 * torch.sum(torch.square(z), dim=axis) - 0.5 * d * math.log(2.0 * math.pi)
 
 
 def check_ported(cfg: ConvFlowConfig) -> None:

@@ -1,7 +1,8 @@
-"""Coupling-function subnets of the conv flow (port of the JAX
-``models/subnets.py`` conv path).
+"""Coupling-function subnets (port of the JAX ``models/subnets.py``): the
+toy's dense stacks (:class:`DenseCouplingNet`, TOYcINN_make_model.py:29-97)
+and the conv flow's conv chains.
 
-A subnet is a dilated grouped-conv ResNeXt stack
+A conv subnet is a dilated grouped-conv ResNeXt stack
 (conv_cINN_base_functions.py:330-627, conv_cINN_make_model.py:1076-1213):
 entry k x k conv -> ``num_res_blocks`` x :class:`DilatedResidualBlock` ->
 LeakyReLU -> [:class:`FlatLayerNorm`] -> k x k head. Parity details kept from
@@ -56,6 +57,59 @@ def orthogonal(shape, scale, generator):
     if rows < cols:
         q = q.T
     return (scale * q).reshape(shape).float()
+
+
+def glorot_uniform(fan_in, fan_out, generator):
+    """An ``(fan_out, fan_in)`` Linear weight drawn as flax's
+    ``glorot_uniform`` draws an ``(fan_in, fan_out)`` kernel: uniform in
+    +-sqrt(6 / (fan_in + fan_out)) (same distribution, torch's RNG)."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(fan_out, fan_in, generator=generator, dtype=torch.float64)
+    return ((2.0 * u - 1.0) * limit).float()
+
+
+class DenseCouplingNet(nn.Module):
+    """The toy A/b pair: two stacks of ``num_layers+1`` Linear+LeakyReLU(0.3)
+    with heads Linear(u2_size); the A head gets tanh, the b head is linear
+    (TOYcINN_make_model.py:29-97; no learned scale, as the reference omits
+    it, TOYcINN_make_model.py:91-92).
+
+    Weights are glorot-uniform and biases zero, as flax's ``nn.Dense`` with
+    ``glorot_uniform`` draws them (torch's ``nn.Linear`` default would give
+    other weights and non-zero biases): the toy reference never passes its
+    stored init to its Dense layers (TOYcINN_make_model.py:138 vs :29-97), so
+    they take the Keras default, and with Orthogonal(0.1) the 7-layer stacks
+    stay dead at lr 1e-4 and detJ never trains.
+
+    ``dense`` holds the layers in flax's creation order (``Dense_0`` ...):
+    the b stack, the b head, the A stack, the A head.
+    """
+
+    def __init__(self, in_size, u2_size, intermediate_dims, num_layers, *, generator):
+        super().__init__()
+        widths = [in_size] + [intermediate_dims] * (num_layers + 1) + [u2_size]
+        layers = []
+        for _ in range(2):  # b, then A
+            for fan_in, fan_out in zip(widths[:-1], widths[1:]):
+                lin = nn.Linear(fan_in, fan_out)
+                with torch.no_grad():
+                    lin.weight.copy_(glorot_uniform(fan_in, fan_out, generator))
+                    lin.bias.zero_()
+                layers.append(lin)
+        self.dense = nn.ModuleList(layers)
+        self.depth = num_layers + 2  # Linear layers a stack, its head included
+
+    def forward(self, u1):
+        """(A, b), each (..., u2_size)."""
+        b_stack, a_stack = self.dense[:self.depth], self.dense[self.depth:]
+        a = b = u1
+        for lin in b_stack[:-1]:
+            b = leaky_relu(lin(b))
+        b = b_stack[-1](b)
+        for lin in a_stack[:-1]:
+            a = leaky_relu(lin(a))
+        a = torch.tanh(a_stack[-1](a))
+        return a, b
 
 
 class Conv(nn.Module):

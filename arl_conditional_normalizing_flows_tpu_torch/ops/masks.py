@@ -1,8 +1,10 @@
-"""Conv coupling masks 0-3 as strided slices, ``stack`` and ``reshape``.
+"""Conv coupling masks 0-3 as strided slices, ``stack`` and ``reshape``,
+and the toy's 6-mask system of feature index sets.
 
-Port of ``arl_conditional_normalizing_flows_tpu/ops/masks.py`` (conv masks
-only; the toy masks wait for the toy slice). No scatter anywhere: compress is
-a strided slice, combine interleaves the two compressed halves back.
+Port of ``arl_conditional_normalizing_flows_tpu/ops/masks.py``. No scatter
+anywhere: conv compress is a strided slice, combine interleaves the two
+compressed halves back; the toy's gather and combine are index selections
+with index tensors on the data's device.
 
 Mask semantics (conv_cINN_make_model.py:370-389):
 
@@ -18,6 +20,7 @@ first; channel masks are the strided channel slice.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 CHECKERBOARD_MASKS = (0, 1)
@@ -97,3 +100,71 @@ def interleave_channels(even, odd):
     assert de == do + 1, (de, do)
     body = torch.stack([even[..., :do], odd], dim=-1).reshape(*lead, h, w, 2 * do)
     return torch.cat([body, even[..., do:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Toy (dense) 6-mask system — TOYcINN_make_model.py:154-217
+# ---------------------------------------------------------------------------
+
+#: u1 index sets for the 6 partitions of {0,1,2} (TOYcINN_make_model.py:156-161)
+TOY_MASK_U1 = {
+    0: (0,),
+    1: (1,),
+    2: (2,),
+    3: (0, 1),
+    4: (0, 2),
+    5: (1, 2),
+}
+#: complementary u2 index sets (TOYcINN_make_model.py:163-166)
+TOY_MASK_U2 = {
+    0: (1, 2),
+    1: (0, 2),
+    2: (0, 1),
+    3: (2,),
+    4: (1,),
+    5: (0,),
+}
+
+
+def toy_partition(io_shape, mask_id):
+    """(u1_indices, u2_indices) numpy arrays for a toy mask id: the 3-D
+    table for io_shape == 3, else an alternating split keyed by mask_id
+    parity (the reference supports only io_shape == 3,
+    TOYcINN_make_model.py:152)."""
+    if io_shape == 3:
+        m = mask_id % 6
+        return np.array(TOY_MASK_U1[m]), np.array(TOY_MASK_U2[m])
+    idx = np.arange(io_shape)
+    u1 = idx[(idx + mask_id) % 2 == 0]
+    u2 = idx[(idx + mask_id) % 2 == 1]
+    return u1, u2
+
+
+def toy_combine_order(u1_indices, u2_indices):
+    """The permutation that puts ``cat([u1, u2])`` back in feature order."""
+    return np.argsort(np.concatenate([np.asarray(u1_indices), np.asarray(u2_indices)]))
+
+
+def _index(indices, device):
+    if torch.is_tensor(indices):
+        return indices.to(device)
+    return torch.as_tensor(np.asarray(indices), dtype=torch.long, device=device)
+
+
+def toy_gather(u, indices):
+    """u1 = M1 @ u as a column gather (TOYcINN_make_model.py:320-323).
+    ``indices``: a numpy array, a sequence or a long tensor; a tensor already
+    on ``u``'s device costs no host-to-device copy (a CUDA graph cannot
+    capture one)."""
+    return torch.index_select(u, -1, _index(indices, u.device))
+
+
+def toy_scatter_combine(u1, u2, u1_indices, u2_indices, io_shape, order=None):
+    """u = M1^T u1 + M2^T u2 as a static permutation of a concat
+    (TOYcINN_make_model.py:369-397 without the matvecs). ``order``: the
+    :func:`toy_combine_order` of the indices, as a long tensor on the data's
+    device, to spare its copy."""
+    if order is None:
+        order = toy_combine_order(u1_indices, u2_indices)
+    assert u1.shape[-1] + u2.shape[-1] == io_shape, (u1.shape, u2.shape, io_shape)
+    return torch.index_select(torch.cat([u1, u2], dim=-1), -1, _index(order, u1.device))

@@ -23,7 +23,9 @@ keeps that interface with PyTorch's means:
   coupling and conv-chain kernels are ``ctypes`` calls, which it cannot
   trace.
 
-``make_toy_serving_fn`` waits for the toy model (ROADMAP A.8).
+Two entries: :func:`make_image_serving_fn` for a ``ConvCFlow`` and
+:func:`make_toy_serving_fn` for a ``ToyCINN``. An artifact serves either,
+and its file records which model family it holds.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 from torch import nn
 
 from arl_conditional_normalizing_flows_tpu_torch.device import resolve_device
-from arl_conditional_normalizing_flows_tpu_torch.models.arch import ConvFlowConfig
+from arl_conditional_normalizing_flows_tpu_torch.models.arch import ConvFlowConfig, ToyConfig
 from arl_conditional_normalizing_flows_tpu_torch.sample.sampler import (
     postprocess_sampled_xy,
 )
@@ -62,6 +64,8 @@ class ImageServingFn:
     logit_a: float = 0.01
     quantize_uint8: bool = False
 
+    family = "conv"
+
     @torch.inference_mode()
     def __call__(self, z, y):
         xy = self.model.sample_xy(z, y)
@@ -70,6 +74,10 @@ class ImageServingFn:
         if self.quantize_uint8:
             x = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
         return x
+
+    def out_aval(self, z_shape, y_shape):
+        """(dtype name, shape without the leading batch) of the result."""
+        return "uint8" if self.quantize_uint8 else "float32", tuple(z_shape[:-1]) + (self.x_d,)
 
 
 def make_image_serving_fn(model, x_d: int, *, de_logit: bool = False,
@@ -81,6 +89,36 @@ def make_image_serving_fn(model, x_d: int, *, de_logit: bool = False,
     returns round(clip(x, 0, 1) * 255) as uint8, a 4x smaller readback."""
     return ImageServingFn(model, x_d, de_logit=de_logit, residual=residual,
                           logit_a=logit_a, quantize_uint8=quantize_uint8)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ToyServingFn:
+    """``f(z, y) -> xy`` for a port ``ToyCINN`` (see
+    :func:`make_toy_serving_fn`)."""
+
+    model: nn.Module
+    x_d: int
+
+    family = "toy"
+
+    @torch.inference_mode()
+    def __call__(self, z, y):
+        if z.shape[-1] != self.x_d:
+            raise ValueError(f"z has {z.shape[-1]} features, not x_d = {self.x_d}")
+        return self.model.inverse(torch.cat([z, y], dim=-1))
+
+    def out_aval(self, z_shape, y_shape):
+        return "float32", tuple(z_shape[:-1]) + (z_shape[-1] + y_shape[-1],)
+
+
+def make_toy_serving_fn(model, x_d: int) -> ToyServingFn:
+    """``f(z, y) -> xy`` for a port ``ToyCINN``: z (B, x_d), y (B, y_d) on
+    the model's device; xy (B, x_d + y_d), the inverse of concat(z, y)."""
+    return ToyServingFn(model, x_d)
+
+
+#: the serving functions an artifact holds, by model family
+_FAMILIES = {"conv": ImageServingFn, "toy": ToyServingFn}
 
 
 def make_multidraw_fn(fn):
@@ -167,12 +205,12 @@ class ServingArtifact:
     later call does not overwrite. With ``symbolic`` False, ``b`` (and ``d``)
     must be 1."""
 
-    def __init__(self, fn: ImageServingFn, kind: str, z_shape, y_shape, *,
+    def __init__(self, fn, kind: str, z_shape, y_shape, *,
                  symbolic: bool = True, draws: Optional[int] = None,
                  platforms: Optional[Sequence[str]] = None):
-        if not isinstance(fn, ImageServingFn):
-            raise TypeError("an artifact serves a make_image_serving_fn entry, got "
-                            f"{type(fn).__name__}")
+        if not isinstance(fn, tuple(_FAMILIES.values())):
+            raise TypeError("an artifact serves a make_image_serving_fn or "
+                            f"make_toy_serving_fn entry, got {type(fn).__name__}")
         if kind not in KINDS:
             raise ValueError(f"unknown entry kind {kind!r}")
         if kind == "seeded_multidraw" and not (isinstance(draws, int) and draws >= 1):
@@ -219,8 +257,8 @@ class ServingArtifact:
         b = "b" if self.symbolic else 1
         lead = {"sampler": (b,), "multidraw": ("d" if self.symbolic else 1, b),
                 "seeded_multidraw": (self.draws, b)}[self.kind]
-        dtype = "uint8" if self.fn.quantize_uint8 else "float32"
-        return [_aval(dtype, lead + self.z_shape[:-1] + (self.fn.x_d,))]
+        dtype, tail = self.fn.out_aval(self.z_shape, self.y_shape)
+        return [_aval(dtype, lead + tail)]
 
     def _tensor(self, a, want_tail, what):
         t = torch.as_tensor(a, dtype=torch.float32, device=self.device)
@@ -300,7 +338,7 @@ class ServingArtifact:
         return self._replay(graphed, seed, z, y).clone()
 
 
-def export_sampler(fn: ImageServingFn, arg_shapes: Sequence[Tuple[int, ...]], *,
+def export_sampler(fn, arg_shapes: Sequence[Tuple[int, ...]], *,
                    symbolic_batch: bool = True,
                    platforms: Optional[Sequence[str]] = None) -> ServingArtifact:
     """The artifact of ``fn(z, y)``; ``arg_shapes`` are z's and y's shapes
@@ -312,7 +350,7 @@ def export_sampler(fn: ImageServingFn, arg_shapes: Sequence[Tuple[int, ...]], *,
                            platforms=platforms)
 
 
-def export_multidraw_sampler(fn: ImageServingFn, z_shape, y_shape, *,
+def export_multidraw_sampler(fn, z_shape, y_shape, *,
                              symbolic: bool = True,
                              platforms: Optional[Sequence[str]] = None) -> ServingArtifact:
     """The artifact of :func:`make_multidraw_fn` ``(fn)``: z (d, b, *z_shape)
@@ -321,7 +359,7 @@ def export_multidraw_sampler(fn: ImageServingFn, z_shape, y_shape, *,
                            platforms=platforms)
 
 
-def export_seeded_multidraw_sampler(fn: ImageServingFn, draws: int, z_shape, y_shape, *,
+def export_seeded_multidraw_sampler(fn, draws: int, z_shape, y_shape, *,
                                     symbolic: bool = True,
                                     platforms: Optional[Sequence[str]] = None
                                     ) -> ServingArtifact:
@@ -405,18 +443,21 @@ def save_artifact(path: str, artifact: ServingArtifact, metadata: Optional[dict]
     """Write ``<path>`` (one ``torch.save`` file of tensors and plain
     containers: the config, the weights and the entry) and the
     ``<path>.json`` sidecar with the JAX sidecar's keys; returns the
-    sidecar."""
+    sidecar. ``family`` names the model the file holds ("conv" or "toy")."""
     fn = artifact.fn
     payload = {
         "format": FORMAT,
+        "family": fn.family,
         "config": dataclasses.asdict(fn.model.cfg),
         "state_dict": {k: v.detach().cpu() for k, v in fn.model.state_dict().items()},
         "entry": {
             "kind": artifact.kind, "draws": artifact.draws, "symbolic": artifact.symbolic,
             "z_shape": artifact.z_shape, "y_shape": artifact.y_shape,
-            "platforms": list(artifact.platforms), "x_d": fn.x_d, "de_logit": fn.de_logit,
-            "residual": fn.residual, "logit_a": fn.logit_a,
-            "quantize_uint8": fn.quantize_uint8,
+            "platforms": list(artifact.platforms),
+            # the serving function's own fields (x_d, and the conv
+            # post-processing)
+            **{f.name: getattr(fn, f.name) for f in dataclasses.fields(fn)
+               if f.name != "model"},
         },
     }
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -438,9 +479,12 @@ def save_artifact(path: str, artifact: ServingArtifact, metadata: Optional[dict]
 
 def load_artifact(path: str, device=None) -> ServingArtifact:
     """The artifact :func:`save_artifact` wrote, its model rebuilt on
-    ``device`` (the card unless ``device="cpu"``); call it with
+    ``device`` (the card unless ``device="cpu"``): a ``ToyCINN`` or a
+    ``ConvCFlow`` as the file's ``family`` says (files written before it
+    was recorded hold a ``ConvCFlow``); call it with
     ``loaded.call(*args)``."""
     from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
+    from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
 
     device = resolve_device(device)
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -450,13 +494,18 @@ def load_artifact(path: str, device=None) -> ServingArtifact:
     entry = payload["entry"]
     if device.type not in entry["platforms"]:
         raise ValueError(f"{path} was exported for {entry['platforms']}, not {device.type}")
-    cfg = ConvFlowConfig(**{k: tuple(v) if isinstance(v, list) else v
-                            for k, v in payload["config"].items()})
-    model = ConvCFlow(cfg, device=device)
+    family = payload.get("family", "conv")
+    if family not in _FAMILIES:
+        raise ValueError(f"{path}: unknown model family {family!r}")
+    config_cls, model_cls = {"conv": (ConvFlowConfig, ConvCFlow),
+                             "toy": (ToyConfig, ToyCINN)}[family]
+    cfg = config_cls(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in payload["config"].items()})
+    model = model_cls(cfg, device=device)
     model.load_state_dict(payload["state_dict"])
-    fn = ImageServingFn(model, entry["x_d"], de_logit=entry["de_logit"],
-                        residual=entry["residual"], logit_a=entry["logit_a"],
-                        quantize_uint8=entry["quantize_uint8"])
+    fn_cls = _FAMILIES[family]
+    fn = fn_cls(model, **{f.name: entry[f.name] for f in dataclasses.fields(fn_cls)
+                          if f.name != "model"})
     return ServingArtifact(fn, entry["kind"], entry["z_shape"], entry["y_shape"],
                            symbolic=entry["symbolic"], draws=entry["draws"],
                            platforms=entry["platforms"])

@@ -348,6 +348,9 @@ class FitResult:
     history: HistoryLogger
     completed_epochs: int
     stopped_early: bool
+    #: the step function ``fit`` drove; a graphed one's ``launches`` are
+    #: what each replay launches of the hand-written kernels
+    train_step: Optional[Callable] = None
 
 
 def _floats(out) -> dict:
@@ -446,4 +449,4 @@ def fit(
                 break
 
     return FitResult(state=state, history=history, completed_epochs=completed,
-                     stopped_early=stopped)
+                     stopped_early=stopped, train_step=train_step)

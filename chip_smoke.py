@@ -42,7 +42,20 @@ the serving batch of 2,048. ``[cli]`` runs the port's ``cnf-conv`` (class
 at the flagship arch through graphed stacks of 16 steps, resumed from its
 checkpoints; SR4,2 and SR2,1 at one residual block a level) and
 ``cnf-eval`` with ``--export-multidraw``, whose artifact is loaded and
-called. Each phase prints its elapsed seconds.
+called. ``[pretrain]`` runs ``cnf-pretrain-noise`` at its defaults (the
+flagship arch, batch 512, 20 batches an epoch) through graphed stacks of 4
+steps under ``pallas_subnet`` and ``pallas_coupling`` (bf16, fused heads;
+K3 or K1 must launch 16 times a step, counted at the capture; both kernels
+are also held and timed at batch 512 in the ``[kernel]`` lines) and under
+the user's defaults (float32, default lowering), with each run's step
+time, busy share and peak memory; then ``cnf-conv`` from the K3 run's
+weights, and those weights refused under another arch. ``[toy]`` runs
+``cnf-toy`` at the reference defaults (24 layers, width 32, batch 1000) on
+crescents eagerly and graphed, the mixed shapes, the continuous sectors and
+a ``--load`` that restores the layer order; holds the trained model in
+float32 against the CPU, checks ``forward(inverse(zy))`` and a seeded
+multidraw toy artifact (graphed == eager == reloaded, bit for bit), and
+times eager and graphed steps. Each phase prints its elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -93,6 +106,7 @@ from arl_conditional_normalizing_flows_tpu_torch.serve.export import (
     load_artifact,
     make_image_serving_fn,
     make_seeded_multidraw_fn,
+    make_toy_serving_fn,
     save_artifact,
 )
 from arl_conditional_normalizing_flows_tpu_torch.train import (
@@ -118,6 +132,9 @@ SERVE_DRAWS = 16
 SERVE_BATCH = SERVE_DRAWS * BATCH
 REQUESTS = 4
 NUM_CLASSES = 10
+#: cnf-pretrain-noise's batch (drivers/pretrain_noise.py), at which
+#: [pretrain] trains through K1 and K3
+PRETRAIN_BATCH = 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -162,13 +179,15 @@ CHAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LD_TOL = 1e-4
 #: K1/K2's checks: (rows, n, misaligned) — the main path's two shapes, then
-#: the same at the seeded serving entry's batch, a ragged n, an odd n and
+#: the same at the seeded serving entry's batch and at noise pre-training's
+#: batch, a ragged n, an odd n and
 #: misaligned views (both the kernels' scalar path), then the loops: rows
 #: wider than K1's 1024-thread block (8200: 2050 float32 or 1025 bf16
 #: vectors; 4099: odd, scalar) and a tensor larger than K2's one-wave grid
 #: (1024 x 4096), aligned and misaligned
 LAW_CASES = ((BATCH, 784, False), (BATCH, 392, False), (SERVE_BATCH, 784, False),
-             (SERVE_BATCH, 392, False), (3, 1000, False), (5, 393, False),
+             (SERVE_BATCH, 392, False), (PRETRAIN_BATCH, 784, False),
+             (PRETRAIN_BATCH, 392, False), (3, 1000, False), (5, 393, False),
              (BATCH, 784, True), (4, 8200, False), (3, 4099, False), (1024, 4096, False),
              (4, 8200, True), (1024, 4096, True))
 
@@ -251,15 +270,21 @@ def launch_floor_ms():
     return device_time_ms(lambda: torch.add(one, one))
 
 
+#: the batches at which K1/K2 are timed, and the key of each one's times
+LAW_TIMED = {BATCH: "timings", SERVE_BATCH: "serving_timings",
+             PRETRAIN_BATCH: "pretrain_timings"}
+
+
 def check_kernels(phases):
     """K1/K2 against their plain versions at :data:`LAW_CASES` (both
-    dtypes); times at the main path's and the serving entry's float32
-    shapes, beside the floor of a launch. ``max_abs_err`` is the worst over
-    those shapes."""
+    dtypes); times at the float32 shapes of the main path, the serving
+    entry and noise pre-training (:data:`LAW_TIMED`), beside the floor of a
+    launch. ``max_abs_err`` is the worst over those shapes."""
     floor_ms = launch_floor_ms()
     print(f"[floor] one launch of a 1-element torch.add: {floor_ms * 1e3:.2f} us on the card "
           "(CUDA-graph replay between CUDA events, as the [kernel] times)", flush=True)
-    results = {name: dict(max_abs_err=0.0, timings={}, serving_timings={}) for name in KERNELS}
+    results = {name: dict(max_abs_err=0.0, **{k: {} for k in LAW_TIMED.values()})
+               for name in KERNELS}
     for rows, n, misaligned in LAW_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             a, b, u = law_inputs(rows, n, dtype, seed=rows * n, misaligned=misaligned)
@@ -286,9 +311,9 @@ def check_kernels(phases):
             for name, err in errs.items():
                 print(f"[kernel] {name} {where}: max_abs_err={err:.3g} "
                       f"(tolerance {tol:g} abs + {tol:g} rel; log-det {LD_TOL:g})", flush=True)
-                if dtype == torch.float32 and rows in (BATCH, SERVE_BATCH) and not misaligned:
+                if dtype == torch.float32 and rows in LAW_TIMED and not misaligned:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-            if dtype != torch.float32 or rows not in (BATCH, SERVE_BATCH) or misaligned:
+            if dtype != torch.float32 or rows not in LAW_TIMED or misaligned:
                 continue
             with torch.no_grad():
                 for name, k in KERNELS.items():
@@ -299,8 +324,7 @@ def check_kernels(phases):
                     bytes_s = nbytes / HBM_BYTES_PER_S
                     ops_s = k["ops"](rows, n) / F32_FLOPS_PER_S
                     bound_s = max(bytes_s, ops_s)
-                    at = "timings" if rows == BATCH else "serving_timings"
-                    results[name][at][n] = dict(
+                    results[name][LAW_TIMED[rows]][n] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
                         bound_by="bytes" if bytes_s >= ops_s else "operations")
                     print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card, "
@@ -404,26 +428,27 @@ def chain_specs(model):
     return counts
 
 
-def chain_at_serving_batch(spec, launches, seed):
-    """K3 in bf16 at :data:`SERVE_BATCH` (the seeded serving entry's 16 draws
-    of 128 conditions): held against its plain version, timed beside it,
-    with the bound of that batch."""
+def chain_at_batch(spec, launches, seed, batch):
+    """K3 in bf16 at a batch larger than the main path's (the seeded serving
+    entry's 16 draws of 128 conditions, noise pre-training's 512): held
+    against its plain version, timed beside it, with the bound of that
+    batch."""
     s = dataclasses.replace(spec, compute_dtype="bfloat16")
-    err, x, packed, _ = compare_chain(s, SERVE_BATCH, seed)
+    err, x, packed, _ = compare_chain(s, batch, seed)
     with torch.no_grad():
         ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=5, reps=7)
         plain_ms = device_time_ms(lambda: chain.subnet_apply_reference(s, x, packed),
                                   iters=2, reps=3)
-    flops, nbytes = chain.flops(s, SERVE_BATCH), chain.io_bytes(s, SERVE_BATCH)
+    flops, nbytes = chain.flops(s, batch), chain.io_bytes(s, batch)
     ops_s, bytes_s = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound_ms = max(ops_s, bytes_s) * 1e3
-    trunk_mb = chain.trunk_elements(s, SERVE_BATCH) * 4 / 1e6
-    row = dict(shape=[SERVE_BATCH, s.h, s.w, s.cin], kernels=s.kernels,
+    trunk_mb = chain.trunk_elements(s, batch) * 4 / 1e6
+    row = dict(shape=[batch, s.h, s.w, s.cin], kernels=s.kernels,
                launches_per_pass=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by="operations" if ops_s >= bytes_s else "bytes",
                gflop=flops / 1e9, io_mb=nbytes / 1e6, trunk_scratch_mb=trunk_mb,
                achieved_tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
-    print(f"[kernel] fused_subnet {SERVE_BATCH}x{s.h}x{s.w}x{s.cin} bf16: {ms * 1e3:.1f} us on "
+    print(f"[kernel] fused_subnet {batch}x{s.h}x{s.w}x{s.cin} bf16: {ms * 1e3:.1f} us on "
           f"the card (bound {bound_ms * 1e3:.2f} us, {bound_ms / ms:.3f} of it; "
           f"{flops / ms / 1e9:.1f} TFLOP/s; trunk scratch {trunk_mb:.1f} MB), plain version "
           f"{plain_ms * 1e3:.1f} us", flush=True)
@@ -432,9 +457,10 @@ def chain_at_serving_batch(spec, launches, seed):
 
 def check_chain_kernel(specs, phases):
     """K3 against its plain version at each spec of the flagship, batch 128,
-    in bf16 and float32, and at the serving batch in bf16; times at bf16
-    (the main path's dtype). ``specs``: :func:`chain_specs`."""
-    results, serving = [], []
+    in bf16 and float32, and at the serving and pre-training batches in
+    bf16; times at bf16 (the main path's dtype). ``specs``:
+    :func:`chain_specs`."""
+    results, serving, pretrain = [], [], []
     for i, spec in enumerate(specs):
         for dtype in ("bfloat16", "float32"):
             s = dataclasses.replace(spec, compute_dtype=dtype)
@@ -468,16 +494,19 @@ def check_chain_kernel(specs, phases):
                   f"version {plain_ms * 1e3:.1f} us, eager ConvCouplingNet chain "
                   f"{eager_ms * 1e3:.1f} us (many calls: a yardstick, not a library call)",
                   flush=True)
-        serving.append(chain_at_serving_batch(spec, specs[spec], seed=20 + i))
+        serving.append(chain_at_batch(spec, specs[spec], 20 + i, SERVE_BATCH))
+        pretrain.append(chain_at_batch(spec, specs[spec], 30 + i, PRETRAIN_BATCH))
     per_pass = {k: sum(r["launches_per_pass"] * r[k] for r in results)
                 for k in ("ms", "eager_chain_ms")}
     per_pass["serving_ms"] = sum(r["launches_per_pass"] * r["ms"] for r in serving)
+    per_pass["pretrain_ms"] = sum(r["launches_per_pass"] * r["ms"] for r in pretrain)
     print(f"[kernel] fused_subnet a pass's {sum(specs.values())} launches: "
           f"{per_pass['ms'] * 1e3:.1f} us, the eager chains at the same specs "
           f"{per_pass['eager_chain_ms'] * 1e3:.1f} us; at batch {SERVE_BATCH} "
-          f"{per_pass['serving_ms'] * 1e3:.1f} us", flush=True)
+          f"{per_pass['serving_ms'] * 1e3:.1f} us; at batch {PRETRAIN_BATCH} "
+          f"{per_pass['pretrain_ms'] * 1e3:.1f} us", flush=True)
     phases.done("K3 against its plain version at the flagship's specs")
-    return results, serving, per_pass
+    return results, serving, pretrain, per_pass
 
 
 def class_planes(request):
@@ -935,7 +964,11 @@ def train_graph_and_eager(cfg, inner, phases):
 
     graph_walls, eager_walls = walls(graph_call, TRAIN_CALLS), walls(eager_steps, TRAIN_CALLS)
     graph_prof = kernel_breakdown(graph_call, top=8)
+    before = launch_counts()
     eager_prof = kernel_breakdown(lambda: train_step(state_e, stack[0]), top=8)
+    # the wrappers' counts of that one eager step: torch.profiler's (printed
+    # beside them) has dropped a K3 record of an eager step too
+    eager_launches = {k: v - before[k] for k, v in launch_counts().items()}
     # the optimizer's share of an eager step: one more Adam update from the
     # last step's gradients (the eager model serves timing only from here)
     adam_prof = kernel_breakdown(state_e.optimizer.step, top=3)
@@ -957,7 +990,8 @@ def train_graph_and_eager(cfg, inner, phases):
         eager_busy_ms_a_step=eager_prof["device_busy_ms"],
         eager_busy_share=eager_prof["device_busy_ms"] / (eager_ms / inner),
         eager_launches_a_step=eager_prof["kernel_launches"],
-        eager_port_kernel_launches_a_step=eager_prof["port_kernel_launches"],
+        eager_port_kernel_launches_a_step=eager_launches,
+        profiled_eager_port_kernel_launches_a_step=eager_prof["port_kernel_launches"],
         eager_adam_launches=adam_prof["kernel_launches"],
         eager_adam_busy_ms=adam_prof["device_busy_ms"],
         wrapper_launches_warmup_and_capture=capture_launches,
@@ -1002,9 +1036,10 @@ def train_fit(phases):
 def check_train(phases):
     """[train]: the bench's cell, graphs under both kernel lowerings, and
     fit. The kernels' wrappers count at capture only, so the launches inside
-    a replay are those counted during the capture, which the graph holds
-    (the profiler's count of the replays is printed beside them). A training
-    step runs no inverse, so K2 must launch no time in any of them."""
+    a replay are those counted during the capture, which the graph holds;
+    an eager step's are the wrappers' counts around it (the profiler's
+    counts of both are printed beside them). A training step runs no
+    inverse, so K2 must launch no time in any of them."""
     out = {"default": train_graph_and_eager(BENCH_CELL, TRAIN_INNER, phases)}
     for cfg, kernel in ((FLAGSHIP, "affine_forward"), (FLAGSHIP_SUBNET, "fused_subnet")):
         line = train_graph_and_eager(cfg, LOWERING_INNER, phases)
@@ -1249,6 +1284,290 @@ def check_cli(phases):
     return out
 
 
+#: [pretrain]: cnf-pretrain-noise at its defaults (the flagship arch, batch
+#: 512, 20 batches an epoch, Adam 3e-4, the shared-shape init) under the
+#: three lowerings. (name, flags, the port kernel each step launches 16
+#: times): the smoke's flagship settings (bf16, fused heads) on K3, whose
+#: parameters the shared-shape init does not support (JAX's refuses it too),
+#: and on K1; then the user's own defaults, float32 on the default lowering
+PRETRAIN_RUNS = (
+    ("pallas_subnet", ["--experimental-lowering", "pallas_subnet", "--dtype", "bfloat16",
+                       "--fused-subnet", "--no-shared-init", "--scan-steps", "4",
+                       "--epochs", "2"], "fused_subnet"),
+    ("pallas_coupling", ["--experimental-lowering", "pallas_coupling", "--dtype", "bfloat16",
+                         "--fused-subnet", "--scan-steps", "4", "--epochs", "1"],
+     "affine_forward"),
+    ("default", ["--scan-steps", "4", "--epochs", "1"], None),
+)
+PRETRAIN_INNER = 4
+PRETRAIN_BATCHES = 20  # the driver's --num-batches default
+
+
+def pretrain_lowering(name, flags, kernel, tmp, phases):
+    """One cnf-pretrain-noise run through ``main(argv)``; then the driver's
+    own graphed step (``FitResult.train_step``) timed and profiled on a
+    fresh noise stack. Returns the run's line."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import pretrain_noise
+
+    outdir = os.path.join(tmp, name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    res = pretrain_noise.main(flags + ["--outdir", outdir])
+    run_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = history_rows(outdir)
+    per_step = res.train_step.launches  # counted at the capture: what each replay launches
+    want = {k: 0 for k in PORT_KERNELS}
+    if kernel is not None:
+        want[kernel] = len(res.state.model.couplings)  # 16 at the flagship
+    check(per_step == want, f"pretrain {name}: launches a step in the graph {per_step} == {want}")
+    check(all(math.isfinite(r[k]) for r in rows for k in ("loss", "z_loss", "y_loss",
+                                                          "detJ_loss")),
+          f"pretrain {name}: finite losses")
+    check(os.path.exists(os.path.join(outdir, "conditioned_weights.npz")),
+          f"pretrain {name}: conditioned_weights.npz written")
+    phases.done(f"pretrain {name}: cnf-pretrain-noise", seconds=f"{run_s:.2f}")
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    stack = torch.randn((PRETRAIN_INNER, PRETRAIN_BATCH, 28, 28, 2), generator=g, device="cuda")
+    call_walls = walls(lambda: res.train_step(res.state, stack), 3)
+    prof = kernel_breakdown(lambda: res.train_step(res.state, stack), top=6)
+    step_ms = statistics.median(call_walls) * 1e3 / PRETRAIN_INNER
+    line = dict(
+        lowering=name, flags=flags, batch=PRETRAIN_BATCH, batches_an_epoch=PRETRAIN_BATCHES,
+        run_s=run_s, epoch_seconds=[r["seconds"] for r in rows],
+        epoch_samples_per_s=[PRETRAIN_BATCH * PRETRAIN_BATCHES / r["seconds"] for r in rows],
+        losses=[r["loss"] for r in rows],
+        graph_step_ms=step_ms, graph_samples_per_s=PRETRAIN_BATCH / (step_ms / 1e3),
+        busy_ms_a_step=prof["device_busy_ms"] / PRETRAIN_INNER,
+        busy_share=prof["device_busy_ms"] / (step_ms * PRETRAIN_INNER),
+        launches_a_step=prof["kernel_launches"] / PRETRAIN_INNER,
+        port_kernel_launches_a_step=per_step,
+        profiled_port_kernel_launches_a_step={k: v / PRETRAIN_INNER for k, v in
+                                              prof["port_kernel_launches"].items()},
+        chain_kernel_share=prof["chain_kernel_share"],
+        coupling_kernel_share=prof["coupling_kernel_share"], conv_share=prof["conv_share"],
+        max_memory_allocated_gb=peak_gb, top=prof["top"],
+    )
+    print("[pretrain] " + json.dumps(line), flush=True)
+    phases.done(f"pretrain {name}: timing and profile")
+    del res
+    return line
+
+
+def check_pretrain(phases):
+    """[pretrain]: cnf-pretrain-noise under the three lowerings (K3 and K1
+    16 times a step at batch 512, counted at the capture), then cnf-conv on
+    the class workload from the pallas_subnet run's weights, and the same
+    weights refused under another arch."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags, kernel in PRETRAIN_RUNS:
+            out[name] = pretrain_lowering(name, flags, kernel, tmp, phases)
+        npz = os.path.join(tmp, "pallas_subnet", "conditioned_weights.npz")
+        load = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-class",
+                "256", "--fused-subnet", "--annealing-epochs", "0", "--scan-steps", "16",
+                "--checkpoint-every", "0", "--eval-samples", "16", "--load", npz]
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        cnf_conv.main(load + ["--epochs", "1", "--outdir", os.path.join(tmp, "conv")])
+        rows = history_rows(os.path.join(tmp, "conv"))
+        check(len(rows) == 1 and all(math.isfinite(r[k]) for r in rows
+                                     for k in ("loss", "val_loss")),
+              "pretrain: cnf-conv --load of the pre-trained weights trains with finite losses")
+        out["conv_load"] = dict(seconds=time.perf_counter() - t, rows=rows)
+        try:
+            cnf_conv.main(load + ["--epochs", "1", "--res-blocks", "2", "2", "2", "2",
+                                  "--outdir", os.path.join(tmp, "mismatch")])
+        except ValueError as e:
+            refused = "arch" in str(e)
+        else:
+            refused = False
+        check(refused, "pretrain: cnf-conv --load under another arch (--res-blocks 2 2 2 2) "
+              "raises on the arch string")
+    print("[pretrain] cnf-conv --load: " + json.dumps(out["conv_load"]), flush=True)
+    phases.done("pretrain: cnf-conv from the pre-trained weights, and a mismatched arch")
+    return out
+
+
+#: [toy]: cnf-toy at the reference defaults (24 layers, width 32, 6 dense
+#: layers, batch 1000, 10 batches a class, lr 1e-4); eager, graphed, the
+#: mixed shapes, the continuous sectors, and a --load
+TOY_CRESCENTS = ["--dataset", "crescents", "--annealing-epochs", "1", "--epochs", "2"]
+TOY_ONE_EPOCH = ["--annealing-epochs", "0", "--epochs", "1"]
+TOY_BATCH = 1000
+TOY_INNER = 4
+TOY_SERVE_DRAWS = 16
+
+
+def finite_numbers(tree):
+    """Every number in a JSON-like tree is finite."""
+    if isinstance(tree, dict):
+        return all(finite_numbers(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(finite_numbers(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def toy_run(name, flags, tmp, phases):
+    """One cnf-toy run through ``main(argv)``: finite losses and a finite
+    eval.json; returns (result, its line)."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import toy as cnf_toy
+
+    outdir = os.path.join(tmp, name)
+    t = time.perf_counter()
+    res = cnf_toy.main(flags + ["--outdir", outdir])
+    seconds = time.perf_counter() - t
+    rows = history_rows(outdir)
+    with open(os.path.join(outdir, "eval.json")) as f:
+        report = json.load(f)
+    check(all(math.isfinite(r[k]) for r in rows for k in ("loss", "z_loss", "y_loss",
+                                                          "detJ_loss")),
+          f"toy {name}: finite losses")
+    check(finite_numbers(report), f"toy {name}: a finite eval.json")
+    line = dict(run=name, seconds=seconds, epoch_seconds=[r["seconds"] for r in rows],
+                losses=[r["loss"] for r in rows],
+                eval={k: v for k, v in report.items() if k != "final"})
+    print("[toy] " + json.dumps(line), flush=True)
+    phases.done(f"toy {name}", seconds=f"{seconds:.2f}")
+    return res, line
+
+
+def toy_steps(model, phases):
+    """Eager x-only-noise steps and graphed stacks of TOY_INNER at the
+    reference batch from one model: wall a step, busy share and launches a
+    step."""
+    rng = np.random.default_rng(0)
+    stack = torch.from_numpy(rng.normal(size=(TOY_INNER, TOY_BATCH, 3)).astype(np.float32)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = create_train_state(model, 1e-4)
+    train_step, _ = make_step_fns(model, noise_mode="x_only", x_d=2)
+    multi = make_scan_train_step(model, TOY_INNER, noise_mode="x_only", x_d=2)
+
+    def eager():
+        for xy in stack:
+            train_step(state, xy, g, 0.5)
+
+    multi(state, stack, g, 0.5)  # the capture
+    eager()
+    graph_walls = walls(lambda: multi(state, stack, g, 0.5), 5)
+    eager_walls = walls(eager, 5)
+    graph_prof = kernel_breakdown(lambda: multi(state, stack, g, 0.5), top=4)
+    eager_prof = kernel_breakdown(lambda: train_step(state, stack[0], g, 0.5), top=4)
+    graph_ms = statistics.median(graph_walls) * 1e3 / TOY_INNER
+    eager_ms = statistics.median(eager_walls) * 1e3 / TOY_INNER
+    out = dict(batch=TOY_BATCH, graph_step_ms=graph_ms, graph_steps_per_s=1e3 / graph_ms,
+               eager_step_ms=eager_ms, eager_steps_per_s=1e3 / eager_ms,
+               graph_busy_ms_a_step=graph_prof["device_busy_ms"] / TOY_INNER,
+               graph_busy_share=graph_prof["device_busy_ms"] / (graph_ms * TOY_INNER),
+               graph_launches_a_step=graph_prof["kernel_launches"] / TOY_INNER,
+               eager_busy_ms_a_step=eager_prof["device_busy_ms"],
+               eager_busy_share=eager_prof["device_busy_ms"] / eager_ms,
+               eager_launches_a_step=eager_prof["kernel_launches"],
+               port_kernel_launches_a_step=multi.launches)
+    check(all(v == 0 for v in multi.launches.values()),
+          f"toy: a step launches no port kernel, as JAX's toy reaches no Pallas kernel "
+          f"({multi.launches})")
+    print("[toy] steps " + json.dumps(out), flush=True)
+    phases.done("toy: eager and graphed steps")
+    return out
+
+
+def check_toy_model(model, tmp, phases):
+    """The trained toy model in float32 against the same weights on the CPU
+    at the reference batch (forward, inverse, log_loss), forward(inverse(zy))
+    == zy, and a seeded multidraw artifact: graphed call == eager entry ==
+    saved and reloaded artifact, bit for bit."""
+    from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
+
+    cpu = ToyCINN(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(1)
+    xy = torch.from_numpy(rng.normal(size=(TOY_BATCH, 3)).astype(np.float32))
+    zy_in = torch.from_numpy(rng.normal(size=(TOY_BATCH, 3)).astype(np.float32))
+    with torch.no_grad():
+        zy_g, ld_g = model(xy.cuda())
+        zy_c, ld_c = cpu(xy)
+        x_g, x_c = model.inverse(zy_in.cuda()), cpu.inverse(zy_in)
+        loss_g, loss_c = model.log_loss(xy.cuda()), cpu.log_loss(xy)
+        back, _ = model(x_g)
+    errs = dict(zy=(zy_g.cpu() - zy_c).abs().max().item(),
+                log_det=(ld_g.cpu() - ld_c).abs().max().item(),
+                inverse=(x_g.cpu() - x_c).abs().max().item(),
+                loss=max(abs(loss_g[k].item() - loss_c[k].item()) for k in loss_c),
+                round_trip=(back.cpu() - zy_in).abs().max().item())
+    # float32 sums in other orders on the two devices (TF32 off) through 24
+    # couplings; a round trip in float32
+    print(f"[toy] card vs CPU at float32, batch {TOY_BATCH}: {json.dumps(errs)} (tolerance "
+          "1e-4 abs + 1e-4 rel on zy, log-det and inverse, 1e-4 abs + 1e-5 rel on the "
+          "losses, 1e-4 on the round trip)", flush=True)
+    check(torch.allclose(zy_g.cpu(), zy_c, rtol=1e-4, atol=1e-4), "toy: card vs CPU zy")
+    check(torch.allclose(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-4), "toy: card vs CPU log-det")
+    check(torch.allclose(x_g.cpu(), x_c, rtol=1e-4, atol=1e-4), "toy: card vs CPU inverse")
+    check(all(abs(loss_g[k].item() - loss_c[k].item()) <= 1e-4 + 1e-5 * abs(loss_c[k].item())
+              for k in loss_c), "toy: card vs CPU log_loss")
+    check(errs["round_trip"] <= 1e-4, "toy: forward(inverse(zy)) == zy")
+
+    fn = make_toy_serving_fn(model, 2)
+    art = export_seeded_multidraw_sampler(fn, TOY_SERVE_DRAWS, (2,), (1,))
+    y = torch.linspace(-1.0, 1.0, TOY_BATCH, device="cuda").view(TOY_BATCH, 1)
+    t = time.perf_counter()
+    first = art.call(SERVE_SEED, y)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    eager = make_seeded_multidraw_fn(art.fn, TOY_SERVE_DRAWS, (2,))(SERVE_SEED, y)
+    path = os.path.join(tmp, "toy_seeded.pt")
+    save_artifact(path, art, metadata={"model": "toy"})
+    loaded = load_artifact(path)
+    check(first.shape == (TOY_SERVE_DRAWS, TOY_BATCH, 3) and torch.equal(first, eager),
+          "toy: the graphed artifact call is bit-equal to the eager entry")
+    check(torch.equal(loaded.call(SERVE_SEED, y), first),
+          "toy: the saved and loaded artifact gives the same bytes")
+    call_ms = statistics.median(walls(lambda: art.call(SERVE_SEED, y), 5)) * 1e3
+    out = dict(errors=errs, artifact=dict(draws=TOY_SERVE_DRAWS, conditions=TOY_BATCH,
+                                          capture_s=capture_s, call_ms=call_ms,
+                                          samples_per_s=TOY_SERVE_DRAWS * TOY_BATCH
+                                          / (call_ms / 1e3)))
+    print("[toy] artifact " + json.dumps(out["artifact"]), flush=True)
+    phases.done("toy: card vs CPU, round trip, artifact")
+    return out
+
+
+def check_toy(phases):
+    """[toy]: cnf-toy on crescents eagerly and through graphed stacks, the
+    mixed shapes and the continuous sectors, a --load that restores the layer
+    order; then the trained model against the CPU, its artifact, and its
+    steps timed. No port kernel launches anywhere on the toy path."""
+    from arl_conditional_normalizing_flows_tpu_torch.train import load_npz_extras
+
+    out = {}
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, out["crescents_eager"] = toy_run("crescents_eager", TOY_CRESCENTS, tmp, phases)
+        _, out["crescents_graphed"] = toy_run(
+            "crescents_graphed", TOY_CRESCENTS + ["--scan-steps", str(TOY_INNER)], tmp, phases)
+        _, out["mixed"] = toy_run("mixed", ["--dataset", "mixed"] + TOY_ONE_EPOCH, tmp, phases)
+        _, out["continuous_sectors"] = toy_run(
+            "continuous_sectors", ["--dataset", "continuous_sectors"] + TOY_ONE_EPOCH, tmp,
+            phases)
+        saved = os.path.join(tmp, "crescents_eager", "weights.npz")
+        _, out["load"] = toy_run("load", ["--seed", "1", "--load", saved] + TOY_ONE_EPOCH,
+                                 tmp, phases)
+        order = load_npz_extras(saved)["mask_indices"]
+        check(np.array_equal(load_npz_extras(os.path.join(tmp, "load", "weights.npz"))
+                             ["mask_indices"], order),
+              "toy: --load restores the saved layer order under another seed")
+        check(all(v == 0 for v in launch_counts().values()),
+              f"toy: cnf-toy launched no port kernel ({launch_counts()})")
+        out["model"] = check_toy_model(res.state.model, tmp, phases)
+    out["steps"] = toy_steps(res.state.model, phases)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1280,8 +1599,8 @@ def main() -> int:
     subnet_model = ConvCFlow(FLAGSHIP_SUBNET, seed=0)  # no device: the card
     phases.done("flagship built", arch=arch_string(FLAGSHIP),
                 params=sum(p.numel() for p in subnet_model.parameters()))
-    chain_results, chain_serving, chain_pass = check_chain_kernel(chain_specs(subnet_model),
-                                                                  phases)
+    chain_results, chain_serving, chain_pretrain, chain_pass = check_chain_kernel(
+        chain_specs(subnet_model), phases)
 
     coupling_model = ConvCFlow(FLAGSHIP, seed=0)
     launches = run_main_path(coupling_model, FLAGSHIP, phases)
@@ -1293,6 +1612,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = check_serve(phases)
     cli = check_cli(phases)
+    torch.cuda.empty_cache()
+    pretrain = check_pretrain(phases)
+    torch.cuda.empty_cache()
+    toy = check_toy(phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -1307,6 +1630,7 @@ def main() -> int:
             plain_ms_at_392=results[name]["timings"][392]["plain_ms"],
             bound_ms_at_392=results[name]["timings"][392]["bound_ms"],
             at_serving_batch={n: results[name]["serving_timings"][n] for n in (784, 392)},
+            at_pretrain_batch={n: results[name]["pretrain_timings"][n] for n in (784, 392)},
         ))
     # K3's main keys are those of its largest spec; every spec is listed
     largest = max(chain_results, key=lambda r: r["gflop"])
@@ -1322,6 +1646,8 @@ def main() -> int:
         pass_ms=chain_pass["ms"], eager_pass_ms=chain_pass["eager_chain_ms"],
         specs=chain_results, specs_at_serving_batch=chain_serving,
         pass_ms_at_serving_batch=chain_pass["serving_ms"],
+        at_pretrain_batch=chain_pretrain,
+        pass_ms_at_pretrain_batch=chain_pass["pretrain_ms"],
         grad_f32=grads["pallas_subnet_f32"], grad_cpu=grads["pallas_subnet_cpu"],
     ))
     entries[0]["grad"] = grads["pallas_coupling"]
@@ -1341,6 +1667,18 @@ def main() -> int:
         "port_kernel_launches_a_call"]["affine_inverse"]
     entries[2]["launches_a_serving_call"] = serve["pallas_subnet"][
         "port_kernel_launches_a_call"]["fused_subnet"]
+    # launches a cnf-pretrain-noise step at batch 512 inside the CUDA-graph
+    # replays (counted at the capture)
+    entries[0]["launches_a_pretrain_step"] = pretrain["pallas_coupling"][
+        "port_kernel_launches_a_step"]["affine_forward"]
+    entries[1]["launches_a_pretrain_step"] = pretrain["pallas_coupling"][
+        "port_kernel_launches_a_step"]["affine_inverse"]
+    entries[2]["launches_a_pretrain_step"] = pretrain["pallas_subnet"][
+        "port_kernel_launches_a_step"]["fused_subnet"]
+    print(f"[summary] pretrain step ms: "
+          f"{json.dumps({k: v['graph_step_ms'] for k, v in pretrain.items() if k != 'conv_load'})}"
+          f"; toy steps/s graphed {toy['steps']['graph_steps_per_s']:.1f}, eager "
+          f"{toy['steps']['eager_steps_per_s']:.1f}", flush=True)
     print(f"[summary] serve samples/s a call: "
           f"{json.dumps({k: v['samples_per_s'] for k, v in serve.items()})}; "
           f"cli: {json.dumps({k: v.get('seconds', v.get('first_s')) for k, v in cli.items()})}",

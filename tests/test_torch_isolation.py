@@ -57,6 +57,30 @@ def test_the_isolation_check_imports_the_drivers_serving_and_checkpoints():
         assert f"{port.__name__}.{name}" in names, name
 
 
+def test_the_isolation_check_imports_the_toy_path_and_both_new_drivers():
+    """... and the toy model, its datasets, cnf-toy and cnf-pretrain-noise,
+    each of which also loads alone in a fresh process with no jax, flax or
+    JAX-package module."""
+    names = [f"{port.__name__}.{name}" for name in (
+        "drivers.pretrain_noise", "drivers.toy", "models.toy", "data.toy_datasets")]
+    assert set(names) <= set(port_modules())
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for name in names:
+        out = subprocess.run([sys.executable, "-c", CHECK, name], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, (name, out.stderr)
+
+
+def test_toy_model_without_device_raises_without_a_card(monkeypatch):
+    from arl_conditional_normalizing_flows_tpu_torch.models.arch import ToyConfig
+    from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ToyCINN(ToyConfig())
+    assert ToyCINN(ToyConfig(), device="cpu").device.type == "cpu"
+
+
 def test_entry_point_without_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ConvFlowConfig(io_shape=(8, 8, 2), x_d=1, squeeze_factor_blocks=(0, 1),

@@ -2,7 +2,9 @@
 the coupling law (K1/K2) and the coupling subnet's conv chain (K3); the
 train step replayed as a CUDA graph against eager steps, with K1/K3
 launching inside the replay; and the seeded serving entry replayed as a
-CUDA graph against the eager entry, with K2/K3 launching inside the replay.
+CUDA graph against the eager entry, with K2/K3 launching inside the replay;
+K1-K3 at noise pre-training's batch of 512; and the toy cINN's train step
+and seeded serving entry as CUDA graphs against their eager runs.
 
 Needs a card and imports no JAX, so it runs on a machine with a card and
 without jax, skipping the repo's conftest (which configures JAX):
@@ -536,3 +538,93 @@ def test_load_artifact_on_the_card(cuda, tmp_path):
     assert torch.equal(loaded.call(9, y), art.call(9, y))
     on_cpu = export.load_artifact(path, device="cpu")
     assert on_cpu.call(9, y.cpu()).shape == (DRAWS, 5, 8, 8, 1)
+
+
+# ---------------------------------------------------------------------------
+# noise pre-training's batch of 512, and the toy cINN as a CUDA graph
+# ---------------------------------------------------------------------------
+
+PRETRAIN_BATCH = 512
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [784, 392])
+def test_kernels_match_plain_versions_at_the_pretrain_batch(cuda, n, dtype):
+    """K1/K2 at cnf-pretrain-noise's batch, (512, 784) and (512, 392)."""
+    shape = (PRETRAIN_BATCH, n)
+    a, b, u = _inputs(shape, getattr(torch, dtype), cuda)
+    _check_law(a, b, u, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", [k for k in CHAIN_SPECS if k.startswith("flagship")])
+def test_chain_kernel_matches_plain_version_at_the_pretrain_batch(cuda, no_tf32, name, dtype):
+    """K3 at the flagship's four specs and cnf-pretrain-noise's batch of 512
+    (four waves of blocks on 132 SMs), with the tolerances of batch 128."""
+    spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
+    x, packed = _chain_inputs(spec, PRETRAIN_BATCH, cuda)
+    before = tfs.LAUNCHES["fused_subnet"]
+    with torch.no_grad():
+        out = tfs.subnet_apply(spec, x, packed)
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    assert out.shape == (PRETRAIN_BATCH, spec.h, spec.w, spec.out_total)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+def _toy(device, seed=0):
+    from arl_conditional_normalizing_flows_tpu_torch.models.arch import ToyConfig
+    from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
+
+    cfg = ToyConfig(num_coupling_layers=12, intermediate_dims=16, num_layers=2,
+                    mask_indices=(2, 0, 1, 5, 3, 4, 6, 11, 7, 10, 8, 9))
+    return ToyCINN(cfg, device=device, seed=seed)
+
+
+def _toy_stack(device, n=GRAPH_STEPS, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(n, 64, 3)).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+def test_graphed_toy_steps_equal_eager_steps(cuda, alpha):
+    """k x-only-noise steps of the toy replayed from one captured step give
+    the parameters and losses of k eager steps from the same state and the
+    same generator: the layers' index tensors live on the card, so the step
+    makes no host-to-device copy and the capture holds it. At alpha 0.5 the
+    noise drawn in the replays is the eager steps' (one generator, seeded
+    alike, registered with the graph)."""
+    graphed, eager = _toy(cuda), _toy(cuda)
+    xy = _toy_stack(cuda)
+    multi = loop.make_scan_train_step(graphed, GRAPH_STEPS, noise_mode="x_only", x_d=2)
+    assert isinstance(multi, loop._GraphedSteps)
+    state_g = loop.create_train_state(graphed, LR)
+    state_g, out = multi(state_g, xy, torch.Generator(device=cuda).manual_seed(3), alpha)
+    state_e = loop.create_train_state(eager, LR)
+    step, _ = loop.make_step_fns(eager, noise_mode="x_only", x_d=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    losses = [float(step(state_e, b, g, alpha)[1]["loss"]) for b in xy]
+    torch.cuda.synchronize()
+    assert state_g.step == state_e.step == GRAPH_STEPS
+    np.testing.assert_allclose(float(out["loss"]), np.mean(losses), rtol=1e-5)
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)
+    assert multi.launches == {"affine_forward": 0, "affine_inverse": 0, "fused_subnet": 0}
+
+
+def test_toy_artifact_replay_is_the_eager_entry(cuda, tmp_path):
+    """A seeded multidraw toy artifact: the graphed call gives the eager
+    entry's values bit for bit, and so does the saved and reloaded one."""
+    fn = export.make_toy_serving_fn(_toy(cuda), 2)
+    art = export.export_seeded_multidraw_sampler(fn, DRAWS, (2,), (1,))
+    y = torch.linspace(-1, 1, 50, device=cuda).view(50, 1)
+    got = art.call(4, y)
+    art.call(5, y)
+    want = export.make_seeded_multidraw_fn(art.fn, DRAWS, (2,))(4, y)
+    assert got.shape == (DRAWS, 50, 3) and torch.equal(got, want)
+    assert torch.equal(art.call(4, y), got)
+    path = str(tmp_path / "toy.pt")
+    export.save_artifact(path, art)
+    assert torch.equal(export.load_artifact(path).call(4, y), got)
