@@ -13,14 +13,18 @@ CLASS-PURE (data is batched before shuffling, so each class maps
 independently to the full N(0,1) prior, TOYcINN_make_datasets.py:30,
 :265-268).
 
-Standardization statistics come ONCE from a 10^4-points-a-class draw on the
-CPU from a generator seeded 1234, as the reference computes them
-(TOYcINN_make_datasets.py:108-126): the same on the card and on the CPU.
-torch's random numbers are not ``jax.random``'s, so the port's points, and
-its statistics, differ from the JAX package's draw by draw; they agree in
-distribution (``tests/test_torch_toy_data.py`` holds them within 5 standard
-errors). ``epoch_iterator_distributed`` (the multi-host epoch) waits for
-multi-device runs (ROADMAP A.10).
+Standardization statistics (TOYcINN_make_datasets.py:108-126): at the
+drivers' defaults (crescents and overlapping crescents at noise 0.05, the
+mixed shapes 0, 1 and 4) they are the JAX package's own, pinned as float32
+constants (:data:`PINNED_STATS`, held bit for bit to JAX's
+``_standardize_stats`` by ``tests/test_torch_toy_data.py``), so that a
+JAX-trained model sees the inputs it was trained on. Any other setting
+draws them once from 10^4 points a class on the CPU from a ``torch.Generator``
+seeded 1234: torch's random numbers are not ``jax.random``'s, so those
+statistics differ from JAX's (by up to 2% of a std) and agree only in
+distribution; ``ToyDataset.stats_pinned`` says which. The points themselves
+are torch's draws everywhere. ``epoch_iterator_distributed`` (the
+multi-host epoch) waits for multi-device runs (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -160,6 +164,9 @@ class ToyDataset:
     class_labels: Tuple[float, ...]  # raw (pre-standardization) label values
     mean: Tuple[float, float, float]
     std: Tuple[float, float, float]
+    #: True when mean and std are JAX's pinned statistics, False when drawn
+    #: by the port
+    stats_pinned: bool = False
     raw_points: Callable = dataclasses.field(compare=False, repr=False, default=None)
 
     def sample_class_batch(self, generator, class_index, batch_size):
@@ -194,6 +201,31 @@ class ToyDataset:
                                                     batch_size)))
 
 
+#: JAX's ``_standardize_stats`` (``jax.random.PRNGKey(1234)``, 10^4 points a
+#: class) at the drivers' defaults, as float32 values in ``float.hex``:
+#: (mean, std) of the (x0, x1, label) columns, keyed by dataset and setting
+PINNED_STATS = {
+    ("crescents", 0.05, False): (
+        ("0x1.f37130p-2", "0x1.fd77fap-3", "0x1.000000p-1"),
+        ("0x1.bd295cp-1", "0x1.fddb34p-2", "0x1.000000p-1")),
+    ("crescents", 0.05, True): (
+        ("0x1.f37130p-2", "0x1.3f5e48p-1", "0x1.000000p+0"),
+        ("0x1.bd295cp-1", "0x1.403e48p-2", "0x1.000000p+0")),
+    ("mixed", (0, 1, 4)): (
+        ("-0x1.cef622p-12", "-0x1.09efe6p-7", "0x1.000000p+0"),
+        ("0x1.3f8b2cp-1", "0x1.403972p-1", "0x1.a20bd8p-1")),
+}
+
+
+def _stats(key, raw_points, labels):
+    """(mean, std, pinned): JAX's pinned statistics for ``key``, else the
+    port's own draw."""
+    if key in PINNED_STATS:
+        mean, std = (tuple(float.fromhex(v) for v in col) for col in PINNED_STATS[key])
+        return mean, std, True
+    return (*_standardize_stats(raw_points, labels), False)
+
+
 def _standardize_stats(raw_points, labels, n=10_000, seed=1234):
     """Dataset mean/std from one large draw on the CPU
     (TOYcINN_make_datasets.py:108-126); population std, as ``np.std``."""
@@ -217,8 +249,9 @@ def make_moons_dataset(noise=0.05, overlapping=False) -> ToyDataset:
         class_id = 0 if class_index == 0 else (2 if overlapping else 1)
         return _moon_points(g, n, class_id, noise, overlapping)
 
-    mean, std = _standardize_stats(raw_points, labels)
-    return ToyDataset("crescents", labels, mean, std, raw_points)
+    mean, std, pinned = _stats(("crescents", float(noise), bool(overlapping)), raw_points,
+                               labels)
+    return ToyDataset("crescents", labels, mean, std, pinned, raw_points)
 
 
 def make_mixed_dataset(which_classes: Sequence[int]) -> ToyDataset:
@@ -231,8 +264,8 @@ def make_mixed_dataset(which_classes: Sequence[int]) -> ToyDataset:
     def raw_points(g, class_index, n):
         return _MIXED_SAMPLERS[which[class_index]](g, n)
 
-    mean, std = _standardize_stats(raw_points, labels)
-    return ToyDataset("mixed", labels, mean, std, raw_points)
+    mean, std, pinned = _stats(("mixed", which), raw_points, labels)
+    return ToyDataset("mixed", labels, mean, std, pinned, raw_points)
 
 
 def sample_continuous_sectors(generator, num_points, sector_width):

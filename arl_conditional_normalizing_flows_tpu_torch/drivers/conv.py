@@ -12,8 +12,12 @@ shared-shape init.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises. ``--scan-steps N`` trains through
 ``make_scan_train_step`` (on the card, one train step captured as a CUDA
-graph and replayed N times a call). The flags of paths not ported yet
-(records and the native loader, multi-host, plots, the fused_dilated and
+graph and replayed N times a call). ``--records-dir`` reads the ``.cnfrec``
+files that ``cnf-build-records`` writes: streamed through the native loader
+(``--stream-records``, the default: ``data/native_loader.py``, host memory
+bounded by a few batches) or read into the in-RAM sources
+(``--no-stream-records``); both give the same batches for the same seed. The
+flags of paths not ported yet (multi-host, plots, the fused_dilated and
 dense_groups lowerings) exit with the ROADMAP item that will bring them.
 
 Example:
@@ -47,10 +51,12 @@ def build_parser():
     p.add_argument("--data-classes", type=int, nargs="*", default=[0, 1, 2, 3],
                    help="conv_cINN.py:37")
     p.add_argument("--records-dir", default=None,
-                   help="read pre-built .cnfrec files (not ported yet: ROADMAP A.4)")
+                   help="read pre-built .cnfrec files (cnf-build-records) instead of "
+                   "raw arrays")
     p.add_argument("--stream-records", action="store_true", default=True,
-                   help="stream batches from .cnfrec via the native loader (with "
-                   "--records-dir; not ported yet: ROADMAP A.4)")
+                   help="stream batches from .cnfrec via the native loader with bounded "
+                   "host memory (default); --no-stream-records reads the whole dataset "
+                   "into RAM instead")
     p.add_argument("--no-stream-records", dest="stream_records", action="store_false")
     p.add_argument("--residual", action="store_true", default=True,
                    help="SR residual target (conv_cINN.py:45)")
@@ -114,9 +120,6 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on a flag whose path is not ported."""
-    if getattr(args, "records_dir", None):
-        raise SystemExit("--records-dir/--stream-records: records and the native "
-                         "loader are not ported yet (ROADMAP A.4)")
     if getattr(args, "data_parallel", False) or any(
             getattr(args, k, None) is not None
             for k in ("coordinator", "num_processes", "process_id")):
@@ -132,6 +135,8 @@ def load_arrays(args, split):
         synthetic_digits,
     )
 
+    if args.records_dir:
+        return load_from_records(args, split)
     if args.dataset == "synthetic":
         n = (args.synthetic_per_class if split == "train"
              else max(32, args.synthetic_per_class // 4))
@@ -139,13 +144,67 @@ def load_arrays(args, split):
     return load_image_dataset(args.dataset, split)
 
 
-def make_source(args, split):
-    """(source, x_d, y_d) of ``split`` for ``args.model_type``."""
+def load_from_records(args, split):
+    """(images, labels) of ``split`` read from the ``.cnfrec`` files in
+    ``args.records_dir`` (the layout ``cnf-build-records`` writes): the
+    per-class files for 'class'; for SR the combined file, else the per-class
+    files concatenated."""
+    from arl_conditional_normalizing_flows_tpu_torch.data import records
+
+    split_name = "train" if split == "train" else "test"
+    if args.model_type == "class":
+        xs, ys = [], []
+        for c in args.data_classes:
+            arr = records.read_records(records.class_file(args.records_dir, split_name, int(c)))
+            xs.append(arr)
+            ys.append(np.full((len(arr),), int(c), np.int32))
+        return np.concatenate(xs), np.concatenate(ys)
+    path = records.combined_file(args.records_dir, split_name)
+    if os.path.exists(path):
+        arr = np.array(records.read_records(path))  # into RAM, writable
+    else:
+        arr = np.concatenate([
+            records.read_records(records.class_file(args.records_dir, split_name, int(c)))
+            for c in args.data_classes])
+    return arr, np.zeros((len(arr),), np.int32)
+
+
+def streaming_source(args, split):
+    """(source, x_d, y_d) of ``split`` streamed from the ``.cnfrec`` files in
+    ``args.records_dir`` through the native loader: per-class files for
+    'class', the combined file for SR."""
+    from arl_conditional_normalizing_flows_tpu_torch.data import records
+    from arl_conditional_normalizing_flows_tpu_torch.data.native_loader import (
+        StreamingClassSource,
+        StreamingSRSource,
+    )
+
+    split_name = "train" if split == "train" else "test"
+    if args.model_type == "class":
+        paths = [records.class_file(args.records_dir, split_name, int(c))
+                 for c in args.data_classes]
+        src = StreamingClassSource(paths, args.data_classes, args.batch_size,
+                                   use_logits=args.logits)
+        return src, src.xy_shape[2] - 1, 1
+    path = records.combined_file(args.records_dir, split_name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"SR streaming needs the combined records file {path} (cnf-build-records "
+            "--combined); --no-stream-records reads the per-class files instead")
+    src = StreamingSRSource(path, args.model_type, args.batch_size, residual=args.residual)
+    return src, src.xy_shape[2] // 2, src.xy_shape[2] // 2
+
+
+def make_source(args, split, stream=False):
+    """(source, x_d, y_d) of ``split`` for ``args.model_type``; with
+    ``stream`` (and ``args.records_dir``), a streaming source."""
     from arl_conditional_normalizing_flows_tpu_torch.data.images import (
         ClassConditionalSource,
         SRSource,
     )
 
+    if stream:
+        return streaming_source(args, split)
     x, y = load_arrays(args, split)
     x_d = x.shape[-1] if x.ndim == 4 else 1
     if args.model_type == "class":
@@ -178,8 +237,11 @@ def main(argv=None):
     from arl_conditional_normalizing_flows_tpu_torch.utils import write_run_metadata
 
     device = resolve_device("cpu" if args.cpu else None)
-    train_src, x_d, y_d = make_source(args, "train")
-    val_src, _, _ = make_source(args, "test")
+    stream = bool(args.records_dir) and args.stream_records
+    train_src, x_d, y_d = make_source(args, "train", stream)
+    val_src, _, _ = make_source(args, "test", stream)
+    if args.records_dir:
+        print(f"records: {records_reader(stream)} from {args.records_dir}", flush=True)
     h, w, xy_d = train_src.xy_shape
     if xy_d != x_d + y_d:
         raise ValueError(f"xy has {xy_d} channels, not x_d + y_d = {x_d + y_d}")
@@ -283,6 +345,15 @@ def main(argv=None):
         json.dump(final, f, indent=2)
     print(json.dumps(final, indent=2), flush=True)
     return res
+
+
+def records_reader(stream: bool) -> str:
+    """Which reader a --records-dir run used, for its log."""
+    if stream:
+        from arl_conditional_normalizing_flows_tpu_torch.data.native_loader import reader_name
+
+        return f"streamed through the {reader_name()}"
+    return "read into RAM by records.read_records"
 
 
 def sampling_eval(args, model, val_src, x_d):

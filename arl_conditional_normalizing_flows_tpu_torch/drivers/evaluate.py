@@ -9,9 +9,11 @@ architecture comes from its ``arch.json``) and computes, without training:
   forward pass (``log_loss_with_latent``);
 - conditional-sampling moments;
 
-and, on request, writes serving artifacts (``serve.export``): the single-draw
-sampler (``--export-sampler``) and the multidraw one (``--export-multidraw``).
-Runs on the card, or on the CPU with ``--cpu``.
+on the test split of ``--dataset`` or of the ``.cnfrec`` files in
+``--records-dir``; and, on request, writes serving artifacts
+(``serve.export``): the single-draw sampler (``--export-sampler``) and the
+multidraw one (``--export-multidraw``). Runs on the card, or on the CPU with
+``--cpu``.
 
 Example:
     python -m arl_conditional_normalizing_flows_tpu_torch.drivers.evaluate \\
@@ -43,7 +45,8 @@ def build_parser():
     p.add_argument("--synthetic-per-class", type=int, default=128)
     p.add_argument("--data-classes", type=int, nargs="*", default=[0, 1, 2, 3])
     p.add_argument("--records-dir", default=None,
-                   help="read pre-built .cnfrec files (not ported yet: ROADMAP A.4)")
+                   help="read the test split from pre-built .cnfrec files "
+                   "(cnf-build-records) into RAM, as cnf-conv --no-stream-records does")
     p.add_argument("--logits", action="store_true", default=True)
     p.add_argument("--no-logits", dest="logits", action="store_false")
     p.add_argument("--residual", action="store_true", default=True)
@@ -89,6 +92,9 @@ def main(argv=None):
     # the architecture comes from the checkpoint's own metadata
     cfg = read_arch(args.checkpoint_dir, ConvFlowConfig)
     val_src, _, _ = conv_driver.make_source(args, "test")
+    if args.records_dir:
+        print(f"records: {conv_driver.records_reader(False)} from {args.records_dir}",
+              flush=True)
     h, w, xy_d = cfg.io_shape
     if tuple(val_src.xy_shape) != tuple(cfg.io_shape):
         raise ValueError(f"the data's xy shape {val_src.xy_shape} is not the checkpoint's "

@@ -149,6 +149,10 @@ def main(argv=None):
         ds = toy_datasets.make_mixed_dataset(args.which_classes)
     else:
         ds = None  # continuous sectors: no class structure
+    if ds is not None and not ds.stats_pinned:
+        print("toy: standardization statistics drawn by the port (torch.Generator seeded "
+              "1234), not JAX's: a weights.npz trained by the JAX package under these flags "
+              "sees inputs up to ~2% of a std off its training data", flush=True)
 
     if ds is not None:
         per_epoch = args.batches_per_class * len(ds.class_labels)

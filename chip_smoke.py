@@ -55,7 +55,20 @@ crescents eagerly and graphed, the mixed shapes, the continuous sectors and
 a ``--load`` that restores the layer order; holds the trained model in
 float32 against the CPU, checks ``forward(inverse(zy))`` and a seeded
 multidraw toy artifact (graphed == eager == reloaded, bit for bit), and
-times eager and graphed steps. Each phase prints its elapsed seconds.
+times eager and graphed steps. ``[records]`` drives the record path:
+``cnf-build-records`` per class and ``--combined`` with the reference's
+TFRecords beside them (one read back through ``convert_to_cnfrec``,
+bit-equal to its ``.cnfrec``); an MNIST-scale class set (4 classes × 6,000
+synthetic digits); the streaming sources against the in-RAM ones from one
+CUDA generator state (class bit-equal, SR within 1e-6); ``cnf-conv
+--records-dir`` at the flagship arch, ``pallas_coupling``, bf16, batch 128,
+graphed stacks of 16, streamed through the native loader and in RAM, with
+equal losses, each run's samples/s and busy share of a stack fetched and
+replayed, K1's launches a step (counted at the capture) and K2's in the
+end-of-training sampling; SR4,2 streamed from the combined file; ``cnf-eval
+--records-dir``; ``cnf-import-reference toy`` of a reference-layout
+checkpoint, then ``cnf-toy --load`` of it. Each phase prints its elapsed
+seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -135,6 +148,11 @@ NUM_CLASSES = 10
 #: cnf-pretrain-noise's batch (drivers/pretrain_noise.py), at which
 #: [pretrain] trains through K1 and K3
 PRETRAIN_BATCH = 512
+#: the [records] phase's sampling rows through K2, in float32 (the heads are
+#: cast to float32 under bf16 compute): cnf-conv's end-of-training
+#: --eval-samples (its default) and cnf-eval --records-dir's
+RECORDS_SAMPLES = 64
+RECORDS_EVAL_SAMPLES = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -179,15 +197,18 @@ CHAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LD_TOL = 1e-4
 #: K1/K2's checks: (rows, n, misaligned) — the main path's two shapes, then
-#: the same at the seeded serving entry's batch and at noise pre-training's
-#: batch, a ragged n, an odd n and
+#: the same at the seeded serving entry's batch, at noise pre-training's
+#: batch and at the records path's two sampling batches, a ragged n, an odd
+#: n and
 #: misaligned views (both the kernels' scalar path), then the loops: rows
 #: wider than K1's 1024-thread block (8200: 2050 float32 or 1025 bf16
 #: vectors; 4099: odd, scalar) and a tensor larger than K2's one-wave grid
 #: (1024 x 4096), aligned and misaligned
 LAW_CASES = ((BATCH, 784, False), (BATCH, 392, False), (SERVE_BATCH, 784, False),
              (SERVE_BATCH, 392, False), (PRETRAIN_BATCH, 784, False),
-             (PRETRAIN_BATCH, 392, False), (3, 1000, False), (5, 393, False),
+             (PRETRAIN_BATCH, 392, False), (RECORDS_SAMPLES, 784, False),
+             (RECORDS_SAMPLES, 392, False), (RECORDS_EVAL_SAMPLES, 784, False),
+             (RECORDS_EVAL_SAMPLES, 392, False), (3, 1000, False), (5, 393, False),
              (BATCH, 784, True), (4, 8200, False), (3, 4099, False), (1024, 4096, False),
              (4, 8200, True), (1024, 4096, True))
 
@@ -273,13 +294,16 @@ def launch_floor_ms():
 #: the batches at which K1/K2 are timed, and the key of each one's times
 LAW_TIMED = {BATCH: "timings", SERVE_BATCH: "serving_timings",
              PRETRAIN_BATCH: "pretrain_timings"}
+#: the batches of the main paths, over which ``max_abs_err`` is taken
+LAW_PATH_ROWS = (*LAW_TIMED, RECORDS_SAMPLES, RECORDS_EVAL_SAMPLES)
 
 
 def check_kernels(phases):
     """K1/K2 against their plain versions at :data:`LAW_CASES` (both
     dtypes); times at the float32 shapes of the main path, the serving
     entry and noise pre-training (:data:`LAW_TIMED`), beside the floor of a
-    launch. ``max_abs_err`` is the worst over those shapes."""
+    launch. ``max_abs_err`` is the worst over the float32 shapes of every
+    path (:data:`LAW_PATH_ROWS`)."""
     floor_ms = launch_floor_ms()
     print(f"[floor] one launch of a 1-element torch.add: {floor_ms * 1e3:.2f} us on the card "
           "(CUDA-graph replay between CUDA events, as the [kernel] times)", flush=True)
@@ -311,7 +335,7 @@ def check_kernels(phases):
             for name, err in errs.items():
                 print(f"[kernel] {name} {where}: max_abs_err={err:.3g} "
                       f"(tolerance {tol:g} abs + {tol:g} rel; log-det {LD_TOL:g})", flush=True)
-                if dtype == torch.float32 and rows in LAW_TIMED and not misaligned:
+                if dtype == torch.float32 and rows in LAW_PATH_ROWS and not misaligned:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
             if dtype != torch.float32 or rows not in LAW_TIMED or misaligned:
                 continue
@@ -1568,6 +1592,292 @@ def check_toy(phases):
     return out
 
 
+#: [records]: the streamed record path of cnf-conv (the reference's TFRecord
+#: training, create_tfrecords.py:54-67, conv_cINN_base_functions.py:26-65) at
+#: the flagship arch on an MNIST-scale class set: synthetic digits, 6,000
+#: train and 1,000 test images a class, classes 0-3 (24,000 train images,
+#: 75 MB of float32 records), 46 class-pure batches of 128 a class, 184
+#: batches, 11 graphed stacks of 16
+RECORDS_CLASSES = ("0", "1", "2", "3")
+RECORDS_TRAIN, RECORDS_TEST = 6000, 1000
+RECORDS_FLAGS = ["--batch-size", "128", "--experimental-lowering", "pallas_coupling", "--dtype",
+                 "bfloat16", "--fused-subnet", "--scan-steps", "16", "--epochs", "1",
+                 "--annealing-epochs", "0", "--data-classes", *RECORDS_CLASSES]
+RECORDS_INNER = 16
+#: batches of the streaming sources held against the in-RAM ones, bit for bit
+PARITY_BATCHES = 32
+#: losses of the streamed and in-RAM runs: the same batches through the same
+#: graph (pallas_coupling's graph equals eager steps bit for bit, [train]);
+#: 1e-5 relative allows a float32 reduction in another order
+RECORDS_LOSS_RTOL = 1e-5
+
+
+def first_batches(src, generator, n):
+    out = []
+    it = src.epoch(generator)
+    for xy in it:
+        out.append(xy)
+        if len(out) == n:
+            break
+    it.close()  # stops and reaps a streaming source's prefetch thread
+    return out
+
+
+def records_parity(cnf_conv, args_for, phases):
+    """Item 3: one CUDA generator state, cloned; the in-RAM and the streaming
+    source of each workload each take one copy; their first batches held to
+    each other."""
+    out = {}
+    for model_type in ("class", "SR4,2", "SR2,1"):
+        args = args_for(model_type)
+        batch = args.batch_size
+        ram, _, _ = cnf_conv.make_source(args, "train", stream=False)
+        stream, _, _ = cnf_conv.make_source(args, "train", stream=True)
+        check(ram.num_batches == stream.num_batches and ram.xy_shape == stream.xy_shape,
+              f"records {model_type}: the sources agree on batches and shape")
+        n = min(PARITY_BATCHES, ram.num_batches)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        twin_g = torch.Generator(device="cuda")
+        twin_g.set_state(g.get_state())
+        a, b = first_batches(ram, g, n), first_batches(stream, twin_g, n)
+        err = max((x - y).abs().max().item() for x, y in zip(a, b))
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"[records] parity {model_type}: {n} batches of {batch}, streamed against "
+              f"in-RAM from one generator state: max |diff| {err:.3g}, bit-equal {equal}",
+              flush=True)
+        check(len(a) == len(b) == n and equal,
+              f"records {model_type}: the streaming source yields the in-RAM batches")
+        stream.close()
+        out[model_type] = dict(batches=n, batch=batch, max_abs_diff=err, bit_equal=equal)
+    phases.done("records: schedule parity on the card")
+    return out
+
+
+def records_run(cnf_conv, name, flags, big, tmp, phases):
+    """Item 4: cnf-conv on the MNIST-scale set through main(argv), then a
+    fresh epoch of the same source, fetched a stack at a time and replayed
+    through the run's own graph: the first stack untimed (the fresh
+    generator recaptures the graph), the next all but one timed, the last
+    profiled."""
+    outdir = os.path.join(tmp, name)
+    stream = "--no-stream-records" not in flags
+    reset_launches()
+    t = time.perf_counter()
+    res = cnf_conv.main(RECORDS_FLAGS + ["--records-dir", big, "--outdir", outdir] + flags)
+    run_s = time.perf_counter() - t
+    launches = launch_counts()
+    rows = history_rows(outdir)
+    per_step = res.train_step.launches  # counted at the capture: what each replay launches
+    couplings = len(res.state.model.couplings)
+    check(per_step == {"affine_forward": couplings, "affine_inverse": 0, "fused_subnet": 0},
+          f"records {name}: K1 launches {couplings} times a step in the graph ({per_step})")
+    # the run's only inverse passes are the end-of-training sampling, one a class
+    want_k2 = couplings * len(RECORDS_CLASSES)
+    check(launches["affine_inverse"] == want_k2,
+          f"records {name}: K2 launches {want_k2} times in the sampling ({launches})")
+    check(len(rows) == 1 and all(math.isfinite(v) for k, v in rows[0].items()
+                                 if k not in ("epoch", "alpha")),
+          f"records {name}: one epoch, finite losses")
+    phases.done(f"records {name}: cnf-conv", seconds=f"{run_s:.2f}")
+
+    args = cnf_conv.build_parser().parse_args(RECORDS_FLAGS + ["--records-dir", big] + flags)
+    check(args.eval_samples == RECORDS_SAMPLES,
+          f"records {name}: K2 sampled at the {RECORDS_SAMPLES} rows [kernel] holds it at")
+    src, _, _ = cnf_conv.make_source(args, "train", stream=stream)
+    stacks = src.num_batches // RECORDS_INNER
+    g = torch.Generator(device="cuda").manual_seed(1)
+    it = epoch_stacks(src.epoch(g), RECORDS_INNER)
+
+    def stack_step():
+        res.train_step(res.state, next(it), g, 1.0)
+
+    stack_step()
+    torch.cuda.synchronize()
+    stack_walls = walls(stack_step, stacks - 2)
+    prof = kernel_breakdown(stack_step, top=4)
+    it.close()
+    stack_ms = statistics.median(stack_walls) * 1e3
+    batch = int(args.batch_size)
+    line = dict(
+        run=name, reader=cnf_conv.records_reader(stream), run_s=run_s,
+        batches_an_epoch=src.num_batches, stacks_an_epoch=stacks,
+        epoch_s=rows[0]["seconds"],
+        epoch_samples_per_s=stacks * RECORDS_INNER * batch / rows[0]["seconds"],
+        stacks_timed=len(stack_walls), stack_ms_median=stack_ms,
+        stack_ms_min=min(stack_walls) * 1e3, stack_ms_max=max(stack_walls) * 1e3,
+        stack_ms_all=[round(w * 1e3, 3) for w in stack_walls],
+        samples_per_s=RECORDS_INNER * batch / (stack_ms / 1e3),
+        step_ms=stack_ms / RECORDS_INNER,
+        stack_busy_ms=prof["device_busy_ms"], busy_share=prof["device_busy_ms"] / stack_ms,
+        stack_launches=prof["kernel_launches"],
+        k1_launches_a_step=per_step["affine_forward"],
+        k2_launches_in_sampling=launches["affine_inverse"],
+        wrapper_launches_in_run=launches, history=rows, top=prof["top"],
+    )
+    print("[records] " + json.dumps(line), flush=True)
+    phases.done(f"records {name}: timing and profile")
+    if stream:
+        src.close()
+    return line
+
+
+def write_toy_reference(tmp):
+    """Item 6: a reference-layout toy checkpoint at the reference defaults
+    (24 layers, width 32, 6 dense layers): an object array of per-coupling
+    get_weights() lists in Keras's graph-depth order (A and b Dense layers
+    interleaved) and the layer order, from a seeded numpy draw."""
+    from arl_conditional_normalizing_flows_tpu_torch.convert.from_jax import (
+        flax_from_state_dict,
+    )
+    from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
+        ToyConfig,
+        shuffle_mask_indices,
+    )
+    from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
+
+    cfg = ToyConfig()
+    rng = np.random.default_rng(0)
+    model = ToyCINN(cfg, device="cpu")
+    template = flax_from_state_dict(model.state_dict(), model)
+    nl = cfg.num_layers + 2  # Dense layers a stack
+    weights = np.empty(cfg.num_coupling_layers, dtype=object)
+    for j in range(cfg.num_coupling_layers):
+        dense = template[f"couplings_{j}"]
+        flat = []
+        for i in range(nl):  # A_i, then b_i
+            for d in (dense[f"Dense_{nl + i}"], dense[f"Dense_{i}"]):
+                flat += [(0.05 * rng.normal(size=d["kernel"].shape)).astype(np.float32),
+                         (0.01 * rng.normal(size=d["bias"].shape)).astype(np.float32)]
+        weights[j] = flat
+    order = shuffle_mask_indices(rng, cfg.num_coupling_layers)
+    wpath = os.path.join(tmp, "weights_crescents_NCL24_ID32_NL6.npy")
+    mpath = os.path.join(tmp, "mask_indices_crescents_NCL24_ID32_NL6.npy")
+    np.save(wpath, weights, allow_pickle=True)
+    np.save(mpath, np.asarray(order))
+    return wpath, mpath, order
+
+
+def check_records(phases):
+    """[records]: cnf-build-records (per-class and --combined, with the
+    reference's TFRecords beside them, one read back through
+    convert_to_cnfrec); the MNIST-scale class set; the streaming sources
+    against the in-RAM ones on the card; cnf-conv streamed and in RAM
+    through K1 at the flagship arch, batch 128; SR4,2 streamed; cnf-eval
+    --records-dir; and cnf-import-reference toy, then cnf-toy --load of
+    its weights."""
+    from arl_conditional_normalizing_flows_tpu_torch.data import records, tfrecord_compat
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import build_records as cnf_build
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import evaluate as cnf_eval
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import import_reference
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import toy as cnf_toy
+    from arl_conditional_normalizing_flows_tpu_torch.train import load_npz_extras
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        per_class, combined = os.path.join(tmp, "per_class"), os.path.join(tmp, "combined")
+        build = ["--dataset", "synthetic", "--which-classes", *RECORDS_CLASSES, "--tfrecords"]
+        t = time.perf_counter()
+        cnf_build.main(build + ["--outdir", per_class])
+        cnf_build.main(build + ["--combined", "--outdir", combined])
+        back = os.path.join(tmp, "back.cnfrec")
+        tfrecord_compat.convert_to_cnfrec(
+            os.path.join(per_class, "x_train_synthetic_c0.tfrecords"), back)
+        a = records.read_records(back, verify=True)
+        b = records.read_records(records.class_file(per_class, "train", 0), verify=True)
+        check(a.shape == b.shape and a.tobytes() == b.tobytes()
+              and records.read_header(back)["label"] == 0,
+              "records: a .tfrecords file read back through convert_to_cnfrec is bit-equal to "
+              "its .cnfrec")
+        phases.done("records: cnf-build-records, per-class and --combined, with --tfrecords",
+                    seconds=f"{time.perf_counter() - t:.2f}")
+
+        big = os.path.join(tmp, "mnist_scale")
+        t = time.perf_counter()
+        for split, n, seed in (("train", RECORDS_TRAIN, 0), ("test", RECORDS_TEST, 1)):
+            x, y = synthetic_digits(num_per_class=n, seed=seed)
+            records.write_class_sorted_dataset(big, split, x, y, [int(c) for c in RECORDS_CLASSES],
+                                               combined=False)
+        nbytes = sum(os.path.getsize(os.path.join(big, f)) for f in os.listdir(big))
+        phases.done("records: the MNIST-scale class set written",
+                    seconds=f"{time.perf_counter() - t:.2f}", mb=f"{nbytes / 1e6:.1f}")
+
+        def args_for(model_type):
+            if model_type == "class":
+                return cnf_conv.build_parser().parse_args(RECORDS_FLAGS + ["--records-dir", big])
+            return cnf_conv.build_parser().parse_args(["--model-type", model_type,
+                                                       "--records-dir", combined])
+
+        out["parity"] = records_parity(cnf_conv, args_for, phases)
+        torch.cuda.empty_cache()
+        out["streamed"] = records_run(cnf_conv, "streamed", [], big, tmp, phases)
+        torch.cuda.empty_cache()
+        out["in_ram"] = records_run(cnf_conv, "in_ram", ["--no-stream-records"], big, tmp,
+                                    phases)
+        worst = 0.0
+        for r, s in zip(out["streamed"]["history"], out["in_ram"]["history"]):
+            for k, v in s.items():
+                if k not in ("seconds", "epoch", "alpha"):
+                    worst = max(worst, abs(r[k] - v) / max(abs(v), 1e-30))
+        equal = all({k: v for k, v in r.items() if k != "seconds"}
+                    == {k: v for k, v in s.items() if k != "seconds"}
+                    for r, s in zip(out["streamed"]["history"], out["in_ram"]["history"]))
+        print(f"[records] streamed against in-RAM loss histories: worst relative difference "
+              f"{worst:.3g} (tolerance {RECORDS_LOSS_RTOL:g}), bit-equal {equal}", flush=True)
+        check(worst <= RECORDS_LOSS_RTOL, "records: streamed and in-RAM runs, equal losses")
+        out["histories_bit_equal"], out["histories_worst_rel"] = equal, worst
+        torch.cuda.empty_cache()
+
+        sr = os.path.join(tmp, "sr42")
+        t = time.perf_counter()
+        cnf_conv.main(["--model-type", "SR4,2", "--records-dir", combined, "--squeeze-factor",
+                       "0", "0", "0", "0", "--res-blocks", "1", "1", "1", "1", "--epochs", "1",
+                       "--annealing-epochs", "0", "--checkpoint-every", "0", "--eval-samples",
+                       "16", "--outdir", sr])
+        rows = history_rows(sr)
+        check(len(rows) == 1 and all(math.isfinite(rows[0][k]) for k in ("loss", "val_loss")),
+              "records: SR4,2 streamed from the combined file, finite losses")
+        out["sr42"] = dict(seconds=time.perf_counter() - t, rows=rows)
+        phases.done("records: cnf-conv SR4,2 streamed", seconds=f"{out['sr42']['seconds']:.2f}")
+
+        t = time.perf_counter()
+        report = cnf_eval.main(["--checkpoint-dir", os.path.join(tmp, "streamed", "checkpoints"),
+                                "--records-dir", big, "--data-classes", *RECORDS_CLASSES,
+                                "--batch-size", "128", "--eval-samples",
+                                str(RECORDS_EVAL_SAMPLES)])
+        check(report["epoch"] == 0 and math.isfinite(report["bits_per_dim"])
+              and set(report["sampling"]["per_class"]) == set(RECORDS_CLASSES),
+              "records: cnf-eval --records-dir restored epoch 0, finite bits/dim")
+        out["eval"] = dict(seconds=time.perf_counter() - t, bits_per_dim=report["bits_per_dim"],
+                           loss=report["loss"])
+        phases.done("records: cnf-eval --records-dir", seconds=f"{out['eval']['seconds']:.2f}")
+
+        wpath, mpath, order = write_toy_reference(tmp)
+        npz = os.path.join(tmp, "toy_imported.npz")
+        import_reference.main(["toy", "--weights", wpath, "--mask-indices", mpath,
+                               "--output", npz])
+        toy_out = os.path.join(tmp, "toy")
+        t = time.perf_counter()
+        cnf_toy.main(["--load", npz, "--epochs", "1", "--annealing-epochs", "0",
+                      "--outdir", toy_out])
+        with open(os.path.join(toy_out, "eval.json")) as f:
+            toy_report = json.load(f)
+        check(tuple(int(i) for i in load_npz_extras(npz)["mask_indices"]) == order
+              and tuple(int(i) for i in load_npz_extras(os.path.join(toy_out, "weights.npz"))
+                        ["mask_indices"]) == order,
+              "records: the imported toy weights carry the reference's layer order through "
+              "cnf-toy --load")
+        check(finite_numbers(toy_report), "records: cnf-toy --load of imported weights, a "
+              "finite eval.json")
+        out["toy_import"] = dict(seconds=time.perf_counter() - t,
+                                 loss=toy_report["final"]["loss"])
+        phases.done("records: cnf-import-reference toy, then cnf-toy --load",
+                    seconds=f"{out['toy_import']['seconds']:.2f}")
+    print("[records] " + json.dumps({k: out[k] for k in ("parity", "sr42", "eval",
+                                                           "toy_import")}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1616,6 +1926,8 @@ def main() -> int:
     pretrain = check_pretrain(phases)
     torch.cuda.empty_cache()
     toy = check_toy(phases)
+    torch.cuda.empty_cache()
+    recs = check_records(phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -1675,6 +1987,10 @@ def main() -> int:
         "port_kernel_launches_a_step"]["affine_inverse"]
     entries[2]["launches_a_pretrain_step"] = pretrain["pallas_subnet"][
         "port_kernel_launches_a_step"]["fused_subnet"]
+    # the streamed records run: K1's launches a step of its graph (counted at
+    # the capture), K2's in its end-of-training sampling
+    entries[0]["launches_a_records_step"] = recs["streamed"]["k1_launches_a_step"]
+    entries[1]["launches_a_records_sampling"] = recs["streamed"]["k2_launches_in_sampling"]
     print(f"[summary] pretrain step ms: "
           f"{json.dumps({k: v['graph_step_ms'] for k, v in pretrain.items() if k != 'conv_load'})}"
           f"; toy steps/s graphed {toy['steps']['graph_steps_per_s']:.1f}, eager "
@@ -1683,6 +1999,10 @@ def main() -> int:
           f"{json.dumps({k: v['samples_per_s'] for k, v in serve.items()})}; "
           f"cli: {json.dumps({k: v.get('seconds', v.get('first_s')) for k, v in cli.items()})}",
           flush=True)
+    print(f"[summary] records samples/s, streamed {recs['streamed']['samples_per_s']:.1f} "
+          f"(busy share {recs['streamed']['busy_share']:.3f}), in RAM "
+          f"{recs['in_ram']['samples_per_s']:.1f} (busy share "
+          f"{recs['in_ram']['busy_share']:.3f})", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

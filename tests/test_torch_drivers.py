@@ -6,9 +6,10 @@ arch); ``cnf-eval`` of the class checkpoint with ``--export-multidraw``,
 whose artifact loads and serves; ``cnf-pretrain-noise`` and ``cnf-conv``
 starting from its weights; ``cnf-toy`` on the three datasets, with
 ``--scan-steps``, a sweep and ``--load`` restoring the layer order; both new
-drivers' ``.npz`` files crossing between the packages; every flag of a path
-not ported yet exiting with its ROADMAP item; and no driver running without
-a card unless asked for the CPU."""
+drivers' ``.npz`` files crossing between the packages, and one toy
+evaluation of the same weights in both; every flag of a path not ported yet
+exiting with its ROADMAP item; and no driver running without a card unless
+asked for the CPU. ``--records-dir`` is held by ``tests/test_torch_records.py``."""
 
 import dataclasses
 import json
@@ -28,6 +29,7 @@ from arl_conditional_normalizing_flows_tpu.models import ConvCFlow as JConvCFlow
 from arl_conditional_normalizing_flows_tpu.models import ConvFlowConfig as JConfig  # noqa: E402
 from arl_conditional_normalizing_flows_tpu.models import ToyCINN as JToyCINN  # noqa: E402
 from arl_conditional_normalizing_flows_tpu.models import ToyConfig as JToyConfig  # noqa: E402
+from arl_conditional_normalizing_flows_tpu.drivers import toy as jtoy  # noqa: E402
 from arl_conditional_normalizing_flows_tpu.train import checkpoints as jckpt  # noqa: E402
 from arl_conditional_normalizing_flows_tpu_torch.convert.from_jax import (  # noqa: E402
     flax_from_state_dict,
@@ -185,7 +187,6 @@ def test_cnf_conv_loads_a_jax_npz_and_refuses_another_arch(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--records-dir", "recs"], "A.4"),
     (["--data-parallel"], "A.10"),
     (["--coordinator", "localhost:1234"], "A.10"),
     (["--num-processes", "2"], "A.10"),
@@ -201,9 +202,8 @@ def test_unported_flags_exit_with_their_roadmap_item(tmp_path, flags, item):
 
 def test_cnf_eval_refuses_unported_flags_and_platforms(class_run):
     ck = os.path.join(class_run[0], "checkpoints")
-    for flags, item in ((["--plot"], "A.9"), (["--records-dir", "recs"], "A.4")):
-        with pytest.raises(SystemExit, match=item):
-            evaluate.main(["--cpu", "--checkpoint-dir", ck, *DATA, *flags])
+    with pytest.raises(SystemExit, match="A.9"):
+        evaluate.main(["--cpu", "--checkpoint-dir", ck, *DATA, "--plot"])
     with pytest.raises(SystemExit):  # argparse: tpu is not a port platform
         evaluate.main(["--cpu", "--checkpoint-dir", ck, *DATA, "--export-multidraw", "a.pt",
                        "--export-platforms", "tpu"])
@@ -229,6 +229,8 @@ NOISE_SMALL = ["--height", "8", "--width", "8", "--squeeze-factor", "0", "1", "-
 NOISE = ["--cpu", "--num-batches", "2", "--batch-size", "8", "--epochs", "1"]
 TOY = ["--cpu", "--coupling-blocks", "1", "--intermediate-dims", "8", "--num-layers", "1",
        "--batch-size", "64", "--batches-per-class", "2", "--eval-samples", "64"]
+#: samples a class in the evaluation compared across the packages
+EVAL_N = 4000
 
 
 @pytest.fixture(scope="module")
@@ -374,7 +376,13 @@ def test_cnf_toy_sectors_and_mixed(tmp_path, dataset, key):
 def test_toy_npz_crosses_between_the_packages(toy_run, tmp_path):
     """The port's weights.npz loads into JAX's ToyCINN with the same
     log_loss (1e-5); a JAX-written one, with its mask order, is loaded by
-    cnf-toy --load, which keeps the order and (at lr 0) the weights."""
+    cnf-toy --load, which keeps the order and (at lr 0) the weights; and
+    both packages' cnf-toy evaluate those weights alike: eval.json's
+    per-class moments of 4,000 samples and 4,000 data points, which each
+    package draws from its own RNG, agree within 5 standard errors for the
+    means and 10% for the stds (5 standard errors of the difference of two
+    stds at 4,000 samples, for an excess kurtosis up to about 2), under the
+    same standardization (the pinned statistics, ROADMAP C.4)."""
     path = os.path.join(toy_run[0], "weights.npz")
     order = tuple(int(i) for i in load_npz_extras(path)["mask_indices"])
     cfg = ToyConfig(num_coupling_layers=6, intermediate_dims=8, num_layers=1,
@@ -394,15 +402,29 @@ def test_toy_npz_crosses_between_the_packages(toy_run, tmp_path):
     jax_order = (5, 4, 3, 2, 1, 0)
     params = ckpt._flax_tree(jm.init, jnp.zeros((2, 3)), seed=3)
     jckpt.save_params_npz(jax_path, params, extra={"mask_indices": np.asarray(jax_order)})
-    out = str(tmp_path / "from_jax")
-    toy.main(TOY + ["--epochs", "1", "--annealing-epochs", "0", "--lr", "0", "--load", jax_path,
-                    "--outdir", out])
+    out, jax_out = str(tmp_path / "from_jax"), str(tmp_path / "jax_run")
+    flags = TOY + ["--epochs", "1", "--annealing-epochs", "0", "--lr", "0", "--load", jax_path,
+                   "--eval-samples", str(EVAL_N)]
+    toy.main(flags + ["--outdir", out])
     mine = os.path.join(out, "weights.npz")
     assert tuple(load_npz_extras(mine)["mask_indices"]) == jax_order
     with np.load(jax_path) as a, np.load(mine) as b:
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_allclose(a[k], b[k], rtol=0, atol=0, err_msg=k)
+
+    jtoy.main(flags + ["--outdir", jax_out])
+    with open(os.path.join(out, "eval.json")) as f, \
+            open(os.path.join(jax_out, "eval.json")) as g:
+        got, want = json.load(f)["per_class_moments"], json.load(g)["per_class_moments"]
+    assert set(got) == set(want) == {"0.0", "1.0"}
+    for c in want:
+        for kind in ("sample", "true"):
+            m1, m2 = np.asarray(got[c][f"{kind}_mean"]), np.asarray(want[c][f"{kind}_mean"])
+            s1, s2 = np.asarray(got[c][f"{kind}_std"]), np.asarray(want[c][f"{kind}_std"])
+            se = np.sqrt((s1**2 + s2**2) / EVAL_N)
+            assert (np.abs(m1 - m2) <= 5 * se).all(), (c, kind, m1, m2, 5 * se)
+            np.testing.assert_allclose(s1, s2, rtol=0.1, err_msg=f"{c} {kind}_std")
 
 
 @pytest.mark.parametrize("driver,flags,item", [

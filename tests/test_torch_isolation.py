@@ -1,7 +1,7 @@
 """The port stands alone: importing all of it, ``chip_smoke`` and
-``chain_ablation`` loads no jax, flax or JAX-package module; and an entry
-point with no ``device`` does not quietly run on the CPU when there is no
-card."""
+``chain_ablation`` loads no jax, flax or JAX-package module (nor, for the
+record path and the reference importer, h5py); and an entry point with no
+``device`` does not quietly run on the CPU when there is no card."""
 
 import os
 import pkgutil
@@ -69,6 +69,28 @@ def test_the_isolation_check_imports_the_toy_path_and_both_new_drivers():
         out = subprocess.run([sys.executable, "-c", CHECK, name], cwd=REPO, env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, (name, out.stderr)
+
+
+RECORD_PATH = ("data.records", "data.tfrecord_compat", "data.native_loader",
+               "drivers.build_records", "convert.reference_import", "drivers.import_reference")
+
+NO_H5PY = CHECK + """
+assert "h5py" not in sys.modules, "h5py imported at module import"
+"""
+
+
+@pytest.mark.parametrize("name", RECORD_PATH)
+def test_the_record_path_and_the_importer_import_alone_without_jax(name):
+    """Each module of the record path and the reference importer is in the
+    isolation check above and loads alone in a fresh process with no jax,
+    flax, JAX-package or h5py module (h5py is imported only to read a conv
+    checkpoint)."""
+    name = f"{port.__name__}.{name}"
+    assert name in set(port_modules())
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", NO_H5PY, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, (name, out.stderr)
 
 
 def test_toy_model_without_device_raises_without_a_card(monkeypatch):

@@ -3,8 +3,9 @@ the coupling law (K1/K2) and the coupling subnet's conv chain (K3); the
 train step replayed as a CUDA graph against eager steps, with K1/K3
 launching inside the replay; and the seeded serving entry replayed as a
 CUDA graph against the eager entry, with K2/K3 launching inside the replay;
-K1-K3 at noise pre-training's batch of 512; and the toy cINN's train step
-and seeded serving entry as CUDA graphs against their eager runs.
+K1-K3 at noise pre-training's batch of 512; the toy cINN's train step
+and seeded serving entry as CUDA graphs against their eager runs; and the
+record path's streaming sources against the in-RAM ones on the card.
 
 Needs a card and imports no JAX, so it runs on a machine with a card and
 without jax, skipping the repo's conftest (which configures JAX):
@@ -628,3 +629,39 @@ def test_toy_artifact_replay_is_the_eager_entry(cuda, tmp_path):
     path = str(tmp_path / "toy.pt")
     export.save_artifact(path, art)
     assert torch.equal(export.load_artifact(path).call(4, y), got)
+
+
+# ---------------------------------------------------------------------------
+# the record path: the streaming sources against the in-RAM ones on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("model_type", ["class", "SR4,2", "SR2,1"])
+def test_streaming_sources_yield_the_in_ram_batches_on_the_card(cuda, tmp_path, model_type):
+    """From one CUDA generator state, cloned: the batches bit-equal (both
+    sources build SR pairs on the CPU), and the generators left in the same
+    state."""
+    from arl_conditional_normalizing_flows_tpu_torch.data import images, native_loader, records
+
+    x, y = images.synthetic_digits(num_per_class=40, num_classes=3)
+    if model_type == "class":
+        records.write_class_sorted_dataset(str(tmp_path), "train", x, y, [0, 2], False)
+        ram = images.ClassConditionalSource(x, y, [0, 2], 16, use_logits=True)
+        stream = native_loader.StreamingClassSource(
+            [records.class_file(str(tmp_path), "train", c) for c in (0, 2)], [0, 2], 16,
+            use_logits=True)
+    else:
+        records.write_class_sorted_dataset(str(tmp_path), "train", x, y, [0, 1, 2], True)
+        ram = images.SRSource(x, model_type, 16)
+        stream = native_loader.StreamingSRSource(records.combined_file(str(tmp_path), "train"),
+                                                 model_type, 16)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    twin = torch.Generator(device=cuda)
+    twin.set_state(g.get_state())
+    a, b = list(ram.epoch(g)), list(stream.epoch(twin))
+    assert len(a) == len(b) == ram.num_batches > 0
+    for u, v in zip(a, b):
+        assert u.device.type == v.device.type == "cuda" and u.shape == v.shape
+        assert torch.equal(u, v)
+    assert torch.equal(g.get_state(), twin.get_state())
+    stream.close()

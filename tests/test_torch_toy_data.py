@@ -5,11 +5,15 @@ disk.
 
 torch's random numbers are not ``jax.random``'s, so the two packages' points
 differ draw by draw; they are held to agree in distribution: each moment
-within 5 standard errors of the difference at 10^4 points a class."""
+within 5 standard errors of the difference at 10^4 points a class. The
+standardization statistics at the drivers' defaults are JAX's own, pinned
+(ROADMAP C.4), and held to JAX's ``_standardize_stats`` bit for bit; other
+settings keep the port's own draw, held in distribution."""
 
 import math
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -64,16 +68,69 @@ def test_mixed_shapes_match_jax_in_distribution(shape):
     assert_same_distribution(mine, theirs, toy.MIXED_CLASS_NAMES[shape])
 
 
+#: the drivers' defaults (JAX drivers/toy.py:30-32), whose statistics the
+#: port pins to JAX's
+PINNED = [
+    pytest.param(lambda m: m.make_moons_dataset(), ("crescents", 0.05, False), id="crescents"),
+    pytest.param(lambda m: m.make_moons_dataset(overlapping=True), ("crescents", 0.05, True),
+                 id="crescents_overlapping"),
+    pytest.param(lambda m: m.make_mixed_dataset([0, 1, 4]), ("mixed", (0, 1, 4)), id="mixed"),
+]
+
+
+@pytest.mark.parametrize("make,key", PINNED)
+def test_pinned_stats_equal_jax_bit_for_bit(make, key):
+    """At the drivers' defaults the port standardizes with JAX's statistics:
+    each pinned float32 constant equals JAX's ``_standardize_stats`` (its
+    jax.random draw seeded 1234) bit for bit, and the dataset uses them."""
+    theirs = make(jtoy)
+    raw = {("crescents", 0.05, False): lambda k, i, n: jtoy._moon_points(k, n, i, 0.05, False),
+           ("crescents", 0.05, True): lambda k, i, n: jtoy._moon_points(k, n, 2 * i, 0.05, True),
+           ("mixed", (0, 1, 4)): lambda k, i, n: jtoy._MIXED_SAMPLERS[(0, 1, 4)[i]](k, n)}[key]
+    mean, std = jtoy._standardize_stats(raw, theirs.class_labels)
+    pinned = [np.asarray([float.fromhex(v) for v in col], np.float32)
+              for col in toy.PINNED_STATS[key]]
+    for got, want in zip(pinned, (mean, std)):
+        want = np.asarray(want, np.float32)
+        assert got.tobytes() == want.tobytes(), (key, got, want)
+    mine = make(toy)
+    assert mine.stats_pinned and mine.class_labels == theirs.class_labels
+    np.testing.assert_array_equal(np.asarray(mine.mean, np.float32), mean)
+    np.testing.assert_array_equal(np.asarray(mine.std, np.float32), std)
+    g = torch.Generator().manual_seed(0)
+    batch = mine.sample_class_batch(g, 1, 8).numpy()
+    want_y = np.asarray((jnp.float32(theirs.class_labels[1]) - jnp.asarray(theirs.mean[2]))
+                        / jnp.asarray(theirs.std[2]))
+    assert np.all(batch[:, 2] == want_y)
+
+
+def test_other_settings_draw_their_own_stats_and_the_toy_driver_says_so(tmp_path, capsys):
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import toy as cnf_toy
+
+    assert not toy.make_moons_dataset(noise=0.1).stats_pinned
+    assert not toy.make_mixed_dataset([0, 1]).stats_pinned
+    flags = ["--cpu", "--coupling-blocks", "1", "--intermediate-dims", "4", "--num-layers",
+             "1", "--batch-size", "16", "--batches-per-class", "1", "--eval-samples", "8",
+             "--epochs", "1", "--annealing-epochs", "0"]
+    cnf_toy.main(flags + ["--outdir", str(tmp_path / "a")])
+    assert "standardization statistics drawn by the port" not in capsys.readouterr().out
+    cnf_toy.main(flags + ["--noise", "0.1", "--outdir", str(tmp_path / "b")])
+    assert "standardization statistics drawn by the port" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("make", [
-    pytest.param(lambda m: m.make_moons_dataset(), id="crescents"),
-    pytest.param(lambda m: m.make_moons_dataset(overlapping=True), id="crescents_overlapping"),
-    pytest.param(lambda m: m.make_mixed_dataset([0, 1, 4]), id="mixed"),
+    pytest.param(lambda m: m.make_moons_dataset(noise=0.1), id="crescents"),
+    pytest.param(lambda m: m.make_moons_dataset(noise=0.1, overlapping=True),
+                 id="crescents_overlapping"),
+    pytest.param(lambda m: m.make_mixed_dataset(range(7)), id="mixed"),
 ])
 def test_standardization_stats_match_jax(make):
-    """Both packages standardize with statistics of 10^4 points a class
-    (seed 1234, each its own RNG): the labels' exactly, the points' within
-    5 standard errors of the difference of two such estimates."""
+    """Off the pinned defaults both packages standardize with statistics of
+    10^4 points a class (seed 1234, each its own RNG): the labels' exactly,
+    the points' within 5 standard errors of the difference of two such
+    estimates."""
     mine, theirs = make(toy), make(jtoy)
+    assert not mine.stats_pinned
     assert mine.class_labels == theirs.class_labels
     # the standard errors of one such estimate, from a pooled draw of its size
     g = torch.Generator().manual_seed(1)
