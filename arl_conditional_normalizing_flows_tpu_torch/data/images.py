@@ -13,6 +13,13 @@ sources (port of the JAX ``data/images.py``).
   residual target (conv_cINN_base_functions.py:233-279), shuffled at the
   example level, with the same noise floor.
 
+Each source's ``epoch_distributed(generator, num_shards, shard_id)`` is one
+process's slice of a multi-process epoch (JAX ``data/images.py:249-290,
+327-355``): every process draws the same order, permutation and noise from
+an identically seeded generator, so the generators stay in lockstep, and
+keeps its own slot of each global batch group; ``epoch`` is its
+``num_shards == 1`` case, so the two agree bit for bit.
+
 Dataset acquisition: a cached ``mnist.npz``/``fashion_mnist.npz`` archive is
 used when present (nothing is downloaded); otherwise :func:`synthetic_digits`
 gives a deterministic class-structured stand-in with the same shapes.
@@ -143,6 +150,38 @@ def preprocess_sr(x_hires, model_type: str, residual: bool = True):
 # ---------------------------------------------------------------------------
 
 
+def class_slot_groups(class_slots, num_shards: int):
+    """Class-pure slot groups for ``num_shards`` processes: each group is
+    ``num_shards`` consecutive slots of ONE class (``class_slots``: each
+    class's slots, in order), so the global batch the processes' slots make
+    stays class-pure, the multi-process form of the reference's
+    class-segregated batching (conv_cINN.py:271-304). A class's remainder of
+    fewer than ``num_shards`` slots is dropped."""
+    groups = []
+    for slots in class_slots:
+        slots = list(slots)
+        for g in range(len(slots) // num_shards):
+            groups.append(slots[g * num_shards:(g + 1) * num_shards])
+    return groups
+
+
+def check_shard(num_shards: int, shard_id: int) -> None:
+    if not 0 <= shard_id < num_shards:
+        raise ValueError(f"shard {shard_id} is not in [0, {num_shards})")
+
+
+def shard_noise(generator, shape, num_shards: int, shard_id: int, dtype=torch.float32):
+    """Shard ``shard_id``'s rows of one N(0,1) draw for all ``num_shards``
+    slots of a global batch group, ``(num_shards * shape[0], *shape[1:])``
+    in slot order: every process makes the same draw, so that the
+    generators stay in lockstep. With one shard it is the plain draw of
+    ``shape``."""
+    b = shape[0]
+    eps = torch.randn((num_shards * b,) + tuple(shape[1:]), generator=generator, dtype=dtype,
+                      device=generator.device)
+    return eps[shard_id * b:(shard_id + 1) * b]
+
+
 @dataclasses.dataclass
 class ClassConditionalSource:
     """Class-pure batch feeder for discrete (class) conditioning."""
@@ -203,23 +242,47 @@ class ClassConditionalSource:
         noise — is drawn from ``generator``, whose state carries one epoch
         to the next (JAX keys each epoch with ``fold_in(key, epoch)``, so
         the order is not JAX's)."""
+        return self.epoch_distributed(generator, 1, 0)
+
+    def slot_groups(self, num_shards: int):
+        """The class-pure slot groups of a ``num_shards``-process epoch
+        (:func:`class_slot_groups`), JAX's list for list."""
+        b = self.batch_size
+        return class_slot_groups([range(s // b, e // b) for s, e in self._class_bounds],
+                                 num_shards)
+
+    def epoch_distributed(self, generator, num_shards: int, shard_id: int):
+        """Process ``shard_id``'s slice of a ``num_shards``-process epoch: the
+        global batches are the slot groups (:meth:`slot_groups`) in an order
+        drawn from ``generator``, and this process yields its slot of each.
+        The draws: the group order, the example shuffle within each class,
+        then for each group the noise of all its rows (:func:`shard_noise`).
+        With ``num_shards == 1`` this is :meth:`epoch`."""
+        check_shard(num_shards, shard_id)
+        groups = self.slot_groups(num_shards)
+        if not groups:
+            raise ValueError(
+                f"no class has {num_shards} class-pure batches an epoch: every global batch "
+                "group would be empty (per-class slot counts: "
+                f"{[(e - s) // self.batch_size for s, e in self._class_bounds]})")
         device = generator.device
         x_all, y_all = self._arrays(device)
         b = self.batch_size
         h, w = self.xy_shape[:2]
-        order = torch.randperm(self.num_batches, generator=generator, device=device).tolist()
+        order = torch.randperm(len(groups), generator=generator, device=device).tolist()
         # example-level shuffle within each class: slots stay class-pure
         # (class ranges are multiples of batch_size) but change membership
         perm = torch.cat([s + torch.randperm(e - s, generator=generator, device=device)
                           for s, e in self._class_bounds])
         a = self.noise_floor_alpha
-        for slot in order:
+        for gi in order:
+            slot = groups[gi][shard_id]
             idx = perm[slot * b:(slot + 1) * b]
             yplane = y_all[idx].view(b, 1, 1, 1).expand(b, h, w, 1)
             xy = torch.cat([x_all[idx], yplane], dim=-1)
             if a < 1.0:
-                eps = torch.randn(xy.shape, generator=generator, dtype=xy.dtype, device=device)
-                xy = a * xy + (1 - a) * eps
+                xy = a * xy + (1 - a) * shard_noise(generator, xy.shape, num_shards, shard_id,
+                                                    xy.dtype)
             yield xy
 
 
@@ -251,15 +314,30 @@ class SRSource:
         the noise are drawn from ``generator``, as
         :meth:`ClassConditionalSource.epoch` draws them (so not JAX's
         order)."""
+        return self.epoch_distributed(generator, 1, 0)
+
+    def epoch_distributed(self, generator, num_shards: int, shard_id: int):
+        """Process ``shard_id``'s slice of a ``num_shards``-process epoch:
+        each global batch is ``num_shards`` consecutive batches of the
+        shared example permutation (SR conditioning is continuous, with no
+        class to keep pure, conv_cINN.py:412-508), this process's the
+        ``shard_id``-th; a trailing group of fewer is dropped. With
+        ``num_shards == 1`` this is :meth:`epoch`."""
+        check_shard(num_shards, shard_id)
+        num_groups = self.num_batches // num_shards
+        if num_groups == 0:
+            raise ValueError(f"{self.num_batches} batches an epoch are fewer than the "
+                             f"{num_shards} processes: every global batch would be empty")
         device = generator.device
         if device not in self._on_device:
             self._on_device[device] = self._xy.to(device)
         xy_all = self._on_device[device]
         order = torch.randperm(len(xy_all), generator=generator, device=device)
         b, a = self.batch_size, self.noise_floor_alpha
-        for i in range(self.num_batches):
+        for g in range(num_groups):
+            i = g * num_shards + shard_id
             xy = xy_all[order[i * b:(i + 1) * b]]
             if a < 1.0:
-                eps = torch.randn(xy.shape, generator=generator, dtype=xy.dtype, device=device)
-                xy = a * xy + (1 - a) * eps
+                xy = a * xy + (1 - a) * shard_noise(generator, xy.shape, num_shards, shard_id,
+                                                    xy.dtype)
             yield xy

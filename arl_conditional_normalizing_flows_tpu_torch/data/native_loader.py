@@ -36,6 +36,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from arl_conditional_normalizing_flows_tpu_torch.data.images import (
+    check_shard,
+    class_slot_groups,
+    shard_noise,
+)
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import build
 from arl_conditional_normalizing_flows_tpu_torch.ops.logit import logitify_np
 
@@ -275,15 +280,32 @@ class StreamingClassSource:
         generator's device: the draws of ``ClassConditionalSource.epoch`` in
         its order (the slot order, one permutation a class, then one noise
         draw a batch)."""
+        return self.epoch_distributed(generator, 1, 0)
+
+    def slot_groups(self, num_shards: int):
+        """The in-RAM source's slot groups (``images.class_slot_groups``)."""
+        first = self._first_slot
+        return class_slot_groups([range(int(first[i]), int(first[i + 1]))
+                                  for i in range(len(self.files))], num_shards)
+
+    def epoch_distributed(self, generator, num_shards: int, shard_id: int):
+        """Process ``shard_id``'s slice of a ``num_shards``-process epoch: the
+        draws of ``ClassConditionalSource.epoch_distributed`` in its order,
+        so the same batches."""
+        check_shard(num_shards, shard_id)
+        groups = self.slot_groups(num_shards)
+        if not groups:
+            raise ValueError(f"no class has {num_shards} class-pure batches an epoch: every "
+                             "global batch group would be empty")
         device = generator.device
         b = self.batch_size
         h, w = self.xy_shape[:2]
-        order = torch.randperm(self.num_batches, generator=generator, device=device)
+        order = torch.randperm(len(groups), generator=generator, device=device)
         perms = [torch.randperm(n, generator=generator, device=device) for n in self._counts]
         # one move to the host an epoch; the thread reads only these
         flat = torch.cat([order, *perms]).cpu().numpy()
-        order = flat[:self.num_batches]
-        perms = np.split(flat[self.num_batches:], np.cumsum(self._counts)[:-1])
+        slots = [groups[int(g)][shard_id] for g in flat[:len(groups)]]
+        perms = np.split(flat[len(groups):], np.cumsum(self._counts)[:-1])
 
         def assemble(slot):
             ci, local = self._slot_class(int(slot))
@@ -294,13 +316,13 @@ class StreamingClassSource:
             return ci, x
 
         a = self.noise_floor_alpha
-        for ci, x in _prefetched(order, assemble):
+        for ci, x in _prefetched(slots, assemble):
             x = torch.from_numpy(x).to(device)
             yplane = torch.full((b, h, w, 1), float(self._label_values[ci]), device=device)
             xy = torch.cat([x, yplane], dim=-1)
             if a < 1.0:
-                eps = torch.randn(xy.shape, generator=generator, dtype=xy.dtype, device=device)
-                xy = a * xy + (1 - a) * eps
+                xy = a * xy + (1 - a) * shard_noise(generator, xy.shape, num_shards, shard_id,
+                                                    xy.dtype)
             yield xy
 
     def close(self):
@@ -340,8 +362,18 @@ class StreamingSRSource:
         """Yield the epoch's xy batches ``(B, H, W, 2 D)`` on the generator's
         device: the draws of ``SRSource.epoch`` in its order (the example
         permutation, then one noise draw a batch)."""
+        return self.epoch_distributed(generator, 1, 0)
+
+    def epoch_distributed(self, generator, num_shards: int, shard_id: int):
+        """Process ``shard_id``'s slice of a ``num_shards``-process epoch: the
+        draws of ``SRSource.epoch_distributed``, so its batches."""
         from arl_conditional_normalizing_flows_tpu_torch.data.images import preprocess_sr
 
+        check_shard(num_shards, shard_id)
+        num_groups = self.num_batches // num_shards
+        if num_groups == 0:
+            raise ValueError(f"{self.num_batches} batches an epoch are fewer than the "
+                             f"{num_shards} processes: every global batch would be empty")
         device = generator.device
         b = self.batch_size
         h0, w0 = self.file.record_shape[:2]
@@ -356,11 +388,12 @@ class StreamingSRSource:
             return preprocess_sr(rows, self.model_type, self.residual)
 
         a = self.noise_floor_alpha
-        for xy in _prefetched(range(self.num_batches), assemble):
+        batches = [g * num_shards + shard_id for g in range(num_groups)]
+        for xy in _prefetched(batches, assemble):
             xy = xy.to(device)
             if a < 1.0:
-                eps = torch.randn(xy.shape, generator=generator, dtype=xy.dtype, device=device)
-                xy = a * xy + (1 - a) * eps
+                xy = a * xy + (1 - a) * shard_noise(generator, xy.shape, num_shards, shard_id,
+                                                    xy.dtype)
             yield xy
 
     def close(self):

@@ -23,8 +23,8 @@ draws them once from 10^4 points a class on the CPU from a ``torch.Generator``
 seeded 1234: torch's random numbers are not ``jax.random``'s, so those
 statistics differ from JAX's (by up to 2% of a std) and agree only in
 distribution; ``ToyDataset.stats_pinned`` says which. The points themselves
-are torch's draws everywhere. ``epoch_iterator_distributed`` (the
-multi-host epoch) waits for multi-device runs (ROADMAP A.10).
+are torch's draws everywhere. ``epoch_iterator_distributed`` is one
+process's slice of a multi-process epoch.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ import math
 from typing import Callable, Sequence, Tuple
 
 import torch
+
+from arl_conditional_normalizing_flows_tpu_torch.data.images import check_shard, class_slot_groups
 
 PI = math.pi
 
@@ -193,6 +195,42 @@ class ToyDataset:
         n_classes = len(self.class_labels)
         for slot in self._slot_order(generator, num_batches_per_class):
             yield self.sample_class_batch(generator, slot % n_classes, batch_size)
+
+    def slot_groups(self, num_batches_per_class, num_shards):
+        """The class-pure slot groups of a ``num_shards``-process epoch
+        (``images.class_slot_groups``): slot ``cls + n_classes * j`` holds
+        class ``cls``, and each group is ``num_shards`` slots of one class
+        (JAX's list for list)."""
+        n = len(self.class_labels)
+        return class_slot_groups([range(cls, n * num_batches_per_class, n) for cls in range(n)],
+                                 num_shards)
+
+    def epoch_iterator_distributed(self, generator, num_batches_per_class, batch_size,
+                                   num_shards, shard_id):
+        """Process ``shard_id``'s slice of a ``num_shards``-process epoch
+        (JAX ``data/toy_datasets.py:176-206``): the groups of
+        :meth:`slot_groups` in an order drawn from ``generator``; for each,
+        every process draws the points of all ``num_shards`` slots (one
+        class, ``num_shards * batch_size`` points) and keeps its slot's rows,
+        so that the generators stay in lockstep and each global batch is
+        class-pure. With ``num_shards == 1`` this is :meth:`epoch_iterator`,
+        itself, as in JAX: its permutation indexes the interleaved slots,
+        while the groups are listed class-major, so the body below would
+        read the same permutation as another sequence of classes."""
+        check_shard(num_shards, shard_id)
+        if num_shards == 1:
+            yield from self.epoch_iterator(generator, num_batches_per_class, batch_size)
+            return
+        groups = self.slot_groups(num_batches_per_class, num_shards)
+        if not groups:
+            raise ValueError(f"{num_batches_per_class} batches a class are fewer than the "
+                             f"{num_shards} processes: every global batch group would be empty")
+        n_classes = len(self.class_labels)
+        order = torch.randperm(len(groups), generator=generator, device=generator.device)
+        for gi in order.tolist():
+            cls = groups[gi][shard_id] % n_classes
+            xy = self.sample_class_batch(generator, cls, num_shards * batch_size)
+            yield xy[shard_id * batch_size:(shard_id + 1) * batch_size]
 
     def epoch_array(self, generator, num_batches_per_class, batch_size):
         """Whole epoch at once: (num_batches, batch_size, 3), batches

@@ -17,12 +17,26 @@ files that ``cnf-build-records`` writes: streamed through the native loader
 (``--stream-records``, the default: ``data/native_loader.py``, host memory
 bounded by a few batches) or read into the in-RAM sources
 (``--no-stream-records``); both give the same batches for the same seed. The
-flags of paths not ported yet (multi-host, plots, the fused_dilated and
-dense_groups lowerings) exit with the ROADMAP item that will bring them.
+flags of paths not ported yet (plots, the fused_dilated and dense_groups
+lowerings) exit with the ROADMAP item that will bring them.
+
+Multi-process data parallel (JAX ``drivers/conv.py:90-98, 205-235,
+343-378``): ``--coordinator host:port --num-processes N --process-id i`` in
+each of N processes (NCCL on the cards, gloo with ``--cpu``), or
+``--data-parallel`` in each process torchrun starts (alone: a group of
+one). ``--batch-size`` stays per process, so the global batch is N times
+it, class-pure across the processes (``epoch_distributed``); the gradients
+are averaged every step inside the step's CUDA graph. With N > 1 there is
+no checkpoint directory and ``--load`` takes a weights ``.npz`` only; in a
+process group rank 0 writes ``weights.npz`` (with ``arch``); only rank 0
+writes ``run.json``, ``history.*`` and ``eval.json`` and runs the sampling
+eval.
 
 Example:
     python -m arl_conditional_normalizing_flows_tpu_torch.drivers.conv \\
         --model-type class --dataset synthetic --epochs 50 --outdir /tmp/run
+    torchrun --nproc-per-node 4 -m arl_conditional_normalizing_flows_tpu_torch.drivers.conv \\
+        --data-parallel --dataset synthetic --outdir /tmp/run4
 
 The data order and the noise come from one ``torch.Generator`` seeded with
 ``--seed``. Each checkpoint keeps the generator's state and a resumed run
@@ -38,6 +52,13 @@ import os
 
 import numpy as np
 import torch
+
+from arl_conditional_normalizing_flows_tpu_torch.drivers.common import (
+    add_distributed_flags,
+    distributed_run,
+    refuse_unported,
+    run_placement,
+)
 
 
 def build_parser():
@@ -98,14 +119,7 @@ def build_parser():
                    help="warm start: a weights .npz (either package's save_params_npz) "
                    "or a checkpoint directory of this package")
     p.add_argument("--outdir", default="conv_run")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over devices (not ported yet: ROADMAP A.10)")
-    p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator (not ported yet: ROADMAP A.10)")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host process count (not ported yet: ROADMAP A.10)")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host rank (not ported yet: ROADMAP A.10)")
+    add_distributed_flags(p)
     p.add_argument("--scan-steps", type=int, default=0,
                    help="N optimizer steps a call (train.make_scan_train_step; on the "
                    "card one captured CUDA graph of the step replayed N times); a "
@@ -116,17 +130,6 @@ def build_parser():
     p.add_argument("--plot", action="store_true",
                    help="sample-grid / SR-panel PNGs (not ported yet: ROADMAP A.9)")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on a flag whose path is not ported."""
-    if getattr(args, "data_parallel", False) or any(
-            getattr(args, k, None) is not None
-            for k in ("coordinator", "num_processes", "process_id")):
-        raise SystemExit("--data-parallel/--coordinator/--num-processes/--process-id: "
-                         "multi-device runs are not ported yet (ROADMAP A.10)")
-    if getattr(args, "plot", False):
-        raise SystemExit("--plot: the plots are not ported yet (ROADMAP A.9)")
 
 
 def load_arrays(args, split):
@@ -217,7 +220,12 @@ def make_source(args, split, stream=False):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    from arl_conditional_normalizing_flows_tpu_torch.device import resolve_device
+    with distributed_run(args):
+        return train(args)
+
+
+def train(args):
+    """The run of ``main``, in the process group it formed."""
     from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
         ConvFlowConfig,
         arch_string,
@@ -233,14 +241,17 @@ def main(argv=None):
         load_params_npz,
         make_scan_train_step,
         make_step_fns,
+        save_params_npz,
     )
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
     from arl_conditional_normalizing_flows_tpu_torch.utils import write_run_metadata
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device, mesh, nproc, rank = run_placement(args)
+    is_main = rank == 0
     stream = bool(args.records_dir) and args.stream_records
     train_src, x_d, y_d = make_source(args, "train", stream)
     val_src, _, _ = make_source(args, "test", stream)
-    if args.records_dir:
+    if args.records_dir and is_main:
         print(f"records: {records_reader(stream)} from {args.records_dir}", flush=True)
     h, w, xy_d = train_src.xy_shape
     if xy_d != x_d + y_d:
@@ -266,12 +277,18 @@ def main(argv=None):
     except NotImplementedError as e:
         raise SystemExit(f"--experimental-lowering/--dtype: {e}") from e
     os.makedirs(args.outdir, exist_ok=True)
-    write_run_metadata(args.outdir, args, device, extra={"arch": arch_string(cfg)})
+    if is_main:
+        write_run_metadata(args.outdir, args, device,
+                           extra={"arch": arch_string(cfg), "processes": nproc})
     model = ConvCFlow(cfg, device=device, seed=args.seed)
-    print("arch:", arch_string(cfg), "device:", device, flush=True)
+    print("arch:", arch_string(cfg), "device:", device,
+          *([f"process {rank} of {nproc}"] if mesh is not None else []), flush=True)
     state = create_train_state(model, args.lr, seed=args.seed)
 
-    mgr = CheckpointManager(os.path.join(args.outdir, "checkpoints"), config=cfg)
+    # a multi-process run keeps no checkpoint directory and warm-starts from
+    # npz weights only (JAX drivers/conv.py:295-325)
+    mgr = (CheckpointManager(os.path.join(args.outdir, "checkpoints"), config=cfg)
+           if nproc == 1 else None)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     initial_epoch = 0
     if args.load:
@@ -284,52 +301,72 @@ def main(argv=None):
                 raise ValueError(f"loaded weights were trained with arch {extras['arch']}, "
                                  f"but the requested architecture is {arch_string(cfg)}")
             load_params_npz(args.load, model)
+        elif nproc > 1:
+            raise ValueError(f"--load {args.load}: a multi-process run warm-starts from a "
+                             "weights .npz only")
         else:
             # create=False: a bad path raises instead of minting an empty
             # checkpoint directory and training from scratch
             ep, state = CheckpointManager(args.load, config=cfg, create=False).restore(state)
             print(f"restored epoch {ep} from {args.load}", flush=True)
-    elif mgr.latest_epoch() is not None:
+    elif mgr is not None and mgr.latest_epoch() is not None:
         # the generator goes on from where the interrupted run's stopped, so
         # that the resumed epochs draw what an uninterrupted run would have
         ep, state = mgr.restore(state, generator=generator)
         initial_epoch = ep + 1
         print(f"resuming from epoch {ep}", flush=True)
 
-    _, eval_step = make_step_fns(model, noise_mode="full")
+    if mesh is not None:
+        mesh_lib.broadcast_parameters(model)
+
+    _, eval_step = make_step_fns(model, mesh, noise_mode="full")
+    # this process's slice of each globally class-pure epoch (one process:
+    # the epoch itself)
+    per_process = (len(train_src.slot_groups(nproc)) if hasattr(train_src, "slot_groups")
+                   else train_src.num_batches // nproc)
+
+    def train_epoch(g):
+        return train_src.epoch_distributed(g, nproc, rank)
+
     if args.scan_steps > 1:
-        if train_src.num_batches < args.scan_steps:
-            raise ValueError(f"--scan-steps {args.scan_steps} exceeds the "
-                             f"{train_src.num_batches} batches an epoch: every epoch "
-                             "would be empty")
-        train_step = make_scan_train_step(model, args.scan_steps, noise_mode="full")
+        if per_process < args.scan_steps:
+            raise ValueError(f"--scan-steps {args.scan_steps} exceeds the {per_process} "
+                             "batches an epoch: every epoch would be empty")
+        train_step = make_scan_train_step(model, args.scan_steps, mesh, noise_mode="full")
 
         def train_feed(g, epoch):
-            return epoch_stacks(train_src.epoch(g), args.scan_steps)
+            return epoch_stacks(train_epoch(g), args.scan_steps)
     else:
-        train_step, _ = make_step_fns(model, noise_mode="full")
+        train_step, _ = make_step_fns(model, mesh, noise_mode="full")
 
         def train_feed(g, epoch):
-            return train_src.epoch(g)
+            return train_epoch(g)
 
-    history = HistoryLogger(csv_path=os.path.join(args.outdir, "history.csv"),
-                            jsonl_path=os.path.join(args.outdir, "history.jsonl"))
+    history = HistoryLogger(
+        csv_path=os.path.join(args.outdir, "history.csv") if is_main else None,
+        jsonl_path=os.path.join(args.outdir, "history.jsonl") if is_main else None)
     res = fit(
         state, train_step, train_feed,
         generator=generator,
         num_epochs=args.epochs,
         num_annealing_epochs=args.annealing_epochs,
         eval_step=eval_step,
-        val_epoch_fn=lambda g, epoch: val_src.epoch(g),
+        val_epoch_fn=lambda g, epoch: val_src.epoch_distributed(g, nproc, rank),
         patience=args.patience,
         monitor="val_loss",
         history=history,
         initial_epoch=initial_epoch,
-        checkpoint_fn=lambda epoch, st: mgr.save(epoch, st, generator),
-        checkpoint_every=args.checkpoint_every,
+        checkpoint_fn=(lambda epoch, st: mgr.save(epoch, st, generator)) if mgr else None,
+        checkpoint_every=args.checkpoint_every if mgr else 0,
+        mesh=mesh,
     )
-    if res.completed_epochs > 0:
+    if mgr is not None and res.completed_epochs > 0:
         mgr.save(res.completed_epochs - 1, res.state, generator)
+    if mesh is not None and is_main:
+        save_params_npz(os.path.join(args.outdir, "weights.npz"), model,
+                        extra={"arch": np.asarray(arch_string(cfg))})
+    if not is_main:
+        return res
 
     # bits/dim of the validation NLL (the parity metric, BASELINE.md): the
     # NLL of the PREPROCESSED x, the noise-floored logit space the model is

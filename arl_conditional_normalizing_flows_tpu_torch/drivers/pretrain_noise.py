@@ -16,10 +16,16 @@ shared-shape init (conv_pre_training_cINN_on_noise.py:24-29).
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises. ``--scan-steps N`` trains through
 ``make_scan_train_step`` (on the card, one train step captured as a CUDA
-graph and replayed N times a call). The multi-host flags and the
-fused_dilated and dense_groups lowerings exit with the ROADMAP item that
-will bring them. The noise comes from one ``torch.Generator`` on the run's
-device seeded with ``--seed``.
+graph and replayed N times a call). The fused_dilated and dense_groups
+lowerings exit with the ROADMAP item that will bring them. The noise comes
+from one ``torch.Generator`` on the run's device seeded with ``--seed``.
+
+The multi-process flags are ``cnf-conv``'s (JAX
+``drivers/pretrain_noise.py:81-190``): each process trains on
+``--batch-size`` rows of its own noise, rank 0 from the run's generator and
+every other rank from its own (``parallel.mesh.rank_generator``, JAX's
+``fold_in(key, rank)``), so a one-process group trains as a plain run. With
+N > 1 there is no checkpoint directory; only rank 0 writes.
 
 Example:
     python -m arl_conditional_normalizing_flows_tpu_torch.drivers.pretrain_noise \\
@@ -34,6 +40,13 @@ import os
 
 import numpy as np
 import torch
+
+from arl_conditional_normalizing_flows_tpu_torch.drivers.common import (
+    add_distributed_flags,
+    distributed_run,
+    refuse_unported,
+    run_placement,
+)
 
 
 def build_parser():
@@ -73,14 +86,7 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--outdir", default="noise_pretrain")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over devices (not ported yet: ROADMAP A.10)")
-    p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator (not ported yet: ROADMAP A.10)")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host process count (not ported yet: ROADMAP A.10)")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host rank (not ported yet: ROADMAP A.10)")
+    add_distributed_flags(p)
     p.add_argument("--scan-steps", type=int, default=0,
                    help="N optimizer steps a call (train.make_scan_train_step; on the "
                    "card one captured CUDA graph of the step replayed N times); a "
@@ -90,10 +96,13 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from arl_conditional_normalizing_flows_tpu_torch.drivers.conv import refuse_unported
-
     refuse_unported(args)
-    from arl_conditional_normalizing_flows_tpu_torch.device import resolve_device
+    with distributed_run(args):
+        return train(args)
+
+
+def train(args):
+    """The run of ``main``, in the process group it formed."""
     from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
         ConvFlowConfig,
         arch_string,
@@ -110,9 +119,11 @@ def main(argv=None):
         noise_batches,
         save_params_npz,
     )
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
     from arl_conditional_normalizing_flows_tpu_torch.utils import write_run_metadata
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device, mesh, nproc, rank = run_placement(args)
+    is_main = rank == 0
     cfg = ConvFlowConfig(
         io_shape=(args.height, args.width, args.xy_depth),
         x_d=args.x_d,
@@ -133,35 +144,47 @@ def main(argv=None):
     except NotImplementedError as e:
         raise SystemExit(f"--experimental-lowering/--dtype: {e}") from e
     os.makedirs(args.outdir, exist_ok=True)
-    write_run_metadata(args.outdir, args, device, extra={"arch": arch_string(cfg)})
+    if is_main:
+        write_run_metadata(args.outdir, args, device,
+                           extra={"arch": arch_string(cfg), "processes": nproc})
     model = ConvCFlow(cfg, device=device, seed=args.seed)
-    print("arch:", arch_string(cfg), "device:", device, flush=True)
+    print("arch:", arch_string(cfg), "device:", device,
+          *([f"process {rank} of {nproc}"] if mesh is not None else []), flush=True)
     state = create_train_state(model, args.lr, seed=args.seed)
+    if mesh is not None:
+        mesh_lib.broadcast_parameters(model)
     shape = cfg.io_shape
+    # each process trains on its own noise: the global batch is nproc *
+    # batch_size fresh draws a step (noise has no class to keep pure)
+    own = mesh_lib.rank_generator(args.seed, device, rank)
 
     def data_epoch(g, epoch):
-        return noise_batches(g, args.num_batches, args.batch_size, shape)
+        return mesh_lib.own_batches(
+            lambda gen: noise_batches(gen, args.num_batches, args.batch_size, shape), g, own)
 
     if args.scan_steps > 1:
         if args.num_batches < args.scan_steps:
             raise ValueError(f"--scan-steps {args.scan_steps} exceeds the {args.num_batches} "
                              "batches an epoch: every epoch would be empty")
-        train_step = make_scan_train_step(model, args.scan_steps, noise_mode="none")
+        train_step = make_scan_train_step(model, args.scan_steps, mesh, noise_mode="none")
 
         def feed(g, epoch):
             return epoch_stacks(data_epoch(g, epoch), args.scan_steps)
     else:
-        train_step, _ = make_step_fns(model, noise_mode="none")
+        train_step, _ = make_step_fns(model, mesh, noise_mode="none")
         feed = data_epoch
 
-    history = HistoryLogger(csv_path=os.path.join(args.outdir, "history.csv"),
-                            jsonl_path=os.path.join(args.outdir, "history.jsonl"))
+    history = HistoryLogger(
+        csv_path=os.path.join(args.outdir, "history.csv") if is_main else None,
+        jsonl_path=os.path.join(args.outdir, "history.jsonl") if is_main else None)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     res = fit(state, train_step, feed, generator=generator, num_epochs=args.epochs,
-              patience=args.patience, history=history)
-    if res.completed_epochs > 0:
+              patience=args.patience, history=history, mesh=mesh)
+    if nproc == 1 and res.completed_epochs > 0:
         mgr = CheckpointManager(os.path.join(args.outdir, "checkpoints"), config=cfg)
         mgr.save(res.completed_epochs - 1, res.state, generator)
+    if not is_main:
+        return res
     # the arch identity rides WITH the weights: the reference encodes it in
     # the file name as the pre-training -> training contract
     # (conv_pre_training_cINN_on_noise.py:47-48, README.md:98)

@@ -9,11 +9,17 @@ of x-only instance noise, early stopping with patience 10 on the train loss.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises. ``--scan-steps N`` trains through
 ``make_scan_train_step`` (on the card, one train step captured as a CUDA
-graph and replayed N times a call). ``--plot`` and the multi-host flags exit
-with the ROADMAP item that will bring them. The data, the noise and the
-evaluation draws come from ``torch.Generator``s on the run's device (the
-training one seeded with ``--seed``), so the port's runs draw other points
-than the JAX driver's.
+graph and replayed N times a call). ``--plot`` exits with the ROADMAP item
+that will bring it. The data, the noise and the evaluation draws come from
+``torch.Generator``s on the run's device (the training one seeded with
+``--seed``), so the port's runs draw other points than the JAX driver's.
+
+The multi-process flags are ``cnf-conv``'s (JAX ``drivers/toy.py:79-245``):
+the class datasets' global batches are class-pure across the processes
+(``epoch_iterator_distributed``); for the continuous sectors each process
+draws its own batches, rank 0 from the run's generator and every other rank
+from its own (``parallel.mesh.rank_generator``). Only rank 0 writes and
+evaluates.
 
 Writes ``weights.npz`` (the JAX package's format, with the layer order as
 ``__extra__mask_indices``), ``history.csv``/``history.jsonl``, ``run.json``
@@ -34,6 +40,13 @@ import os
 
 import numpy as np
 import torch
+
+from arl_conditional_normalizing_flows_tpu_torch.drivers.common import (
+    add_distributed_flags,
+    distributed_run,
+    refuse_unported,
+    run_placement,
+)
 
 
 def build_parser():
@@ -70,14 +83,7 @@ def build_parser():
                    help="extra y' values (standardized) for an off-manifold interpolation "
                    "sweep (TOYcINN.py:1115-1206); their sample moments go to eval.json")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over devices (not ported yet: ROADMAP A.10)")
-    p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator (not ported yet: ROADMAP A.10)")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host process count (not ported yet: ROADMAP A.10)")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host rank (not ported yet: ROADMAP A.10)")
+    add_distributed_flags(p)
     p.add_argument("--scan-steps", type=int, default=0,
                    help="N optimizer steps a call (train.make_scan_train_step; on the "
                    "card one captured CUDA graph of the step replayed N times); a "
@@ -110,11 +116,14 @@ def mask_order(args, num_layers_total):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from arl_conditional_normalizing_flows_tpu_torch.drivers.conv import refuse_unported
-
     refuse_unported(args)
+    with distributed_run(args):
+        return train(args)
+
+
+def train(args):
+    """The run of ``main``, in the process group it formed."""
     from arl_conditional_normalizing_flows_tpu_torch.data import toy_datasets
-    from arl_conditional_normalizing_flows_tpu_torch.device import resolve_device
     from arl_conditional_normalizing_flows_tpu_torch.models.arch import ToyConfig
     from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN
     from arl_conditional_normalizing_flows_tpu_torch.train import (
@@ -127,20 +136,28 @@ def main(argv=None):
         make_step_fns,
         save_params_npz,
     )
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
     from arl_conditional_normalizing_flows_tpu_torch.utils import write_run_metadata
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device, mesh, nproc, rank = run_placement(args)
+    is_main = rank == 0
+    if mesh is not None:
+        print(f"device: {device} process {rank} of {nproc}", flush=True)
     num_layers_total = 6 * args.coupling_blocks
     order = mask_order(args, num_layers_total)
     cfg = ToyConfig(num_coupling_layers=num_layers_total,
                     intermediate_dims=args.intermediate_dims, num_layers=args.num_layers,
                     mask_indices=order)
     os.makedirs(args.outdir, exist_ok=True)
-    write_run_metadata(args.outdir, args, device, extra={"mask_indices": list(order)})
+    if is_main:
+        write_run_metadata(args.outdir, args, device,
+                           extra={"mask_indices": list(order), "processes": nproc})
     model = ToyCINN(cfg, device=device, seed=args.seed)
     if args.load:
         load_params_npz(args.load, model)
     state = create_train_state(model, args.lr, seed=args.seed)
+    if mesh is not None:
+        mesh_lib.broadcast_parameters(model)
 
     if args.dataset in ("crescents", "crescents_overlapping"):
         ds = toy_datasets.make_moons_dataset(
@@ -149,43 +166,55 @@ def main(argv=None):
         ds = toy_datasets.make_mixed_dataset(args.which_classes)
     else:
         ds = None  # continuous sectors: no class structure
-    if ds is not None and not ds.stats_pinned:
+    if ds is not None and not ds.stats_pinned and is_main:
         print("toy: standardization statistics drawn by the port (torch.Generator seeded "
               "1234), not JAX's: a weights.npz trained by the JAX package under these flags "
               "sees inputs up to ~2% of a std off its training data", flush=True)
 
     if ds is not None:
-        per_epoch = args.batches_per_class * len(ds.class_labels)
+        # this process's slice of each globally class-pure epoch (one
+        # process: the batch-then-shuffle epoch itself)
+        per_epoch = len(ds.slot_groups(args.batches_per_class, nproc))
 
         def data_epoch(g, epoch):
-            return ds.epoch_iterator(g, args.batches_per_class, args.batch_size)
+            return ds.epoch_iterator_distributed(g, args.batches_per_class, args.batch_size,
+                                                 nproc, rank)
     else:
+        # continuous conditions, no class structure: each process draws its
+        # own batches
         per_epoch = args.batches_per_class * 2
+        own = mesh_lib.rank_generator(args.seed, device, rank)
+
+        def sectors(gen):
+            for _ in range(per_epoch):
+                yield toy_datasets.sample_continuous_sectors(gen, args.batch_size,
+                                                             args.sector_width)
 
         def data_epoch(g, epoch):
-            for _ in range(per_epoch):
-                yield toy_datasets.sample_continuous_sectors(g, args.batch_size,
-                                                             args.sector_width)
+            return mesh_lib.own_batches(sectors, g, own)
 
     if args.scan_steps > 1:
         if per_epoch < args.scan_steps:
             raise ValueError(f"--scan-steps {args.scan_steps} exceeds the {per_epoch} "
                              "batches an epoch: every epoch would be empty")
-        train_step = make_scan_train_step(model, args.scan_steps, noise_mode="x_only",
+        train_step = make_scan_train_step(model, args.scan_steps, mesh, noise_mode="x_only",
                                           x_d=cfg.x_d)
 
         def feed(g, epoch):
             return epoch_stacks(data_epoch(g, epoch), args.scan_steps)
     else:
-        train_step, _ = make_step_fns(model, noise_mode="x_only", x_d=cfg.x_d)
+        train_step, _ = make_step_fns(model, mesh, noise_mode="x_only", x_d=cfg.x_d)
         feed = data_epoch
 
-    history = HistoryLogger(csv_path=os.path.join(args.outdir, "history.csv"),
-                            jsonl_path=os.path.join(args.outdir, "history.jsonl"))
+    history = HistoryLogger(
+        csv_path=os.path.join(args.outdir, "history.csv") if is_main else None,
+        jsonl_path=os.path.join(args.outdir, "history.jsonl") if is_main else None)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     res = fit(state, train_step, feed, generator=generator, num_epochs=args.epochs,
               num_annealing_epochs=args.annealing_epochs, patience=args.patience,
-              history=history)
+              history=history, mesh=mesh)
+    if not is_main:
+        return res
     save_params_npz(os.path.join(args.outdir, "weights.npz"), model,
                     extra={"mask_indices": np.asarray(order)})
 

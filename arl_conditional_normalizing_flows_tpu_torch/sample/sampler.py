@@ -9,13 +9,21 @@ SR-residual image x + y (conv_cINN.py:44-45).
 
 Every function draws z from the ``generator`` it is given, on the model's
 device (a generator on that device); the draws are torch's, not JAX's.
+
+With a ``mesh`` (``parallel/mesh.py``) the fan-out is sharded on the samples
+axis, as JAX's ``_jit_sample`` shards it (``sample/sampler.py:43-48``):
+every process draws the whole z from an identically seeded generator,
+inverts its slice of the samples, and ``all_gather`` puts the slices
+together, so every process returns what one process would.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from arl_conditional_normalizing_flows_tpu_torch.ops import logit as logit_ops
+from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
 
 
 def postprocess_sampled_xy(xy, y, x_d, *, de_logit=False, residual=False,
@@ -32,16 +40,29 @@ def postprocess_sampled_xy(xy, y, x_d, *, de_logit=False, residual=False,
     return x
 
 
-def sample_conditional(model, y_value, num_samples, x_d, *, generator=None):
+def _fan_out(invert, z, y, mesh):
+    """``invert(z, y)``; with ``mesh``, of this process's rows, gathered."""
+    if mesh is None:
+        return invert(z, y)
+    rows = mesh_lib.local_batch_slice(z.shape[0], mesh)
+    part = invert(z[rows], y[rows]).contiguous()
+    group, size, _ = mesh_lib.data_axis(mesh)
+    parts = [torch.empty_like(part) for _ in range(size)]
+    dist.all_gather(parts, part, group=group)
+    return torch.cat(parts)
+
+
+def sample_conditional(model, y_value, num_samples, x_d, *, generator=None, mesh=None):
     """Toy-style sampling: x | y' for a scalar or (y_d,) vector condition,
     already standardized as the training labels were. Returns xy samples
-    (num_samples, x_d + y_d) on the model's device."""
+    (num_samples, x_d + y_d) on the model's device; ``mesh`` shards the
+    fan-out."""
     device = model.device
     y_value = torch.atleast_1d(torch.as_tensor(y_value, dtype=torch.float32, device=device))
     z = torch.randn((num_samples, x_d), generator=generator, device=device)
     y = y_value.expand(num_samples, y_value.shape[-1])
     with torch.no_grad():
-        return model.inverse(torch.cat([z, y], dim=-1))
+        return _fan_out(lambda z, y: model.inverse(torch.cat([z, y], dim=-1)), z, y, mesh)
 
 
 def sweep_conditions(model, y_values, num_samples, x_d, *, generator=None):
@@ -63,7 +84,7 @@ def sweep_conditions(model, y_values, num_samples, x_d, *, generator=None):
 
 def sample_conditional_images(model, y_image, num_samples, x_d, *,
                               generator=None, de_logit=False, residual=False,
-                              logit_a=0.01):
+                              logit_a=0.01, mesh=None):
     """x | y' for an image-shaped condition.
 
     Args:
@@ -71,6 +92,7 @@ def sample_conditional_images(model, y_image, num_samples, x_d, *,
         y_image: (H, W, y_d) condition plane (a broadcast class plane,
             conv_cINN.py:250-268, or an upsampled low-res image for SR).
         generator: ``torch.Generator`` on the model's device for z.
+        mesh: shards the fan-out over its ``data`` axis.
     Returns:
         x images (num_samples, H, W, x_d).
     """
@@ -80,7 +102,7 @@ def sample_conditional_images(model, y_image, num_samples, x_d, *,
     z = torch.randn((num_samples, h, w, x_d), generator=generator, device=device)
     y = y_image.expand(num_samples, h, w, y_d)
     with torch.no_grad():
-        xy = model.sample_xy(z, y)
+        xy = _fan_out(model.sample_xy, z, y, mesh)
     return postprocess_sampled_xy(xy, y, x_d, de_logit=de_logit,
                                   residual=residual, logit_a=logit_a)
 

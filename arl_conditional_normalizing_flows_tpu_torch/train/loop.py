@@ -14,6 +14,14 @@ The reference's Keras ``model.fit`` with a custom ``train_step``
 - ``fit``: annealing epochs, then clean epochs with early stopping (best
   parameters restored), a NaN guard, validation, history and checkpoints.
 
+With a ``mesh`` (``parallel/mesh.py``) each process feeds its slice of the
+global batch (JAX ``train/loop.py:81-229``): the instance noise is drawn
+for the global batch from the shared generator and each process keeps its
+rows, the gradients are averaged over the ``data`` axis by one all-reduce
+after backward and before Adam (inside the CUDA graph on the card), and the
+losses are averaged once a call; with a ``state_sharding`` from
+``parallel.mesh.state_shardings`` FSDP2 makes the gradient reductions itself.
+
 PyTorch idiom in place of JAX's: the state holds an ``nn.Module`` and its
 ``torch.optim.Adam``, and a step updates both in place and returns the same
 state (JAX donates the old state; here the old and new state are one
@@ -35,6 +43,7 @@ from torch.autograd.graph import increment_version
 
 from arl_conditional_normalizing_flows_tpu_torch.models.init_compat import shared_shape_reinit
 from arl_conditional_normalizing_flows_tpu_torch.ops import noise as noise_ops
+from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
 from arl_conditional_normalizing_flows_tpu_torch.train.metrics import (
     LOSS_KEYS,
     EarlyStopping,
@@ -115,13 +124,72 @@ def _noise_fn(noise_mode: str, x_d: Optional[int]):
     raise ValueError(f"unknown noise_mode {noise_mode!r}")
 
 
-def _apply_step(state: TrainState, xy, add_noise, generator, alpha):
-    """One optimizer step on ``xy``; the four loss components, detached."""
+def _global_noise(add_noise, mesh):
+    """``add_noise`` for this process's rows of a global batch: the noise is
+    drawn for all the ``data`` axis's slices (this process's rows stand in
+    for the others') from the shared generator, and this process keeps its
+    own. So a step equals one process's step on the concatenated batch, as
+    under JAX's replicated key, and the generators stay in lockstep."""
+    if add_noise is None or mesh is None:
+        return add_noise
+    _, size, index = mesh_lib.data_axis(mesh)
+    if size == 1:
+        return add_noise
+
+    def add(generator, xy, alpha):
+        b = xy.shape[0]
+        full = xy.repeat((size,) + (1,) * (xy.dim() - 1))
+        return add_noise(generator, full, alpha)[index * b:(index + 1) * b]
+
+    return add
+
+
+class _Parallel:
+    """What a step does across processes for ``mesh`` and
+    ``state_sharding``: nothing without a mesh; over a data-parallel mesh,
+    average the gradients after backward (:meth:`reduce_grads`); under FSDP
+    (``state_sharding``), leave the sharded parameters' gradients to FSDP2
+    and average the replicated (scalar) ones over every process. Either way
+    the losses are averaged over the ``data`` axis (:meth:`mean`)."""
+
+    def __init__(self, model, mesh, state_sharding):
+        from torch.distributed.fsdp import FSDPModule
+
+        self.mesh, self.fsdp = mesh, state_sharding is not None
+        if self.fsdp and (mesh is None or not isinstance(model, FSDPModule)):
+            raise ValueError("a state_sharding needs its mesh and a model sharded by "
+                             "parallel.mesh.state_shardings")
+        if mesh is not None and not self.fsdp and isinstance(model, FSDPModule):
+            raise ValueError("an FSDP-sharded model needs its state_sharding")
+        self.group = mesh_lib.data_axis(mesh)[0] if mesh is not None else None
+        self.replicated = ([p for n, p in model.named_parameters()
+                            if state_sharding[n] == mesh_lib.REPLICATED]
+                           if self.fsdp else None)
+
+    def reduce_grads(self, state: TrainState) -> None:
+        if self.mesh is None:
+            return
+        if not self.fsdp:
+            mesh_lib.all_reduce_gradients(_state_tensors(state)[0], self.group)
+        elif self.replicated:
+            mesh_lib.all_reduce_gradients(self.replicated)
+
+    def mean(self, t):
+        """``t`` averaged over the ``data`` axis (in place); ``t`` itself
+        without a mesh."""
+        return t if self.mesh is None else mesh_lib.all_reduce_mean(t, self.group)
+
+
+def _apply_step(state: TrainState, xy, add_noise, generator, alpha, parallel=None):
+    """One optimizer step on ``xy``; the four loss components of this
+    process's rows, detached."""
     if add_noise is not None:
         xy = add_noise(generator, xy, alpha)
     state.optimizer.zero_grad(set_to_none=True)
     out = state.model.log_loss(xy)
     out["loss"].backward()
+    if parallel is not None:
+        parallel.reduce_grads(state)
     state.optimizer.step()
     return {k: out[k].detach() for k in LOSS_KEYS}
 
@@ -131,24 +199,38 @@ def _check_model(state: TrainState, model) -> None:
         raise ValueError("the train state holds another model than the step was made for")
 
 
-def make_step_fns(model, noise_mode: str = "full", x_d: Optional[int] = None):
+def make_step_fns(model, mesh=None, noise_mode: str = "full", x_d: Optional[int] = None,
+                  state_sharding=None):
     """``(train_step, eval_step)`` for ``model``.
 
     ``train_step(state, xy, generator=None, alpha=1.0) -> (state, out)``
     applies instance noise ``alpha*xy + (1-alpha)*N(0,1)`` drawn from
     ``generator`` (on xy's device), takes the gradient of ``log_loss`` and
     one optimizer step, in place. ``eval_step(state, xy) -> out`` runs
-    ``log_loss`` without gradients. ``out`` maps the four loss components
-    (``LOSS_KEYS``) to 0-d tensors.
+    ``log_loss`` without gradients on this process's rows (``fit`` averages
+    an epoch's validation over the processes). ``out`` maps the four loss
+    components (``LOSS_KEYS``) to 0-d tensors.
 
     ``noise_mode``: "full" (conv: noise the whole xy tensor), "x_only" (toy,
     needs ``x_d``) or "none".
+
+    ``mesh``: ``xy`` is this process's slice of the global batch; the noise
+    is the global batch's (every process passes an identically seeded
+    generator), the gradients are averaged over the ``data`` axis before
+    the update, and ``out`` is the global batch's mean. ``state_sharding``
+    (``parallel.mesh.state_shardings``, on a 2-D mesh): the model is FSDP-sharded
+    and FSDP2 reduces the gradients.
     """
-    add_noise = _noise_fn(noise_mode, x_d)
+    parallel = _Parallel(model, mesh, state_sharding)
+    add_noise = _global_noise(_noise_fn(noise_mode, x_d), mesh)
 
     def train_step(state, xy, generator=None, alpha=1.0):
         _check_model(state, model)
-        return state, _apply_step(state, xy, add_noise, generator, alpha)
+        out = _apply_step(state, xy, add_noise, generator, alpha, parallel)
+        if mesh is not None:
+            out = dict(zip(LOSS_KEYS, parallel.mean(
+                torch.stack([out[k] for k in LOSS_KEYS])).unbind()))
+        return state, out
 
     @torch.no_grad()
     def eval_step(state, xy):
@@ -214,11 +296,14 @@ class _GraphedSteps:
     raises: nothing falls back to eager steps.
     """
 
-    def __init__(self, model, num_inner: int, add_noise):
+    def __init__(self, model, num_inner: int, add_noise, parallel=None):
         self.model, self.num_inner, self.add_noise = model, num_inner, add_noise
+        self.parallel = parallel
         self.graph = None
         # the hand-written kernels' launches a replay (see capture)
         self.launches = None
+        # the gradient all-reduces a replay launches (counted at the capture)
+        self.all_reduces = 0
         # the capture's key, static input, loss sums and alpha
         self._key = self._xy = self._acc = self._alpha = None
 
@@ -228,7 +313,8 @@ class _GraphedSteps:
                 xy_stack.dtype, xy_stack.device, tuple(t.data_ptr() for t in params + opt))
 
     def _step(self, state, generator):
-        out = _apply_step(state, self._xy, self.add_noise, generator, self._alpha)
+        out = _apply_step(state, self._xy, self.add_noise, generator, self._alpha,
+                          self.parallel)
         self._acc.add_(torch.stack([out[k] for k in LOSS_KEYS]))
 
     def capture(self, state: TrainState, xy_stack, generator=None) -> None:
@@ -237,7 +323,9 @@ class _GraphedSteps:
         the generator to what they were before the warm-up, so that where
         the capture falls (a resumed run captures at its first epoch) does
         not move the noise stream. :attr:`launches` is what each replay
-        launches of the hand-written kernels."""
+        launches of the hand-written kernels, :attr:`all_reduces` of the
+        gradient all-reduce (the warm-up's eager ones have made its
+        communicator before the capture)."""
         _check_model(state, self.model)
         device = xy_stack.device
         if device.type != "cuda":
@@ -248,8 +336,10 @@ class _GraphedSteps:
         self._alpha = torch.ones((), device=device)
         saved = _snapshot(state)
         rng = generator.get_state() if generator is not None else None
+        all_reduces_before = 0
 
         def before_capture():
+            nonlocal all_reduces_before
             params, _ = _state_tensors(state)
             if not all(state.optimizer.state.get(p) for p in params):
                 raise RuntimeError(
@@ -258,6 +348,7 @@ class _GraphedSteps:
             if rng is not None:
                 generator.set_state(rng)
             state.optimizer.zero_grad(set_to_none=True)
+            all_reduces_before = mesh_lib.LAUNCHES["all_reduce_gradients"]
 
         try:
             graph, _, self.launches = graphs.capture(
@@ -266,6 +357,7 @@ class _GraphedSteps:
                 before_capture=before_capture)
         finally:
             _restore(state, saved)
+        self.all_reduces = mesh_lib.LAUNCHES["all_reduce_gradients"] - all_reduces_before
         self.graph = graph
         self._key = self._capture_key(state, xy_stack, generator)
 
@@ -287,7 +379,8 @@ class _GraphedSteps:
         # kernel's packed weights) see the change
         for p in _state_tensors(state)[0]:
             increment_version(p)
-        mean = self._acc / self.num_inner
+        acc = self._acc if self.parallel is None else self.parallel.mean(self._acc.clone())
+        mean = acc / self.num_inner
         return state, dict(zip(LOSS_KEYS, mean.unbind()))
 
 
@@ -296,8 +389,8 @@ def _check_stack(xy_stack, num_inner):
         raise ValueError(f"xy_stack {tuple(xy_stack.shape)} is not ({num_inner}, B, ...)")
 
 
-def make_scan_train_step(model, num_inner: int, noise_mode: str = "full",
-                         x_d: Optional[int] = None):
+def make_scan_train_step(model, num_inner: int, mesh=None, noise_mode: str = "full",
+                         x_d: Optional[int] = None, state_sharding=None):
     """``num_inner`` optimizer steps in one call:
     ``multi(state, xy_stack, generator=None, alpha=1.0) -> (state,
     mean_out)``, ``xy_stack`` shaped ``(num_inner, B, H, W, D)``, the four
@@ -309,15 +402,28 @@ def make_scan_train_step(model, num_inner: int, noise_mode: str = "full",
     from all but the first call; a model on the CPU gets a plain loop over
     ``train_step``. The JAX function's ``unroll`` (a scheduling window
     across scanned steps) has no counterpart in a graph and is left out.
+
+    ``mesh`` and ``state_sharding`` as for :func:`make_step_fns`;
+    ``xy_stack`` holds this process's rows of each step, the gradients are
+    averaged every step (in the graph, on the card) and the loss sums once a
+    call. A graphed FSDP step is not ported: on the card it raises.
     """
+    parallel = _Parallel(model, mesh, state_sharding)
+    add_noise = _global_noise(_noise_fn(noise_mode, x_d), mesh)
     if _device(model).type == "cuda":
-        return _GraphedSteps(model, num_inner, _noise_fn(noise_mode, x_d))
-    train_step, _ = make_step_fns(model, noise_mode, x_d)
+        if parallel.fsdp:
+            raise NotImplementedError(
+                "a CUDA graph of an FSDP step is not ported (ROADMAP A.10b): FSDP2's "
+                "collectives are not captured; take eager FSDP steps (make_step_fns)")
+        return _GraphedSteps(model, num_inner, add_noise, parallel if mesh is not None else None)
 
     def multi(state, xy_stack, generator=None, alpha=1.0):
         _check_stack(xy_stack, num_inner)
-        outs = [train_step(state, xy, generator, alpha)[1] for xy in xy_stack]
-        return state, {k: torch.stack([o[k] for o in outs]).mean() for k in LOSS_KEYS}
+        _check_model(state, model)
+        outs = [_apply_step(state, xy, add_noise, generator, alpha, parallel)
+                for xy in xy_stack]
+        mean = torch.stack([torch.stack([o[k] for o in outs]).mean() for k in LOSS_KEYS])
+        return state, dict(zip(LOSS_KEYS, parallel.mean(mean).unbind()))
 
     return multi
 
@@ -353,6 +459,14 @@ class FitResult:
     train_step: Optional[Callable] = None
 
 
+def _mean_over_data(mesh, values: dict, device) -> dict:
+    """``values`` (floats) averaged over ``mesh``'s ``data`` axis, in
+    float64."""
+    t = torch.tensor([values[k] for k in values], dtype=torch.float64, device=device)
+    mesh_lib.all_reduce_mean(t, mesh_lib.data_axis(mesh)[0])
+    return dict(zip(values, t.tolist()))
+
+
 def _floats(out) -> dict:
     """The loss components as Python floats, one device read."""
     return dict(zip(LOSS_KEYS, torch.stack([out[k] for k in LOSS_KEYS]).tolist()))
@@ -375,6 +489,7 @@ def fit(
     checkpoint_fn: Optional[Callable[[int, TrainState], None]] = None,
     checkpoint_every: int = 0,
     verbose: bool = True,
+    mesh=None,
 ) -> FitResult:
     """Run the full schedule: the annealing ramp, then clean epochs with
     early stopping (the reference's two-phase driver, TOYcINN.py:249-293,
@@ -389,6 +504,13 @@ def fit(
     restores the best parameters seen (when early stopping kept any); early
     stopping counts only after annealing. Restores copy into the live
     parameters.
+
+    ``mesh``: every process calls ``fit`` with an identically seeded
+    generator, its own slice of each epoch (``epoch_distributed``) and a
+    ``train_step`` made for the mesh, whose losses are already the global
+    batch's. An epoch's validation means are averaged over the ``data``
+    axis before they are logged and before early stopping decides, so that
+    every process stops at the same epoch.
     """
     history = history or HistoryLogger()
     stopper = EarlyStopping(patience) if patience is not None else None
@@ -419,7 +541,10 @@ def fit(
             vmetrics = MeanMetrics()
             for xy in val_epoch_fn(generator, epoch):
                 vmetrics.update(_floats(eval_step(state, xy)))
-            row.update({f"val_{k}": v for k, v in vmetrics.result().items()})
+            val = vmetrics.result()
+            if mesh is not None:
+                val = _mean_over_data(mesh, val, _device(state.model))
+            row.update({f"val_{k}": v for k, v in val.items()})
 
         history.log(epoch, row)
         if verbose:

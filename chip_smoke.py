@@ -67,8 +67,16 @@ equal losses, each run's samples/s and busy share of a stack fetched and
 replayed, K1's launches a step (counted at the capture) and K2's in the
 end-of-training sampling; SR4,2 streamed from the combined file; ``cnf-eval
 --records-dir``; ``cnf-import-reference toy`` of a reference-layout
-checkpoint, then ``cnf-toy --load`` of it. Each phase prints its elapsed
-seconds.
+checkpoint, then ``cnf-toy --load`` of it. ``[dist]`` trains across
+processes: ``cnf-conv`` class at the flagship arch (``pallas_coupling``,
+bf16, batch 128, graphed stacks of 16) plain and in a one-process NCCL
+group (``--coordinator``), whose graph holds the gradient all-reduce: loss
+histories bit-equal, rank 0's ``weights.npz`` the plain run's parameters,
+K1 16 and the all-reduce once a step (counted at the capture), each run's
+samples/s, busy share and the all-reduce's device time; two processes over
+gloo on the card, 128 rows each, against one process on the 256; and
+``dryrun_multichip(1)`` at full depth over NCCL. Each phase prints its
+elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -661,7 +669,8 @@ def kernel_breakdown(fn, top=6):
     """Device time of one ``fn()`` by kernel, from torch.profiler: launches,
     busy milliseconds (union of kernel intervals), the shares of the
     coupling-law kernels, the conv-chain kernel and cuDNN/cuBLAS
-    convolutions, and the ``top`` kernels by time."""
+    convolutions, the ``top`` kernels by time, and the NCCL kernels'
+    milliseconds and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -688,6 +697,7 @@ def kernel_breakdown(fn, top=6):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     ours = {k: sum(n for name, (_, n) in by_name.items() if k + "_" in name)
             for k in ("affine_forward", "affine_inverse", "fused_subnet")}
+    nccl = [(t, n) for name, (t, n) in by_name.items() if "nccl" in name.lower()]
     return dict(
         kernel_launches=len(spans),
         port_kernel_launches=ours,
@@ -697,6 +707,7 @@ def kernel_breakdown(fn, top=6):
         conv_share=share(lambda n: "fused_subnet" not in n and any(
             k in n for k in ("conv", "xmma", "gemm", "cutlass", "sm90"))),
         top=[dict(name=name[:80], ms=t / 1e3, count=n) for name, (t, n) in ranked],
+        nccl_ms=sum(t for t, _ in nccl) / 1e3, nccl_kernels=sum(n for _, n in nccl),
     )
 
 
@@ -1878,6 +1889,216 @@ def check_records(phases):
     return out
 
 
+#: [dist]: cnf-conv class at the flagship arch, pallas_coupling, bf16,
+#: fused heads, batch 128, graphed stacks of 16, on 4 x 2,048 synthetic
+#: digits in RAM (16 class-pure batches a class, 64 an epoch, 4 stacks), 1
+#: annealing and 1 clean epoch: plain, then in a one-process NCCL group
+DIST_CLASSES = ("0", "1", "2", "3")
+DIST_FLAGS = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-class",
+              "2048", "--data-classes", *DIST_CLASSES, "--batch-size", "128",
+              "--experimental-lowering", "pallas_coupling", "--dtype", "bfloat16",
+              "--fused-subnet", "--scan-steps", "16", "--epochs", "1", "--annealing-epochs",
+              "1", "--checkpoint-every", "0"]
+DIST_INNER = 16
+#: stacks of each run timed, in turns with the other run's
+DIST_TIMED = 6
+#: (b): eager steps, 2 processes of DIST_ROWS rows over gloo on the one
+#: card (NCCL refuses two processes on one card) against one process on
+#: 2 * DIST_ROWS, from the same state, with instance noise at alpha 0.5
+DIST_ROWS = 128
+DIST_STEPS = 2
+#: (b)'s tolerance: the loss's relative error; the share of parameter
+#: elements within DIST_TIGHT; every element within 2 * steps * lr (Adam's
+#: sign flips on near-zero gradients). Measured on an NVIDIA H100 80GB HBM3
+#: at 700 W: 1.1e-6, 0.99993 of the elements within 1e-4, max 4.3e-4;
+#: tighter than tests/test_torch_train.py's STEP_TOLS["bfloat16"] (1e-3,
+#: 1e-4, 0.95)
+DIST_LOSS_RTOL = 1e-5
+DIST_TIGHT = 1e-4
+DIST_FRACTION = 0.999
+
+
+def dist_run(cnf_conv, name, flags, tmp, phases):
+    """One cnf-conv run of [dist] (a): (the run's result, its final
+    parameters, its line), the launches checked."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
+
+    outdir = os.path.join(tmp, name)
+    reset_launches()
+    mesh_lib.reset_launches()
+    t = time.perf_counter()
+    res = cnf_conv.main(DIST_FLAGS + ["--outdir", outdir] + flags)
+    run_s = time.perf_counter() - t
+    final = [p.detach().clone() for p in res.state.model.parameters()]
+    launches = launch_counts()
+    rows = history_rows(outdir)
+    per_step = res.train_step.launches  # counted at the capture: what each replay launches
+    couplings = len(res.state.model.couplings)
+    check(per_step == {"affine_forward": couplings, "affine_inverse": 0, "fused_subnet": 0},
+          f"dist {name}: K1 launches {couplings} times a step in the graph ({per_step})")
+    want_reduces = 1 if flags else 0
+    check(res.train_step.all_reduces == want_reduces,
+          f"dist {name}: {want_reduces} gradient all-reduce a step in the graph "
+          f"({res.train_step.all_reduces})")
+    check(len(rows) == 2 and all(math.isfinite(r[k]) for r in rows for k in ("loss", "val_loss")),
+          f"dist {name}: two epochs, finite losses")
+    phases.done(f"dist {name}: cnf-conv", seconds=f"{run_s:.2f}")
+    line = dict(run=name, run_s=run_s, epoch_s=[r["seconds"] for r in rows],
+                k1_launches_a_step=per_step["affine_forward"],
+                all_reduces_a_step=res.train_step.all_reduces,
+                k2_launches_in_sampling=launches["affine_inverse"], history=rows)
+    return res, final, line
+
+
+def stack_stepper(cnf_conv, res):
+    """One call: the next stack of 16 batches of the run's source (epoch
+    after epoch of one fresh generator) fetched and replayed through the
+    run's own graph; the first call recaptures the graph (a new
+    generator)."""
+    args = cnf_conv.build_parser().parse_args(DIST_FLAGS)
+    src, _, _ = cnf_conv.make_source(args, "train")
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def stacks():
+        while True:
+            yield from epoch_stacks(src.epoch(g), DIST_INNER)
+
+    it = stacks()
+    return lambda: res.train_step(res.state, next(it), g, 1.0)
+
+
+def time_dist_runs(cnf_conv, runs, line, phases):
+    """The runs' graphs in turns (plain, NCCL, NCCL, plain, ...):
+    DIST_TIMED stacks each after an untimed one, then one profiled."""
+    steppers = {name: stack_stepper(cnf_conv, res) for name, res in runs.items()}
+    for step in steppers.values():
+        step()
+    torch.cuda.synchronize()
+    names = list(runs)
+    times = {name: [] for name in names}
+    for i in range(DIST_TIMED):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            times[name] += walls(steppers[name], 1)
+    for name in names:
+        prof = kernel_breakdown(steppers[name], top=4)
+        stack_ms = statistics.median(times[name]) * 1e3
+        line[name].update(
+            stacks_timed=len(times[name]), stack_ms_median=stack_ms,
+            stack_ms_min=min(times[name]) * 1e3, stack_ms_max=max(times[name]) * 1e3,
+            stack_ms_all=[round(w * 1e3, 3) for w in times[name]],
+            samples_per_s=DIST_INNER * BATCH / (stack_ms / 1e3), step_ms=stack_ms / DIST_INNER,
+            stack_busy_ms=prof["device_busy_ms"], busy_share=prof["device_busy_ms"] / stack_ms,
+            stack_launches=prof["kernel_launches"], nccl_kernels_a_stack=prof["nccl_kernels"],
+            top=prof["top"])
+        print("[dist] " + json.dumps(line[name]), flush=True)
+    phases.done("dist: the two runs' graphs timed in turns")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_dist(phases):
+    """[dist]: (a) cnf-conv plain and in a one-process NCCL group, bit-equal
+    loss histories and the group's rank-0 weights.npz equal to the plain
+    run's final parameters; (b) two processes over gloo on the card against
+    one process on their rows together; (c) dryrun_multichip(1) at full
+    depth over NCCL."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import checks, launch
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
+    from arl_conditional_normalizing_flows_tpu_torch.parallel.dryrun import dryrun_multichip
+    from arl_conditional_normalizing_flows_tpu_torch.train import load_params_npz
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plain, plain_final, out["plain"] = dist_run(cnf_conv, "plain", [], tmp, phases)
+        coordinator = f"127.0.0.1:{free_port()}"
+        # the group is held open around the run (the driver then takes it as
+        # its own and leaves it be), so that the run's graph, whose
+        # all-reduce names the group's communicator, can be timed after it
+        with mesh_lib.distributed(coordinator, 1, 0):
+            check(torch.distributed.get_backend() == "nccl", "dist: the group is NCCL's")
+            group, _, out["nccl"] = dist_run(
+                cnf_conv, "nccl", ["--coordinator", coordinator, "--num-processes", "1",
+                                   "--process-id", "0"], tmp, phases)
+            time_dist_runs(cnf_conv, {"plain": plain, "nccl": group}, out, phases)
+            # the all-reduce of the flagship's gradients alone, in a graph
+            # of 50 between CUDA events
+            params = [p for p in group.state.model.parameters() if p.grad is not None]
+            grads_mb = sum(p.numel() for p in params) * 4 / 1e6
+            out["nccl"]["all_reduce_us"] = device_time_ms(
+                lambda: mesh_lib.all_reduce_gradients(params)) * 1e3
+            print(f"[dist] all_reduce_gradients over one process: "
+                  f"{out['nccl']['all_reduce_us']:.2f} us for {grads_mb:.2f} MB of "
+                  f"{len(params)} gradients", flush=True)
+        check(not torch.distributed.is_initialized(), "dist: the group has ended")
+        strip = [[{k: v for k, v in r.items() if k != "seconds"} for r in out[n]["history"]]
+                 for n in ("plain", "nccl")]
+        check(strip[0] == strip[1], "dist: the one-process NCCL run's loss history is the "
+              "plain run's, bit for bit")
+        twin = ConvCFlow(plain.state.model.cfg, seed=1)
+        load_params_npz(os.path.join(tmp, "nccl", "weights.npz"), twin)
+        check(all(torch.equal(p, q) for p, q in zip(twin.parameters(), plain_final)),
+              "dist: the group's rank-0 weights.npz holds the plain run's final parameters")
+        print("[dist] (a) loss histories bit-equal; weights.npz equal to the plain run's "
+              "parameters", flush=True)
+        del plain, group, twin, plain_final, params
+        torch.cuda.empty_cache()
+
+        # (b) two processes over gloo on the one card, eager steps
+        model = ConvCFlow(FLAGSHIP, seed=2)
+        config = {f.name: getattr(FLAGSHIP, f.name) for f in dataclasses.fields(FLAGSHIP)}
+        state_dict = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        rng = np.random.default_rng(5)
+        batches = [torch.from_numpy(rng.normal(size=(2 * DIST_ROWS, 28, 28, 2))
+                                    .astype(np.float32)) for _ in range(DIST_STEPS)]
+        step_args = (config, state_dict, batches, TRAIN_LR, "full", 0.5, 3)
+        t = time.perf_counter()
+        ranks = launch.run_ranks(
+            checks.jobs_rank, 2, "gloo", os.path.join(tmp, "rendezvous_b"),
+            ([("train_steps_rank", step_args + (None, False, "cuda")),
+              ("one_process_steps_rank", step_args + ("cuda",))],), device_type="cuda",
+            timeout=300)
+        b_s = time.perf_counter() - t
+        want = ranks[0][1]
+        diffs = np.concatenate([(r[0]["params"][k].float() - want["params"][k].float())
+                                .abs().numpy().ravel() for r in ranks for k in want["params"]])
+        loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r[0]["losses"], want["losses"]))
+        within = float(np.mean(diffs <= DIST_TIGHT))
+        out["gloo"] = dict(seconds=b_s, losses=[r[0]["losses"] for r in ranks],
+                           one_process_losses=want["losses"], loss_rel=loss_rel,
+                           param_max_abs=float(diffs.max()), param_share_within_tight=within,
+                           tolerance=dict(loss_rtol=DIST_LOSS_RTOL, tight=DIST_TIGHT,
+                                          fraction=DIST_FRACTION,
+                                          max=2 * TRAIN_LR * DIST_STEPS))
+        print("[dist] (b) " + json.dumps(out["gloo"]), flush=True)
+        check(ranks[0][0]["losses"] == ranks[1][0]["losses"],
+              "dist: the two gloo processes agree on the losses")
+        check(loss_rel <= DIST_LOSS_RTOL and within >= DIST_FRACTION
+              and diffs.max() <= 2 * TRAIN_LR * DIST_STEPS,
+              "dist: two gloo processes of 128 rows step as one process of 256")
+        phases.done("dist: 2 processes over gloo on the card", seconds=f"{b_s:.2f}")
+
+    # (c) the dry run over NCCL at the production depth
+    os.environ["CNF_DRYRUN_FULL_DEPTH"] = "1"
+    t = time.perf_counter()
+    dry = dryrun_multichip(1, timeout=300)[0]
+    out["dryrun"] = dict(dry, seconds=time.perf_counter() - t)
+    print("[dist] (c) dryrun_multichip(1) " + json.dumps(out["dryrun"]), flush=True)
+    check(dry["depth"] == 3 and dry["mesh"] == {"data": 1} and dry["samples"] == 4,
+          "dist: dryrun_multichip(1) at full depth")
+    phases.done("dist: dryrun_multichip(1), full depth, NCCL",
+                seconds=f"{out['dryrun']['seconds']:.2f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1928,6 +2149,8 @@ def main() -> int:
     toy = check_toy(phases)
     torch.cuda.empty_cache()
     recs = check_records(phases)
+    torch.cuda.empty_cache()
+    dist = check_dist(phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -1991,6 +2214,14 @@ def main() -> int:
     # the capture), K2's in its end-of-training sampling
     entries[0]["launches_a_records_step"] = recs["streamed"]["k1_launches_a_step"]
     entries[1]["launches_a_records_sampling"] = recs["streamed"]["k2_launches_in_sampling"]
+    # the distributed step (a one-process NCCL group): K1's launches and the
+    # gradient all-reduce's a step of its graph (counted at the capture)
+    entries[0]["launches_a_dist_step"] = dist["nccl"]["k1_launches_a_step"]
+    entries[0]["all_reduces_a_dist_step"] = dist["nccl"]["all_reduces_a_step"]
+    print(f"[summary] dist samples/s, plain {dist['plain']['samples_per_s']:.1f} (busy share "
+          f"{dist['plain']['busy_share']:.3f}), one-process NCCL "
+          f"{dist['nccl']['samples_per_s']:.1f} (busy share {dist['nccl']['busy_share']:.3f})",
+          flush=True)
     print(f"[summary] pretrain step ms: "
           f"{json.dumps({k: v['graph_step_ms'] for k, v in pretrain.items() if k != 'conv_load'})}"
           f"; toy steps/s graphed {toy['steps']['graph_steps_per_s']:.1f}, eager "

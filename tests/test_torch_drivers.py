@@ -15,6 +15,7 @@ import dataclasses
 import json
 import os
 import shutil
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -187,10 +188,6 @@ def test_cnf_conv_loads_a_jax_npz_and_refuses_another_arch(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data-parallel"], "A.10"),
-    (["--coordinator", "localhost:1234"], "A.10"),
-    (["--num-processes", "2"], "A.10"),
-    (["--process-id", "0"], "A.10"),
     (["--plot"], "A.9"),
     (["--experimental-lowering", "fused_dilated"], "A.12"),
     (["--experimental-lowering", "dense_groups"], "A.12"),
@@ -428,23 +425,76 @@ def test_toy_npz_crosses_between_the_packages(toy_run, tmp_path):
 
 
 @pytest.mark.parametrize("driver,flags,item", [
-    ("pretrain", ["--data-parallel"], "A.10"),
-    ("pretrain", ["--coordinator", "localhost:1234"], "A.10"),
-    ("pretrain", ["--num-processes", "2"], "A.10"),
-    ("pretrain", ["--process-id", "0"], "A.10"),
     ("pretrain", ["--experimental-lowering", "fused_dilated"], "A.12"),
     ("pretrain", ["--experimental-lowering", "dense_groups"], "A.12"),
     ("toy", ["--plot"], "A.9"),
-    ("toy", ["--data-parallel"], "A.10"),
-    ("toy", ["--coordinator", "localhost:1234"], "A.10"),
-    ("toy", ["--num-processes", "2"], "A.10"),
-    ("toy", ["--process-id", "0"], "A.10"),
 ])
 def test_new_drivers_exit_with_their_roadmap_item(tmp_path, driver, flags, item):
     main, base = {"pretrain": (pretrain_noise.main, NOISE + NOISE_SMALL),
                   "toy": (toy.main, TOY + ["--epochs", "1"])}[driver]
     with pytest.raises(SystemExit, match=item):
         main(base + ["--outdir", str(tmp_path), *flags])
+
+
+#: each training driver's run for its multi-process flags, and the weights
+#: file it writes in any run and in a process group only
+FLAG_RUNS = {
+    "conv": (conv.main, CLASS + ["--epochs", "1", "--scan-steps", "2"], (), ("weights.npz",)),
+    "pretrain": (pretrain_noise.main, NOISE + NOISE_SMALL + ["--epochs", "2"],
+                 ("conditioned_weights.npz",), ()),
+    "toy": (toy.main, TOY + ["--epochs", "1"], ("weights.npz",), ()),
+}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def plain_histories(tmp_path_factory):
+    """Each driver's history without multi-process flags, run once."""
+    out = {}
+
+    def get(driver):
+        if driver not in out:
+            main, base = FLAG_RUNS[driver][:2]
+            outdir = str(tmp_path_factory.mktemp(f"plain_{driver}"))
+            main(base + ["--outdir", outdir])
+            out[driver] = history(outdir)
+        return out[driver]
+
+    return get
+
+
+@pytest.mark.parametrize("flag", ["--data-parallel", "--coordinator", "--num-processes",
+                                  "--process-id"])
+@pytest.mark.parametrize("driver", sorted(FLAG_RUNS))
+def test_multiprocess_flags_run_their_path(tmp_path, plain_histories, driver, flag):
+    """Each multi-process flag takes its path on the CPU and trains as the
+    plain run, loss for loss: ``--data-parallel`` alone forms a group of one,
+    ``--coordinator`` a one-process gloo group over TCP (the data through
+    ``epoch_distributed``, the gradients and losses through their
+    all-reduces, divided by 1); ``--num-processes`` and ``--process-id``
+    without a coordinator change nothing, as in JAX. In a group ``cnf-conv``
+    also writes ``weights.npz``; the group ends with the run."""
+    import torch.distributed as dist
+
+    main, base, always, in_group = FLAG_RUNS[driver]
+    flags = {"--data-parallel": ["--data-parallel"],
+             "--coordinator": ["--coordinator", f"127.0.0.1:{free_port()}"],
+             "--num-processes": ["--num-processes", "2"],
+             "--process-id": ["--process-id", "0"]}[flag]
+    main(base + ["--outdir", str(tmp_path), *flags])
+    assert not dist.is_initialized()
+    strip = lambda rows: [{k: v for k, v in r.items() if k != "seconds"} for r in rows]  # noqa: E731
+    assert strip(history(str(tmp_path))) == strip(plain_histories(driver))
+    formed = flag in ("--data-parallel", "--coordinator")
+    files = set(os.listdir(tmp_path))
+    assert set(always) <= files and all((f in files) == formed for f in in_group), files
+    with open(tmp_path / "run.json") as f:
+        assert json.load(f)["processes"] == 1
 
 
 def test_new_drivers_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

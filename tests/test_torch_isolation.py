@@ -93,6 +93,33 @@ def test_the_record_path_and_the_importer_import_alone_without_jax(name):
     assert out.returncode == 0, (name, out.stderr)
 
 
+PARALLEL = ("parallel", "parallel.mesh", "parallel.launch", "parallel.checks", "parallel.dryrun")
+
+
+@pytest.mark.parametrize("name", PARALLEL)
+def test_the_parallel_modules_import_alone_without_jax(name):
+    """The multi-process modules (meshes and collectives, the launcher, the
+    rank functions that spawned processes import by name, the dry run) are
+    in the isolation check above and each loads alone in a fresh process
+    with no jax, flax or JAX-package module."""
+    name = f"{port.__name__}.{name}"
+    assert name in set(port_modules())
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", CHECK, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, (name, out.stderr)
+
+
+def test_the_dry_run_without_device_raises_without_a_card(monkeypatch):
+    """``dryrun_multichip`` runs on the cards unless asked for the CPU: with
+    no card it raises before it starts a process."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+
+
 def test_toy_model_without_device_raises_without_a_card(monkeypatch):
     from arl_conditional_normalizing_flows_tpu_torch.models.arch import ToyConfig
     from arl_conditional_normalizing_flows_tpu_torch.models.toy import ToyCINN

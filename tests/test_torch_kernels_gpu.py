@@ -4,8 +4,10 @@ train step replayed as a CUDA graph against eager steps, with K1/K3
 launching inside the replay; and the seeded serving entry replayed as a
 CUDA graph against the eager entry, with K2/K3 launching inside the replay;
 K1-K3 at noise pre-training's batch of 512; the toy cINN's train step
-and seeded serving entry as CUDA graphs against their eager runs; and the
-record path's streaming sources against the in-RAM ones on the card.
+and seeded serving entry as CUDA graphs against their eager runs; the
+record path's streaming sources against the in-RAM ones on the card; and
+the data-parallel step in a one-process NCCL group (the gradient
+all-reduce inside the graph) against the plain step.
 
 Needs a card and imports no JAX, so it runs on a machine with a card and
 without jax, skipping the repo's conftest (which configures JAX):
@@ -414,6 +416,84 @@ def test_cpu_checkpoint_restores_into_a_capturable_adam(cuda, tmp_path):
     state, out = loop.make_scan_train_step(state.model, 2, noise_mode="none")(
         state, _stack(cuda, n=2))
     assert state.step == 3 and np.isfinite(float(out["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel step in a one-process NCCL group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1-D data mesh over a one-process NCCL group (TCP rendezvous on a
+    free port), ended after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with mesh.distributed(f"127.0.0.1:{port}", 1, 0):
+        assert dist.get_backend() == "nccl"
+        yield mesh.make_mesh()
+
+
+def _noisy_runs(model, xy, multi):
+    g = torch.Generator(device=xy.device).manual_seed(3)
+    state = loop.create_train_state(model, LR)
+    outs = [multi(state, xy, g, 0.5)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    return [{k: float(v) for k, v in o.items()} for o in outs]
+
+
+@pytest.mark.parametrize("lowering", LOWERINGS)
+def test_graphed_data_parallel_step_equals_the_plain_graph(cuda, no_tf32, nccl_mesh, lowering):
+    """Two calls of graphed steps with instance noise: with the gradient
+    all-reduce inside the graph (one a step, counted at the capture) over
+    one process, the losses and parameters of the plain graph bit for bit
+    (the sum over one process and the division by 1 are exact), and the
+    same hand-written kernels a step."""
+    plain_model, dp_model = _small_model(cuda, lowering), _small_model(cuda, lowering)
+    xy = _stack(cuda)
+    plain = loop.make_scan_train_step(plain_model, GRAPH_STEPS, noise_mode="full")
+    dp = loop.make_scan_train_step(dp_model, GRAPH_STEPS, nccl_mesh, noise_mode="full")
+    assert _noisy_runs(plain_model, xy, plain) == _noisy_runs(dp_model, xy, dp)
+    assert (plain.all_reduces, dp.all_reduces) == (0, 1)
+    assert plain.launches == dp.launches
+    for (name, p), q in zip(plain_model.named_parameters(), dp_model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_eager_data_parallel_step_equals_the_plain_step(cuda, no_tf32, nccl_mesh):
+    model, dp_model = _small_model(cuda, "pallas_coupling"), _small_model(cuda, "pallas_coupling")
+    plain, _ = loop.make_step_fns(model, noise_mode="full")
+    dp, _ = loop.make_step_fns(dp_model, nccl_mesh, noise_mode="full")
+    for m, step in ((model, plain), (dp_model, dp)):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        state = loop.create_train_state(m, LR)
+        m.losses = [float(step(state, xy, g, 0.5)[1]["loss"]) for xy in _stack(cuda)]
+    assert model.losses == dp_model.losses
+    for (name, p), q in zip(model.named_parameters(), dp_model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_graphed_fsdp_step_raises_naming_its_roadmap_item(cuda, nccl_mesh):
+    """FSDP steps run eagerly; a CUDA graph of one is not ported."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh
+
+    model = _small_model(cuda, None)
+    mesh2d = mesh.make_2d_mesh(1, 1)
+    sharding = mesh.state_shardings(mesh2d, model)
+    with pytest.raises(NotImplementedError, match="A.10b"):
+        loop.make_scan_train_step(model, GRAPH_STEPS, mesh2d, noise_mode="none",
+                                  state_sharding=sharding)
+    step, _ = loop.make_step_fns(model, mesh2d, noise_mode="none", state_sharding=sharding)
+    state = loop.create_train_state(model, LR)
+    _, out = step(state, _stack(cuda, n=1)[0])
+    assert np.isfinite(float(out["loss"]))
 
 
 # ---------------------------------------------------------------------------

@@ -406,9 +406,11 @@ def test_streaming_class_source_matches_in_ram(tmp_path, use_logits, alpha):
 
 
 def test_streaming_class_source_matches_over_epochs_without_a_distributed_epoch(tmp_path):
-    """Two epochs from one generator, three classes of unequal counts; the
-    multi-device epoch is not ported (ROADMAP A.10), so the streaming source
-    has none, as the in-RAM one has none."""
+    """Two epochs from one generator, three classes of unequal counts; and
+    the multi-process epoch of each source: for 2 processes, each one's
+    slice streamed equals the in-RAM one bit for bit, with the generators
+    left in the same state (the name dates from before the distributed
+    epoch was ported)."""
     imgs, labels = synthetic_digits(num_per_class=27, num_classes=3, size=8)
     keep = np.ones(len(labels), bool)
     keep[np.flatnonzero(labels == 1)[:9]] = False
@@ -419,7 +421,14 @@ def test_streaming_class_source_matches_over_epochs_without_a_distributed_epoch(
     stream = native_loader.StreamingClassSource(paths, [0, 1, 2], 8, use_logits=True)
     assert stream.num_batches == ram.num_batches == 3 + 2 + 3
     assert_same_batches(ram, stream, seed=9, epochs=2)
-    assert not hasattr(stream, "epoch_distributed") and not hasattr(ram, "epoch_distributed")
+    assert stream.slot_groups(2) == ram.slot_groups(2)
+    for shard in (0, 1):
+        g_ram, g_stream = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+        a = list(ram.epoch_distributed(g_ram, 2, shard))
+        b = list(stream.epoch_distributed(g_stream, 2, shard))
+        assert len(a) == len(b) == len(ram.slot_groups(2)) == 1 + 1 + 1
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(g_ram.get_state(), g_stream.get_state())
     with pytest.raises(ValueError, match="ZERO"):
         native_loader.StreamingClassSource(paths, [0, 1, 2], 32)
     stream.close()
