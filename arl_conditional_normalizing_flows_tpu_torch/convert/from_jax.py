@@ -26,6 +26,14 @@ HWIO ``(k, k, cin/g, cout)`` to OIHW ``(cout, cin/g, k, k)`` (at cardinality
 (``DilatedResidualBlock_0.Conv_1.kernel``); each is split into its path
 parts, so both trees map to the same port parameters.
 
+The other two lowerings name a block's leaves otherwise. Under
+``dense_groups`` a block with grouped branches holds ``Conv_0`` (pre),
+``DenseMaskedGroupConv_i`` (branch ``i``, the grouped kernel's shape) and
+``Conv_1`` (post); under ``fused_dilated`` a block with more than one
+dilation holds ``Conv_0``, ``fused_dil_kernel`` (HWIO ``(K, K, nb,
+sum(nb/d))`` to the port's OIHW), ``fused_dil_bias`` and ``Conv_1``, which are
+``blocks.r.fused_dil_kernel`` and ``blocks.r.fused_dil_bias`` in the port.
+
 Toy: ``couplings_j/Dense_i`` is ``couplings.j.dense.i``, the Dense layers
 numbered in flax's creation order (the b stack, the b head, the A stack, the
 A head, ``models/subnets.py::DenseCouplingNet``); kernels go from ``(in,
@@ -74,12 +82,22 @@ def _leaf(path, value, n_convs):
     r = _index(rest[0], "DilatedResidualBlock")
     if r is not None:
         prefix, rest = f"{prefix}.blocks.{r}", rest[1:]
+        if rest in (("fused_dil_kernel",), ("fused_dil_bias",)):
+            arr = np.asarray(value, np.float32)
+            if rest[0] == "fused_dil_kernel":
+                if arr.ndim != 4:
+                    return None
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            return f"{prefix}.{rest[0]}", arr
         j = _index(rest[0], "Conv") if rest else None
         nc = n_convs.get(path[:3], 0)
         module = (None if j is None else
                   "conv_pre" if j == 0 else
                   "conv_post" if j == nc - 1 else
                   f"branches.{j - 1}")
+        i = _index(rest[0], "DenseMaskedGroupConv") if rest else None
+        if i is not None:
+            module = f"branches.{i}"
         i = _index(rest[0], "FlatLayerNorm") if rest else None
         if i is not None:
             module = f"norms.{i}"
@@ -170,11 +188,13 @@ def state_dict_from_flax(params, model) -> dict:
     return out
 
 
-def _flax_path(key, nets, n_branches):
+def _flax_path(key, nets, conv_branches):
     """The flax path of the port parameter ``key``: the inverse of
     :func:`_leaf`. ``nets`` maps a ``couplings.i.<net>`` prefix to whether
     its leaves are dotted (the ``pallas_subnet`` lowering's subnets);
-    ``n_branches`` maps a residual block's prefix to its branch count."""
+    ``conv_branches`` maps a residual block's prefix to the number of its
+    branches that flax names ``Conv_*`` (none for dense-masked branches or
+    a fused dilated conv)."""
     parts = key.split(".")
     net = ".".join(parts[:3])
     head = (f"couplings_{parts[1]}", parts[2])
@@ -183,11 +203,17 @@ def _flax_path(key, nets, n_branches):
         return head + (param,)
     if rest[0] == "blocks":
         block = f"DilatedResidualBlock_{rest[1]}"
+        if len(rest) == 2:  # fused_dil_kernel, fused_dil_bias
+            inner = (block, param)
+            return head + ((".".join(inner),) if nets[net] else inner)
         kind = rest[2]
+        n_conv = conv_branches[".".join(parts[:5])]
         if kind == "norms":
             inner = (block, f"FlatLayerNorm_{rest[3]}", "LayerNorm_0")
+        elif kind == "branches" and not n_conv:
+            inner = (block, f"DenseMaskedGroupConv_{rest[3]}")
         else:
-            j = {"conv_pre": 0, "conv_post": n_branches[".".join(parts[:5])] + 1}.get(kind)
+            j = {"conv_pre": 0, "conv_post": n_conv + 1}.get(kind)
             inner = (block, f"Conv_{int(rest[3]) + 1 if j is None else j}")
     elif rest[0] == "norm":
         inner = ("FlatLayerNorm_0", "LayerNorm_0")
@@ -218,25 +244,27 @@ def flax_from_state_dict(state_dict, model) -> dict:
     lowering get flax's dotted leaf names; toy kernels go back to ``(in,
     out)``."""
     from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
+        DenseMaskedGroupConv,
         FusedChainCouplingNet,
     )
 
     if _is_toy(model):
         return _toy_flax_from_state_dict(state_dict)
-    nets, n_branches = {}, {}
+    nets, conv_branches = {}, {}
     for name, module in model.named_modules():
         parts = name.split(".")
         if len(parts) == 3 and parts[0] == "couplings":
             nets[name] = isinstance(module, FusedChainCouplingNet)
         if len(parts) == 5 and parts[3] == "blocks":
-            n_branches[name] = len(module.branches)
+            conv_branches[name] = sum(not isinstance(b, DenseMaskedGroupConv)
+                                      for b in module.branches)
     tree = {}
     for key, value in state_dict.items():
         arr = value.detach().cpu().float().numpy()
-        if key.endswith(".weight") and arr.ndim == 4:
+        if arr.ndim == 4:  # conv kernels and fused_dil_kernel
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         node = tree
-        *path, leaf = _flax_path(key, nets, n_branches)
+        *path, leaf = _flax_path(key, nets, conv_branches)
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = np.array(arr, order="C")

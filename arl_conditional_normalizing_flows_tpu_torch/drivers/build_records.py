@@ -8,7 +8,8 @@ them (create_tfrecords.py:366-400). ``--tfrecords`` also writes the
 reference's own TFRecord files beside them, byte-compatible with
 create_tfrecords.py's, under its naming scheme. The files are the JAX
 package's: either package reads what the other writes. ``--plot`` (the
-reference's visual verify) exits naming ROADMAP A.9.
+reference's visual verify) writes the first 8 images of each file beside it
+as ``<file>.png``; it needs matplotlib.
 
 Example:
     python -m arl_conditional_normalizing_flows_tpu_torch.drivers.build_records \\
@@ -35,8 +36,8 @@ def build_parser():
     p.add_argument("--verify", action="store_true", default=True)
     p.add_argument("--no-verify", dest="verify", action="store_false")
     p.add_argument("--plot", action="store_true",
-                   help="a decoded-image verification grid a file (not ported yet: "
-                   "ROADMAP A.9)")
+                   help="a decoded-image verification grid a file, <file>.png (needs "
+                   "matplotlib)")
     p.add_argument("--tfrecords", action="store_true",
                    help="ALSO write reference-format .tfrecords files (byte-compatible "
                    "with create_tfrecords.py output, its naming scheme included) so that "
@@ -46,8 +47,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.plot:
-        raise SystemExit("--plot: the plots are not ported yet (ROADMAP A.9)")
+    from arl_conditional_normalizing_flows_tpu_torch.drivers.common import check_plot
+
+    check_plot(args)
     if not args.which_classes:  # nargs='*' permits an empty list
         raise SystemExit("cnf-build-records: --which-classes must name at least one class "
                          "(an empty list would write zero files)")
@@ -56,6 +58,7 @@ def main(argv=None):
         synthetic_digits,
     )
     from arl_conditional_normalizing_flows_tpu_torch.data.records import (
+        read_records,
         verify_records,
         write_class_sorted_dataset,
     )
@@ -76,6 +79,12 @@ def main(argv=None):
         report = verify_records(written)
         print(json.dumps({k: {**v, "shape": list(v["shape"])} for k, v in report.items()},
                          indent=2))
+    if args.plot:
+        from arl_conditional_normalizing_flows_tpu_torch.evaluation import plots
+
+        for path in written:
+            plots.plot_image_grid(read_records(path)[:8], path + ".png", ncols=8,
+                                  title=os.path.basename(path))
     return written
 
 

@@ -1,8 +1,9 @@
-"""What the training drivers share: the multi-process flags and the process
-group and placement they ask for, and the refusal of flags whose paths are
-not ported."""
+"""What the drivers share: the multi-process flags and the process group and
+placement they ask for, and the check that ``--plot`` can plot."""
 
 from __future__ import annotations
+
+import importlib.util
 
 import torch
 
@@ -49,7 +50,9 @@ def run_placement(args):
     return device, mesh.make_mesh(), mesh.process_count(), mesh.process_index()
 
 
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on a flag whose path is not ported."""
-    if getattr(args, "plot", False):
-        raise SystemExit("--plot: the plots are not ported yet (ROADMAP A.9)")
+def check_plot(args) -> None:
+    """Exit before any work when ``--plot`` is asked for and matplotlib is
+    not installed (the plots are made after training)."""
+    if getattr(args, "plot", False) and importlib.util.find_spec("matplotlib") is None:
+        raise SystemExit("--plot needs matplotlib, which is not installed here; "
+                         "run without --plot, or plot on a machine that has it")

@@ -55,8 +55,8 @@ import torch
 
 from arl_conditional_normalizing_flows_tpu_torch.drivers.common import (
     add_distributed_flags,
+    check_plot,
     distributed_run,
-    refuse_unported,
     run_placement,
 )
 
@@ -103,8 +103,9 @@ def build_parser():
                    choices=["pallas_coupling", "fused_dilated", "dense_groups",
                             "pallas_subnet"],
                    help="another lowering of the same math: pallas_coupling (the "
-                   "coupling-law kernels) or pallas_subnet (the conv-chain kernel); "
-                   "fused_dilated and dense_groups are not ported yet (ROADMAP A.12)")
+                   "coupling-law kernels), pallas_subnet (the conv-chain kernel), "
+                   "fused_dilated or dense_groups (the branch convs as masked dense "
+                   "convs; with the shared init they need --no-shared-init)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--lr", type=float, default=3e-4)
@@ -128,7 +129,8 @@ def build_parser():
     p.add_argument("--eval-samples", type=int, default=64,
                    help="conditional samples per condition for the final eval")
     p.add_argument("--plot", action="store_true",
-                   help="sample-grid / SR-panel PNGs (not ported yet: ROADMAP A.9)")
+                   help="sample-grid / SR-panel PNGs (class_samples.png / sr_panel.png; "
+                   "needs matplotlib)")
     return p
 
 
@@ -219,7 +221,7 @@ def make_source(args, split, stream=False):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    check_plot(args)
     with distributed_run(args):
         return train(args)
 
@@ -230,7 +232,7 @@ def train(args):
         ConvFlowConfig,
         arch_string,
     )
-    from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow, check_ported
+    from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
     from arl_conditional_normalizing_flows_tpu_torch.train import (
         CheckpointManager,
         HistoryLogger,
@@ -272,10 +274,6 @@ def train(args):
         experimental_lowering=args.experimental_lowering,
         ref_compat_shared_init=args.shared_init,
     )
-    try:
-        check_ported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"--experimental-lowering/--dtype: {e}") from e
     os.makedirs(args.outdir, exist_ok=True)
     if is_main:
         write_run_metadata(args.outdir, args, device,
@@ -397,7 +395,10 @@ def sampling_eval(args, model, val_src, x_d):
     """Conditional-sampling statistics (the reference only eyeballs them,
     TOYcINN.py:321-1206): per class, the moments of ``--eval-samples`` draws
     of x | class; for SR, reconstructions of one validation low-res plane.
-    Draws come from generators seeded 500 + i."""
+    Draws come from generators seeded 500 + i. With ``--plot``, the first 8
+    draws of each class (``class_samples.png``) or up to 6 reconstructions
+    beside the condition and the truth (``sr_panel.png``) in ``--outdir``,
+    as the JAX driver writes them."""
     from arl_conditional_normalizing_flows_tpu_torch.data.images import class_labels_01
     from arl_conditional_normalizing_flows_tpu_torch.evaluation import sr_residual_block_sums
     from arl_conditional_normalizing_flows_tpu_torch.sample.sampler import (
@@ -411,7 +412,7 @@ def sampling_eval(args, model, val_src, x_d):
     out = {}
     if args.model_type == "class":
         labels = class_labels_01(len(args.data_classes))
-        per_class = {}
+        per_class, grids = {}, []
         for i, c in enumerate(args.data_classes):
             y_plane = torch.full((h, w, 1), float(labels[i]), device=device)
             xs = sample_conditional_images(
@@ -424,7 +425,14 @@ def sampling_eval(args, model, val_src, x_d):
                 "min": xs.min().item(),
                 "max": xs.max().item(),
             }
+            grids.append(xs[:8].cpu().numpy())
         out["per_class"] = per_class
+        if args.plot:
+            from arl_conditional_normalizing_flows_tpu_torch.evaluation import plots
+
+            plots.plot_image_grid(np.concatenate(grids),
+                                  os.path.join(args.outdir, "class_samples.png"),
+                                  ncols=8, title="x | class")
         return out
     # SR: condition on a validation low-res plane, sample reconstructions
     val_batch = next(iter(val_src.epoch(torch.Generator(device=device).manual_seed(0))))
@@ -441,6 +449,15 @@ def sampling_eval(args, model, val_src, x_d):
     out["recon_pixel_std"] = recon.std(correction=0).item()
     truth = val_batch[0, ..., :x_d] + (val_batch[0, ..., x_d:] if args.residual else 0.0)
     out["recon_mean_vs_truth_mean"] = [recon.mean().item(), truth.mean().item()]
+    if args.plot:
+        from arl_conditional_normalizing_flows_tpu_torch.evaluation import plots
+
+        nshow = min(6, len(recon))
+        y_np, truth_np = y_img.cpu().numpy(), truth.cpu().numpy()
+        plots.plot_sr_comparison(np.repeat(y_np[None, ..., :1], nshow, 0),
+                                 recon[:nshow].cpu().numpy(),
+                                 np.repeat(truth_np[None, ..., :1], nshow, 0),
+                                 os.path.join(args.outdir, "sr_panel.png"), n=nshow)
     return out
 
 

@@ -54,7 +54,8 @@ def build_parser():
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--eval-samples", type=int, default=64)
     p.add_argument("--plot", action="store_true",
-                   help="sample-grid / SR-panel PNGs (not ported yet: ROADMAP A.9)")
+                   help="the sampling eval's sample grid / SR panel, class_samples.png / "
+                   "sr_panel.png in --outdir, as cnf-conv writes them (needs matplotlib)")
     p.add_argument("--outdir", default=None, help="default: <checkpoint-dir>/..")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--export-sampler", default=None, metavar="PATH",
@@ -71,6 +72,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from arl_conditional_normalizing_flows_tpu_torch.drivers.common import check_plot
+
+    check_plot(args)
     from arl_conditional_normalizing_flows_tpu_torch.device import resolve_device
     from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as conv_driver
     from arl_conditional_normalizing_flows_tpu_torch.evaluation import (
@@ -87,7 +91,6 @@ def main(argv=None):
     from arl_conditional_normalizing_flows_tpu_torch.train.checkpoints import read_arch
     from arl_conditional_normalizing_flows_tpu_torch.train.metrics import LOSS_KEYS
 
-    conv_driver.refuse_unported(args)
     device = resolve_device("cpu" if args.cpu else None)
     # the architecture comes from the checkpoint's own metadata
     cfg = read_arch(args.checkpoint_dir, ConvFlowConfig)
@@ -152,6 +155,7 @@ def main(argv=None):
     report["bits_per_dim"] = bits_per_dim(row["z_loss"] + row["detJ_loss"], h * w * cfg.x_d)
     report["latent_normality"] = latent_normality_stats(np.concatenate(zs))
     outdir = args.outdir or os.path.dirname(os.path.abspath(args.checkpoint_dir))
+    args.outdir = outdir  # where sampling_eval's --plot writes
     os.makedirs(outdir, exist_ok=True)
     report["sampling"] = conv_driver.sampling_eval(args, model, val_src, cfg.x_d)
     with open(os.path.join(outdir, "checkpoint_eval.json"), "w") as f:

@@ -44,7 +44,6 @@ import torch
 from arl_conditional_normalizing_flows_tpu_torch.drivers.common import (
     add_distributed_flags,
     distributed_run,
-    refuse_unported,
     run_placement,
 )
 
@@ -75,8 +74,9 @@ def build_parser():
                    choices=["pallas_coupling", "fused_dilated", "dense_groups",
                             "pallas_subnet"],
                    help="another lowering of the same math: pallas_coupling (the "
-                   "coupling-law kernels) or pallas_subnet (the conv-chain kernel); "
-                   "fused_dilated and dense_groups are not ported yet (ROADMAP A.12)")
+                   "coupling-law kernels), pallas_subnet (the conv-chain kernel), "
+                   "fused_dilated or dense_groups (the branch convs as masked dense "
+                   "convs; with the shared init they need --no-shared-init)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--num-batches", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=512)
@@ -96,7 +96,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     with distributed_run(args):
         return train(args)
 
@@ -107,7 +106,7 @@ def train(args):
         ConvFlowConfig,
         arch_string,
     )
-    from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow, check_ported
+    from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
     from arl_conditional_normalizing_flows_tpu_torch.train import (
         CheckpointManager,
         HistoryLogger,
@@ -139,10 +138,6 @@ def train(args):
         experimental_lowering=args.experimental_lowering,
         ref_compat_shared_init=args.shared_init,
     )
-    try:
-        check_ported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"--experimental-lowering/--dtype: {e}") from e
     os.makedirs(args.outdir, exist_ok=True)
     if is_main:
         write_run_metadata(args.outdir, args, device,

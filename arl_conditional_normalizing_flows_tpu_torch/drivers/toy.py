@@ -43,8 +43,8 @@ import torch
 
 from arl_conditional_normalizing_flows_tpu_torch.drivers.common import (
     add_distributed_flags,
+    check_plot,
     distributed_run,
-    refuse_unported,
     run_placement,
 )
 
@@ -78,10 +78,12 @@ def build_parser():
     p.add_argument("--outdir", default="toy_run")
     p.add_argument("--eval-samples", type=int, default=2000)
     p.add_argument("--plot", action="store_true",
-                   help="joint/conditional/latent/loss PNGs (not ported yet: ROADMAP A.9)")
+                   help="data/latent/loss/annealing/conditional/interpolation/y_identity/"
+                   "forward_backward PNGs in --outdir (needs matplotlib)")
     p.add_argument("--sweep", type=float, nargs="*", default=None,
                    help="extra y' values (standardized) for an off-manifold interpolation "
-                   "sweep (TOYcINN.py:1115-1206); their sample moments go to eval.json")
+                   "sweep (TOYcINN.py:1115-1206); their sample moments go to eval.json "
+                   "and, with --plot, their samples to conditional.png")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     add_distributed_flags(p)
     p.add_argument("--scan-steps", type=int, default=0,
@@ -116,7 +118,7 @@ def mask_order(args, num_layers_total):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    check_plot(args)
     with distributed_run(args):
         return train(args)
 
@@ -220,6 +222,8 @@ def train(args):
 
     report = {"final": history.rows[-1] if history.rows else {}}
     report.update(evaluate(args, model, ds))
+    if args.plot:
+        plot(args, model, ds, history.rows)
     with open(os.path.join(args.outdir, "eval.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report["final"], indent=2), flush=True)
@@ -286,6 +290,64 @@ def evaluate(args, model, ds) -> dict:
                                     "sample_std": m["std"].tolist(),
                                     "y_identity_mean": s[:, x_d:].mean().item()}
     return out
+
+
+def plot(args, model, ds, rows) -> None:
+    """The JAX driver's figures (drivers/toy.py:306-390) in ``--outdir``:
+    loss curves, the annealing and clean phases apart (with annealing
+    epochs), the data and its latent, the conditionals at the class labels
+    (or 9 sector centres) plus ``--sweep``'s values, the reference's default
+    interpolation grid (TOYcINN.py:1115-1126), the y'-identity overlays and
+    the 2 x 2 forward/backward panel. Data, sweeps and interpolation draw
+    from generators seeded 3, 4 and 5."""
+    from arl_conditional_normalizing_flows_tpu_torch.data import toy_datasets
+    from arl_conditional_normalizing_flows_tpu_torch.evaluation import plots
+    from arl_conditional_normalizing_flows_tpu_torch.sample.sampler import sweep_conditions
+
+    x_d, device, out = model.cfg.x_d, model.device, args.outdir
+    plots.plot_loss_curves(rows, os.path.join(out, "loss.png"))
+    if args.annealing_epochs > 0:
+        # annealing losses are measured on noise-blended data; the reference
+        # keeps the two histories apart (TOYcINN.py:274-304)
+        plots.plot_annealing_history(rows, os.path.join(out, "annealing.png"))
+    if ds is not None:
+        data = ds.epoch_array(_generator(device, 3), 2, 500).reshape(-1, 3)
+    else:
+        data = toy_datasets.sample_continuous_sectors(_generator(device, 3), 2000,
+                                                      args.sector_width)
+    with torch.no_grad():
+        zy, _ = model(data)
+    data, zy = data.cpu().numpy(), zy.cpu().numpy()
+    plots.plot_toy_joint(data, os.path.join(out, "data.png"), "data")
+    plots.plot_latent(zy[..., :x_d], os.path.join(out, "latent.png"))
+
+    # the class labels plus the reference's default off-manifold grid
+    # (y' = -2..2 for two standardized classes); --sweep adds its values
+    if ds is not None:
+        conds = [(lab - ds.mean[2]) / ds.std[2] for lab in ds.class_labels]
+        interp = plots.default_interpolation_conditions(ds.class_labels, ds.mean[2], ds.std[2])
+    else:
+        conds = interp = [float(c) for c in np.linspace(0, 2 * np.pi, 9)]
+    conds = [float(c) for c in conds] + list(args.sweep or [])
+    sweeps = sweep_conditions(model, np.asarray(conds, np.float32), args.eval_samples, x_d,
+                              generator=_generator(device, 4)).cpu().numpy()
+    plots.plot_toy_conditional_grid([s[:, :x_d] for s in sweeps], conds,
+                                    os.path.join(out, "conditional.png"))
+    interp_sweeps = sweep_conditions(model, np.asarray(interp, np.float32), args.eval_samples,
+                                     x_d, generator=_generator(device, 5)).cpu().numpy()
+    plots.plot_toy_conditional_grid([s[:, :x_d] for s in interp_sweeps], interp,
+                                    os.path.join(out, "interpolation.png"))
+    # y'-identity overlays (TOYcINN.py:463-492): encode f_Y vs y', and the
+    # decode direction's recovered y vs the requested condition
+    dec_req = np.concatenate([np.full((len(s),), c, np.float32) for s, c in zip(sweeps, conds)])
+    dec_mapped = np.concatenate([s[:, x_d:].reshape(-1) for s in sweeps])
+    plots.plot_y_identity(data[:, x_d:], zy[:, x_d:], dec_req, dec_mapped,
+                          os.path.join(out, "y_identity.png"))
+    # the 2 x 2 forward/backward panel (TOYcINN.py:1098+), from the samples
+    # at the class labels (or the sector centres)
+    n_base = len(conds) - len(args.sweep or [])
+    plots.plot_forward_backward_grid(data, zy, np.concatenate(list(sweeps[:n_base])),
+                                     os.path.join(out, "forward_backward.png"))
 
 
 def cli():

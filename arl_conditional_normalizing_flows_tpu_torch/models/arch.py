@@ -26,9 +26,8 @@ class ConvFlowConfig:
     """Hyperparameters of the multi-scale conv cFlow
     (conv_cINN_make_model.py:1408-1484, conv_cINN.py:56-91).
 
-    Field meanings are those of the JAX config. Which values the port runs
-    is checked where the model is built (``models/conv.py``): fields whose
-    code path is not ported yet raise ``NotImplementedError`` there.
+    Field meanings are those of the JAX config; the port runs every value
+    it admits, with float32 or bfloat16 subnets (``models/conv.py``).
     """
 
     io_shape: Tuple[int, int, int]  # (H, W, D) of the concatenated xy tensor
@@ -56,7 +55,12 @@ class ConvFlowConfig:
     # None | "pallas_coupling" | "fused_dilated" | "dense_groups" |
     # "pallas_subnet" — at most one alternative lowering of the same math
     experimental_lowering: Optional[str] = None
+    # keep every flow activation (inter-layer tensors, mask moves, coupling
+    # law) in compute_dtype; the log-det still accumulates in float32. No-op
+    # at a float32 compute dtype
     flow_in_compute_dtype: bool = False
+    # leave only the coupling heads (A, b) in compute_dtype; the law promotes
+    # them to the float32 flow. No-op at a float32 compute dtype
     late_head_cast: bool = False
 
     def __post_init__(self):
@@ -107,6 +111,26 @@ class ConvFlowConfig:
     @property
     def fused_pallas_subnet(self) -> bool:
         return self.experimental_lowering == "pallas_subnet"
+
+
+def perf_arch_config(io_shape=(28, 28, 2), x_d=1, **overrides) -> ConvFlowConfig:
+    """The JAX package's capacity preset (not the reference-parity arch,
+    JAX models/arch.py:155-178): 128 kernels at every scale, cardinality 8
+    (branch widths 128/d stay divisible by 8 for dilations (1, 2, 4)), fused
+    A/b subnets, bfloat16 compute. ``overrides`` replace any field."""
+    base = dict(
+        io_shape=io_shape,
+        x_d=x_d,
+        squeeze_factor_blocks=(0, 1, 0, 0),
+        res_blocks=(3, 3, 3, 3),
+        num_kernels=(128, 128, 128, 128),
+        cardinality=(8, 8, 8, 8),
+        ksize=3,
+        fused_subnet=True,
+        compute_dtype="bfloat16",
+    )
+    base.update(overrides)
+    return ConvFlowConfig(**base)
 
 
 @dataclasses.dataclass(frozen=True)

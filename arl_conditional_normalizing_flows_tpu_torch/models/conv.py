@@ -18,6 +18,16 @@ through the hand-written kernels of ``ops/kernels/affine_coupling.py``; with
 ``"pallas_subnet"`` each coupling subnet's conv chain runs as one launch of
 the kernel of ``ops/kernels/fused_subnet.py`` (:class:`FusedChainCouplingNet`)
 and the law is the plain one. On CPU tensors the kernels' plain versions run.
+``"dense_groups"`` and ``"fused_dilated"`` change how the subnets' grouped
+and dilated convs are lowered (``models/subnets.py``).
+
+Precision modes (JAX models/arch.py:88-102, models/conv.py:227-233): with
+``flow_in_compute_dtype`` and a bfloat16 compute dtype the flow casts its
+input to bfloat16 once, runs the squeeze, factor and mask moves, the heads
+and the coupling law in bfloat16 (under ``pallas_coupling`` the kernels get
+bfloat16 tensors) and casts the result back to float32 once; the log-det
+still accumulates in float32. ``late_head_cast`` leaves only the heads in
+the compute dtype and the law promotes them to the float32 flow.
 """
 
 from __future__ import annotations
@@ -47,16 +57,8 @@ from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (
 
 
 def check_ported(cfg: ConvFlowConfig) -> None:
-    """Raise ``NotImplementedError`` for config values whose code path the
-    port does not have yet, naming the ROADMAP item that will bring it."""
-    if cfg.experimental_lowering in ("fused_dilated", "dense_groups"):
-        raise NotImplementedError(
-            f"experimental_lowering={cfg.experimental_lowering!r} is not "
-            "ported yet (ROADMAP A.12)")
-    if cfg.flow_in_compute_dtype or cfg.late_head_cast:
-        raise NotImplementedError(
-            "flow_in_compute_dtype and late_head_cast are not ported yet "
-            "(ROADMAP A.12)")
+    """Raise ``NotImplementedError`` for a compute dtype the port has no
+    subnets for."""
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 or "
@@ -70,6 +72,8 @@ class ConvCouplingLayer(nn.Module):
                  num_kernels, ksize, dilations: Tuple[int, ...], layer_norm, *,
                  fused_subnet=False, use_kernel=False, fused_chain=False,
                  ref_compat_group_slice=False, ref_compat_group_init=False,
+                 fuse_dilated_conv=False, dense_masked_groups=False,
+                 keep_compute_dtype=False, late_cast=False,
                  dtype=torch.float32, generator):
         super().__init__()
         m = which_mask
@@ -90,13 +94,16 @@ class ConvCouplingLayer(nn.Module):
             generator=generator,
         )
         if fused_chain:
-            # the JAX PallasFusedCouplingNet: layer norm off, default groups
+            # the JAX PallasFusedCouplingNet: layer norm off, default groups,
+            # a float32 head (late_cast does not reach it)
             net, common = FusedChainCouplingNet, shared
         else:
             net, common = ConvCouplingNet, dict(
                 shared, layer_norm=layer_norm,
                 ref_compat_group_slice=ref_compat_group_slice,
-                ref_compat_group_init=ref_compat_group_init)
+                ref_compat_group_init=ref_compat_group_init,
+                fuse_dilated_conv=fuse_dilated_conv, dense_masked_groups=dense_masked_groups,
+                keep_compute_dtype=keep_compute_dtype, late_cast=late_cast)
         if fused_subnet:
             self.net_ab = net(n_heads=2, **common)
         else:
@@ -183,6 +190,10 @@ class ConvCFlow(nn.Module):
                     fused_chain=cfg.fused_pallas_subnet,
                     ref_compat_group_slice=cfg.ref_compat_group_slice,
                     ref_compat_group_init=cfg.ref_compat_group_init,
+                    fuse_dilated_conv=cfg.fuse_dilated_conv,
+                    dense_masked_groups=cfg.dense_masked_groups,
+                    keep_compute_dtype=cfg.flow_in_compute_dtype,
+                    late_cast=cfg.late_head_cast,
                     dtype=dtype,
                     generator=generator,
                 ))
@@ -192,6 +203,9 @@ class ConvCFlow(nn.Module):
         self.couplings = nn.ModuleList(couplings)
         self.plan = tuple(plan)
         self.sf_plan = tuple(op for op in plan if op[0] != "couple")
+        # flow_in_compute_dtype: one cast on entry and one on exit a pass
+        self.act_dtype = (dtype if cfg.flow_in_compute_dtype and dtype != torch.float32
+                          else None)
         self.to(device)
 
     @property
@@ -223,8 +237,9 @@ class ConvCFlow(nn.Module):
         return out
 
     def forward(self, xy):
-        """xy' -> (zy, log_det). zy has the shape of xy; log_det is (B,)."""
-        uv = xy
+        """xy' -> (zy, log_det). zy has the shape of xy and is float32;
+        log_det is (B,) float32."""
+        uv = xy if self.act_dtype is None else xy.to(self.act_dtype)
         zy = None
         log_det = torch.zeros(xy.shape[:-3], dtype=torch.float32, device=xy.device)
         for op in self._couple_pairs(self.plan):
@@ -264,8 +279,8 @@ class ConvCFlow(nn.Module):
         return vu.float(), log_det
 
     def inverse(self, zy):
-        """zy (xy-shaped) -> xy' (conv_cINN_make_model.py:1774-1798)."""
-        uv = zy
+        """zy (xy-shaped) -> xy' float32 (conv_cINN_make_model.py:1774-1798)."""
+        uv = zy if self.act_dtype is None else zy.to(self.act_dtype)
         acc = None
         for op in self.sf_plan:  # re-flatten: squeeze/factor forward only
             if op[0] == "squeeze":

@@ -32,7 +32,7 @@ import torch
 
 from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (
     ConvCouplingNet,
-    DilatedResidualBlock,
+    DenseMaskedGroupConv,
     orthogonal,
 )
 
@@ -68,16 +68,25 @@ class _ShapeMemo:
 def _refuse(what):
     raise ValueError(
         f"ref_compat_shared_init (shared_init) supports the standard ConvCouplingNet "
-        f"lowering only; found {what} (disable the pallas_subnet lowering)")
+        f"lowering only; found {what} (disable the fused_dilated/dense_groups/"
+        "pallas_subnet lowerings)")
+
+
+def _unknown_leaves(blk):
+    """The flax leaf names of ``blk`` that are neither a ``Conv_*`` nor a
+    LayerNorm: what JAX's ``shared_shape_reinit`` refuses
+    (init_compat.py:82-92). The block builds them only where the lowering
+    really changes its modules: a fused dilated conv (more than one
+    dilation), a dense-masked grouped branch (cardinality > 1)."""
+    if blk.fused:
+        return ["fused_dil_bias", "fused_dil_kernel"]
+    return [f"DenseMaskedGroupConv_{i}" for i, conv in enumerate(blk.branches)
+            if isinstance(conv, DenseMaskedGroupConv)]
 
 
 def _rewrite_net(net, memo: _ShapeMemo) -> None:
-    if type(net) is not ConvCouplingNet:
-        _refuse(type(net).__name__)
     net.conv_in.weight.copy_(_to_torch(memo.draw(_flax_shape(net.conv_in.weight))))
     for blk in net.blocks:
-        if type(blk) is not DilatedResidualBlock:
-            _refuse(f"a residual block of type {type(blk).__name__}")
         convs = [blk.conv_pre, *blk.branches, blk.conv_post]
         for idx, conv in enumerate(convs):
             k0, k1, cin, cout = _flax_shape(conv.weight)
@@ -104,14 +113,23 @@ def _rewrite_net(net, memo: _ShapeMemo) -> None:
 def shared_shape_reinit(model, seed: int, scale: float = 0.1):
     """Rewrite ``model``'s (a port ``ConvCFlow``) conv kernels in place into
     the reference's shared-instance init distribution; returns ``model``.
-    Raises ``ValueError`` (naming ``shared_init``) for subnets other than
-    the standard ``ConvCouplingNet``, as under ``pallas_subnet``."""
+    Raises ``ValueError`` (naming ``shared_init``) where JAX's does: for
+    subnets other than the standard ``ConvCouplingNet`` (``pallas_subnet``)
+    and for residual blocks that hold a fused dilated conv or dense-masked
+    grouped branches (``fused_dilated``, ``dense_groups``). The check runs
+    over every subnet before any weight is written."""
     memo = _ShapeMemo(seed, scale)
-    for layer in model.couplings:
-        for name in _NETS:
-            net = getattr(layer, name, None)
-            if net is not None:
-                _rewrite_net(net, memo)
+    nets = [getattr(layer, name) for layer in model.couplings for name in _NETS
+            if getattr(layer, name, None) is not None]
+    for net in nets:
+        if type(net) is not ConvCouplingNet:
+            _refuse(type(net).__name__)
+        for blk in net.blocks:
+            unknown = _unknown_leaves(blk)
+            if unknown:
+                _refuse(f"{unknown} in a residual block")
+    for net in nets:
+        _rewrite_net(net, memo)
     return model
 
 

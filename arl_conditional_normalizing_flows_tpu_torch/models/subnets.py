@@ -14,9 +14,16 @@ starts at 1.0.
 Subnets take and return the JAX layout ``(B, h, w, c)``; inside, convs run on
 ``x.permute(0, 3, 1, 2)``, a channels-last NCHW view. Like flax's
 ``nn.Conv(dtype=...)``, each conv casts its input, kernel and bias to the
-compute dtype and leaves its output there; the head is cast to float32.
-:class:`FusedChainCouplingNet` runs the same chain as one kernel launch
-(``ops/kernels/fused_subnet.py``), with a float32 trunk.
+compute dtype and leaves its output there; the head is cast to float32
+unless the ``flow_in_compute_dtype`` or ``late_head_cast`` mode keeps it in
+the compute dtype. :class:`FusedChainCouplingNet` runs the same chain as one
+kernel launch (``ops/kernels/fused_subnet.py``), with a float32 trunk.
+
+Two other lowerings of the same function run as ``F.conv2d`` too, as the JAX
+package runs them as XLA convolutions: ``dense_groups``
+(:class:`DenseMaskedGroupConv`, a grouped conv as one block-diagonal dense
+conv) and ``fused_dilated`` (all dilated branches of a residual block as one
+masked dense conv, :func:`dilated_branch_mask`).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -142,6 +150,54 @@ class Conv(nn.Module):
         return y + self.bias.to(dt)[:, None, None]
 
 
+class DenseMaskedGroupConv(Conv):
+    """A grouped conv run as ONE dense conv with a block-diagonal kernel
+    (the JAX ``DenseMaskedGroupConv``, models/subnets.py:166-208): a
+    lowering, not a new function. ``weight`` has the grouped kernel's shape
+    ``(cout, cin/groups, k, k)`` and its orthogonal init, so the parameters
+    are those of :class:`Conv` with ``groups``; each call expands it into
+    the dense ``(cout, cin, k, k)`` kernel and convolves with ``groups=1``.
+    """
+
+    def forward(self, x):
+        dt = self.dtype
+        g = self.groups
+        cout, d, k0, k1 = self.weight.shape
+        blocks = self.weight.reshape(g, cout // g, d, k0, k1)
+        # dense[(g, o), (h, i)] = weight[(g, o), i] where g == h, else 0
+        dense = torch.einsum("gh,goikl->gohikl", torch.eye(g, dtype=blocks.dtype,
+                                                          device=blocks.device), blocks)
+        y = F.conv2d(x.to(dt), dense.reshape(cout, g * d, k0, k1).to(dt), padding="same",
+                     dilation=self.dilation)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+def dilated_branch_mask(ksize, dilations, cardinality, nb_channels):
+    """(mask, K): the 0/1 connectivity of the fused dilated-branch conv (the
+    JAX ``_dilated_branch_mask``, models/subnets.py:211-240). A dilation-d
+    k x k kernel is a sparse ``(k-1)*d + 1``-extent dense one, so one K x K
+    conv (K for the largest dilation) whose kernel is multiplied by this
+    mask computes every branch, each with its groups and its
+    first-``nb/d``-channels slice. The mask is HWIO ``(K, K, nb, sum(nb/d))``,
+    the branch outputs concatenated in dilation order."""
+    dmax = max(dilations)
+    K = (ksize - 1) * dmax + 1
+    widths = [nb_channels // d for d in dilations]
+    mask = np.zeros((K, K, nb_channels, sum(widths)), np.float32)
+    off = 0
+    for d, w in zip(dilations, widths):
+        taps = [(K - 1) // 2 + (i - (ksize - 1) // 2) * d for i in range(ksize)]
+        gsz = w // cardinality
+        for g in range(cardinality):
+            ins = slice(g * gsz, (g + 1) * gsz)  # reads y[..., :w] group g
+            outs = slice(off + g * gsz, off + (g + 1) * gsz)
+            for ty in taps:
+                for tx in taps:
+                    mask[ty, tx, ins, outs] = 1.0
+        off += w
+    return mask, K
+
+
 class FlatLayerNorm(nn.Module):
     """LayerNorm over all h*w*d elements jointly (the reference's flatten ->
     LayerNorm -> reshape, conv_cINN_base_functions.py:345-361), eps 1e-3.
@@ -172,11 +228,20 @@ class DilatedResidualBlock(nn.Module):
     late-bound Lambda, conv_cINN_base_functions.py:401). At cardinality 1
     a branch is one dense conv of the whole trunk to ``nb/d`` channels, as
     the JAX ``_grouped_conv`` computes it.
+
+    ``dense_masked_groups`` runs each grouped branch as a
+    :class:`DenseMaskedGroupConv` (not at cardinality 1 nor under
+    ``ref_compat_group_slice``, as in JAX). ``fuse_dilated_conv`` with more
+    than one dilation replaces the branches by one masked dense conv: the
+    parameters ``fused_dil_kernel`` (OIHW ``(sum(nb/d), nb, K, K)``, drawn
+    orthogonal over the whole ``(K*K*nb, sum(nb/d))`` matrix, as flax draws
+    it) and ``fused_dil_bias``, and ``branches`` is empty.
     """
 
     def __init__(self, hw, nb_channels, dilations, ksize, cardinality,
                  layer_norm, *, ref_compat_group_slice=False,
-                 ref_compat_group_init=False, dtype, generator, init_scale=0.1):
+                 ref_compat_group_init=False, fuse_dilated_conv=False,
+                 dense_masked_groups=False, dtype, generator, init_scale=0.1):
         super().__init__()
         h, w = hw
         nb = nb_channels
@@ -190,19 +255,41 @@ class DilatedResidualBlock(nn.Module):
             if layer_norm else None
         )
         self.conv_pre = Conv(nb, nb, 1, **common)
-        groups = 1 if ref_compat_group_slice else cardinality
-        self.branches = nn.ModuleList([
-            # cardinality 1: one dense conv over the whole trunk
-            Conv(nb if cardinality == 1 else wd // cardinality * groups, wd, ksize,
-                 dilation=d, groups=groups,
-                 init_groups=cardinality if ref_compat_group_init else 1,
-                 **common)
-            for wd, d in zip(widths, dilations)
-        ])
+        self.fused = fuse_dilated_conv and len(dilations) > 1
+        if self.fused:
+            if ref_compat_group_slice:
+                raise ValueError("fuse_dilated_conv implements the documented grouped-conv "
+                                 "semantics only")
+            if ref_compat_group_init:
+                raise ValueError("ref_compat_group_init (per-group orthogonal draws) is not "
+                                 "implemented for the fused masked kernel; drop one of the "
+                                 "two knobs")
+            mask, _ = dilated_branch_mask(ksize, dilations, cardinality, nb)
+            hwio = orthogonal(mask.shape, init_scale, generator)
+            self.fused_dil_kernel = nn.Parameter(hwio.permute(3, 2, 0, 1).contiguous())
+            self.fused_dil_bias = nn.Parameter(torch.zeros(mask.shape[-1]))
+            self.register_buffer("fused_dil_mask",
+                                 torch.from_numpy(mask.transpose(3, 2, 0, 1).copy()),
+                                 persistent=False)
+            self.branches = nn.ModuleList()
+        else:
+            groups = 1 if ref_compat_group_slice else cardinality
+            branch = DenseMaskedGroupConv if dense_masked_groups and groups > 1 else Conv
+            self.branches = nn.ModuleList([
+                # cardinality 1: one dense conv over the whole trunk
+                branch(nb if cardinality == 1 else wd // cardinality * groups, wd, ksize,
+                       dilation=d, groups=groups,
+                       init_groups=cardinality if ref_compat_group_init else 1,
+                       **common)
+                for wd, d in zip(widths, dilations)
+            ])
         self.conv_post = Conv(sum(widths), nb, 1, **common)
         self.widths = widths
+        self.dilations = tuple(dilations)
+        self.ksize = ksize
         self.cardinality = cardinality
         self.ref_compat_group_slice = ref_compat_group_slice
+        self.dtype = dtype
 
     def _common(self, t, i):
         t = leaky_relu(t)
@@ -220,8 +307,13 @@ class DilatedResidualBlock(nn.Module):
         shortcut = y
         y = self.conv_pre(self._common(y, 0))
         y = self._common(y, 1)
-        y = torch.cat([conv(self._branch_input(y, wd))
-                       for conv, wd in zip(self.branches, self.widths)], dim=1)
+        if self.fused:
+            dt = self.dtype
+            kernel = (self.fused_dil_kernel * self.fused_dil_mask).to(dt)
+            y = F.conv2d(y.to(dt), kernel, padding="same") + self.fused_dil_bias.to(dt)[:, None, None]
+        else:
+            y = torch.cat([conv(self._branch_input(y, wd))
+                           for conv, wd in zip(self.branches, self.widths)], dim=1)
         y = self.conv_post(self._common(y, 2))
         return shortcut + y
 
@@ -232,14 +324,18 @@ class ConvCouplingNet(nn.Module):
 
     ``n_heads=2`` emits (A, b) from one trunk (the fused option); with
     ``n_heads=1`` the net is the A net when ``scale_head`` else the b net.
-    The A head is ``tanh(head) * tanh_scale``.
+    The A head is ``tanh(head) * tanh_scale``. The head is cast to float32
+    unless ``keep_compute_dtype`` (the ``flow_in_compute_dtype`` mode) or
+    ``late_cast`` (``late_head_cast``) is set; then it stays in the compute
+    dtype, and so do the tanh and the scale (JAX models/subnets.py:362-412).
     """
 
     def __init__(self, in_shape, out_channels, num_kernels, num_res_blocks,
                  cardinality, ksize, dilations: Tuple[int, ...], layer_norm, *,
                  scale_head=False, n_heads=1, ref_compat_group_slice=False,
-                 ref_compat_group_init=False, dtype=torch.float32, generator,
-                 init_scale=0.1):
+                 ref_compat_group_init=False, fuse_dilated_conv=False,
+                 dense_masked_groups=False, keep_compute_dtype=False, late_cast=False,
+                 dtype=torch.float32, generator, init_scale=0.1):
         super().__init__()
         assert n_heads in (1, 2)
         h, w, cin = in_shape
@@ -249,7 +345,9 @@ class ConvCouplingNet(nn.Module):
             DilatedResidualBlock(
                 (h, w), num_kernels, dilations, ksize, cardinality, layer_norm,
                 ref_compat_group_slice=ref_compat_group_slice,
-                ref_compat_group_init=ref_compat_group_init, **common)
+                ref_compat_group_init=ref_compat_group_init,
+                fuse_dilated_conv=fuse_dilated_conv, dense_masked_groups=dense_masked_groups,
+                **common)
             for _ in range(num_res_blocks)
         ])
         self.norm = FlatLayerNorm(h, w, num_kernels) if layer_norm else None
@@ -257,9 +355,11 @@ class ConvCouplingNet(nn.Module):
         self.tanh_scale = (
             nn.Parameter(torch.ones(())) if scale_head or n_heads == 2 else None
         )
+        self.in_shape = tuple(in_shape)
         self.out_channels = out_channels
         self.n_heads = n_heads
         self.dtype = dtype
+        self.float_head = not (keep_compute_dtype or late_cast)
 
     def _scale(self, a):
         return torch.tanh(a) * self.tanh_scale.to(a.dtype)
@@ -272,10 +372,11 @@ class ConvCouplingNet(nn.Module):
         y = leaky_relu(y)
         if self.norm is not None:
             y = self.norm(y)
-        return self._heads(self.head(y).float().permute(0, 2, 3, 1))
+        head = self.head(y)
+        return self._heads((head.float() if self.float_head else head).permute(0, 2, 3, 1))
 
     def _heads(self, head):
-        """The float32 head (B, h, w, out * n_heads) -> A or b, or (A, b)."""
+        """The head (B, h, w, out * n_heads) -> A or b, or (A, b)."""
         if self.n_heads == 1:
             return self._scale(head) if self.tanh_scale is not None else head
         c = self.out_channels

@@ -38,7 +38,15 @@ the card memory that graphs of smaller batches reserve besides the 2,048
 one (they share its memory pool), a ``PipelinedSampler`` of 8 draws and 16
 graphs equal to sequential calls,
 and the eager single-draw request beside it; K3 is also held and timed at
-the serving batch of 2,048. ``[cli]`` runs the port's ``cnf-conv`` (class
+the serving batch of 2,048. ``[modes]`` trains (graphs of 4 steps at batch
+128) and serves (the seeded 16 x 128 call) the flagship under the other
+lowerings and precision modes: ``fused_dilated``, ``dense_groups``,
+``flow_in_compute_dtype`` (alone and with ``pallas_coupling``, whose K1 and
+K2 then run on bf16 and must launch 16 times a step and a call) and
+``late_head_cast``, each with its step time, busy share, launches, peak
+memory and the step's conv roofline (``utils/roofline.py``); the two
+lowerings at float32 equal the default lowering with its weights carried
+over, the precision modes agree with the CPU. ``[cli]`` runs the port's ``cnf-conv`` (class
 at the flagship arch through graphed stacks of 16 steps, resumed from its
 checkpoints; SR4,2 and SR2,1 at one residual block a level) and
 ``cnf-eval`` with ``--export-multidraw``, whose artifact is loaded and
@@ -99,6 +107,9 @@ import time
 import numpy as np
 import torch
 
+from arl_conditional_normalizing_flows_tpu_torch.convert.lowerings import (
+    state_dict_from_default_lowering,
+)
 from arl_conditional_normalizing_flows_tpu_torch.data.images import (
     ClassConditionalSource,
     synthetic_digits,
@@ -137,6 +148,7 @@ from arl_conditional_normalizing_flows_tpu_torch.train import (
     make_scan_train_step,
     make_step_fns,
 )
+from arl_conditional_normalizing_flows_tpu_torch.utils import roofline
 
 #: the flagship of the JAX bench (bench.py), on the coupling-kernel lowering
 FLAGSHIP = ConvFlowConfig(
@@ -304,18 +316,23 @@ LAW_TIMED = {BATCH: "timings", SERVE_BATCH: "serving_timings",
              PRETRAIN_BATCH: "pretrain_timings"}
 #: the batches of the main paths, over which ``max_abs_err`` is taken
 LAW_PATH_ROWS = (*LAW_TIMED, RECORDS_SAMPLES, RECORDS_EVAL_SAMPLES)
+#: the batches at which K1/K2 are also timed in bf16: [modes]' training step
+#: and serving call under flow_in_compute_dtype + pallas_coupling
+LAW_BF16_TIMED = (BATCH, SERVE_BATCH)
 
 
 def check_kernels(phases):
     """K1/K2 against their plain versions at :data:`LAW_CASES` (both
     dtypes); times at the float32 shapes of the main path, the serving
-    entry and noise pre-training (:data:`LAW_TIMED`), beside the floor of a
+    entry and noise pre-training (:data:`LAW_TIMED`) and at the bf16 shapes
+    of [modes]' kernel path (:data:`LAW_BF16_TIMED`), beside the floor of a
     launch. ``max_abs_err`` is the worst over the float32 shapes of every
     path (:data:`LAW_PATH_ROWS`)."""
     floor_ms = launch_floor_ms()
     print(f"[floor] one launch of a 1-element torch.add: {floor_ms * 1e3:.2f} us on the card "
           "(CUDA-graph replay between CUDA events, as the [kernel] times)", flush=True)
-    results = {name: dict(max_abs_err=0.0, **{k: {} for k in LAW_TIMED.values()})
+    results = {name: dict(max_abs_err=0.0, bf16_timings={},
+                          **{k: {} for k in LAW_TIMED.values()})
                for name in KERNELS}
     for rows, n, misaligned in LAW_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -345,7 +362,8 @@ def check_kernels(phases):
                       f"(tolerance {tol:g} abs + {tol:g} rel; log-det {LD_TOL:g})", flush=True)
                 if dtype == torch.float32 and rows in LAW_PATH_ROWS and not misaligned:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-            if dtype != torch.float32 or rows not in LAW_TIMED or misaligned:
+            if misaligned or not (rows in LAW_TIMED if dtype == torch.float32
+                                  else rows in LAW_BF16_TIMED):
                 continue
             with torch.no_grad():
                 for name, k in KERNELS.items():
@@ -356,11 +374,15 @@ def check_kernels(phases):
                     bytes_s = nbytes / HBM_BYTES_PER_S
                     ops_s = k["ops"](rows, n) / F32_FLOPS_PER_S
                     bound_s = max(bytes_s, ops_s)
-                    results[name][LAW_TIMED[rows]][n] = dict(
-                        ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                        bound_by="bytes" if bytes_s >= ops_s else "operations")
-                    print(f"[kernel] {name} {rows}x{n} float32: {ms * 1e3:.2f} us on the card, "
-                          f"{(ms - floor_ms) * 1e3:.2f} us over the floor of "
+                    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+                                  bound_by="bytes" if bytes_s >= ops_s else "operations")
+                    if dtype == torch.float32:
+                        results[name][LAW_TIMED[rows]][n] = timing
+                    else:
+                        results[name]["bf16_timings"][f"{rows}x{n}"] = dict(
+                            timing, max_abs_err=errs[name])
+                    print(f"[kernel] {name} {rows}x{n} {str(dtype)[6:]}: {ms * 1e3:.2f} us on "
+                          f"the card, {(ms - floor_ms) * 1e3:.2f} us over the floor of "
                           f"{floor_ms * 1e3:.2f} us (bound {bound_s * 1e6:.2f} us for {nbytes} "
                           f"bytes at 3.35 TB/s, {bound_s * 1e3 / ms:.3f} of it), plain version "
                           f"{plain_ms * 1e3:.2f} us", flush=True)
@@ -1033,6 +1055,8 @@ def train_graph_and_eager(cfg, inner, phases):
         loss_first=graph_loss, loss_last=losses[-1], max_param_diff=max_diff,
         param_fraction_within_tight=tight, graph_top=graph_prof["top"],
         eager_top=eager_prof["top"],
+        roofline=roofline.roofline_report(graphed, BATCH, graph_ms / inner / 1e3,
+                                          torch.cuda.get_device_name(0), train=True),
     )
     print("[train] " + json.dumps(out), flush=True)
     phases.done(f"train {lowering}: timing and profile")
@@ -1076,6 +1100,15 @@ def check_train(phases):
     counts of both are printed beside them). A training step runs no
     inverse, so K2 must launch no time in any of them."""
     out = {"default": train_graph_and_eager(BENCH_CELL, TRAIN_INNER, phases)}
+    line = out["default"]
+    roof = line["roofline"]
+    print(f"[roofline] train default, graphed: {line['graph_samples_per_s']:.1f} samples/s, "
+          f"{line['graph_step_ms']:.2f} ms a step; conv GFLOP a step "
+          f"{roof['conv_flops'] / 1e9:.2f} (default lowering's "
+          f"{roof['default_lowering_conv_flops'] / 1e9:.2f}), {roof['conv_ops']} convs, bound "
+          f"{roof['roofline_lower_bound_seconds'] * 1e3:.3f} ms, fraction_of_roofline "
+          f"{roof['fraction_of_roofline']:.4f}, mfu {roof['mfu']:.4f} ({roof['note']})",
+          flush=True)
     for cfg, kernel in ((FLAGSHIP, "affine_forward"), (FLAGSHIP_SUBNET, "fused_subnet")):
         line = train_graph_and_eager(cfg, LOWERING_INNER, phases)
         n = line["couplings"]  # one launch a coupling and step (16 at the flagship)
@@ -1238,6 +1271,208 @@ def check_serve(phases):
         for lowering in SERVE_LOWERINGS:
             out[lowering or "default"] = serve_lowering(lowering, tmp, phases)
             torch.cuda.empty_cache()
+    return out
+
+
+#: [modes]: the other lowerings and precision modes at the flagship arch
+#: (BENCH_CELL: bf16 subnets, fused heads, random weights from seed 0, the
+#: independent-draw init of --no-shared-init), each trained through a graph
+#: of MODES_INNER steps and served through the seeded multidraw entry
+MODES = (
+    ("fused_dilated", dict(experimental_lowering="fused_dilated")),
+    ("dense_groups", dict(experimental_lowering="dense_groups")),
+    ("flow_in_compute_dtype", dict(flow_in_compute_dtype=True)),
+    ("flow_in_compute_dtype+pallas_coupling",
+     dict(flow_in_compute_dtype=True, experimental_lowering="pallas_coupling")),
+    ("late_head_cast", dict(late_head_cast=True)),
+)
+MODES_INNER = 4
+#: a serving call longer than this is run again at MODES_CUT_DRAWS draws
+MODES_CALL_LIMIT_S = 1.5
+MODES_CUT_DRAWS = 4
+MODES_CHECK_BATCH = 8
+#: the lowerings at float32 against the default lowering with its weights
+#: carried over (convert/lowerings.py), TF32 off: (zy, log-det) abs + rel.
+#: Measured on an NVIDIA H100 80GB HBM3 at 700 W: zy 1.2e-7, log-det 9.5e-7
+#: under both lowerings (float32 sums in another order)
+MODES_F32_TOL = (1e-5, 1e-4)
+#: a bf16 mode on the card against the port's CPU run of the same weights:
+#: the worst |card - CPU| over the largest |CPU| of zy, the log-det and the
+#: inverse (cuDNN's and the CPU's bf16 convs may round their sums apart,
+#: which moves a bf16 ulp, 3.9e-3 relative, downstream, as in [grad]'s bf16
+#: check against the CPU). Measured on the same card: at most 2.0e-3
+#: (flow_in_compute_dtype + pallas_coupling's zy)
+MODES_BF16_TOL = 3e-2
+
+
+def modes_train(name, cfg, kind, phases):
+    """One mode's graphed training: capture, MODES_INNER steps a call, the
+    median wall of TRAIN_CALLS calls, busy share and launches from a
+    profiled call, K1's launches a step counted at the capture, peak memory
+    and the step's conv roofline."""
+    model = ConvCFlow(cfg, seed=0)
+    stack = bench_stack(cfg, MODES_INNER)
+    state = create_train_state(model, TRAIN_LR)
+    multi = make_scan_train_step(model, MODES_INNER, noise_mode="none")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    multi.capture(state, stack)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    step_launches = multi.launches
+    losses = []
+
+    def call():
+        losses.append(multi(state, stack)[1]["loss"].item())
+
+    call()
+    call_walls = walls(call, TRAIN_CALLS)
+    prof = kernel_breakdown(call, top=5)
+    check(all(math.isfinite(v) for v in losses), f"modes {name}: finite losses")
+    check(state.step == MODES_INNER * (TRAIN_CALLS + 2), f"modes {name}: every step taken")
+    step_s = statistics.median(call_walls) / MODES_INNER
+    roof = roofline.roofline_report(model, BATCH, step_s, kind, train=True)
+    line = dict(
+        mode=name, steps_a_call=MODES_INNER, batch=BATCH, capture_s=capture_s,
+        step_ms=step_s * 1e3, call_ms_all=[round(w * 1e3, 3) for w in call_walls],
+        samples_per_s=BATCH / step_s,
+        busy_ms_a_step=prof["device_busy_ms"] / MODES_INNER,
+        busy_share=prof["device_busy_ms"] / (step_s * MODES_INNER * 1e3),
+        launches_a_step=prof["kernel_launches"] / MODES_INNER,
+        port_kernel_launches_a_step_at_capture=step_launches,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        loss_first=losses[0], loss_last=losses[-1], top=prof["top"],
+        roofline={k: roof[k] for k in ("conv_ops", "conv_flops", "default_lowering_conv_flops",
+                                        "conv_bytes", "roofline_lower_bound_seconds",
+                                        "fraction_of_roofline", "mfu", "note")},
+    )
+    print(f"[modes] train {json.dumps(line)}", flush=True)
+    phases.done(f"modes {name}: train")
+    return model, line
+
+
+def modes_serve(name, model, cfg, phases):
+    """One mode's graphed seeded multidraw call (16 x 128 as [serve], or
+    MODES_CUT_DRAWS x 128 when a call takes over MODES_CALL_LIMIT_S):
+    graphed == eager entry, uint8 shape, K2's launches a replay (counted at
+    the capture), samples/s and busy share."""
+    h, w, _ = cfg.io_shape
+    fn = make_image_serving_fn(model, cfg.x_d, de_logit=True, quantize_uint8=True)
+    y = class_planes(0)
+    draws, cut = SERVE_DRAWS, None
+    while True:
+        art = export_seeded_multidraw_sampler(fn, draws, (h, w, 1), (h, w, 1))
+        first = art.call(SERVE_SEED, y)
+        eager = make_seeded_multidraw_fn(art.fn, draws, (h, w, 1))(SERVE_SEED, y)
+        torch.cuda.synchronize()
+        check(first.shape == (draws, BATCH, h, w, 1) and first.dtype == torch.uint8,
+              f"modes {name}: uint8 ({draws}, {BATCH}, 28, 28, 1)")
+        check(torch.equal(first, eager), f"modes {name}: the graphed call is bit-equal to the "
+              "eager entry")
+        call_walls = walls(lambda: art.call(SERVE_SEED, y), SERVE_CALLS)
+        call_s = statistics.median(call_walls)
+        if call_s <= MODES_CALL_LIMIT_S or draws == MODES_CUT_DRAWS:
+            break
+        cut = f"{draws * BATCH} samples a call took {call_s:.2f} s: cut to {MODES_CUT_DRAWS * BATCH}"
+        print(f"[modes] serve {name}: {cut}", flush=True)
+        draws = MODES_CUT_DRAWS
+        del art
+        torch.cuda.empty_cache()
+    prof = kernel_breakdown(lambda: art.call(SERVE_SEED, y), top=5)
+    line = dict(mode=name, batch=draws * BATCH, call_ms=call_s * 1e3,
+                call_ms_all=[round(x * 1e3, 3) for x in call_walls],
+                samples_per_s=draws * BATCH / call_s,
+                busy_share=prof["device_busy_ms"] / (call_s * 1e3),
+                port_kernel_launches_a_call=art.graph(y.shape).launches, cut=cut,
+                top=prof["top"])
+    print(f"[modes] serve {json.dumps(line)}", flush=True)
+    phases.done(f"modes {name}: serve")
+    return line
+
+
+def modes_against_default(name, cfg, phases):
+    """A lowering at float32 with the default lowering's weights carried
+    over gives the default lowering's zy and log-det (TF32 off)."""
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    default = ConvCFlow(dataclasses.replace(f32, experimental_lowering=None), seed=0)
+    model = ConvCFlow(f32, seed=1)
+    model.load_state_dict(state_dict_from_default_lowering(model, default.state_dict()))
+    xy = bench_stack(cfg, 1)[0, :MODES_CHECK_BATCH]
+    with torch.inference_mode():
+        zy, ld = model(xy)
+        want_zy, want_ld = default(xy)
+    zy_err, ld_err = ((zy - want_zy).abs().max().item(), (ld - want_ld).abs().max().item())
+    zy_tol, ld_tol = MODES_F32_TOL
+    print(f"[modes] {name} float32 against the default lowering with its weights, batch "
+          f"{MODES_CHECK_BATCH}: zy max_abs_err {zy_err:.3g}, log-det {ld_err:.3g} on "
+          f"|{want_ld.abs().max().item():.4g}| (tolerance {zy_tol:g} / {ld_tol:g} abs + rel)",
+          flush=True)
+    check(torch.allclose(zy, want_zy, rtol=zy_tol, atol=zy_tol)
+          and torch.allclose(ld, want_ld, rtol=ld_tol, atol=ld_tol),
+          f"modes {name}: float32 equals the default lowering")
+    phases.done(f"modes {name}: against the default lowering")
+    return dict(zy_max_abs_err=zy_err, ld_max_abs_err=ld_err)
+
+
+def modes_against_cpu(name, model, cfg, phases):
+    """A bf16 mode's forward and inverse on the card against the port's
+    CPU run of the same weights, at batch MODES_CHECK_BATCH."""
+    cpu = twin(model, cfg, device="cpu")
+    xy = bench_stack(cfg, 1)[0, :MODES_CHECK_BATCH]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    zy_in = torch.randn(xy.shape, generator=g, device="cuda")
+    with torch.inference_mode():
+        got = (*model(xy), model.inverse(zy_in))
+        want = (*cpu(xy.cpu()), cpu.inverse(zy_in.cpu()))
+    errs = {}
+    for what, a, b in zip(("zy", "log_det", "inverse"), got, want):
+        check(a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
+              f"modes {name}: {what} float32 and finite")
+        errs[what] = ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    print(f"[modes] {name} bf16 on the card against the CPU, batch {MODES_CHECK_BATCH}: worst "
+          f"|diff| over the largest |CPU| {json.dumps(errs)} (tolerance {MODES_BF16_TOL:g})",
+          flush=True)
+    check(all(e <= MODES_BF16_TOL for e in errs.values()), f"modes {name}: the card agrees "
+          "with the CPU")
+    phases.done(f"modes {name}: against the CPU")
+    return errs
+
+
+def check_modes(phases):
+    """[modes]: each of MODES trained and served at the flagship arch, with
+    its launches, peak memory and the train step's roofline; the two
+    lowerings at float32 against the default lowering, the precision modes
+    against the CPU. Under flow_in_compute_dtype + pallas_coupling, K1
+    launches 16 times a step and K2 16 times a serving call, on bf16."""
+    kind = torch.cuda.get_device_name(0)
+    out = {}
+    for name, fields in MODES:
+        cfg = dataclasses.replace(BENCH_CELL, **fields)
+        model, train_line = modes_train(name, cfg, kind, phases)
+        n = len(model.couplings)  # 16 at the flagship
+        serve_line = modes_serve(name, model, cfg, phases)
+        k1 = train_line["port_kernel_launches_a_step_at_capture"]["affine_forward"]
+        k2 = serve_line["port_kernel_launches_a_call"]["affine_inverse"]
+        want = n if cfg.use_pallas_coupling else 0
+        check(k1 == want and k2 == want, f"modes {name}: K1 {k1} a step and K2 {k2} a "
+              f"serving call, {want} each")
+        if cfg.use_pallas_coupling:
+            check(cfg.flow_in_compute_dtype and model.act_dtype == torch.bfloat16,
+                  f"modes {name}: the kernels run on the bf16 flow")
+        out[name] = dict(train=train_line, serve=serve_line)
+        if cfg.experimental_lowering in ("fused_dilated", "dense_groups"):
+            out[name]["against_default"] = modes_against_default(name, cfg, phases)
+        else:
+            out[name]["against_cpu"] = modes_against_cpu(name, model, cfg, phases)
+        del model
+        torch.cuda.empty_cache()
+    print("[modes] summary " + json.dumps({
+        k: dict(step_ms=v["train"]["step_ms"], train_samples_per_s=v["train"]["samples_per_s"],
+                busy_share=v["train"]["busy_share"],
+                serve_samples_per_s=v["serve"]["samples_per_s"],
+                fraction_of_roofline=v["train"]["roofline"]["fraction_of_roofline"])
+        for k, v in out.items()}), flush=True)
     return out
 
 
@@ -2142,6 +2377,9 @@ def main() -> int:
     train = check_train(phases)
     torch.cuda.empty_cache()
     serve = check_serve(phases)
+    torch.cuda.empty_cache()
+    modes = check_modes(phases)
+    torch.cuda.empty_cache()
     cli = check_cli(phases)
     torch.cuda.empty_cache()
     pretrain = check_pretrain(phases)
@@ -2210,6 +2448,16 @@ def main() -> int:
         "port_kernel_launches_a_step"]["affine_inverse"]
     entries[2]["launches_a_pretrain_step"] = pretrain["pallas_subnet"][
         "port_kernel_launches_a_step"]["fused_subnet"]
+    # flow_in_compute_dtype + pallas_coupling ([modes]): K1 and K2 on the
+    # bf16 flow, their launches a step and a serving call inside the replays
+    # (counted at the capture), and their times at those bf16 shapes
+    bf16_path = modes["flow_in_compute_dtype+pallas_coupling"]
+    entries[0]["launches_a_bf16_train_step"] = bf16_path["train"][
+        "port_kernel_launches_a_step_at_capture"]["affine_forward"]
+    entries[1]["launches_a_bf16_serving_call"] = bf16_path["serve"][
+        "port_kernel_launches_a_call"]["affine_inverse"]
+    for entry in entries[:2]:
+        entry["bf16_at_modes_path"] = results[entry["name"]]["bf16_timings"]
     # the streamed records run: K1's launches a step of its graph (counted at
     # the capture), K2's in its end-of-training sampling
     entries[0]["launches_a_records_step"] = recs["streamed"]["k1_launches_a_step"]
@@ -2230,6 +2478,9 @@ def main() -> int:
           f"{json.dumps({k: v['samples_per_s'] for k, v in serve.items()})}; "
           f"cli: {json.dumps({k: v.get('seconds', v.get('first_s')) for k, v in cli.items()})}",
           flush=True)
+    print("[summary] modes train / serve samples/s: " + json.dumps(
+        {k: [round(v["train"]["samples_per_s"], 1), round(v["serve"]["samples_per_s"], 1)]
+         for k, v in modes.items()}), flush=True)
     print(f"[summary] records samples/s, streamed {recs['streamed']['samples_per_s']:.1f} "
           f"(busy share {recs['streamed']['busy_share']:.3f}), in RAM "
           f"{recs['in_ram']['samples_per_s']:.1f} (busy share "

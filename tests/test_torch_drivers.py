@@ -7,9 +7,12 @@ whose artifact loads and serves; ``cnf-pretrain-noise`` and ``cnf-conv``
 starting from its weights; ``cnf-toy`` on the three datasets, with
 ``--scan-steps``, a sweep and ``--load`` restoring the layer order; both new
 drivers' ``.npz`` files crossing between the packages, and one toy
-evaluation of the same weights in both; every flag of a path not ported yet
-exiting with its ROADMAP item; and no driver running without a card unless
-asked for the CPU. ``--records-dir`` is held by ``tests/test_torch_records.py``."""
+evaluation of the same weights in both; ``cnf-conv`` and
+``cnf-pretrain-noise`` under the ``fused_dilated`` and ``dense_groups``
+lowerings (training with ``--no-shared-init``, refused at the shared init as
+JAX refuses it); and no driver running without a card unless asked for the
+CPU. ``--records-dir`` is held by ``tests/test_torch_records.py``,
+``--plot`` by ``tests/test_torch_plots.py``."""
 
 import dataclasses
 import json
@@ -187,20 +190,41 @@ def test_cnf_conv_loads_a_jax_npz_and_refuses_another_arch(tmp_path):
                            "--outdir", str(tmp_path / "y")])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--plot"], "A.9"),
-    (["--experimental-lowering", "fused_dilated"], "A.12"),
-    (["--experimental-lowering", "dense_groups"], "A.12"),
-])
-def test_unported_flags_exit_with_their_roadmap_item(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=item):
-        conv.main(CLASS + ["--epochs", "1", "--outdir", str(tmp_path), *flags])
+#: cnf-conv's tiny arch with the dilations (1, 2, 4) at 28 x 28, which a
+#: fused dilated conv needs (16 kernels: each checkerboard branch splits
+#: into 2 groups)
+DILATED = ["--squeeze-factor", "0", "1", "--res-blocks", "1", "1", "--kernels", "16", "16",
+           "--cardinality", "2", "2"]
+#: pretrain at 16 x 16, whose block 0 has the dilations (1, 2)
+NOISE_DILATED = ["--height", "16", "--width", "16", "--squeeze-factor", "0", "1",
+                 "--res-blocks", "1", "1", "--kernels", "8", "8", "--cardinality", "2", "2"]
+
+
+@pytest.mark.parametrize("shared_init", [False, True], ids=["no_shared_init", "shared_init"])
+@pytest.mark.parametrize("lowering", ["fused_dilated", "dense_groups"])
+@pytest.mark.parametrize("driver", ["conv", "pretrain"])
+def test_new_lowerings_train_in_the_drivers(tmp_path, driver, lowering, shared_init):
+    """cnf-conv and cnf-pretrain-noise train under both lowerings with
+    --no-shared-init; at their default shared init they raise, as JAX's
+    create_train_state does for these blocks."""
+    main, base = {"conv": (conv.main, [a for a in CLASS if a != "--no-dilations"] + DILATED
+                           + ["--epochs", "1"]),
+                  "pretrain": (pretrain_noise.main, NOISE + NOISE_DILATED)}[driver]
+    argv = base + ["--experimental-lowering", lowering, "--outdir", str(tmp_path)]
+    if shared_init:
+        with pytest.raises(ValueError, match="shared_init"):
+            main(argv)
+        return
+    res = main(argv + ["--no-shared-init"])
+    rows = history(str(tmp_path))
+    assert rows and all(np.isfinite(r["loss"]) for r in rows)
+    assert res.completed_epochs == len(rows)
+    with open(os.path.join(str(tmp_path), "run.json")) as f:
+        assert json.load(f)["args"]["experimental_lowering"] == lowering
 
 
 def test_cnf_eval_refuses_unported_flags_and_platforms(class_run):
     ck = os.path.join(class_run[0], "checkpoints")
-    with pytest.raises(SystemExit, match="A.9"):
-        evaluate.main(["--cpu", "--checkpoint-dir", ck, *DATA, "--plot"])
     with pytest.raises(SystemExit):  # argparse: tpu is not a port platform
         evaluate.main(["--cpu", "--checkpoint-dir", ck, *DATA, "--export-multidraw", "a.pt",
                        "--export-platforms", "tpu"])
@@ -422,18 +446,6 @@ def test_toy_npz_crosses_between_the_packages(toy_run, tmp_path):
             se = np.sqrt((s1**2 + s2**2) / EVAL_N)
             assert (np.abs(m1 - m2) <= 5 * se).all(), (c, kind, m1, m2, 5 * se)
             np.testing.assert_allclose(s1, s2, rtol=0.1, err_msg=f"{c} {kind}_std")
-
-
-@pytest.mark.parametrize("driver,flags,item", [
-    ("pretrain", ["--experimental-lowering", "fused_dilated"], "A.12"),
-    ("pretrain", ["--experimental-lowering", "dense_groups"], "A.12"),
-    ("toy", ["--plot"], "A.9"),
-])
-def test_new_drivers_exit_with_their_roadmap_item(tmp_path, driver, flags, item):
-    main, base = {"pretrain": (pretrain_noise.main, NOISE + NOISE_SMALL),
-                  "toy": (toy.main, TOY + ["--epochs", "1"])}[driver]
-    with pytest.raises(SystemExit, match=item):
-        main(base + ["--outdir", str(tmp_path), *flags])
 
 
 #: each training driver's run for its multi-process flags, and the weights

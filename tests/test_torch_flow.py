@@ -337,17 +337,6 @@ def test_converter_raises_on_missing_and_extra_keys():
         state_dict_from_flax(extra_leaf, tm)
 
 
-@pytest.mark.parametrize("override", [
-    dict(experimental_lowering="fused_dilated"),
-    dict(experimental_lowering="dense_groups"),
-    dict(flow_in_compute_dtype=True),
-])
-def test_unported_options_raise(override):
-    cfg = ConvFlowConfig(**dict(ARCH, **override))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConvCFlow(cfg, device="cpu")
-
-
 def test_bf16_subnets_run_and_invert():
     """bf16 subnet compute keeps a float32 flow: finite outputs, float32
     log-det, exact-enough round trip (the subnets see identical inputs

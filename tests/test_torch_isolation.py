@@ -1,6 +1,7 @@
 """The port stands alone: importing all of it, ``chip_smoke`` and
-``chain_ablation`` loads no jax, flax or JAX-package module (nor, for the
-record path and the reference importer, h5py); and an entry point with no
+``chain_ablation`` loads no jax, flax, JAX-package or matplotlib module
+(matplotlib is imported inside the plot functions only; nor, for the record
+path and the reference importer, h5py); and an entry point with no
 ``device`` does not quietly run on the CPU when there is no card."""
 
 import os
@@ -24,7 +25,7 @@ import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "matplotlib",
                                     "arl_conditional_normalizing_flows_tpu"))
 assert not bad, bad
 print("ok", len(sys.argv) - 1)
@@ -89,6 +90,24 @@ def test_the_record_path_and_the_importer_import_alone_without_jax(name):
     assert name in set(port_modules())
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", NO_H5PY, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, (name, out.stderr)
+
+
+NEW_MODULES = ("models.subnets", "models.conv", "convert.lowerings", "convert.from_jax",
+               "utils.roofline", "utils.profiling", "evaluation.plots", "drivers.common")
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_the_lowerings_roofline_profiling_and_plots_import_alone(name):
+    """The other lowerings and their weight carrier, the roofline and the
+    profiling utilities, the plots and the drivers' shared flags are in the
+    isolation check above and each loads alone in a fresh process with no
+    jax, flax, JAX-package or matplotlib module."""
+    name = f"{port.__name__}.{name}"
+    assert name in set(port_modules())
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", CHECK, name], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, (name, out.stderr)
 

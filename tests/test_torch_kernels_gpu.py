@@ -745,3 +745,99 @@ def test_streaming_sources_yield_the_in_ram_batches_on_the_card(cuda, tmp_path, 
         assert torch.equal(u, v)
     assert torch.equal(g.get_state(), twin.get_state())
     stream.close()
+
+
+# ---------------------------------------------------------------------------
+# the other lowerings and precision modes ([modes] in chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+#: 16 x 16: block 0 has the dilations (1, 2), so fused_dilated builds a
+#: fused kernel there
+MODES_SMALL = dict(SMALL, io_shape=(16, 16, 2))
+MODE_FIELDS = {
+    "fused_dilated": dict(experimental_lowering="fused_dilated"),
+    "dense_groups": dict(experimental_lowering="dense_groups"),
+    "flow_in_compute_dtype": dict(flow_in_compute_dtype=True),
+    "flow_in_compute_dtype+pallas_coupling": dict(flow_in_compute_dtype=True,
+                                                  experimental_lowering="pallas_coupling"),
+    "late_head_cast": dict(late_head_cast=True),
+}
+
+
+def _mode_model(device, mode, seed=0, dtype="bfloat16"):
+    return ConvCFlow(ConvFlowConfig(**dict(MODES_SMALL, compute_dtype=dtype,
+                                           **MODE_FIELDS[mode])), device=device, seed=seed)
+
+
+@pytest.mark.parametrize("n", [784, 392])
+@pytest.mark.parametrize("rows", [128, 2048])
+def test_bf16_kernels_match_plain_versions_at_the_modes_path(cuda, rows, n):
+    """K1/K2 on bf16 at the shapes of flow_in_compute_dtype +
+    pallas_coupling's training step (128) and seeded serving call (2,048)."""
+    shape = (rows, n)
+    a, b, u = _inputs(shape, torch.bfloat16, cuda)
+    _check_law(a, b, u, shape, "bfloat16")
+
+
+@pytest.mark.parametrize("mode", list(MODE_FIELDS))
+def test_mode_graphed_steps_equal_eager_steps(cuda, no_tf32, mode):
+    """Each mode's steps replayed from one captured step equal its eager
+    steps from the same state; under flow_in_compute_dtype +
+    pallas_coupling K1 launches once a coupling a step inside the replays
+    (counted at the capture)."""
+    graphed, eager = _mode_model(cuda, mode), _mode_model(cuda, mode)
+    xy = _stack(cuda, seed=1)
+    xy = torch.cat([xy, xy], dim=-2).repeat_interleave(2, dim=-3)  # (3, 4, 16, 16, 2)
+    multi = loop.make_scan_train_step(graphed, GRAPH_STEPS, noise_mode="none")
+    state_g = loop.create_train_state(graphed, LR)
+    state_g, out = multi(state_g, xy)
+    state_e = loop.create_train_state(eager, LR)
+    step, _ = loop.make_step_fns(eager, noise_mode="none")
+    losses = [float(step(state_e, b)[1]["loss"]) for b in xy]
+    torch.cuda.synchronize()
+    assert state_g.step == state_e.step == GRAPH_STEPS
+    np.testing.assert_allclose(float(out["loss"]), np.mean(losses), rtol=1e-5)
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)
+    k1 = len(graphed.couplings) if graphed.cfg.use_pallas_coupling else 0
+    assert multi.launches["affine_forward"] == k1 and multi.launches["affine_inverse"] == 0
+
+
+@pytest.mark.parametrize("lowering", ["fused_dilated", "dense_groups"])
+def test_lowering_equals_the_default_lowering_on_the_card(cuda, no_tf32, lowering):
+    """At float32 with the default lowering's weights carried over
+    (``convert/lowerings.py``), the lowering gives the default's zy and
+    log-det on the card."""
+    from arl_conditional_normalizing_flows_tpu_torch.convert.lowerings import (
+        state_dict_from_default_lowering,
+    )
+
+    default = ConvCFlow(ConvFlowConfig(**MODES_SMALL), device=cuda, seed=0)
+    model = _mode_model(cuda, lowering, seed=1, dtype="float32")
+    model.load_state_dict(state_dict_from_default_lowering(model, default.state_dict()))
+    xy = _stack(cuda, n=1)[0].repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+    with torch.no_grad():
+        zy, ld = model(xy)
+        want_zy, want_ld = default(xy)
+    torch.testing.assert_close(zy, want_zy, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(ld, want_ld, rtol=3e-4, atol=3e-4)
+
+
+def test_bf16_flow_serving_call_launches_k2_in_the_replay(cuda):
+    """flow_in_compute_dtype + pallas_coupling: the graphed seeded call is
+    the eager entry's bytes, its result float32 until the uint8 cast, and K2
+    runs once a coupling in each replay on the bf16 flow."""
+    model = _mode_model(cuda, "flow_in_compute_dtype+pallas_coupling")
+    assert model.act_dtype == torch.bfloat16
+    fn = export.make_image_serving_fn(model, 1, de_logit=True, quantize_uint8=True)
+    art = export.export_seeded_multidraw_sampler(fn, DRAWS, (16, 16, 1), (16, 16, 1))
+    y = torch.linspace(0, 1, 5, device=cuda).view(5, 1, 1, 1).expand(5, 16, 16, 1)
+    got = art.call(3, y)
+    want = export.make_seeded_multidraw_fn(art.fn, DRAWS, (16, 16, 1))(3, y)
+    assert got.shape == (DRAWS, 5, 16, 16, 1) and torch.equal(got, want)
+    n = len(model.couplings)
+    assert art.graph(y.shape).launches == {"affine_forward": 0, "affine_inverse": n,
+                                           "fused_subnet": 0}
+    with torch.no_grad():
+        x = model.sample_xy(torch.zeros(5, 16, 16, 1, device=cuda), y)
+    assert x.dtype == torch.float32 and bool(torch.isfinite(x).all())

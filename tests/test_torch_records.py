@@ -477,8 +477,6 @@ def test_cnf_build_records_writes_jax_files(tmp_path, flags):
 
 
 def test_cnf_build_records_refuses_plot_and_no_classes(tmp_path):
-    with pytest.raises(SystemExit, match="A.9"):
-        build_records.main(["--dataset", "synthetic", "--outdir", str(tmp_path), "--plot"])
     with pytest.raises(SystemExit, match="at least one class"):
         build_records.main(["--dataset", "synthetic", "--outdir", str(tmp_path),
                             "--which-classes"])
