@@ -36,15 +36,13 @@ def _model(kind, config, state_dict, device):
     return model
 
 
-def _full_params(model) -> dict:
-    """Every parameter whole, on the CPU (an FSDP shard gathered)."""
-    out = {}
-    for name, p in model.named_parameters():
-        t = p.detach()
-        if hasattr(t, "full_tensor"):
-            t = t.full_tensor()
-        out[name] = t.cpu().clone()
-    return out
+def _moment_sizes(model, state) -> dict:
+    """Each parameter's name -> the elements of its first Adam moment in
+    this process (a shard's under FSDP)."""
+    shards = getattr(model, "fsdp_shards", None)
+    held = dict(zip(shards.names, shards.shards)) if shards is not None else {}
+    return {name: state.optimizer.state[held.get(name, p)]["exp_avg"].numel()
+            for name, p in model.named_parameters()}
 
 
 def train_steps(config, state_dict, batches, lr, noise_mode="none", alpha=1.0, seed=0,
@@ -53,9 +51,10 @@ def train_steps(config, state_dict, batches, lr, noise_mode="none", alpha=1.0, s
     ``state_dict``: with ``mesh``, on this process's rows of each global
     batch (FSDP when the mesh is 2-D); without, on the whole batch. The
     instance noise comes from a generator on the device seeded ``seed``.
-    ``scan``: all steps in one ``make_scan_train_step`` call. Returns the
-    losses (each step's; with ``scan`` the call's mean) and the parameters
-    after the last step."""
+    ``scan``: all steps in one ``make_scan_train_step`` call (a CUDA graph
+    on the card). Returns the losses (each step's; with ``scan`` the call's
+    mean), the parameters after the last step (on the CPU) and the elements
+    of each parameter's Adam moment held here."""
     from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
     from arl_conditional_normalizing_flows_tpu_torch.train import (
         create_train_state,
@@ -83,7 +82,9 @@ def train_steps(config, state_dict, batches, lr, noise_mode="none", alpha=1.0, s
         for xy in rows:
             state, out = step(state, xy, generator, alpha)
             losses.append(float(out["loss"]))
-    return dict(losses=losses, params=_full_params(model))
+    return dict(losses=losses, params={k: v.detach().cpu().clone()
+                                       for k, v in model.named_parameters()},
+                moments=_moment_sizes(model, state))
 
 
 def train_steps_rank(rank, world_size, config, state_dict, batches, lr, noise_mode="none",
@@ -138,11 +139,27 @@ def jobs_rank(rank, world_size, jobs) -> list:
 
 
 def one_process_steps_rank(rank, world_size, config, state_dict, batches, lr, noise_mode="none",
-                           alpha=1.0, seed=0, device_type="cpu"):
+                           alpha=1.0, seed=0, device_type="cpu", scan=False):
     """:func:`train_steps` on the whole global batches without a mesh, in
     rank 0 alone (None elsewhere): the single-process side of a comparison,
     made in a process set up as the group's."""
     if rank != 0:
         return None
     return train_steps(config, state_dict, batches, lr, noise_mode, alpha, seed,
-                       device=_device(device_type))
+                       device=_device(device_type), scan=scan)
+
+
+def conv_driver_rank(rank, world_size, argv):
+    """``cnf-conv``'s ``main(argv)`` in one process of the group (the driver
+    takes the group as its own): the numbers of every epoch's row of its
+    history (rank 0 adds its evaluation's to the last), and what each
+    replay of its graphed step launches of the hand-written kernels and of
+    the collectives (counted at the capture)."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv
+
+    res = conv.main(argv)
+    step = res.train_step
+    rows = [{k: float(v) for k, v in row.items() if isinstance(v, (int, float))}
+            for row in res.history.rows]
+    return dict(rows=rows, launches=getattr(step, "launches", None),
+                collectives=getattr(step, "collectives", None))

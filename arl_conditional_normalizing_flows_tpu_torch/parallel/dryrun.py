@@ -112,8 +112,7 @@ def _dryrun_rank(rank, world_size, depth):
     for k, v in moments.items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"non-finite sample {k}")
-    sharded = [n for n, pl in (sharding or {}).items()
-               if any(getattr(p, "dim", None) is not None for p in pl)]
+    sharded = [n for n, dim in (sharding or {}).items() if dim != mesh_lib.REPLICATED]
     return dict(
         rank=rank, mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), depth=depth,
         data_index=index, batches=len(batches), losses=losses,

@@ -10,10 +10,12 @@ itself:
   model, feeds its own slice of the global batch, and averages the gradients
   with :func:`all_reduce_gradients` (one collective a step over one flat
   buffer, JAX's one ``psum``) before the optimizer step;
-- FSDP-style over a 2-D ``("data", "model")`` mesh (:func:`state_shardings`):
-  FSDP2's ``fully_shard`` shards every parameter and its Adam moments on
-  ``model`` and replicates them on ``data``, and makes its own all-gathers
-  and gradient reductions; rank ``(d, m)`` is fed data slice ``d``, as JAX
+- FSDP-style over a 2-D ``("data", "model")`` mesh (:func:`state_shardings`,
+  :class:`FlatShards`): each parameter is sharded on ``model`` by JAX's rule
+  and replicated on ``data``, the optimizer steps the shards, and a step
+  makes one reduce-scatter of a flat gradient buffer and one all-gather of a
+  flat parameter buffer, which a CUDA graph captures as it does the
+  data-parallel all-reduce; rank ``(d, m)`` is fed data slice ``d``, as JAX
   replicates the batch over ``model``.
 
 NCCL serves the card and gloo the CPU. A failed init or collective raises:
@@ -23,16 +25,20 @@ nothing falls back to a single process.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
+from torch.autograd.graph import increment_version
 
 #: launches of the helpers' collectives, counted where each launches its
 #: collective, as the kernel wrappers count theirs; inside a CUDA graph these
 #: are the counts during the capture (``utils/graphs.py::capture``)
-LAUNCHES = {"all_reduce_gradients": 0}
+LAUNCHES = {"all_reduce_gradients": 0, "reduce_scatter_gradients": 0,
+            "all_reduce_shard_gradients": 0, "all_gather_parameters": 0}
 
 
 def reset_launches() -> None:
@@ -175,60 +181,227 @@ def shard_batch(batch, mesh):
     return batch[local_batch_slice(batch.shape[0], mesh)]
 
 
-def fsdp_placement(mesh):
-    """JAX's ``_fsdp_rule`` as FSDP2's ``shard_placement_fn``: shard a
-    parameter along its largest dim divisible by the size of the
-    :data:`MODEL_AXIS`. Where JAX replicates (a scalar, an indivisible
-    shape), FSDP2, which has no replicated placement inside a sharded group,
-    takes its default: dim 0, padded."""
-    from torch.distributed.tensor import Shard
+def model_axis(mesh):
+    """(group, size, index) of ``mesh``'s :data:`MODEL_AXIS`: the processes
+    that hold the other shards of each parameter, how many shards there
+    are, and which one this process holds."""
+    return mesh.get_group(MODEL_AXIS), mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)), \
+        mesh.get_local_rank(MODEL_AXIS)
 
+
+def fsdp_placement(mesh):
+    """JAX's ``_fsdp_rule``: ``place(p)`` is the dim a parameter is sharded
+    on, its largest dim divisible by the size of the :data:`MODEL_AXIS`, or
+    None where JAX replicates it (a scalar, an indivisible shape). On a
+    model axis of 1, where JAX replicates everything and a shard is the
+    whole parameter, the rule still names a dim, so that a one-process mesh
+    runs the FSDP step and its collectives."""
     n = mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
 
     def place(p):
         dims = [d for d in range(p.dim()) if p.shape[d] % n == 0 and p.shape[d] >= n]
-        return Shard(max(dims, key=lambda d: p.shape[d])) if dims else None
+        return max(dims, key=lambda d: p.shape[d]) if dims else None
 
     return place
 
 
-#: the placement :func:`state_shardings` gives a parameter FSDP2 leaves alone
+#: the placement :func:`state_shardings` gives a parameter that it does not
+#: shard
 REPLICATED = "replicated"
+
+#: the offset of each parameter in the flat buffers is a multiple of this
+#: many elements (256 bytes of float32), so that a parameter view starts on
+#: the alignment of a tensor of its own, as cuDNN and the foreach kernels
+#: find the parameters of an unsharded model
+_ALIGN = 64
+
+# the collectives under their current names (the older ones are deprecated)
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def _aligned_offsets(numels):
+    """Each of ``numels``' offset in one flat buffer, and the buffer's size."""
+    offsets, end = [], 0
+    for k in numels:
+        offsets.append(end)
+        end += -(-k // _ALIGN) * _ALIGN
+    return offsets, end
+
+
+def _split(t, dim: int, n: int):
+    """``t`` as ``(n, *shard shape)``: its ``n`` slices along ``dim``, slice
+    ``j`` at index ``j`` (a view when ``t`` is contiguous). For ``n`` 1,
+    ``t`` itself: copies between contiguous tensors of one shape take the
+    foreach kernels' fast path (a few launches for all the parameters, not
+    one each), which needs equal strides."""
+    if n == 1:
+        return t
+    shape = tuple(t.shape)
+    return t.reshape(shape[:dim] + (n, shape[dim] // n) + shape[dim + 1:]).movedim(dim, 0)
+
+
+class FlatShards:
+    """The FSDP state of a model that :func:`state_shardings` sharded:
+    flat buffers and plain collectives, which a CUDA graph captures, in
+    place of hooks, side streams and storage freed and refilled.
+
+    Process ``(d, m)`` holds :attr:`shards`, the ``m``-th slice along its
+    sharded dim of every sharded parameter, as views into one flat buffer;
+    the optimizer steps them (:meth:`optimizer_params`), so that its
+    moments take ``1 / model`` of the sharded parameters' memory. The
+    model's parameters stay the full tensors, views into one buffer that
+    lives as long as the model (the all-gather's output itself on a model axis of
+    1), so that sampling, ``log_loss`` and saving read current weights with
+    no hooks, and caches keyed on a parameter's version and address (the
+    conv-chain kernel's packed weights) stay correct.
+
+    A step: forward and backward on the full parameters;
+    :meth:`reduce_gradients` (one reduce-scatter over ``model`` of a flat
+    gradient buffer laid out so that rank ``m`` receives its shard, then
+    one all-reduce over ``data``, and the replicated parameters' gradients
+    averaged over every process); the optimizer; :meth:`gather` (one
+    all-gather over ``model`` into the full parameters).
+    """
+
+    def __init__(self, model, mesh, placements: dict):
+        self.model_group, self.n, self.m = model_axis(mesh)
+        self.data_group = data_axis(mesh)[0]
+        self.world = mesh.size()
+        named = dict(model.named_parameters())
+        self.names = [k for k, v in placements.items() if v != REPLICATED]
+        self.dims = [placements[k] for k in self.names]
+        self.replicated = [named[k] for k, v in placements.items() if v == REPLICATED]
+        old = [named[k] for k in self.names]
+        if len({(p.dtype, p.device) for p in old}) != 1:
+            raise ValueError("the sharded parameters must share one dtype and one device")
+        dtype, device = old[0].dtype, old[0].device
+        full_shapes = [tuple(p.shape) for p in old]
+        shard_shapes = [s[:d] + (s[d] // self.n,) + s[d + 1:]
+                        for s, d in zip(full_shapes, self.dims)]
+        numels = [math.prod(s) for s in shard_shapes]
+        offsets, size = _aligned_offsets(numels)
+
+        def zeros(count):
+            return torch.zeros(count, dtype=dtype, device=device)
+
+        # rank-major: rank j's block holds every parameter's j-th slice
+        self._gathered, self._scattered = zeros(self.n * size), zeros(self.n * size)
+        self._shard, self._grad_shard = zeros(size), zeros(size)
+
+        def rank_major(buf):
+            if self.n == 1:
+                return [buf[o:o + k].view(s) for o, k, s in zip(offsets, numels, shard_shapes)]
+            return [buf.view(self.n, size)[:, o:o + k].view((self.n,) + s)
+                    for o, k, s in zip(offsets, numels, shard_shapes)]
+
+        self._gathered_slices, self._scattered_slices = (rank_major(self._gathered),
+                                                         rank_major(self._scattered))
+        if self.n == 1:
+            self._full, full_offsets = self._gathered, offsets
+        else:
+            full_offsets, full_size = _aligned_offsets([math.prod(s) for s in full_shapes])
+            self._full = zeros(full_size)
+        with torch.no_grad():
+            self.params = []
+            for p, o, s in zip(old, full_offsets, full_shapes):
+                view = self._full[o:o + math.prod(s)].view(s)
+                view.copy_(p)
+                self.params.append(nn.Parameter(view, requires_grad=p.requires_grad))
+        replace = {id(p): q for p, q in zip(old, self.params)}
+        for module in model.modules():
+            for key, p in module._parameters.items():
+                if p is not None and id(p) in replace:
+                    module._parameters[key] = replace[id(p)]
+        # views of the detached parameters: a view of a parameter itself
+        # would keep its AccumulateGrad node alive from here, on this stream,
+        # and a later capture's backward would then wait on the legacy stream
+        self._full_slices = ([_split(p.detach(), d, self.n)
+                              for p, d in zip(self.params, self.dims)] if self.n > 1 else None)
+        self.shards = [nn.Parameter(self._shard[o:o + k].view(s))
+                       for o, k, s in zip(offsets, numels, shard_shapes)]
+        self._grads = [self._grad_shard[o:o + k].view(s)
+                       for o, k, s in zip(offsets, numels, shard_shapes)]
+        self._cut_shards()
+
+    def optimizer_params(self) -> list:
+        """What the optimizer steps: this process's shards, then the
+        replicated parameters whole."""
+        return self.shards + self.replicated
+
+    @torch.no_grad()
+    def _cut_shards(self):
+        """Each shard from its full parameter. The full parameters are the
+        state (a restore, a load or an init writes them), so every step
+        cuts the shards anew; after a step they are equal already."""
+        torch._foreach_copy_(self.shards, [p if self.n == 1 else _split(p, d, self.n)[self.m]
+                                           for p, d in zip(self.params, self.dims)])
+
+    @torch.no_grad()
+    def reduce_gradients(self) -> None:
+        """After backward: each shard's ``.grad``, its slice of the
+        parameter's gradient averaged over every process, and the
+        replicated parameters' gradients averaged over every process
+        (:func:`all_reduce_gradients`). The full parameters' gradients are
+        consumed (set to None)."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        torch._foreach_copy_(self._scattered_slices, [_split(g, d, self.n)
+                                                      for g, d in zip(grads, self.dims)])
+        for p in self.params:
+            p.grad = None
+        self.reduce_scatter()
+        LAUNCHES["all_reduce_shard_gradients"] += 1
+        dist.all_reduce(self._grad_shard, op=dist.ReduceOp.SUM, group=self.data_group)
+        # summed over the model axis (the same rows on each) and the data
+        # axis: the mean over the global batch
+        self._grad_shard.div_(self.world)
+        self._cut_shards()
+        for s, g in zip(self.shards, self._grads):
+            s.grad = g
+        if self.replicated:
+            all_reduce_gradients(self.replicated)
+
+    def reduce_scatter(self) -> None:
+        """The flat gradient buffer summed over ``model`` into this
+        process's gradient shard (one reduce-scatter)."""
+        LAUNCHES["reduce_scatter_gradients"] += 1
+        _reduce_scatter(self._grad_shard, self._scattered, op=dist.ReduceOp.SUM,
+                        group=self.model_group)
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """After the optimizer: every process's shards into the full
+        parameters (one all-gather over ``model``)."""
+        LAUNCHES["all_gather_parameters"] += 1
+        _all_gather(self._gathered, self._shard, group=self.model_group)
+        if self._full_slices is not None:
+            torch._foreach_copy_(self._full_slices, self._gathered_slices)
+        # the parameters share the buffer's version counter; a collective
+        # may not move it
+        increment_version(self._full)
 
 
 def state_shardings(mesh, model) -> dict:
-    """FSDP-style sharding of ``model`` over the 2-D ``mesh``, in place:
-    FSDP2's ``fully_shard``, each parameter sharded on ``model`` by
-    :func:`fsdp_placement` and replicated on ``data``. Scalar parameters
-    (each coupling's ``tanh_scale``), which FSDP2 cannot shard and JAX's rule
-    replicates, stay plain tensors on every process; the step averages
-    their gradients over all processes (``all_reduce_gradients``). Adam's
-    moments follow their parameters when the optimizer is made after this
-    call (``create_train_state``). ``log_loss`` and ``sample_xy`` become
-    FSDP forward methods, so that they gather the parameters as ``forward``
-    does. Returns each parameter's placements (:data:`REPLICATED` for a
-    scalar), the counterpart of JAX's tree of NamedShardings; pass it to the
-    step builders as ``state_sharding``.
-
-    The conv-chain kernel's lowering (``pallas_subnet``) is refused: it
-    keeps weights packed from the parameters' storage between calls, which
-    FSDP frees and refills."""
-    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
-
-    if getattr(getattr(model, "cfg", None), "experimental_lowering", None) == "pallas_subnet":
-        raise ValueError("FSDP does not take the pallas_subnet lowering: its packed weights "
-                         "outlive the gathered parameters")
-    scalars = {p for p in model.parameters() if p.dim() == 0}
-    fully_shard(model, mesh=mesh, shard_placement_fn=fsdp_placement(mesh),
-                reshard_after_forward=True, ignored_params=scalars or None)
-    for method in ("log_loss", "sample_xy"):
-        if hasattr(model, method):
-            register_fsdp_forward_method(model, method)
-    placements = {n: REPLICATED if p in scalars else tuple(p.placements)
-                  for n, p in model.named_parameters()}
-    if not any(v != REPLICATED and any(getattr(pl, "dim", None) is not None for pl in v)
-               for v in placements.values()):
+    """FSDP-style sharding of ``model`` over the 2-D ``mesh``, in place (JAX
+    ``parallel/mesh.py::state_shardings``): each parameter sharded on
+    ``model`` by :func:`fsdp_placement` and replicated on ``data``, its
+    Adam moments with it when the optimizer is made after this call
+    (``create_train_state``); the parameters JAX replicates stay whole on
+    every process. The model gets its :class:`FlatShards` as
+    ``model.fsdp_shards``. Returns each parameter's sharded dim
+    (:data:`REPLICATED` for one that is not sharded), the counterpart of
+    JAX's tree of NamedShardings; pass it to the step builders as
+    ``state_sharding``."""
+    if getattr(model, "fsdp_shards", None) is not None:
+        raise ValueError("the model is sharded already")
+    place = fsdp_placement(mesh)
+    placements = {}
+    for name, p in model.named_parameters():
+        dim = place(p)
+        placements[name] = REPLICATED if dim is None else dim
+    if all(v == REPLICATED for v in placements.values()):
         raise RuntimeError("no parameter was sharded on the model axis")
+    model.fsdp_shards = FlatShards(model, mesh, placements)
     return placements
 
 

@@ -20,7 +20,9 @@ for the global batch from the shared generator and each process keeps its
 rows, the gradients are averaged over the ``data`` axis by one all-reduce
 after backward and before Adam (inside the CUDA graph on the card), and the
 losses are averaged once a call; with a ``state_sharding`` from
-``parallel.mesh.state_shardings`` FSDP2 makes the gradient reductions itself.
+``parallel.mesh.state_shardings`` (FSDP) the optimizer steps this process's
+shards, between one reduce-scatter of the gradients and one all-gather of
+the parameters (``parallel.mesh.FlatShards``), in the CUDA graph too.
 
 PyTorch idiom in place of JAX's: the state holds an ``nn.Module`` and its
 ``torch.optim.Adam``, and a step updates both in place and returns the same
@@ -97,15 +99,22 @@ def create_train_state(model, learning_rate, seed=0, tx=None) -> TrainState:
     init distribution (``models.init_compat.shared_shape_reinit``),
     deterministic in ``seed``. The model's own init seed is the one it was
     built with.
+
+    A model sharded by ``parallel.mesh.state_shardings`` gets an optimizer
+    over this process's shards and the replicated parameters
+    (``FlatShards.optimizer_params``), as JAX's ``state_shardings`` shards
+    the optimizer's moments with their parameters.
     """
     if getattr(getattr(model, "cfg", None), "ref_compat_shared_init", False):
         shared_shape_reinit(model, seed)
+    shards = getattr(model, "fsdp_shards", None)
+    params = shards.optimizer_params() if shards is not None else model.parameters()
     if tx is None:
         optimizer = torch.optim.Adam(
-            model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
             capturable=_device(model).type == "cuda")
     else:
-        optimizer = tx(model.parameters())
+        optimizer = tx(params)
     return TrainState(model=model, optimizer=optimizer)
 
 
@@ -148,31 +157,30 @@ class _Parallel:
     """What a step does across processes for ``mesh`` and
     ``state_sharding``: nothing without a mesh; over a data-parallel mesh,
     average the gradients after backward (:meth:`reduce_grads`); under FSDP
-    (``state_sharding``), leave the sharded parameters' gradients to FSDP2
-    and average the replicated (scalar) ones over every process. Either way
-    the losses are averaged over the ``data`` axis (:meth:`mean`)."""
+    (``state_sharding``), reduce-scatter the gradients into the shards after
+    backward and all-gather the parameters after the optimizer
+    (``parallel.mesh.FlatShards``). Either way the losses are averaged over
+    the ``data`` axis (:meth:`mean`)."""
 
     def __init__(self, model, mesh, state_sharding):
-        from torch.distributed.fsdp import FSDPModule
-
-        self.mesh, self.fsdp = mesh, state_sharding is not None
-        if self.fsdp and (mesh is None or not isinstance(model, FSDPModule)):
+        self.mesh = mesh
+        self.shards = getattr(model, "fsdp_shards", None)
+        if state_sharding is not None and (mesh is None or self.shards is None):
             raise ValueError("a state_sharding needs its mesh and a model sharded by "
                              "parallel.mesh.state_shardings")
-        if mesh is not None and not self.fsdp and isinstance(model, FSDPModule):
-            raise ValueError("an FSDP-sharded model needs its state_sharding")
+        if self.shards is not None and state_sharding is None:
+            raise ValueError("an FSDP-sharded model needs its mesh and state_sharding")
         self.group = mesh_lib.data_axis(mesh)[0] if mesh is not None else None
-        self.replicated = ([p for n, p in model.named_parameters()
-                            if state_sharding[n] == mesh_lib.REPLICATED]
-                           if self.fsdp else None)
 
     def reduce_grads(self, state: TrainState) -> None:
-        if self.mesh is None:
-            return
-        if not self.fsdp:
+        if self.shards is not None:
+            self.shards.reduce_gradients()
+        elif self.mesh is not None:
             mesh_lib.all_reduce_gradients(_state_tensors(state)[0], self.group)
-        elif self.replicated:
-            mesh_lib.all_reduce_gradients(self.replicated)
+
+    def after_update(self) -> None:
+        if self.shards is not None:
+            self.shards.gather()
 
     def mean(self, t):
         """``t`` averaged over the ``data`` axis (in place); ``t`` itself
@@ -191,6 +199,8 @@ def _apply_step(state: TrainState, xy, add_noise, generator, alpha, parallel=Non
     if parallel is not None:
         parallel.reduce_grads(state)
     state.optimizer.step()
+    if parallel is not None:
+        parallel.after_update()
     return {k: out[k].detach() for k in LOSS_KEYS}
 
 
@@ -218,8 +228,10 @@ def make_step_fns(model, mesh=None, noise_mode: str = "full", x_d: Optional[int]
     is the global batch's (every process passes an identically seeded
     generator), the gradients are averaged over the ``data`` axis before
     the update, and ``out`` is the global batch's mean. ``state_sharding``
-    (``parallel.mesh.state_shardings``, on a 2-D mesh): the model is FSDP-sharded
-    and FSDP2 reduces the gradients.
+    (``parallel.mesh.state_shardings``, on a 2-D mesh): the model is
+    FSDP-sharded; the gradients are reduce-scattered into this process's
+    shards, which the optimizer steps, and the parameters all-gathered after
+    it.
     """
     parallel = _Parallel(model, mesh, state_sharding)
     add_noise = _global_noise(_noise_fn(noise_mode, x_d), mesh)
@@ -242,7 +254,8 @@ def make_step_fns(model, mesh=None, noise_mode: str = "full", x_d: Optional[int]
 
 
 def _state_tensors(state: TrainState):
-    """The parameters and the optimizer's state tensors, in a fixed order."""
+    """The optimizer's parameters (under FSDP, this process's shards and the
+    replicated parameters) and its state tensors, in a fixed order."""
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
     opt = [t for p in params for t in state.optimizer.state.get(p, {}).values()
            if torch.is_tensor(t)]
@@ -302,15 +315,18 @@ class _GraphedSteps:
         self.graph = None
         # the hand-written kernels' launches a replay (see capture)
         self.launches = None
-        # the gradient all-reduces a replay launches (counted at the capture)
-        self.all_reduces = 0
+        # the collectives a replay launches (parallel.mesh.LAUNCHES, counted
+        # at the capture)
+        self.collectives = None
         # the capture's key, static input, loss sums and alpha
         self._key = self._xy = self._acc = self._alpha = None
 
     def _capture_key(self, state, xy_stack, generator):
         params, opt = _state_tensors(state)
+        # the model's parameters too: under FSDP the optimizer holds shards
+        tensors = [*state.model.parameters(), *params, *opt]
         return (id(state.model), id(state.optimizer), id(generator), tuple(xy_stack.shape),
-                xy_stack.dtype, xy_stack.device, tuple(t.data_ptr() for t in params + opt))
+                xy_stack.dtype, xy_stack.device, tuple(t.data_ptr() for t in tensors))
 
     def _step(self, state, generator):
         out = _apply_step(state, self._xy, self.add_noise, generator, self._alpha,
@@ -323,9 +339,9 @@ class _GraphedSteps:
         the generator to what they were before the warm-up, so that where
         the capture falls (a resumed run captures at its first epoch) does
         not move the noise stream. :attr:`launches` is what each replay
-        launches of the hand-written kernels, :attr:`all_reduces` of the
-        gradient all-reduce (the warm-up's eager ones have made its
-        communicator before the capture)."""
+        launches of the hand-written kernels, :attr:`collectives` of the
+        collectives (the warm-up's eager ones have made their communicators
+        before the capture)."""
         _check_model(state, self.model)
         device = xy_stack.device
         if device.type != "cuda":
@@ -336,10 +352,9 @@ class _GraphedSteps:
         self._alpha = torch.ones((), device=device)
         saved = _snapshot(state)
         rng = generator.get_state() if generator is not None else None
-        all_reduces_before = 0
+        collectives_before = {}
 
         def before_capture():
-            nonlocal all_reduces_before
             params, _ = _state_tensors(state)
             if not all(state.optimizer.state.get(p) for p in params):
                 raise RuntimeError(
@@ -348,7 +363,7 @@ class _GraphedSteps:
             if rng is not None:
                 generator.set_state(rng)
             state.optimizer.zero_grad(set_to_none=True)
-            all_reduces_before = mesh_lib.LAUNCHES["all_reduce_gradients"]
+            collectives_before.update(mesh_lib.LAUNCHES)
 
         try:
             graph, _, self.launches = graphs.capture(
@@ -357,7 +372,7 @@ class _GraphedSteps:
                 before_capture=before_capture)
         finally:
             _restore(state, saved)
-        self.all_reduces = mesh_lib.LAUNCHES["all_reduce_gradients"] - all_reduces_before
+        self.collectives = {k: v - collectives_before[k] for k, v in mesh_lib.LAUNCHES.items()}
         self.graph = graph
         self._key = self._capture_key(state, xy_stack, generator)
 
@@ -377,7 +392,7 @@ class _GraphedSteps:
         # the replays wrote the parameters in place behind autograd's back;
         # bump their versions so that caches keyed on them (the conv-chain
         # kernel's packed weights) see the change
-        for p in _state_tensors(state)[0]:
+        for p in state.model.parameters():
             increment_version(p)
         acc = self._acc if self.parallel is None else self.parallel.mean(self._acc.clone())
         mean = acc / self.num_inner
@@ -405,16 +420,12 @@ def make_scan_train_step(model, num_inner: int, mesh=None, noise_mode: str = "fu
 
     ``mesh`` and ``state_sharding`` as for :func:`make_step_fns`;
     ``xy_stack`` holds this process's rows of each step, the gradients are
-    averaged every step (in the graph, on the card) and the loss sums once a
-    call. A graphed FSDP step is not ported: on the card it raises.
+    averaged every step (in the graph, on the card; under FSDP its
+    reduce-scatter and all-gather too) and the loss sums once a call.
     """
     parallel = _Parallel(model, mesh, state_sharding)
     add_noise = _global_noise(_noise_fn(noise_mode, x_d), mesh)
     if _device(model).type == "cuda":
-        if parallel.fsdp:
-            raise NotImplementedError(
-                "a CUDA graph of an FSDP step is not ported (ROADMAP A.10b): FSDP2's "
-                "collectives are not captured; take eager FSDP steps (make_step_fns)")
         return _GraphedSteps(model, num_inner, add_noise, parallel if mesh is not None else None)
 
     def multi(state, xy_stack, generator=None, alpha=1.0):

@@ -83,8 +83,21 @@ histories bit-equal, rank 0's ``weights.npz`` the plain run's parameters,
 K1 16 and the all-reduce once a step (counted at the capture), each run's
 samples/s, busy share and the all-reduce's device time; two processes over
 gloo on the card, 128 rows each, against one process on the 256; and
-``dryrun_multichip(1)`` at full depth over NCCL. Each phase prints its
-elapsed seconds.
+``dryrun_multichip(1)`` at full depth over NCCL. ``[fsdp]`` trains the
+flagship (batch 128, Adam 3e-4, no noise) FSDP-sharded on a (1, 1)
+``("data", "model")`` mesh of a one-process NCCL group through
+``make_scan_train_step``'s graph, whose replay holds the reduce-scatter of
+the gradients and the all-gather of the parameters: under
+``pallas_coupling`` (stacks of 16, K1 16 times a step) and ``pallas_subnet``
+(stacks of 4, K3 16 times a step, on cuDNN's deterministic algorithms),
+each against the plain graph (bit for bit) and eager FSDP steps; under
+``pallas_coupling`` the two graphs timed in turns, and the reduce-scatter
+and the all-gather alone.
+``[dist2]`` runs only where the machine has two cards or more (on one it
+prints that it did not run): 2 NCCL processes, graphed steps with a data
+axis of 2 against one process on the rows together, a (1, 2) FSDP graph
+against its eager steps, and ``cnf-conv --scan-steps 16``. Each phase
+prints its elapsed seconds.
 
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits 1 and prints no result. On success the line before the last is a
@@ -2172,15 +2185,15 @@ def dist_run(cnf_conv, name, flags, tmp, phases):
     check(per_step == {"affine_forward": couplings, "affine_inverse": 0, "fused_subnet": 0},
           f"dist {name}: K1 launches {couplings} times a step in the graph ({per_step})")
     want_reduces = 1 if flags else 0
-    check(res.train_step.all_reduces == want_reduces,
-          f"dist {name}: {want_reduces} gradient all-reduce a step in the graph "
-          f"({res.train_step.all_reduces})")
+    all_reduces = res.train_step.collectives["all_reduce_gradients"]
+    check(all_reduces == want_reduces,
+          f"dist {name}: {want_reduces} gradient all-reduce a step in the graph ({all_reduces})")
     check(len(rows) == 2 and all(math.isfinite(r[k]) for r in rows for k in ("loss", "val_loss")),
           f"dist {name}: two epochs, finite losses")
     phases.done(f"dist {name}: cnf-conv", seconds=f"{run_s:.2f}")
     line = dict(run=name, run_s=run_s, epoch_s=[r["seconds"] for r in rows],
                 k1_launches_a_step=per_step["affine_forward"],
-                all_reduces_a_step=res.train_step.all_reduces,
+                all_reduces_a_step=all_reduces,
                 k2_launches_in_sampling=launches["affine_inverse"], history=rows)
     return res, final, line
 
@@ -2334,6 +2347,325 @@ def check_dist(phases):
     return out
 
 
+#: [fsdp]: FLAGSHIP (bench.py's arch, fused heads, bf16 subnets, float32
+#: flow) at batch 128, Adam 3e-4, no noise, in a one-process NCCL group on a
+#: (1, 1) ("data", "model") mesh: FSDP_CALLS stacks of FSDP_INNER steps
+#: (FSDP_SUBNET_INNER under pallas_subnet) through the graphed FSDP step,
+#: the plain graph (no mesh) and eager FSDP steps, each from seed 0
+FSDP_INNER = 16
+FSDP_SUBNET_INNER = 4
+FSDP_CALLS = 2
+#: stacks of each graph timed, in turns with the other graph's
+FSDP_TIMED = 6
+#: what a graphed FSDP step launches of the collectives, counted at the
+#: capture: the reduce-scatter of the gradients and the all-reduce of the
+#: shards' gradients over "data", the replicated scalars' all-reduce, the
+#: all-gather of the parameters
+FSDP_COLLECTIVES = {"all_reduce_gradients": 1, "reduce_scatter_gradients": 1,
+                    "all_reduce_shard_gradients": 1, "all_gather_parameters": 1}
+#: eager FSDP steps against the graphed ones: the loss's relative error (as
+#: tests/test_torch_kernels_gpu.py's graphed steps against eager ones); the
+#: parameters at [train]'s TRAIN_MAX and TRAIN_FRACTION
+FSDP_LOSS_RTOL = 1e-5
+#: (b) runs on cuDNN's deterministic algorithms: on its default ones the
+#: pallas_subnet graph does not repeat itself at the flagship's sizes (K3's
+#: backward recomputes the chain in float32 through cuDNN; on an NVIDIA H100
+#: 80GB HBM3 at 700 W a second plain graph of 2 x 4 steps differed from the
+#: first by 4.7e-6 in the loss and 2.7e-5 in the parameters), which would
+#: hide what FSDP changes
+FSDP_DETERMINISTIC = {"pallas_coupling": False, "pallas_subnet": True}
+
+
+def fsdp_stacks(inner):
+    """FSDP_CALLS random-normal (inner, BATCH, 28, 28, 2) stacks from numpy
+    seed 7, on the card."""
+    rng = np.random.default_rng(7)
+    return [torch.from_numpy(rng.normal(size=(inner, BATCH, 28, 28, 2)).astype(np.float32))
+            .cuda() for _ in range(FSDP_CALLS)]
+
+
+def fsdp_graph(name, cfg, inner, mesh2d, stacks):
+    """One graphed run of [fsdp]: ``name`` "plain" (no mesh) or "fsdp"
+    (sharded on ``mesh2d``), its loss history over ``stacks`` (the first
+    call captures), the wrappers' and the collectives' launches of that
+    run, and the card memory it holds and its peak above what was held
+    before it was built."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = ConvCFlow(cfg, seed=0)
+    sharding = mesh_lib.state_shardings(mesh2d, model) if name == "fsdp" else None
+    state = create_train_state(model, TRAIN_LR)
+    multi = make_scan_train_step(model, inner, mesh2d if sharding else None, noise_mode="none",
+                                 state_sharding=sharding)
+    reset_launches()
+    mesh_lib.reset_launches()
+    history = [multi(state, stack)[1]["loss"].item() for stack in stacks]
+    torch.cuda.synchronize()
+    return dict(model=model, state=state, multi=multi, history=history,
+                wrapper_launches=launch_counts(), collectives=dict(mesh_lib.LAUNCHES),
+                resident_mb=(torch.cuda.memory_allocated() - base) / 2**20,
+                peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20)
+
+
+def fsdp_lowering(cfg, inner, mesh2d, phases):
+    """:func:`fsdp_runs` for ``cfg``'s lowering, on cuDNN's deterministic
+    algorithms where FSDP_DETERMINISTIC says so, timed where that is off.
+    Returns the line's dict."""
+    lowering = cfg.experimental_lowering
+    kernel = "fused_subnet" if lowering == "pallas_subnet" else "affine_forward"
+    deterministic = FSDP_DETERMINISTIC[lowering]
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        return fsdp_runs(cfg, inner, mesh2d, phases, kernel, deterministic, timed=not deterministic)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def fsdp_runs(cfg, inner, mesh2d, phases, kernel, deterministic, timed):
+    """[fsdp] (a) or (b): the graphed FSDP step against the plain graph, bit
+    for bit where a second plain graph repeats the first bit for bit, else
+    within the bounds of eager steps; and against eager FSDP steps (within
+    FSDP_LOSS_RTOL and TRAIN_MAX); ``kernel`` (K1 or K3) 16 times a step and
+    the collectives of FSDP_COLLECTIVES in the replay; then, when ``timed``,
+    (c): the two graphs timed in turns, a profiled stack of each, and the
+    reduce-scatter and the all-gather alone."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
+    from arl_conditional_normalizing_flows_tpu_torch.train.metrics import LOSS_KEYS
+
+    lowering = cfg.experimental_lowering
+    stacks = fsdp_stacks(inner)
+    runs = {name: fsdp_graph(name, cfg, inner, mesh2d, stacks)
+            for name in ("plain", "fsdp", "plain again")}
+    plain, fsdp, again = runs["plain"], runs["fsdp"], runs.pop("plain again")
+    couplings = len(fsdp["model"].couplings)
+    per_step = fsdp["multi"].launches
+    check(per_step[kernel] == couplings and per_step == plain["multi"].launches
+          and fsdp["wrapper_launches"][kernel] > 0,
+          f"fsdp {lowering}: {kernel} launches {couplings} times a step in the graph, as in the "
+          f"plain graph ({per_step}, plain {plain['multi'].launches})")
+    check(fsdp["multi"].collectives == FSDP_COLLECTIVES,
+          f"fsdp {lowering}: the collectives a step in the graph ({fsdp['multi'].collectives})")
+
+    def agreement(run):
+        """``run`` against the plain graph: (bit-equal, worst relative loss
+        error, max |parameter diff|, the share within TRAIN_TIGHT)."""
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["history"], plain["history"]))
+        diff, tight = param_agreement(run["model"], plain["model"])
+        return run["history"] == plain["history"] and diff == 0, rel, diff, tight
+
+    repeat, to_plain = agreement(again), agreement(fsdp)
+    print(f"[fsdp] {lowering}: graphed FSDP against the plain graph: bit-equal {to_plain[0]}, "
+          f"loss {to_plain[1]:.3g}, parameters max {to_plain[2]:.3g}, {to_plain[3]:.6f} within "
+          f"{TRAIN_TIGHT:g}; a second plain graph against the first: bit-equal {repeat[0]}, loss "
+          f"{repeat[1]:.3g}, parameters max {repeat[2]:.3g}, {repeat[3]:.6f} within "
+          f"{TRAIN_TIGHT:g}", flush=True)
+    if repeat[0]:
+        check(to_plain[0], f"fsdp {lowering}: the graphed FSDP run is the plain graph's bit "
+              f"for bit, as a second plain graph is")
+    else:
+        check(to_plain[1] <= FSDP_LOSS_RTOL and to_plain[2] <= TRAIN_MAX
+              and to_plain[3] >= TRAIN_FRACTION,
+              f"fsdp {lowering}: the graphed FSDP run agrees with the plain graph")
+    del again
+
+    eager_model = ConvCFlow(cfg, seed=0)
+    eager_step, _ = make_step_fns(eager_model, mesh2d, noise_mode="none",
+                                  state_sharding=mesh_lib.state_shardings(mesh2d, eager_model))
+    eager_state = create_train_state(eager_model, TRAIN_LR)
+    eager_history = []
+    t = time.perf_counter()
+    for stack in stacks:
+        # the graph's sum of the losses and division by the steps
+        acc = torch.zeros(len(LOSS_KEYS), device="cuda")
+        for xy in stack:
+            out = eager_step(eager_state, xy)[1]
+            acc.add_(torch.stack([out[k] for k in LOSS_KEYS]))
+        eager_history.append(dict(zip(LOSS_KEYS, (acc / inner).tolist()))["loss"])
+    eager_s = time.perf_counter() - t
+    max_diff, tight = param_agreement(fsdp["model"], eager_model)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fsdp["history"], eager_history))
+    bit_equal = fsdp["history"] == eager_history and max_diff == 0
+    print(f"[fsdp] {lowering}: {FSDP_CALLS} stacks of {inner}: graphed FSDP against eager FSDP "
+          f"steps: losses {fsdp['history']} / {eager_history} "
+          f"(worst relative {loss_rel:.3g}, at most {FSDP_LOSS_RTOL:g}), parameters max |diff| "
+          f"{max_diff:.3g} (at most {TRAIN_MAX:g}), {tight:.6f} within {TRAIN_TIGHT:g} (at least "
+          f"{TRAIN_FRACTION}), bit-equal {bit_equal}", flush=True)
+    check(loss_rel <= FSDP_LOSS_RTOL and max_diff <= TRAIN_MAX and tight >= TRAIN_FRACTION,
+          f"fsdp {lowering}: the graphed FSDP steps agree with the eager ones")
+    del eager_model, eager_state, eager_step
+    phases.done(f"fsdp {lowering}: graphed FSDP against the plain graph and eager FSDP steps",
+                eager_s=f"{eager_s:.2f}")
+
+    line = dict(lowering=lowering, steps_a_stack=inner, batch=BATCH, stacks_compared=FSDP_CALLS,
+                cudnn_deterministic=deterministic, plain_graph_repeats_bit_for_bit=repeat[0],
+                bit_equal_to_plain_graph=to_plain[0], plain_loss_rel=to_plain[1],
+                plain_param_max_abs=to_plain[2], plain_repeat_loss_rel=repeat[1],
+                plain_repeat_param_max_abs=repeat[2], bit_equal_to_eager=bit_equal,
+                eager_loss_rel=loss_rel, eager_param_max_abs=max_diff,
+                eager_param_share_within_tight=tight,
+                launches_a_step=per_step[kernel], collectives_a_step=fsdp["multi"].collectives,
+                card=card_line())
+    if not timed:
+        print("[fsdp] " + json.dumps(line), flush=True)
+        return line
+
+    # (c) the two graphs in turns (plain, fsdp, fsdp, plain, ...) on one stack
+    calls = {name: (lambda r=r: r["multi"](r["state"], stacks[0])) for name, r in runs.items()}
+    times = {name: [] for name in calls}
+    for i in range(FSDP_TIMED):
+        for name in (("plain", "fsdp") if i % 2 == 0 else ("fsdp", "plain")):
+            times[name] += walls(calls[name], 1)
+    for name in calls:
+        prof = kernel_breakdown(calls[name], top=4)
+        stack_ms = statistics.median(times[name]) * 1e3
+        line[name] = dict(
+            stack_ms_median=stack_ms, stack_ms_all=[round(w * 1e3, 3) for w in times[name]],
+            step_ms=stack_ms / inner, samples_per_s=inner * BATCH / (stack_ms / 1e3),
+            stack_busy_ms=prof["device_busy_ms"], busy_share=prof["device_busy_ms"] / stack_ms,
+            stack_launches=prof["kernel_launches"], nccl_kernels_a_stack=prof["nccl_kernels"],
+            resident_mb=runs[name]["resident_mb"], peak_mb=runs[name]["peak_mb"],
+            top=prof["top"])
+    # each collective alone in a graph of 50 between CUDA events, over the
+    # flagship's sharded parameters
+    shards = fsdp["model"].fsdp_shards
+    line["reduce_scatter_us"] = device_time_ms(shards.reduce_scatter) * 1e3
+    line["all_gather_us"] = device_time_ms(shards.gather) * 1e3
+    line["sharded_mb"] = sum(p.numel() for p in shards.params) * 4 / 1e6
+    print("[fsdp] " + json.dumps(line), flush=True)
+    phases.done(f"fsdp {lowering}: the two graphs timed in turns")
+    return line
+
+
+def check_fsdp(phases):
+    """[fsdp]: the graphed FSDP step on a (1, 1) mesh of a one-process NCCL
+    group, (a) under pallas_coupling (K1) and (b) under pallas_subnet (K3),
+    each against the plain graph and eager FSDP steps, (c) (a) timed beside
+    the plain graph."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    with mesh_lib.distributed(f"127.0.0.1:{free_port()}", 1, 0):
+        check(torch.distributed.get_backend() == "nccl", "fsdp: the group is NCCL's")
+        mesh2d = mesh_lib.make_2d_mesh(1, 1)
+        for cfg, inner in ((FLAGSHIP, FSDP_INNER), (FLAGSHIP_SUBNET, FSDP_SUBNET_INNER)):
+            out[cfg.experimental_lowering] = fsdp_lowering(cfg, inner, mesh2d, phases)
+            torch.cuda.empty_cache()
+    check(not torch.distributed.is_initialized(), "fsdp: the group has ended")
+    return out
+
+
+#: [dist2], on two cards: 2 NCCL processes, one a card; (a) DIST2_INNER
+#: graphed steps of FLAGSHIP with instance noise (alpha 0.5), 128 rows a
+#: process, against one process's graphed steps on the 256; (b) a (1, 2)
+#: FSDP mesh, graphed steps against eager ones on DIST2_FSDP_INNER batches
+#: of 128; (c) cnf-conv --scan-steps 16 ([dist]'s run) in the 2 processes
+DIST2_INNER = 16
+DIST2_FSDP_INNER = 4
+
+
+def check_dist2(phases):
+    """[dist2]: what only two cards show: ``_GraphedSteps`` with a data
+    axis of 2 (the global noise drawn and sliced in the capture, a 2-rank
+    NCCL all-reduce replayed in the graph) and a 2-rank FSDP graph. On one
+    card it prints that it did not run and returns None."""
+    from arl_conditional_normalizing_flows_tpu_torch.parallel import checks, launch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[dist2] not run: {cards} card", flush=True)
+        return None
+    model = ConvCFlow(FLAGSHIP, seed=2)
+    config = {f.name: getattr(FLAGSHIP, f.name) for f in dataclasses.fields(FLAGSHIP)}
+    state_dict = {k: v.cpu() for k, v in model.state_dict().items()}
+    params = sum(p.numel() for p in model.parameters())
+    del model
+    rng = np.random.default_rng(5)
+
+    def batches(n, rows):
+        return [torch.from_numpy(rng.normal(size=(rows, 28, 28, 2)).astype(np.float32))
+                for _ in range(n)]
+
+    dp_args = (config, state_dict, batches(DIST2_INNER, 2 * DIST_ROWS), TRAIN_LR, "full", 0.5, 3)
+    fsdp_args = (config, state_dict, batches(DIST2_FSDP_INNER, DIST_ROWS), TRAIN_LR, "none", 1.0,
+                 0)
+    out = dict(cards=cards, processes=2, card=card_line())
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def group(name, jobs):
+            """Every rank's results of ``jobs``, run in one new 2-process
+            NCCL group."""
+            return launch.run_ranks(checks.jobs_rank, 2, "nccl", os.path.join(tmp, name),
+                                    (jobs,), device_type="cuda", timeout=600)
+
+        ranks = group("rendezvous_dp", [
+            ("train_steps_rank", dp_args + (None, True, "cuda")),
+            ("one_process_steps_rank", dp_args + ("cuda", True)),
+            ("conv_driver_rank", (DIST_FLAGS + ["--outdir", os.path.join(tmp, "cnf_conv")],))])
+
+        # (a) the data-parallel graph against one process on the 256 rows
+        want = ranks[0][1]
+        diffs = np.concatenate([(r[0]["params"][k].float() - want["params"][k].float())
+                                .abs().numpy().ravel() for r in ranks for k in want["params"]])
+        loss_rel = max(abs(r[0]["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+                       for r in ranks)
+        out["data_parallel"] = dict(
+            steps=DIST2_INNER, losses=[r[0]["losses"] for r in ranks],
+            one_process_losses=want["losses"], loss_rel=loss_rel,
+            param_max_abs=float(diffs.max()),
+            param_share_within_tight=float(np.mean(diffs <= DIST_TIGHT)))
+        print("[dist2] (a) " + json.dumps(out["data_parallel"]), flush=True)
+        # (c) cnf-conv in the 2 processes: the keys fit logs on every
+        # process (rank 0 adds its evaluation's)
+        rows = [[{k: v for k, v in row.items() if k != "seconds" and k in other}
+                 for row, other in zip(r[2]["rows"], ranks[1][2]["rows"])] for r in ranks]
+        driver = ranks[0][2]
+        out["cnf_conv"] = dict(history=rows[0], launches=driver["launches"],
+                               collectives=driver["collectives"])
+        print("[dist2] (c) " + json.dumps(out["cnf_conv"]), flush=True)
+        check(ranks[0][0]["losses"] == ranks[1][0]["losses"],
+              "dist2: the two processes' graphs agree on the loss")
+        check(loss_rel <= DIST_LOSS_RTOL and np.mean(diffs <= DIST_TIGHT) >= DIST_FRACTION
+              and diffs.max() <= 2 * TRAIN_LR * DIST2_INNER,
+              "dist2: 2 graphed processes of 128 rows step as one graphed process of 256")
+        check(rows[0] == rows[1] and len(rows[0]) == 2
+              and all(math.isfinite(v) for row in rows[0] for v in row.values()),
+              "dist2: cnf-conv's two processes log the same finite epochs")
+        check(driver["launches"]["affine_forward"] == 16
+              and driver["collectives"]["all_reduce_gradients"] == 1,
+              "dist2: cnf-conv's graph launches K1 16 times and the all-reduce once a step")
+
+        # (b) the (1, 2) FSDP graph against its eager steps
+        ranks = group("rendezvous_fsdp", [
+            ("train_steps_rank", fsdp_args + ((1, 2), True, "cuda")),
+            ("train_steps_rank", fsdp_args + ((1, 2), False, "cuda"))])
+    graph, eager = ranks[0]
+    fsdp_diffs = np.concatenate([(graph["params"][k] - eager["params"][k]).abs().numpy().ravel()
+                                 for k in graph["params"]])
+    fsdp_rel = abs(graph["losses"][0] - np.mean(eager["losses"])) / abs(np.mean(eager["losses"]))
+    held = sum(graph["moments"].values())
+    out["fsdp"] = dict(
+        mesh=[1, 2], steps=DIST2_FSDP_INNER, graph_loss=graph["losses"][0],
+        eager_losses=eager["losses"], loss_rel=fsdp_rel, param_max_abs=float(fsdp_diffs.max()),
+        param_share_within_tight=float(np.mean(fsdp_diffs <= TRAIN_TIGHT)),
+        adam_moment_elements_a_process=held, parameters=params)
+    print("[dist2] (b) " + json.dumps(out["fsdp"]), flush=True)
+    check(all(torch.equal(ranks[0][j]["params"][k], ranks[1][j]["params"][k])
+              for j in (0, 1) for k in graph["params"])
+          and ranks[0][0]["losses"] == ranks[1][0]["losses"],
+          "dist2: the two FSDP processes hold the same parameters and losses")
+    check(fsdp_rel <= FSDP_LOSS_RTOL and fsdp_diffs.max() <= TRAIN_MAX
+          and np.mean(fsdp_diffs <= TRAIN_TIGHT) >= TRAIN_FRACTION and held < 0.6 * params,
+          "dist2: the (1, 2) FSDP graph steps as its eager steps, each process's Adam "
+          "moments about half the parameters")
+    out["seconds"] = seconds = time.perf_counter() - t
+    phases.done("dist2: two NCCL processes on two cards", seconds=f"{seconds:.2f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2389,6 +2721,10 @@ def main() -> int:
     recs = check_records(phases)
     torch.cuda.empty_cache()
     dist = check_dist(phases)
+    torch.cuda.empty_cache()
+    fsdp = check_fsdp(phases)
+    torch.cuda.empty_cache()
+    dist2 = check_dist2(phases)
 
     entries = []
     for name, k in KERNELS.items():
@@ -2466,6 +2802,14 @@ def main() -> int:
     # gradient all-reduce's a step of its graph (counted at the capture)
     entries[0]["launches_a_dist_step"] = dist["nccl"]["k1_launches_a_step"]
     entries[0]["all_reduces_a_dist_step"] = dist["nccl"]["all_reduces_a_step"]
+    # the graphed FSDP step on a (1, 1) mesh: K1's and K3's launches a step of
+    # its graph (counted at the capture)
+    entries[0]["launches_a_fsdp_step"] = fsdp["pallas_coupling"]["launches_a_step"]
+    entries[2]["launches_a_fsdp_step"] = fsdp["pallas_subnet"]["launches_a_step"]
+    print("[summary] fsdp samples/s, plain graph / graphed FSDP: " + json.dumps(
+        {k: [round(v["plain"]["samples_per_s"], 1), round(v["fsdp"]["samples_per_s"], 1)]
+         for k, v in fsdp.items() if "plain" in v}) + ("; dist2 not run" if dist2 is None else
+                                       f"; dist2 {dist2['seconds']:.2f} s"), flush=True)
     print(f"[summary] dist samples/s, plain {dist['plain']['samples_per_s']:.1f} (busy share "
           f"{dist['plain']['busy_share']:.3f}), one-process NCCL "
           f"{dist['nccl']['samples_per_s']:.1f} (busy share {dist['nccl']['busy_share']:.3f})",

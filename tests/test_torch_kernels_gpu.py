@@ -461,7 +461,8 @@ def test_graphed_data_parallel_step_equals_the_plain_graph(cuda, no_tf32, nccl_m
     plain = loop.make_scan_train_step(plain_model, GRAPH_STEPS, noise_mode="full")
     dp = loop.make_scan_train_step(dp_model, GRAPH_STEPS, nccl_mesh, noise_mode="full")
     assert _noisy_runs(plain_model, xy, plain) == _noisy_runs(dp_model, xy, dp)
-    assert (plain.all_reduces, dp.all_reduces) == (0, 1)
+    assert (plain.collectives["all_reduce_gradients"],
+            dp.collectives["all_reduce_gradients"]) == (0, 1)
     assert plain.launches == dp.launches
     for (name, p), q in zip(plain_model.named_parameters(), dp_model.parameters()):
         assert torch.equal(p, q), name
@@ -480,20 +481,45 @@ def test_eager_data_parallel_step_equals_the_plain_step(cuda, no_tf32, nccl_mesh
         assert torch.equal(p, q), name
 
 
-def test_graphed_fsdp_step_raises_naming_its_roadmap_item(cuda, nccl_mesh):
-    """FSDP steps run eagerly; a CUDA graph of one is not ported."""
+@pytest.mark.parametrize("lowering", LOWERINGS)
+def test_graphed_fsdp_step_equals_eager_fsdp_and_the_plain_graph(cuda, no_tf32, nccl_mesh,
+                                                                   lowering):
+    """A (1, 1) FSDP mesh of the one-process group: two calls of graphed
+    FSDP steps with instance noise give the plain graph's losses and
+    parameters bit for bit (a shard is the whole parameter; the sums over
+    one process and the division by 1 are exact), and eager FSDP steps'
+    as graphed steps give eager ones'. The graph launches the plain graph's
+    hand-written kernels and, counted at the capture, one reduce-scatter,
+    one all-gather and the two all-reduces (the shards' gradients over
+    ``data``, the replicated scalars' over every process) a step."""
     from arl_conditional_normalizing_flows_tpu_torch.parallel import mesh
 
-    model = _small_model(cuda, None)
     mesh2d = mesh.make_2d_mesh(1, 1)
-    sharding = mesh.state_shardings(mesh2d, model)
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        loop.make_scan_train_step(model, GRAPH_STEPS, mesh2d, noise_mode="none",
-                                  state_sharding=sharding)
-    step, _ = loop.make_step_fns(model, mesh2d, noise_mode="none", state_sharding=sharding)
-    state = loop.create_train_state(model, LR)
-    _, out = step(state, _stack(cuda, n=1)[0])
-    assert np.isfinite(float(out["loss"]))
+    plain_model, fsdp_model, eager_model = (_small_model(cuda, lowering) for _ in range(3))
+    sharding = mesh.state_shardings(mesh2d, fsdp_model)
+    xy = _stack(cuda)
+    plain = loop.make_scan_train_step(plain_model, GRAPH_STEPS, noise_mode="full")
+    graphed = loop.make_scan_train_step(fsdp_model, GRAPH_STEPS, mesh2d, noise_mode="full",
+                                        state_sharding=sharding)
+    assert isinstance(graphed, loop._GraphedSteps)
+    runs = _noisy_runs(fsdp_model, xy, graphed)
+    assert _noisy_runs(plain_model, xy, plain) == runs
+    for (name, p), q in zip(plain_model.named_parameters(), fsdp_model.parameters()):
+        assert torch.equal(p, q), name
+    assert graphed.launches == plain.launches
+    assert graphed.collectives == {"all_reduce_gradients": 1, "reduce_scatter_gradients": 1,
+                                   "all_reduce_shard_gradients": 1, "all_gather_parameters": 1}
+    assert set(plain.collectives.values()) == {0}
+
+    step, _ = loop.make_step_fns(eager_model, mesh2d, noise_mode="full",
+                                 state_sharding=mesh.state_shardings(mesh2d, eager_model))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = loop.create_train_state(eager_model, LR)
+    for run in runs:
+        losses = [float(step(state, b, g, 0.5)[1]["loss"]) for b in xy]
+        np.testing.assert_allclose(run["loss"], np.mean(losses), rtol=1e-5)
+    for (name, p), q in zip(fsdp_model.named_parameters(), eager_model.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)
 
 
 # ---------------------------------------------------------------------------

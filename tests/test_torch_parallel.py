@@ -6,8 +6,10 @@ rendezvous a test), each with one torch thread.
   8-device virtual mesh (``tests/conftest.py``), under the default,
   ``pallas_coupling`` (JAX's kernels in interpret mode, the port's plain
   K1) and ``pallas_subnet`` lowerings;
-- a 4-process (2, 2) FSDP step against JAX's
-  ``test_fsdp_2d_mesh_train_step_matches_single_device``, at its tolerances;
+- 4-process (2, 2) FSDP steps against JAX's
+  ``test_fsdp_2d_mesh_train_step_matches_single_device``, at its
+  tolerances, under the default lowering and ``pallas_subnet`` and as
+  ``make_scan_train_step``, each process's Adam moments a shard's;
 - the distributed epochs' slot groups against JAX's, list for list, for the
   in-RAM and streaming class sources and the toy;
 - the port against itself: ``num_shards=1`` is the epoch, shards are
@@ -15,8 +17,9 @@ rendezvous a test), each with one torch thread.
   with instance noise equals one process's step on the concatenated batch,
   the sharded fan-out equals one process's sample, ``dryrun_multichip(4)``.
 
-The port's 2-process runs share one group (``checks.jobs_rank``), which
-runs in the background while the JAX side compiles.
+The port's 2-process runs share one group (``checks.jobs_rank``), and so do
+its 4-process FSDP runs; each group runs in the background while the JAX
+side compiles.
 """
 
 import dataclasses
@@ -71,11 +74,6 @@ STEPS = 3
 TIMEOUT = 240
 
 
-def ranks(tmp_path, fn, world_size, *args):
-    return launch.run_ranks(fn, world_size, "gloo", str(tmp_path / "rendezvous"), args,
-                            timeout=TIMEOUT)
-
-
 def config_dict(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
@@ -116,22 +114,24 @@ def test_initialize_distributed_without_a_coordinator():
     assert not dist.is_initialized()
 
 
+class Mesh2x2:
+    """What ``fsdp_placement`` reads of a (2, 2) ``("data", "model")`` mesh."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return 2
+
+
 @pytest.mark.parametrize("shape", [(8, 3, 3, 2), (16,), (3, 3, 5, 7), (), (6, 4), (1, 2)])
 def test_fsdp_placement_is_jaxs_rule(shape):
     """The dim ``fsdp_placement`` shards is the dim JAX's ``_fsdp_rule``
-    shards on a model axis of 2; where JAX replicates, FSDP2's default."""
+    shards on a model axis of 2; where JAX replicates, None."""
     jm = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     spec = jmesh._fsdp_rule(jm, np.zeros(shape, np.float32), "model").spec
-
-    class Mesh:
-        mesh_dim_names = ("data", "model")
-
-        def size(self, dim):
-            return 2
-
-    placement = mesh.fsdp_placement(Mesh())(torch.zeros(shape))
+    placement = mesh.fsdp_placement(Mesh2x2())(torch.zeros(shape))
     want = [d for d, a in enumerate(spec) if a == "model"]
-    assert (placement.dim if placement is not None else None) == (want[0] if want else None)
+    assert placement == (want[0] if want else None)
 
 
 # ---------------------------------------------------------------------------
@@ -405,41 +405,104 @@ def test_sharded_fan_out_equals_one_process_sample(two_process, kind):
 FSDP_ARCH = dict(io_shape=(4, 4, 2), x_d=1, squeeze_factor_blocks=(0, 1), res_blocks=(1, 1),
                  num_kernels=(8, 8), cardinality=(2, 2), ksize=3)
 FSDP_LR = 1e-3
+#: the steps of the ``make_scan_train_step`` case
+FSDP_SCAN = 2
+#: (lowering, scan): JAX's FSDP steps under the default lowering and under
+#: pallas_subnet, and JAX's scanned FSDP steps
+FSDP_CASES = [pytest.param(None, False, id="default"),
+              pytest.param(flow.SUBNET, False, id="pallas_subnet"),
+              pytest.param(None, True, id="scan")]
 
 
-def test_four_process_fsdp_step_matches_jaxs(tmp_path):
-    """``test_sharding.py::test_fsdp_2d_mesh_train_step_matches_single_device``
-    on a (2, 2) mesh: JAX's FSDP steps, and the port's in 4 processes (each
-    parameter sharded on ``model``, the scalars replicated), at that test's
-    tolerances."""
-    rng = np.random.default_rng(0)
-    xy = rng.normal(size=(16, 4, 4, 2)).astype(np.float32)
-    jm = JConvCFlow(JConfig(**FSDP_ARCH))
-    jstate = jloop.create_train_state(jm, jnp.asarray(xy[:1]), FSDP_LR, seed=0)
-    params = flow.to_numpy_tree(jstate.params["params"])
-    cfg = ConvFlowConfig(**FSDP_ARCH)
-    tm = ConvCFlow(cfg, device="cpu", seed=0)
+def fsdp_arch(lowering):
+    return dict(FSDP_ARCH, fused_subnet=lowering is not None, experimental_lowering=lowering)
+
+
+def fsdp_xy():
+    return np.random.default_rng(0).normal(size=(16, 4, 4, 2)).astype(np.float32)
+
+
+def fsdp_init(lowering):
+    """JAX's model and a fresh train state (its steps donate it) at
+    :func:`fsdp_arch`, and the port's state dict of the same weights."""
+    jm = JConvCFlow(JConfig(**fsdp_arch(lowering)))
+    jstate = jloop.create_train_state(jm, jnp.asarray(fsdp_xy()[:1]), FSDP_LR, seed=0)
+    tm = ConvCFlow(ConvFlowConfig(**fsdp_arch(lowering)), device="cpu", seed=0)
+    return jm, jstate, state_dict_from_flax(flow.to_numpy_tree(jstate.params["params"]), tm)
+
+
+@pytest.fixture(scope="module")
+def four_process(tmp_path_factory):
+    """The port's FSDP runs of :data:`FSDP_CASES` in one 4-process group on
+    a (2, 2) mesh, started at once in the background: ``{(lowering, scan):
+    every rank's result}``."""
+    jobs = {}
+    for lowering, scan in [c.values for c in FSDP_CASES]:
+        cfg = ConvFlowConfig(**fsdp_arch(lowering))
+        batches = [torch.from_numpy(fsdp_xy())] * (FSDP_SCAN if scan else STEPS)
+        jobs[(lowering, scan)] = ("train_steps_rank", (
+            config_dict(cfg), fsdp_init(lowering)[2], batches, FSDP_LR, "none", 1.0, 0, (2, 2),
+            scan))
+    path = str(tmp_path_factory.mktemp("four_process") / "rendezvous")
     with ThreadPoolExecutor(1) as pool:
-        future = pool.submit(ranks, tmp_path, checks.train_steps_rank, 4, config_dict(cfg),
-                             state_dict_from_flax(params, tm), [torch.from_numpy(xy)] * STEPS,
-                             FSDP_LR, "none", 1.0, 0, (2, 2))
-        m = jmesh.make_2d_mesh(2, 2, jax.devices()[:4])
-        ss = jmesh.state_shardings(m, jstate)
-        jstate = jax.device_put(jstate, ss)
+        future = pool.submit(launch.run_ranks, checks.jobs_rank, 4, "gloo", path,
+                             (list(jobs.values()),), timeout=TIMEOUT)
+
+        def results(job):
+            return [r[list(jobs).index(job)] for r in future.result()]
+
+        yield results
+
+
+def jax_fsdp_run(lowering, scan):
+    """JAX's FSDP steps on a (2, 2) mesh of 4 CPU devices (JAX's
+    ``test_fsdp_2d_mesh_train_step_matches_single_device``): the losses
+    (each step's, or the scanned call's mean) and the flax params after."""
+    jm, jstate, _ = fsdp_init(lowering)
+    xy = jnp.asarray(fsdp_xy())
+    m = jmesh.make_2d_mesh(2, 2, jax.devices()[:4])
+    ss = jmesh.state_shardings(m, jstate)
+    jstate = jax.device_put(jstate, ss)
+    if scan:
+        multi = jloop.make_scan_train_step(jm, FSDP_SCAN, mesh=m, noise_mode="none",
+                                           state_sharding=ss)
+        stack = jmesh.shard_batch(jnp.stack([xy] * FSDP_SCAN), m,
+                                  spec=jax.sharding.PartitionSpec(None, "data"))
+        jstate, out = multi(jstate, stack, jax.random.PRNGKey(3), jnp.float32(1.0))
+        losses = [float(out["loss"])]
+    else:
         step, _ = jloop.make_step_fns(jm, mesh=m, noise_mode="none", state_sharding=ss)
-        want_losses = []
+        losses = []
         for i in range(STEPS):
-            jstate, out = step(jstate, jmesh.shard_batch(jnp.asarray(xy), m),
+            jstate, out = step(jstate, jmesh.shard_batch(xy, m),
                                jax.random.fold_in(jax.random.PRNGKey(3), i), jnp.float32(1.0))
-            want_losses.append(float(out["loss"]))
-        results = future.result()
-    want = state_dict_from_flax(flow.to_numpy_tree(jstate.params["params"]), tm)
+            losses.append(float(out["loss"]))
+    return losses, flow.to_numpy_tree(jstate.params["params"])
+
+
+@pytest.mark.parametrize("lowering,scan", FSDP_CASES)
+def test_four_process_fsdp_step_matches_jaxs(four_process, lowering, scan):
+    """``test_sharding.py::test_fsdp_2d_mesh_train_step_matches_single_device``
+    on a (2, 2) mesh: JAX's FSDP steps (or its scanned FSDP steps), and the
+    port's in 4 processes (each parameter sharded on ``model``, the scalars
+    replicated), at that test's tolerances. Each process's Adam moments hold
+    half of every sharded parameter and all of a replicated one."""
+    want_losses, want_params = jax_fsdp_run(lowering, scan)
+    tm = ConvCFlow(ConvFlowConfig(**fsdp_arch(lowering)), device="cpu", seed=0)
+    want = state_dict_from_flax(want_params, tm)
+    place = mesh.fsdp_placement(Mesh2x2())
+    halves = {k: (p.numel() // 2 if place(p) is not None else p.numel())
+              for k, p in tm.named_parameters()}
+    assert sum(halves.values()) < 0.6 * sum(p.numel() for p in tm.parameters())
+    steps = FSDP_SCAN if scan else STEPS
+    results = four_process((lowering, scan))
     for r in results:
         assert r["losses"] == results[0]["losses"]
         np.testing.assert_allclose(r["losses"], want_losses, rtol=1e-4)
         for k, v in r["params"].items():
             np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-3,
-                                       atol=2 * STEPS * FSDP_LR, err_msg=k)
+                                       atol=2 * steps * FSDP_LR, err_msg=k)
+        assert r["moments"] == halves
 
 
 def test_dryrun_multichip_four_processes():
