@@ -68,10 +68,39 @@
 // keeps ~10 bits of mantissa and breaks the 1e-4 agreement with the CPU that
 // the float32 model is held to. Its weights are packed flat in flax's HWIO.
 //
+// The wide variant (entry point fused_subnet_forward_wide; the wrapper picks
+// it by the spec, fused_subnet.py::wide): what the kernels above do not take,
+// as JAX's kernel does (its grid runs over batch tiles of 8 with up to 100 MB
+// of VMEM; it takes any trunk and head width and any number of branches).
+// The narrow bf16 kernel holds the stage input and a whole stage's weights in
+// shared memory and all K/8 trunk tiles of a pixel tile in registers, so it
+// stops at K 64, out_total 32 and a stage input of ~227 KB; the narrow
+// float32 one at a stage input that fits shared memory; both at
+// kNarrowBranches branches, so that what they take by value stays small. The wide variant keeps the same packing and the same
+// one block a sample, and moves what did not fit into the sample's slice of
+// the scratch tensor (L2, then device memory):
+//  - bfloat16: the stage input lives in scratch in the same rows, and each
+//    lane reads its A fragments' four 32-bit words with plain loads (ldmatrix
+//    reads shared memory only); each lane reads its B fragments straight from
+//    the packed weights (__ldg, L2-resident), so no stage's weights are
+//    staged; every stage walks its output channels in chunks of kChunkTiles
+//    n8 tiles (64 channels), so the accumulators stay at the narrow kernel's
+//    8 tiles; the branch outputs, which the post 1x1 needs all of for every
+//    output chunk, go to scratch as its A fragments ([pixel tile][k16
+//    chunk][lane] uint4, each lane writing and reading only its own); the
+//    branch tiles' windows and offsets come from a device copy of the layout
+//    table, which the wrapper makes from the same table the entry checks.
+//    It uses no shared memory.
+//  - float32: the same kernel, its stage input and rows in scratch.
+// A two-block cluster per sample sharing the stage input through distributed
+// shared memory was the alternative; it still fails at a stage input over
+// ~450 KB and halves the blocks a batch has, where scratch takes any size.
+// Being fast is later work.
+//
 // Barriers: every __syncthreads() is at the top level of a kernel or inside
 // loops whose trip counts (res_blocks, pixel tiles of the float32 path) are
-// the same for every thread of the block. The entry point returns
-// cudaGetLastError(), and cudaErrorInvalidValue for sizes it does not take or
+// the same for every thread of the block. The entry points return
+// cudaGetLastError(), and cudaErrorInvalidValue for sizes they do not take or
 // packed buffers of another size than its layout's, without launching.
 
 #include <cuda_bf16.h>
@@ -84,28 +113,41 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kTile = 32;  // float32: pixels per tile of the 1x1 stages
 constexpr int kRows = 4;   // float32: pixels per thread in the tiled stages
-constexpr int kMaxBranches = 4;
+// the most dilations a block has: ConvFlowConfig's schedule (models/arch.py::
+// _dilation_schedule, as JAX's) stops at its guard of 10 levels. The wide
+// variant takes that many; the narrow kernels 4, so that the parameters they
+// take by value (Dims, Layout, MmaLayout, sized by their branches) stay small
+constexpr int kMaxBranches = 10;
+constexpr int kNarrowBranches = 4;
 constexpr int kMaxShared = 232448;  // dynamic shared memory a block may use
 constexpr int kMaxDevices = 64;
 constexpr int kMaxTrunkTiles = 8;  // bfloat16: n8 tiles of the trunk (K <= 64)
 constexpr int kMaxHeadTiles = 4;   // bfloat16: n8 tiles of the head (out_total <= 32)
 constexpr int kFrag = 128;         // bfloat16: elements of one k16 x n8 B fragment
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBranchTiles = kMaxBranches * kMaxTrunkTiles;
 constexpr int kMaxTableValue = 1073741824;  // bfloat16: 2**30, the layout's largest int
+constexpr int kTableScalars = 25;  // bfloat16: the layout table's scalars (TABLE_FIELDS)
+constexpr int kChunkTiles = 8;     // wide bfloat16: n8 tiles of output channels a pass
 constexpr float kSlope = 0.3f;
 static_assert(kTile % kRows == 0, "a tile holds whole row groups");
 
+// B: the branches the struct has room for (kNarrowBranches in the narrow
+// kernels, kMaxBranches in the wide variant)
+template <int B>
 struct Dims {
   int h, w, cin, K, res_blocks, card, ksize, nd, out_total;
-  int dil[kMaxBranches];
+  int dil[B];
 };
+
+template <bool kWide>
+using DimsOf = Dims<kWide ? kMaxBranches : kNarrowBranches>;
 
 __device__ __forceinline__ float lrelu(float v) { return v > 0.f ? v : kSlope * v; }
 
-bool dims_ok(const Dims& d) {
+template <int B>
+bool dims_ok(const Dims<B>& d) {
   if (d.h < 1 || d.w < 1 || d.cin < 1 || d.K < 1 || d.res_blocks < 0 || d.card < 2 ||
-      d.ksize < 1 || d.nd < 1 || d.nd > kMaxBranches || d.out_total < 1)
+      d.ksize < 1 || d.nd < 1 || d.nd > B || d.out_total < 1)
     return false;
   for (int i = 0; i < d.nd; ++i)
     if (d.dil[i] < 1 || d.K % d.dil[i] != 0 || (d.K / d.dil[i]) % d.card != 0) return false;
@@ -135,18 +177,21 @@ cudaError_t allow_shared(Kernel kernel, bool (&done)[kMaxDevices]) {
 // Offsets, in elements, of each weight and bias in the packed buffers. The
 // order is flax_param_order's: kernels in one buffer, biases in another,
 // entry, then each residual block, then the head.
+template <int B>
 struct Layout {
   int sum_w;
-  int width[kMaxBranches], group[kMaxBranches], col[kMaxBranches];
-  int w_block0, w_block, w_branch[kMaxBranches], w_post, w_head;
-  int b_block0, b_block, b_branch[kMaxBranches], b_post, b_head;
+  int width[B], group[B], col[B];
+  int w_block0, w_block, w_branch[B], w_post, w_head;
+  int b_block0, b_block, b_branch[B], b_post, b_head;
   int64_t w_total, b_total;
   int act_bytes, stage_bytes;
+  int scratch_per_sample;  // f32 scratch elements a sample: the trunk (wide: then act, rows)
 };
 
 // SAME k x k conv at dilation 1 over act (h*w pixels of cs channels) into dst
 // (h*w pixels of cout channels), plus bias. No barrier inside.
-__device__ void conv_same(const Dims& d, const float* act, int cs, const float* __restrict__ wt,
+template <class D>
+__device__ void conv_same(const D& d, const float* act, int cs, const float* __restrict__ wt,
                           const float* __restrict__ bias, int cout, float* dst) {
   const int hw = d.h * d.w, k = d.ksize, lo = (k - 1) / 2;
   for (int e = threadIdx.x; e < hw * cout; e += kThreads) {
@@ -190,19 +235,23 @@ __device__ __forceinline__ void tile_1x1(const float* in, int n, int np,
   }
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 fused_subnet_f32_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                         const float* __restrict__ bias, float* trunk,
-                        float* __restrict__ out, const Dims d, const Layout L) {
+                        float* __restrict__ out, const DimsOf<kWide> d,
+                        const Layout<kWide ? kMaxBranches : kNarrowBranches> L) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* act = reinterpret_cast<float*>(smem);                    // stage input
-  float* stage = reinterpret_cast<float*>(smem + L.act_bytes);    // kTile pixel rows
   const int hw = d.h * d.w, K = d.K, k = d.ksize, S = L.sum_w;
   const int64_t n = blockIdx.x;
   const float* xs = x + n * hw * d.cin;
-  // y is written and read back by other threads of the block: plain loads,
-  // never the read-only path
-  float* y = trunk + n * hw * K;
+  // y, act and stage are written and read back by other threads of the
+  // block: plain loads, never the read-only path
+  float* y = trunk + n * L.scratch_per_sample;
+  // the stage input and kTile pixel rows: in shared memory, or (wide) in
+  // the sample's scratch after its trunk
+  float* act = kWide ? y + hw * K : reinterpret_cast<float*>(smem);
+  float* stage = kWide ? act + L.act_bytes / 4 : reinterpret_cast<float*>(smem + L.act_bytes);
   float* o = out + n * hw * d.out_total;
 
   for (int e = threadIdx.x; e < hw * d.cin; e += kThreads) act[e] = xs[e];
@@ -287,8 +336,10 @@ fused_subnet_f32_kernel(const float* __restrict__ x, const float* __restrict__ w
   conv_same(d, act, K, wts + L.w_head, bias + L.b_head, d.out_total, o);
 }
 
-// Fills L from d; false for sizes the kernel does not take.
-bool make_layout(const Dims& d, Layout& L) {
+// Fills L from d; false for sizes the kernel (wide: its wide variant) does
+// not take.
+template <int B>
+bool make_layout(const Dims<B>& d, bool wide, Layout<B>& L) {
   if (!dims_ok(d)) return false;
   const int64_t kk = static_cast<int64_t>(d.ksize) * d.ksize;
   int64_t sum_w = 0, branch_w = 0;
@@ -310,9 +361,11 @@ bool make_layout(const Dims& d, Layout& L) {
   const int64_t stage_bytes = kTile * (sum_w > d.K ? sum_w : d.K) * 4;
   L.w_total = w_entry + d.res_blocks * w_block + kk * d.K * d.out_total;
   L.b_total = d.K + d.res_blocks * (2 * d.K + sum_w) + d.out_total;
+  const int64_t scratch = hw * d.K + (wide ? (act_bytes + stage_bytes) / 4 : 0);
   if (L.w_total > INT32_MAX || hw * d.K > INT32_MAX || hw * d.out_total > INT32_MAX ||
-      act_bytes + stage_bytes > kMaxShared)
+      scratch > INT32_MAX || (!wide && act_bytes + stage_bytes > kMaxShared))
     return false;
+  L.scratch_per_sample = static_cast<int>(scratch);
   L.sum_w = static_cast<int>(sum_w);
   L.w_block0 = static_cast<int>(w_entry);
   L.w_block = static_cast<int>(w_block);
@@ -345,6 +398,7 @@ struct BranchTile {
 // each): the entry, then per residual block the pre 1x1, each branch tile in
 // order (branch by branch), the post 1x1; then the head. Biases in one f32
 // buffer, each stage's padded to its n8 tiles.
+template <int B>
 struct MmaLayout {
   int Kp, NT, NO;           // trunk width padded to 8, its n8 tiles, the head's
   int xs, ts;               // row strides (elements) of x and t in shared memory
@@ -354,83 +408,106 @@ struct MmaLayout {
   int b_block0, b_block, b_post, b_head, b_total;
   int trunk_per_sample;     // f32 scratch elements a sample
   int act_bytes, w_stage;   // the stage input's bytes; the weights of the largest stage
-  int br_tile0[kMaxBranches], br_tiles[kMaxBranches];  // each branch's first tile, its tiles
-  BranchTile tile[kMaxBranchTiles];
+  int br_tile0[B], br_tiles[B];  // each branch's first tile, its tiles
+  BranchTile tile[B * kMaxTrunkTiles];
 };
+static_assert(sizeof(Dims<kMaxBranches>) + sizeof(MmaLayout<kMaxBranches>) + 8 * sizeof(void*) <=
+                  4096,
+              "a kernel's parameters fit the 4 KB every toolkit takes");
+
+// The table's tiles start after its scalars and each branch's first tile and
+// tile count.
+constexpr int kTableTiles = kTableScalars + 2 * kMaxBranches;
 
 // The wrapper's table (fused_subnet.py::layout_table) into L: the scalars in
 // this order (TABLE_FIELDS there), each of kMaxBranches branches' first tile
-// and tile count, then lo8, q, chunks, w_off, b_off a tile. False if the
-// table has another length or a value outside [0, kMaxTableValue].
-bool read_mma_layout(const int* t, int n, MmaLayout& L) {
+// and tile count (the first B into L), then lo8, q, chunks, w_off, b_off a
+// tile (the first B * kMaxTrunkTiles into L.tile, the narrow kernel's copy).
+// False if the table has another length or a value outside [0,
+// kMaxTableValue].
+template <int B>
+bool read_mma_layout(const int* t, int n, MmaLayout<B>& L) {
   int* head[] = {&L.Kp,       &L.NT,       &L.NO,      &L.xs,       &L.ts,
                  &L.qx,       &L.n_mt,     &L.ch_entry, &L.ch_pre,  &L.ch_post,
                  &L.ch_head,  &L.n_tiles,  &L.w_block0, &L.w_block, &L.w_post,
                  &L.w_head,   &L.w_total,  &L.b_block0, &L.b_block, &L.b_post,
                  &L.b_head,   &L.b_total,  &L.trunk_per_sample, &L.act_bytes, &L.w_stage};
-  constexpr int kHead = sizeof(head) / sizeof(head[0]), kBranches = kHead + 2 * kMaxBranches;
-  if (t == nullptr || n < kBranches) return false;
-  for (int i = 0; i < kHead; ++i) *head[i] = t[i];
-  if (L.n_tiles < 1 || L.n_tiles > kMaxBranchTiles || n != kBranches + 5 * L.n_tiles)
+  static_assert(sizeof(head) / sizeof(head[0]) == kTableScalars, "the table's scalars");
+  if (t == nullptr || n < kTableTiles) return false;
+  for (int i = 0; i < kTableScalars; ++i) *head[i] = t[i];
+  if (L.n_tiles < 1 || (n - kTableTiles) % 5 != 0 || (n - kTableTiles) / 5 != L.n_tiles)
     return false;
   for (int i = 0; i < n; ++i)  // so that no sum of two overflows
     if (t[i] < 0 || t[i] > kMaxTableValue) return false;
-  for (int i = 0; i < kMaxBranches; ++i) {
-    L.br_tile0[i] = t[kHead + 2 * i];
-    L.br_tiles[i] = t[kHead + 2 * i + 1];
+  for (int i = 0; i < B; ++i) {
+    L.br_tile0[i] = t[kTableScalars + 2 * i];
+    L.br_tiles[i] = t[kTableScalars + 2 * i + 1];
   }
-  for (int i = 0; i < L.n_tiles; ++i) {
-    const int* v = t + kBranches + 5 * i;
+  for (int i = 0; i < L.n_tiles && i < B * kMaxTrunkTiles; ++i) {
+    const int* v = t + kTableTiles + 5 * i;
     L.tile[i] = BranchTile{v[0], v[1], v[2], v[3], v[4]};
   }
   return true;
 }
 
-// Whether the kernel, run with L on buffers of n_weights and n_biases
-// elements, stays inside them, its shared memory and its tiles, and covers
-// every tap, channel and n8 tile of each stage. Checks only: what L computes
-// is held to the chain on the CPU (tests/test_torch_fused_subnet.py) and on
-// the card.
-bool mma_layout_ok(const Dims& d, const MmaLayout& L, int64_t n_weights, int64_t n_biases) {
+// float32 scratch elements a sample of the wide bf16 kernel: the trunk, the
+// stage input (act_bytes, a multiple of 16), then each pixel tile's post-1x1
+// A fragments, ch_post k16 chunks of 32 lanes x 4 words
+template <int B>
+int64_t wide_scratch(const MmaLayout<B>& L) {
+  return L.trunk_per_sample + L.act_bytes / 4 + static_cast<int64_t>(L.n_mt) * L.ch_post * 128;
+}
+
+// Whether the kernel (wide: the wide kernel), run with L and the table's
+// tiles on buffers of n_weights and n_biases elements, stays inside them, its
+// shared memory, its tiles and its scratch, and covers every tap, channel and
+// n8 tile of each stage. Checks only: what L computes is held to the chain on
+// the CPU (tests/test_torch_fused_subnet.py) and on the card.
+template <int B>
+bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const int* tiles, bool wide,
+                   int64_t n_weights, int64_t n_biases) {
   const int64_t hw = static_cast<int64_t>(d.h) * d.w, kk = static_cast<int64_t>(d.ksize) * d.ksize;
-  const int64_t f = kFrag;
+  const int64_t f = kFrag, Kp = L.Kp;
   const int64_t row = L.xs > L.ts ? L.xs : L.ts;
   const bool sizes =
-      dims_ok(d) && L.NT >= 1 && L.NT <= kMaxTrunkTiles && L.Kp == 8 * L.NT && L.Kp >= d.K &&
-      L.NO >= 1 && L.NO <= kMaxHeadTiles && 8 * L.NO >= d.out_total && L.qx >= 1 &&
-      8LL * L.qx >= d.cin && L.xs >= 8 * L.qx && L.ts >= L.Kp && L.xs % 8 == 0 &&
-      L.ts % 8 == 0 && hw <= INT32_MAX / 16 && hw * d.out_total <= INT32_MAX &&
-      L.n_mt == (hw + 15) / 16 &&
-      L.trunk_per_sample == 16 * static_cast<int64_t>(L.n_mt) * L.Kp &&
+      dims_ok(d) && L.NT >= 1 && Kp == 8LL * L.NT && Kp >= d.K && L.NO >= 1 &&
+      8LL * L.NO >= d.out_total && L.qx >= 1 && 8LL * L.qx >= d.cin && L.xs >= 8LL * L.qx &&
+      L.ts >= Kp && L.xs % 8 == 0 && L.ts % 8 == 0 && hw <= INT32_MAX / 16 &&
+      hw * d.out_total <= INT32_MAX && L.n_mt == (hw + 15) / 16 &&
+      L.trunk_per_sample == 16 * static_cast<int64_t>(L.n_mt) * Kp &&
       L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * 2;
   const bool stages =
       2LL * L.ch_entry >= kk * L.qx && L.ch_pre == (L.NT + 1) / 2 &&
       L.ch_post == (L.n_tiles + 1) / 2 && 2LL * L.ch_head >= kk * L.NT &&
       L.w_block0 == f * L.ch_entry * L.NT && L.w_post % kFrag == 0 &&
-      L.w_post + L.ch_post * L.NT * f == L.w_block &&
+      L.w_post + f * L.ch_post * L.NT == L.w_block &&
       L.w_head == L.w_block0 + d.res_blocks * static_cast<int64_t>(L.w_block) &&
       L.w_total == n_weights && L.w_total - L.w_head == f * L.ch_head * L.NO &&
       L.w_block0 <= L.w_stage && L.w_block <= L.w_stage && L.w_total - L.w_head <= L.w_stage &&
-      L.act_bytes + 2 * static_cast<int64_t>(L.w_stage) <= kMaxShared &&
-      L.b_block0 == L.Kp && L.b_post + L.Kp == L.b_block &&
+      L.b_block0 == Kp && L.b_post + Kp == L.b_block &&
       L.b_head == L.b_block0 + d.res_blocks * static_cast<int64_t>(L.b_block) &&
-      L.b_total == n_biases && L.b_total == L.b_head + 8 * L.NO;
-  if (!sizes || !stages) return false;
+      L.b_total == n_biases && L.b_total == L.b_head + 8LL * L.NO;
+  // the narrow kernel's shared memory, registers and by-value tiles
+  const bool narrow = L.NT <= kMaxTrunkTiles && L.NO <= kMaxHeadTiles &&
+                      L.n_tiles <= B * kMaxTrunkTiles &&
+                      L.act_bytes + 2 * static_cast<int64_t>(L.w_stage) <= kMaxShared;
+  if (!sizes || !stages || !(wide ? wide_scratch(L) <= INT32_MAX : narrow)) return false;
   // branch tiles: in order, branch by branch, one window size a branch, each
   // window inside the trunk's channels, weights and biases between the pre
   // and the post 1x1's
-  int next = 0;
+  int64_t next = 0;
   for (int br = 0; br < d.nd; ++br) {
-    const int t0 = L.br_tile0[br], nt = L.br_tiles[br];
-    if (t0 != next || nt < 1 || nt > kMaxTrunkTiles || t0 + nt > L.n_tiles ||
+    const int64_t t0 = L.br_tile0[br], nt = L.br_tiles[br];
+    if (t0 != next || nt < 1 || (!wide && nt > kMaxTrunkTiles) || t0 + nt > L.n_tiles ||
         8 * nt < d.K / d.dil[br])
       return false;
-    for (int j = t0; j < t0 + nt; ++j) {
-      const BranchTile& t = L.tile[j];
-      if (t.q != L.tile[t0].q || t.chunks != L.tile[t0].chunks || t.q < 1 ||
-          2LL * t.chunks < kk * t.q || t.lo8 % 8 != 0 || t.lo8 + 8LL * t.q > L.Kp ||
-          t.w_off < L.ch_pre * L.NT * f || t.w_off % kFrag != 0 ||
-          t.w_off + t.chunks * f > L.w_post || t.b_off < L.Kp || t.b_off + 8 > L.b_post)
+    const int* first = tiles + 5 * t0;
+    for (int64_t j = t0; j < t0 + nt; ++j) {
+      const int* v = tiles + 5 * j;  // lo8, q, chunks, w_off, b_off
+      const int64_t lo8 = v[0], q = v[1], chunks = v[2], w_off = v[3], b_off = v[4];
+      if (q != first[1] || chunks != first[2] || q < 1 || 2 * chunks < kk * q ||
+          lo8 % 8 != 0 || lo8 + 8 * q > Kp || w_off < f * L.ch_pre * L.NT || w_off % kFrag != 0 ||
+          w_off + chunks * f > L.w_post || b_off < Kp || b_off + 8 > L.b_post)
         return false;
     }
     next = t0 + nt;
@@ -471,7 +548,8 @@ struct Rows {
   bool ok[2];
 };
 
-__device__ __forceinline__ Rows tile_rows(const Dims& d, int mt) {
+template <class D>
+__device__ __forceinline__ Rows tile_rows(const D& d, int mt) {
   Rows r;
   const int lane_row = (threadIdx.x & 31) >> 2, hw = d.h * d.w;
 #pragma unroll
@@ -499,13 +577,15 @@ struct Gather {
   uint32_t base;   // shared address of this lane's pixel at the slice's tap
 };
 
-__device__ __forceinline__ void locate(const Dims& d, Gather& G) {
+template <class D>
+__device__ __forceinline__ void locate(const D& d, Gather& G) {
   const int iy = G.py + G.ty * G.dil - G.pad, ix = G.px + G.tx * G.dil - G.pad;
   const bool in = G.ok && G.ty < d.ksize && iy >= 0 && iy < d.h && ix >= 0 && ix < d.w;
   G.base = in ? G.act + (iy * d.w + ix) * G.stride : G.zero;
 }
 
-__device__ __forceinline__ void advance(const Dims& d, Gather& G) {
+template <class D>
+__device__ __forceinline__ void advance(const D& d, Gather& G) {
   if (++G.c8 == G.q) {
     G.c8 = 0;
     if (++G.tx == d.ksize) {
@@ -516,7 +596,8 @@ __device__ __forceinline__ void advance(const Dims& d, Gather& G) {
   }
 }
 
-__device__ __forceinline__ Gather gather_at(const Dims& d, int mt, uint32_t act, uint32_t zero,
+template <class D>
+__device__ __forceinline__ Gather gather_at(const D& d, int mt, uint32_t act, uint32_t zero,
                                             int stride, int q, int dil) {
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int p = mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
@@ -538,7 +619,8 @@ __device__ __forceinline__ Gather gather_at(const Dims& d, int mt, uint32_t act,
 
 // this lane's ldmatrix address for the next chunk (channel 0 of the slice),
 // and G moved on by a chunk
-__device__ __forceinline__ uint32_t take_chunk(const Dims& d, Gather& G) {
+template <class D>
+__device__ __forceinline__ uint32_t take_chunk(const D& d, Gather& G) {
   const uint32_t at = G.base + 16 * G.c8;
   advance(d, G);
   advance(d, G);
@@ -553,8 +635,8 @@ __device__ __forceinline__ void fragment_a(uint32_t at, uint32_t (&a)[4]) {
 }
 
 // acc[0, nt) += conv(G) over `chunks` chunks with the stage's fragments at w
-template <int kMaxTiles>
-__device__ __forceinline__ void conv_tiles(const Dims& d, Gather G, int chunks,
+template <int kMaxTiles, class D>
+__device__ __forceinline__ void conv_tiles(const D& d, Gather G, int chunks,
                                            const __nv_bfloat16* w, int nt,
                                            float (&acc)[kMaxTiles][4]) {
   // two chunks a step, both loaded first: their loads overlap
@@ -589,7 +671,8 @@ __device__ __forceinline__ float2 bias2(const float* __restrict__ b, int j) {
 __global__ void __launch_bounds__(kThreads, 1)
 fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
                         const float* __restrict__ bias, float4* trunk,
-                        float* __restrict__ out, const Dims d, const MmaLayout L) {
+                        float* __restrict__ out, const Dims<kNarrowBranches> d,
+                        const MmaLayout<kNarrowBranches> L) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
   // the running stage's weights (the entry, one residual block, the head)
@@ -760,39 +843,366 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16, wide: any trunk and head width, any stage input size
+// ---------------------------------------------------------------------------
+
+// lane's B fragment `frag` of the stage whose fragments start at w, read from
+// the packed weights in global memory (L2-resident)
+__device__ __forceinline__ uint2 frag_b_global(const __nv_bfloat16* __restrict__ w, int64_t frag) {
+  return __ldg(reinterpret_cast<const uint2*>(w + frag * kFrag) + (threadIdx.x & 31));
+}
+
+// A SAME k x k conv's A operand in the wide kernel, read from the stage input
+// in scratch: this lane's pixel rows g and g + 8 of a 16-pixel tile, the
+// input's 8-channel slices per tap, the dilation and the row stride.
+struct WideGather {
+  Rows r;
+  int q, dil, pad, stride;
+};
+
+template <class D>
+__device__ __forceinline__ WideGather wide_gather(const D& d, int mt, int q, int dil,
+                                                  int stride) {
+  return WideGather{tile_rows(d, mt), q, dil, dil * (d.ksize - 1) / 2, stride};
+}
+
+// Element offsets, from the input window's first channel, of this lane's four
+// A registers in chunk c, in the m16n8k16 order: (row g, slice 2c), (row g+8,
+// slice 2c), (row g, slice 2c+1), (row g+8, slice 2c+1), each the channels
+// 2t, 2t+1 of its slice (t = lane % 4); -1 where the register is zero (a
+// padding pixel, a row past the sample, a slice past the last tap).
+template <class D>
+__device__ __forceinline__ void chunk_offsets(const D& d, const WideGather& G, int c,
+                                              int (&off)[4]) {
+  const int kk = d.ksize * d.ksize, t2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int slice = 2 * c + s, tap = slice / G.q, c8 = slice - tap * G.q;
+    const int ty = tap / d.ksize, tx = tap - ty * d.ksize;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int iy = G.r.py[i] + ty * G.dil - G.pad, ix = G.r.px[i] + tx * G.dil - G.pad;
+      const bool in = G.r.ok[i] && tap < kk && iy >= 0 && iy < d.h && ix >= 0 && ix < d.w;
+      off[2 * s + i] = in ? (iy * d.w + ix) * G.stride + 8 * c8 + t2 : -1;
+    }
+  }
+}
+
+// the A fragment at `off` (chunk_offsets) + lo8 of the stage input at act,
+// which this kernel writes: plain loads, never the read-only path
+__device__ __forceinline__ void fragment_a_scratch(const __nv_bfloat16* act, const int (&off)[4],
+                                                   int lo8, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    a[e] = off[e] < 0 ? 0u : *reinterpret_cast<const uint32_t*>(act + off[e] + lo8);
+}
+
+// acc[0, nt) += conv(G) into n8 tiles [j0, j0 + nt) of a stage of `tiles` n8
+// tiles and `chunks` k16 chunks whose fragments start at w
+template <class D>
+__device__ __forceinline__ void conv_chunk(const D& d, const WideGather& G,
+                                           const __nv_bfloat16* act, int chunks,
+                                           const __nv_bfloat16* __restrict__ w, int tiles, int j0,
+                                           int nt, float (&acc)[kChunkTiles][4]) {
+  for (int c = 0; c < chunks; ++c) {
+    int off[4];
+    uint32_t a[4];
+    chunk_offsets(d, G, c, off);
+    fragment_a_scratch(act, off, 0, a);
+#pragma unroll
+    for (int j = 0; j < kChunkTiles; ++j)
+      if (j < nt) mma(acc[j], a, frag_b_global(w, static_cast<int64_t>(c) * tiles + j0 + j));
+  }
+}
+
+// The chain of fused_subnet_mma_kernel with its stage input, branch outputs
+// and weights outside shared memory (the source note): the same packing, the
+// same stages and roundings, each stage over output chunks of kChunkTiles n8
+// tiles. `tiles`: the layout table's tiles in device memory; per_sample: the
+// scratch elements a sample (wide_scratch).
+__global__ void __launch_bounds__(kThreads, 1)
+fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
+                             const float* __restrict__ bias, float* scratch,
+                             float* __restrict__ out, const Dims<kMaxBranches> d,
+                             const MmaLayout<kMaxBranches> L, const int* __restrict__ tiles,
+                             int64_t per_sample) {
+  const int hw = d.h * d.w, NT = L.NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = blockIdx.x;
+  const float* xs = x + n * hw * d.cin;
+  float* mine = scratch + n * per_sample;
+  // the trunk in accumulator layout, [pixel tile][n8 tile][lane] float4: each
+  // float4 is only ever read and written by its own lane
+  float4* y = reinterpret_cast<float4*>(mine);
+  // the stage input, rows as in the narrow kernel's shared memory
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(mine + L.trunk_per_sample);
+  // the branch outputs as the post 1x1's A fragments, [pixel tile][k16
+  // chunk][lane] uint4: each only ever read and written by its own lane
+  uint4* frags = reinterpret_cast<uint4*>(mine + L.trunk_per_sample + L.act_bytes / 4);
+  float* o = out + n * hw * d.out_total;
+  auto y_at = [&](int mt, int j) -> float4& { return y[(mt * NT + j) * 32 + lane]; };
+
+  // x -> bf16 in scratch, channels zero-padded to the slices
+  const int cin_p = 8 * L.qx;
+  for (int e = threadIdx.x; e < hw * cin_p; e += kThreads) {
+    const int p = e / cin_p, c = e - p * cin_p;
+    act[p * L.xs + c] = __float2bfloat16(c < d.cin ? xs[p * d.cin + c] : 0.f);
+  }
+  __syncthreads();
+
+  // entry conv: y = conv_k(x) + entry_b
+  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+    const WideGather G = wide_gather(d, mt, L.qx, 1, L.xs);
+    for (int j0 = 0; j0 < NT; j0 += kChunkTiles) {
+      const int nt = min(kChunkTiles, NT - j0);
+      float acc[kChunkTiles][4] = {};
+      conv_chunk(d, G, act, L.ch_entry, wts, NT, j0, nt, acc);
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j) {
+        if (j >= nt) break;
+        const float2 b = bias2(bias, j0 + j);
+        y_at(mt, j0 + j) = make_float4(acc[j][0] + b.x, acc[j][1] + b.y, acc[j][2] + b.x,
+                                       acc[j][3] + b.y);
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int blk = 0; blk < d.res_blocks; ++blk) {
+    const __nv_bfloat16* wb = wts + L.w_block0 + static_cast<int64_t>(blk) * L.w_block;
+    const float* bb = bias + L.b_block0 + static_cast<int64_t>(blk) * L.b_block;
+
+    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b)) into scratch;
+    // accumulator tiles 2c and 2c+1 of y are chunk c's A fragment
+    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+      const Rows r = tile_rows(d, mt);
+      for (int j0 = 0; j0 < NT; j0 += kChunkTiles) {
+        const int nt = min(kChunkTiles, NT - j0);
+        float acc[kChunkTiles][4] = {};
+        for (int c = 0; c < L.ch_pre; ++c) {
+          const float4 lo = y_at(mt, 2 * c);
+          const float4 hi =
+              2 * c + 1 < NT ? y_at(mt, 2 * c + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const uint32_t a[4] = {pack_bf16(lrelu(lo.x), lrelu(lo.y)),
+                                 pack_bf16(lrelu(lo.z), lrelu(lo.w)),
+                                 pack_bf16(lrelu(hi.x), lrelu(hi.y)),
+                                 pack_bf16(lrelu(hi.z), lrelu(hi.w))};
+#pragma unroll
+          for (int j = 0; j < kChunkTiles; ++j)
+            if (j < nt) mma(acc[j], a, frag_b_global(wb, static_cast<int64_t>(c) * NT + j0 + j));
+        }
+#pragma unroll
+        for (int j = 0; j < kChunkTiles; ++j) {
+          if (j >= nt) break;
+          const float2 b = bias2(bb, j0 + j);
+          const int ch = 8 * (j0 + j) + 2 * (lane & 3);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (r.ok[i])
+              *reinterpret_cast<uint32_t*>(act + (r.py[i] * d.w + r.px[i]) * L.ts + ch) =
+                  pack_bf16(lrelu(acc[j][2 * i] + b.x), lrelu(acc[j][2 * i + 1] + b.y));
+        }
+      }
+    }
+    __syncthreads();
+
+    // branches, up to kChunkTiles tiles of a branch at a time: s =
+    // bf16(lrelu(gconv(t) + bb)) into the fragments (an even tile is the
+    // first half of its k16 chunk, an odd one the second); then the post 1x1
+    // over every chunk, an output chunk at a time: y = y + u + post_b
+    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+      uint4* fr = frags + static_cast<int64_t>(mt) * L.ch_post * 32 + lane;  // chunk c: fr[32c]
+      for (int br = 0; br < d.nd; ++br) {
+        const int t0 = L.br_tile0[br], ntb = L.br_tiles[br];
+        const int q = __ldg(tiles + 5 * t0 + 1), chunks = __ldg(tiles + 5 * t0 + 2);
+        const WideGather G = wide_gather(d, mt, q, d.dil[br], L.ts);
+        for (int g0 = 0; g0 < ntb; g0 += kChunkTiles) {
+          const int nt = min(kChunkTiles, ntb - g0);
+          int lo8[kChunkTiles], w_off[kChunkTiles];
+#pragma unroll
+          for (int j = 0; j < kChunkTiles; ++j) {
+            const int* v = tiles + 5 * (t0 + g0 + min(j, nt - 1));
+            lo8[j] = __ldg(v);
+            w_off[j] = __ldg(v + 3);
+          }
+          float s[kChunkTiles][4] = {};
+          for (int c = 0; c < chunks; ++c) {
+            int off[4];
+            chunk_offsets(d, G, c, off);
+#pragma unroll
+            for (int j = 0; j < kChunkTiles; ++j) {
+              if (j >= nt) break;
+              uint32_t a[4];
+              fragment_a_scratch(act, off, lo8[j], a);
+              mma(s[j], a, frag_b_global(wb + w_off[j], c));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kChunkTiles; ++j) {
+            if (j >= nt) break;
+            const int gt = t0 + g0 + j;
+            const float2 b = bias2(bb + __ldg(tiles + 5 * gt + 4), 0);
+            uint2* half = reinterpret_cast<uint2*>(fr + 32 * (gt / 2)) + (gt & 1);
+            *half = make_uint2(pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y)),
+                               pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y)));
+            if (gt == L.n_tiles - 1 && gt % 2 == 0) half[1] = make_uint2(0u, 0u);
+          }
+        }
+      }
+      for (int j0 = 0; j0 < NT; j0 += kChunkTiles) {
+        const int nt = min(kChunkTiles, NT - j0);
+        float u[kChunkTiles][4] = {};
+        for (int c = 0; c < L.ch_post; ++c) {
+          const uint4 v = fr[32 * c];
+          const uint32_t a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < kChunkTiles; ++j)
+            if (j < nt)
+              mma(u[j], a, frag_b_global(wb + L.w_post, static_cast<int64_t>(c) * NT + j0 + j));
+        }
+#pragma unroll
+        for (int j = 0; j < kChunkTiles; ++j) {
+          if (j >= nt) break;
+          const float2 b = bias2(bb + L.b_post, j0 + j);
+          float4& v = y_at(mt, j0 + j);
+          const float4 old = v;
+          v = make_float4((old.x + u[j][0]) + b.x, (old.y + u[j][1]) + b.y,
+                          (old.z + u[j][2]) + b.x, (old.w + u[j][3]) + b.y);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // head: t = bf16(lrelu(y)) into scratch; out = conv_k(t) + head_b
+  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+    const Rows r = tile_rows(d, mt);
+    for (int j = 0; j < NT; ++j) {
+      const float4 v = y_at(mt, j);
+      const int ch = 8 * j + 2 * (lane & 3);
+      if (r.ok[0])
+        *reinterpret_cast<uint32_t*>(act + (r.py[0] * d.w + r.px[0]) * L.ts + ch) =
+            pack_bf16(lrelu(v.x), lrelu(v.y));
+      if (r.ok[1])
+        *reinterpret_cast<uint32_t*>(act + (r.py[1] * d.w + r.px[1]) * L.ts + ch) =
+            pack_bf16(lrelu(v.z), lrelu(v.w));
+    }
+  }
+  __syncthreads();
+  const float* hb = bias + L.b_head;
+  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
+    const Rows r = tile_rows(d, mt);
+    const WideGather G = wide_gather(d, mt, NT, 1, L.ts);
+    for (int j0 = 0; j0 < L.NO; j0 += kChunkTiles) {
+      const int nt = min(kChunkTiles, L.NO - j0);
+      float acc[kChunkTiles][4] = {};
+      conv_chunk(d, G, act, L.ch_head, wts + L.w_head, L.NO, j0, nt, acc);
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j) {
+        if (j >= nt) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * (j0 + j) + 2 * (lane & 3) + (e & 1), i = e >> 1;
+          if (r.ok[i] && col < d.out_total)
+            o[(r.py[i] * d.w + r.px[i]) * d.out_total + col] = acc[j][e] + hb[col];
+        }
+      }
+    }
+  }
+}
+
+template <bool kWide>
 int launch_f32(const void* x, const void* wts, const void* bias, void* trunk, void* out,
-               int batch, const Dims& d, int64_t n_weights, int64_t n_biases,
+               int batch, const DimsOf<kWide>& d, int64_t n_weights, int64_t n_biases,
                int64_t n_trunk, cudaStream_t stream) {
-  Layout L;
-  if (batch < 1 || !make_layout(d, L) || L.w_total != n_weights || L.b_total != n_biases ||
-      n_trunk < static_cast<int64_t>(batch) * d.h * d.w * d.K)
+  Layout<kWide ? kMaxBranches : kNarrowBranches> L;
+  if (batch < 1 || !make_layout(d, kWide, L) || L.w_total != n_weights ||
+      L.b_total != n_biases || n_trunk < static_cast<int64_t>(batch) * L.scratch_per_sample)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool limit_set[kMaxDevices] = {};
-  cudaError_t err = allow_shared(fused_subnet_f32_kernel, limit_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_subnet_f32_kernel<<<batch, kThreads, L.act_bytes + L.stage_bytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wts),
-      static_cast<const float*>(bias), static_cast<float*>(trunk), static_cast<float*>(out),
-      d, L);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(wts);
+  const float* bf = static_cast<const float*>(bias);
+  float* tf = static_cast<float*>(trunk);
+  float* of = static_cast<float*>(out);
+  if constexpr (kWide) {
+    fused_subnet_f32_kernel<true><<<batch, kThreads, 0, stream>>>(xf, wf, bf, tf, of, d, L);
+  } else {
+    static bool limit_set[kMaxDevices] = {};
+    cudaError_t err = allow_shared(fused_subnet_f32_kernel<false>, limit_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_f32_kernel<false><<<batch, kThreads, L.act_bytes + L.stage_bytes, stream>>>(
+        xf, wf, bf, tf, of, d, L);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kWide>
 int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, void* out,
-                int batch, const Dims& d, int64_t n_weights, int64_t n_biases,
-                int64_t n_trunk, const int* table, int n_table, cudaStream_t stream) {
-  MmaLayout L{};
+                int batch, const DimsOf<kWide>& d, int64_t n_weights, int64_t n_biases,
+                int64_t n_trunk, const int* table, int n_table, const int* device_table,
+                cudaStream_t stream) {
+  MmaLayout<kWide ? kMaxBranches : kNarrowBranches> L{};
   if (batch < 1 || !read_mma_layout(table, n_table, L) ||
-      !mma_layout_ok(d, L, n_weights, n_biases) ||
-      n_trunk < static_cast<int64_t>(batch) * L.trunk_per_sample)
+      !mma_layout_ok(d, L, table + kTableTiles, kWide, n_weights, n_biases))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool limit_set[kMaxDevices] = {};
-  cudaError_t err = allow_shared(fused_subnet_mma_kernel, limit_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_subnet_mma_kernel<<<batch, kThreads, L.act_bytes + 2 * L.w_stage, stream>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(wts),
-      static_cast<const float*>(bias), static_cast<float4*>(trunk), static_cast<float*>(out),
-      d, L);
+  const int64_t per_sample = kWide ? wide_scratch(L) : L.trunk_per_sample;
+  if (n_trunk < static_cast<int64_t>(batch) * per_sample || (kWide && device_table == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wts);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  if constexpr (kWide) {
+    fused_subnet_mma_wide_kernel<<<batch, kThreads, 0, stream>>>(
+        xf, wb, bf, static_cast<float*>(trunk), of, d, L, device_table + kTableTiles,
+        per_sample);
+  } else {
+    static bool limit_set[kMaxDevices] = {};
+    cudaError_t err = allow_shared(fused_subnet_mma_kernel, limit_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_mma_kernel<<<batch, kThreads, L.act_bytes + 2 * L.w_stage, stream>>>(
+        xf, wb, bf, static_cast<float4*>(trunk), of, d, L);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// d's fields and its dilations (the first B of them) into a Dims<B>
+template <int B>
+Dims<B> with_dilations(const Dims<B>& d, int n_dil, const int* dilations) {
+  Dims<B> out = d;
+  out.nd = n_dil;
+  for (int i = 0; i < B; ++i) out.dil[i] = i < n_dil ? dilations[i] : 1;
+  return out;
+}
+
+template <bool kWide>
+int launch(const void* x, const void* weights, const void* biases, void* trunk, void* out,
+           int batch, const DimsOf<kWide>& d, int dtype, long long n_weights,
+           long long n_biases, long long n_trunk, const int* table, int n_table,
+           const int* device_table, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<kWide>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
+                             n_trunk, stream);
+  if (dtype == 1)
+    return launch_bf16<kWide>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
+                              n_trunk, table, n_table, device_table, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The entry points' common part: the dilations checked and copied into the
+// variant's Dims (the narrow kernels take at most kNarrowBranches), then the
+// launch of dtype's kernel.
+template <bool kWide>
+int forward(const void* x, const void* weights, const void* biases, void* trunk, void* out,
+            int batch, const DimsOf<kWide>& d, int n_dil, const int* dilations, int dtype,
+            long long n_weights, long long n_biases, long long n_trunk, const int* table,
+            int n_table, const int* device_table, void* stream) {
+  if (dilations == nullptr || n_dil < 1 || n_dil > (kWide ? kMaxBranches : kNarrowBranches))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kWide>(x, weights, biases, trunk, out, batch, with_dilations(d, n_dil, dilations),
+                       dtype, n_weights, n_biases, n_trunk, table, n_table, device_table,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -801,23 +1211,36 @@ int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, v
 // elements); biases: the packed f32 biases (n_biases); trunk: f32 scratch of
 // n_trunk elements; out (batch, h, w, out_total) f32. dtype: 0 = float32,
 // 1 = bfloat16 (the type of weights and of the products' operands; each has
-// its own packing). dil0..dil3: the first n_dil are the branches' dilations.
-// table, n_table: the bfloat16 layout (fused_subnet.py::layout_table), which
-// the float32 instantiation does not read.
+// its own packing). dilations: the n_dil branches' dilations (at most
+// kNarrowBranches; the wide entry takes kMaxBranches). table, n_table: the
+// bfloat16 layout
+// (fused_subnet.py::layout_table), which the float32 instantiation does not
+// read.
 extern "C" int fused_subnet_forward(const void* x, const void* weights, const void* biases,
                                     void* trunk, void* out, int batch, int h, int w, int cin,
                                     int kernels, int res_blocks, int cardinality, int ksize,
-                                    int n_dil, int dil0, int dil1, int dil2, int dil3,
-                                    int out_total, int dtype, long long n_weights,
-                                    long long n_biases, long long n_trunk, const int* table,
-                                    int n_table, void* stream) {
-  Dims d{h, w, cin, kernels, res_blocks, cardinality, ksize, n_dil, out_total,
-         {dil0, dil1, dil2, dil3}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_f32(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk, s);
-  if (dtype == 1)
-    return launch_bf16(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk,
-                       table, n_table, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                    int n_dil, const int* dilations, int out_total, int dtype,
+                                    long long n_weights, long long n_biases, long long n_trunk,
+                                    const int* table, int n_table, void* stream) {
+  const Dims<kNarrowBranches> d{h, w, cin, kernels, res_blocks, cardinality, ksize, 0,
+                                out_total, {}};
+  return forward<false>(x, weights, biases, trunk, out, batch, d, n_dil, dilations, dtype,
+                        n_weights, n_biases, n_trunk, table, n_table, nullptr, stream);
+}
+
+// The wide variant (the source note), with fused_subnet_forward's arguments;
+// trunk is the wide scratch (fused_subnet.py::trunk_elements), and
+// device_table, for bfloat16, a copy of `table` in device memory, from which
+// the kernel reads the branch tiles.
+extern "C" int fused_subnet_forward_wide(const void* x, const void* weights, const void* biases,
+                                         void* trunk, void* out, int batch, int h, int w,
+                                         int cin, int kernels, int res_blocks, int cardinality,
+                                         int ksize, int n_dil, const int* dilations,
+                                         int out_total, int dtype, long long n_weights,
+                                         long long n_biases, long long n_trunk, const int* table,
+                                         int n_table, const int* device_table, void* stream) {
+  const Dims<kMaxBranches> d{h, w, cin, kernels, res_blocks, cardinality, ksize, 0, out_total,
+                             {}};
+  return forward<true>(x, weights, biases, trunk, out, batch, d, n_dil, dilations, dtype,
+                       n_weights, n_biases, n_trunk, table, n_table, device_table, stream);
 }

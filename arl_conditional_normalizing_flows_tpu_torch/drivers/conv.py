@@ -16,9 +16,13 @@ graph and replayed N times a call). ``--records-dir`` reads the ``.cnfrec``
 files that ``cnf-build-records`` writes: streamed through the native loader
 (``--stream-records``, the default: ``data/native_loader.py``, host memory
 bounded by a few batches) or read into the in-RAM sources
-(``--no-stream-records``); both give the same batches for the same seed. The
-flags of paths not ported yet (plots, the fused_dilated and dense_groups
-lowerings) exit with the ROADMAP item that will bring them.
+(``--no-stream-records``); both give the same batches for the same seed.
+``--plot`` writes the sample grids (needs matplotlib). Every
+``--experimental-lowering`` runs, ``pallas_subnet`` at any width (the JAX
+package's capacity preset: ``--kernels 128 128 128 128 --cardinality 8 8 8
+8 --fused-subnet --dtype bfloat16``); ``pallas_subnet``, ``fused_dilated``
+and ``dense_groups`` need ``--no-shared-init``: the shared-shape init
+refuses them, as JAX's does.
 
 Multi-process data parallel (JAX ``drivers/conv.py:90-98, 205-235,
 343-378``): ``--coordinator host:port --num-processes N --process-id i`` in

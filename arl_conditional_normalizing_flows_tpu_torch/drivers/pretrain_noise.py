@@ -16,9 +16,10 @@ shared-shape init (conv_pre_training_cINN_on_noise.py:24-29).
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises. ``--scan-steps N`` trains through
 ``make_scan_train_step`` (on the card, one train step captured as a CUDA
-graph and replayed N times a call). The fused_dilated and dense_groups
-lowerings exit with the ROADMAP item that will bring them. The noise comes
-from one ``torch.Generator`` on the run's device seeded with ``--seed``.
+graph and replayed N times a call). Every ``--experimental-lowering``
+runs, as in ``cnf-conv`` (with ``--no-shared-init`` for ``pallas_subnet``,
+``fused_dilated`` and ``dense_groups``). The noise comes from one
+``torch.Generator`` on the run's device seeded with ``--seed``.
 
 The multi-process flags are ``cnf-conv``'s (JAX
 ``drivers/pretrain_noise.py:81-190``): each process trains on

@@ -9,10 +9,11 @@ of x-only instance noise, early stopping with patience 10 on the train loss.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises. ``--scan-steps N`` trains through
 ``make_scan_train_step`` (on the card, one train step captured as a CUDA
-graph and replayed N times a call). ``--plot`` exits with the ROADMAP item
-that will bring it. The data, the noise and the evaluation draws come from
-``torch.Generator``s on the run's device (the training one seeded with
-``--seed``), so the port's runs draw other points than the JAX driver's.
+graph and replayed N times a call). ``--plot`` writes the reference's
+figures (needs matplotlib). The data, the noise and the evaluation draws
+come from ``torch.Generator``s on the run's device (the training one seeded
+with ``--seed``), so the port's runs draw other points than the JAX
+driver's.
 
 The multi-process flags are ``cnf-conv``'s (JAX ``drivers/toy.py:79-245``):
 the class datasets' global batches are class-pure across the processes

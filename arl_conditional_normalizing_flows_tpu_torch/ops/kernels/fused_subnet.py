@@ -21,6 +21,14 @@ grouped convs expanded block-diagonally only inside an n8 output tile); in
 float32 the products stay float32 FMAs on CUDA cores, since the tensor cores
 would round them to TF32 (the source note in ``csrc/fused_subnet.cu``).
 
+Two variants, picked by the spec (:func:`wide`): the narrow kernels above
+take up to 4 dilated branches, a bf16 trunk up to 64 channels, a bf16 head
+up to 32 and a stage input that fits shared memory; the wide variant (``fused_subnet_forward_wide``)
+takes any width and size, as JAX's kernel does, with the same packing: it
+keeps the stage input (and in bf16 the branch outputs) in the sample's slice
+of the scratch tensor, reads the bf16 weights from global memory and walks
+the output channels in chunks of :data:`CHUNK_TILES` n8 tiles.
+
 Weights are packed once per parameter version (:func:`pack`), every kernel
 into one ``compute_dtype`` buffer and every bias into one float32 buffer. In
 float32 they stay in ``flax_param_order``'s order and flax's HWIO layout; in
@@ -67,12 +75,15 @@ LEAKY_SLOPE = 0.3
 # launch limits and tile constants, mirrored from csrc/fused_subnet.cu
 THREADS = 512
 TILE = 32  # float32: pixels per tile of the 1x1 stages
-MAX_BRANCHES = 4
+MAX_BRANCHES = 10  # the most dilations ConvFlowConfig's schedule gives (its guard)
+NARROW_BRANCHES = 4  # the narrow kernels' most; more take the wide variant
 MAX_SHARED_BYTES = 232448
 MAX_TRUNK_TILES = 8  # bf16: n8 tiles of the trunk (K <= 64)
 MAX_HEAD_TILES = 4  # bf16: n8 tiles of the head (out_total <= 32)
 FRAG = 128  # bf16: elements of one k16 x n8 B fragment (32 lanes x 4)
 MAX_TABLE_VALUE = 2**30  # bf16: the largest int of layout_table the C entry takes
+TABLE_SCALARS = 25  # bf16: the scalars that open layout_table (TABLE_FIELDS)
+CHUNK_TILES = 8  # wide bf16: n8 tiles of output channels a pass
 MAX_THREADS = 1024  # threads a block may have on the card
 _INT_MAX = 2**31 - 1
 _DTYPE_CODE = {"float32": 0, "bfloat16": 1}
@@ -453,11 +464,58 @@ def packed_sizes(spec: SubnetSpec) -> Tuple[int, int]:
     return _flax_sizes(spec)
 
 
-def trunk_elements(spec: SubnetSpec, batch: int) -> int:
-    """float32 elements of the kernel's trunk scratch."""
+def _f32_stage_bytes(spec: SubnetSpec) -> Tuple[int, int]:
+    """The float32 kernel's stage input (16-byte aligned) and its tile of
+    rows, in bytes: shared memory in the narrow kernel, scratch in the wide."""
+    act = spec.h * spec.w * max(spec.cin, spec.kernels) * 4
+    return (act + 15) // 16 * 16, TILE * max(sum(spec.widths), spec.kernels) * 4
+
+
+def shared_bytes(spec: SubnetSpec) -> int:
+    """Dynamic shared memory of one block of the narrow kernels (the wide
+    variant uses none). float32: the stage input (16-byte aligned), then a
+    tile of rows. bf16: the stage input, rows padded, and a row of zeros,
+    then the running stage's weights (:func:`mma_layout`)."""
     if spec.compute_dtype == "bfloat16":
-        return batch * mma_layout(spec).trunk_per_sample
-    return batch * spec.h * spec.w * spec.kernels
+        L = mma_layout(spec)
+        return L.act_bytes + 2 * L.w_stage
+    return sum(_f32_stage_bytes(spec))
+
+
+def wide(spec: SubnetSpec) -> bool:
+    """Whether ``spec`` takes the wide variant: more than
+    :data:`NARROW_BRANCHES` dilations, a bf16 trunk over
+    ``8 * MAX_TRUNK_TILES`` or head over ``8 * MAX_HEAD_TILES`` channels, or
+    a narrow kernel's shared memory past :data:`MAX_SHARED_BYTES`. Every
+    other spec runs the narrow kernels."""
+    if len(spec.dilations) > NARROW_BRANCHES:
+        return True
+    if spec.compute_dtype == "bfloat16":
+        L = mma_layout(spec)
+        if L.nt > MAX_TRUNK_TILES or L.no > MAX_HEAD_TILES:
+            return True
+    return shared_bytes(spec) > MAX_SHARED_BYTES
+
+
+def scratch_per_sample(spec: SubnetSpec, wide_variant: bool) -> int:
+    """float32 scratch elements a sample: the trunk; in the wide variant
+    then the stage input and, in bf16, the branch outputs as the post 1x1's
+    A fragments (``wide_scratch`` and ``make_layout`` in the CUDA source)."""
+    if spec.compute_dtype == "bfloat16":
+        L = mma_layout(spec)
+        extra = L.act_bytes // 4 + L.n_mt * L.ch_post * 128 if wide_variant else 0
+        return L.trunk_per_sample + extra
+    extra = sum(_f32_stage_bytes(spec)) // 4 if wide_variant else 0
+    return spec.h * spec.w * spec.kernels + extra
+
+
+def trunk_elements(spec: SubnetSpec, batch: int, wide_variant=None) -> int:
+    """float32 elements of the kernel's scratch (the trunk, and in the
+    wide variant what does not fit shared memory) for ``batch`` samples,
+    for the variant :func:`wide` picks unless ``wide_variant`` says."""
+    if wide_variant is None:
+        wide_variant = wide(spec)
+    return batch * scratch_per_sample(spec, wide_variant)
 
 
 def flops(spec: SubnetSpec, batch: int) -> int:
@@ -550,12 +608,15 @@ def chain_math(spec: SubnetSpec, x, flat):
 
 
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` (a build of ``csrc/fused_subnet.cu``) with its entry point's
+    """``lib`` (a build of ``csrc/fused_subnet.cu``) with its entry points'
     argument types set."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_subnet_forward.argtypes = [p] * 5 + [i] * 15 + [ll] * 3 \
-        + [ctypes.POINTER(ctypes.c_int), i, p]
-    lib.fused_subnet_forward.restype = i
+    ints = ctypes.POINTER(ctypes.c_int)
+    head = [p] * 5 + [i] * 9 + [ints] + [i] * 2 + [ll] * 3 + [ints, i]
+    lib.fused_subnet_forward.argtypes = head + [p]
+    lib.fused_subnet_forward_wide.argtypes = head + [p, p]
+    for fn in (lib.fused_subnet_forward, lib.fused_subnet_forward_wide):
+        fn.restype = i
     return lib
 
 
@@ -564,62 +625,61 @@ def _library():
     return bind_library(build.load_libraries("fused_subnet")["fused_subnet"])
 
 
-def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out) -> None:
+@functools.lru_cache(maxsize=None)
+def _layout_table_on(spec: SubnetSpec, device: torch.device):
+    """:func:`layout_table` as an int32 tensor on ``device``, made once (so
+    that a CUDA graph may capture the launch): the wide bf16 kernel reads
+    its branch tiles from it."""
+    return torch.tensor(list(layout_table(spec)), dtype=torch.int32, device=device)
+
+
+def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out,
+                   wide_variant=None) -> None:
     """One launch of ``lib``'s kernel into ``out`` with the scratch
     ``trunk``, on the current stream: :func:`subnet_apply`'s launch without
-    its checks or its count (for tools that time altered builds); raises on
-    a CUDA error."""
+    its checks or its count (for tools that time altered builds, and tests
+    that run the wide variant at a narrow spec); the variant :func:`wide`
+    picks unless ``wide_variant`` says. Raises on a CUDA error."""
     weights, biases = packed
-    dil = list(spec.dilations) + [1] * (MAX_BRANCHES - len(spec.dilations))
-    table = layout_table(spec) if spec.compute_dtype == "bfloat16" else None
+    if wide_variant is None:
+        wide_variant = wide(spec)
+    dil = (ctypes.c_int * len(spec.dilations))(*spec.dilations)
+    bf16 = spec.compute_dtype == "bfloat16"
+    table = layout_table(spec) if bf16 else None
+    args = (x.data_ptr(), weights.data_ptr(), biases.data_ptr(), trunk.data_ptr(),
+            out.data_ptr(), x.shape[0], spec.h, spec.w, spec.cin, spec.kernels,
+            spec.res_blocks, spec.cardinality, spec.ksize, len(spec.dilations), dil,
+            spec.out_total, _DTYPE_CODE[spec.compute_dtype], weights.numel(), biases.numel(),
+            trunk.numel(), table, len(table) if table is not None else 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_subnet_forward(
-            x.data_ptr(), weights.data_ptr(), biases.data_ptr(), trunk.data_ptr(),
-            out.data_ptr(), x.shape[0], spec.h, spec.w, spec.cin, spec.kernels,
-            spec.res_blocks, spec.cardinality, spec.ksize, len(spec.dilations), *dil,
-            spec.out_total, _DTYPE_CODE[spec.compute_dtype], weights.numel(), biases.numel(),
-            trunk.numel(), table, len(table) if table is not None else 0, stream)
+        if wide_variant:
+            on_card = _layout_table_on(spec, x.device).data_ptr() if bf16 else None
+            err = lib.fused_subnet_forward_wide(*args, on_card, stream)
+        else:
+            err = lib.fused_subnet_forward(*args, stream)
     if err != 0:
         raise RuntimeError(f"fused_subnet kernel launch failed with CUDA error {err}")
 
 
-def shared_bytes(spec: SubnetSpec) -> int:
-    """Dynamic shared memory of one block. float32: the stage input
-    (16-byte aligned), then a tile of rows. bf16: the stage input, rows
-    padded, and a row of zeros, then the running stage's weights
-    (:func:`mma_layout`)."""
-    if spec.compute_dtype == "bfloat16":
-        L = mma_layout(spec)
-        return L.act_bytes + 2 * L.w_stage
-    act = spec.h * spec.w * max(spec.cin, spec.kernels) * 4
-    return (act + 15) // 16 * 16 + TILE * max(sum(spec.widths), spec.kernels) * 4
-
-
 def check_launch(spec: SubnetSpec, batch: int) -> None:
     """Raise ``ValueError``, before any launch, on what the kernel cannot be
-    launched with: too many threads or branches, too much shared memory,
-    a trunk or head wider than the bf16 kernel's tiles, sizes past int32."""
+    launched with: too many threads or branches, sizes past int32 (the bf16
+    layout's ints, the packed buffers, a sample's scratch). Any trunk and
+    head width and any stage input size is taken: past the narrow kernels'
+    limits, by the wide variant."""
     if THREADS > MAX_THREADS:
         raise ValueError(f"{THREADS} threads a block > {MAX_THREADS}")
     if len(spec.dilations) > MAX_BRANCHES:
         raise ValueError(f"{len(spec.dilations)} dilations: the kernel takes at most "
                          f"{MAX_BRANCHES}")
-    if spec.compute_dtype == "bfloat16":
-        L = mma_layout(spec)
-        if L.nt > MAX_TRUNK_TILES or L.no > MAX_HEAD_TILES:
-            raise ValueError(f"kernels {spec.kernels}, out_total {spec.out_total}: the bf16 "
-                             f"kernel takes at most {8 * MAX_TRUNK_TILES} and "
-                             f"{8 * MAX_HEAD_TILES}")
-        if max(layout_table(spec)) > MAX_TABLE_VALUE:
-            raise ValueError(f"sizes past the bf16 layout's ints: {spec}")
-    if shared_bytes(spec) > MAX_SHARED_BYTES:
-        raise ValueError(f"shared memory {shared_bytes(spec)} bytes > {MAX_SHARED_BYTES} "
-                         f"for {spec}")
+    if spec.compute_dtype == "bfloat16" and max(layout_table(spec)) > MAX_TABLE_VALUE:
+        raise ValueError(f"sizes past the bf16 layout's ints: {spec}")
     pixels = spec.h * spec.w
     n_weights = sum(packed_sizes(spec))
     widest = max(spec.kernels, spec.cin, spec.out_total, sum(spec.widths))
-    if not 0 < batch <= _INT_MAX or pixels * widest > _INT_MAX or n_weights > _INT_MAX:
+    if (not 0 < batch <= _INT_MAX or pixels * widest > _INT_MAX or n_weights > _INT_MAX
+            or scratch_per_sample(spec, wide(spec)) > _INT_MAX):
         raise ValueError(f"sizes past int32: batch {batch}, {spec}")
 
 

@@ -93,6 +93,16 @@ the gradients and the all-gather of the parameters: under
 each against the plain graph (bit for bit) and eager FSDP steps; under
 ``pallas_coupling`` the two graphs timed in turns, and the reduce-scatter
 and the all-gather alone.
+``[wide]`` drives the JAX package's capacity preset (``perf_arch_config``:
+128 kernels and cardinality 8 at every scale, fused heads, bf16 subnets)
+under ``pallas_subnet`` at full width and depth, two of whose four conv
+chains (K 128) take K3's wide variant: K3 held against its plain version
+at the preset's four specs (bf16 at 128 and 2,048, float32 at 128) and
+timed beside its bound; a graph of 2 train steps at 128 against 2 eager
+steps from one state (K3 16 times a step, counted at the capture) with
+samples/s, busy share and the step's conv roofline; the seeded 16 x 128
+serving call (K3 16 times a replay); ``cnf-conv`` on the class workload and
+``cnf-pretrain-noise`` with the preset's flags.
 ``[dist2]`` runs only where the machine has two cards or more (on one it
 prints that it did not run): 2 NCCL processes, graphed steps with a data
 axis of 2 against one process on the rows together, a (1, 2) FSDP graph
@@ -130,6 +140,7 @@ from arl_conditional_normalizing_flows_tpu_torch.data.images import (
 from arl_conditional_normalizing_flows_tpu_torch.models.arch import (
     ConvFlowConfig,
     arch_string,
+    perf_arch_config,
 )
 from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
 from arl_conditional_normalizing_flows_tpu_torch.models.init_compat import check_shared_draw
@@ -937,7 +948,7 @@ def check_grads(coupling_model, subnet_model, phases):
 BENCH_CELL = dataclasses.replace(FLAGSHIP, experimental_lowering=None)
 TRAIN_LR = 3e-4
 TRAIN_INNER = 16
-TRAIN_CALLS = 5  # timed calls of the graph and of the eager steps, after the first
+TRAIN_CALLS = 3  # timed calls of the graph and of the eager steps, after the first
 LOWERING_INNER = 4  # steps a graph under pallas_coupling and pallas_subnet
 #: the cnf-conv class workload (drivers/conv.py defaults): the flagship arch
 #: in float32 with unfused subnets and the shared-shape init, classes 0-3,
@@ -985,11 +996,14 @@ def bench_stack(cfg, inner):
     return torch.from_numpy(rng.normal(size=(inner, BATCH) + cfg.io_shape).astype(np.float32)).cuda()
 
 
-def train_graph_and_eager(cfg, inner, phases):
-    """One lowering's [train] line: a graph of ``inner`` steps against
-    ``inner`` eager steps from the same state, then TRAIN_CALLS timed calls
-    of each and a profile of each. Returns the line's dict."""
-    lowering = cfg.experimental_lowering or "default"
+def train_graph_and_eager(cfg, inner, phases, calls=TRAIN_CALLS, name=None,
+                          profile_eager=True):
+    """One lowering's [train] line (``name``: the lowering's unless given):
+    a graph of ``inner`` steps against ``inner`` eager steps from the same
+    state, then ``calls`` timed calls of each and a profile of the graph's
+    call and (``profile_eager``) of an eager step and its Adam update.
+    Returns the line's dict."""
+    lowering = name or cfg.experimental_lowering or "default"
     stack = bench_stack(cfg, inner)
     graphed = ConvCFlow(cfg, seed=0)
     eager = twin(graphed, cfg)
@@ -1032,16 +1046,21 @@ def train_graph_and_eager(cfg, inner, phases):
     def graph_call():
         losses.append(multi(state_g, stack)[1]["loss"].item())
 
-    graph_walls, eager_walls = walls(graph_call, TRAIN_CALLS), walls(eager_steps, TRAIN_CALLS)
+    graph_walls, eager_walls = walls(graph_call, calls), walls(eager_steps, calls)
     graph_prof = kernel_breakdown(graph_call, top=8)
     before = launch_counts()
-    eager_prof = kernel_breakdown(lambda: train_step(state_e, stack[0]), top=8)
+    no_prof = dict(device_busy_ms=None, kernel_launches=None, port_kernel_launches=None, top=None)
+    if profile_eager:
+        eager_prof = kernel_breakdown(lambda: train_step(state_e, stack[0]), top=8)
+    else:
+        train_step(state_e, stack[0])
+        eager_prof = no_prof
     # the wrappers' counts of that one eager step: torch.profiler's (printed
     # beside them) has dropped a K3 record of an eager step too
     eager_launches = {k: v - before[k] for k, v in launch_counts().items()}
     # the optimizer's share of an eager step: one more Adam update from the
     # last step's gradients (the eager model serves timing only from here)
-    adam_prof = kernel_breakdown(state_e.optimizer.step, top=3)
+    adam_prof = kernel_breakdown(state_e.optimizer.step, top=3) if profile_eager else no_prof
     check(all(math.isfinite(v) for v in losses), f"{lowering}: finite losses in the timed calls")
     graph_ms, eager_ms = (statistics.median(w) * 1e3 for w in (graph_walls, eager_walls))
     out = dict(
@@ -1058,7 +1077,8 @@ def train_graph_and_eager(cfg, inner, phases):
                                            graph_prof["port_kernel_launches"].items()},
         graph_port_kernel_launches_a_step_at_capture=step_launches,
         eager_busy_ms_a_step=eager_prof["device_busy_ms"],
-        eager_busy_share=eager_prof["device_busy_ms"] / (eager_ms / inner),
+        eager_busy_share=(None if eager_prof["device_busy_ms"] is None
+                          else eager_prof["device_busy_ms"] / (eager_ms / inner)),
         eager_launches_a_step=eager_prof["kernel_launches"],
         eager_port_kernel_launches_a_step=eager_launches,
         profiled_eager_port_kernel_launches_a_step=eager_prof["port_kernel_launches"],
@@ -1365,11 +1385,12 @@ def modes_train(name, cfg, kind, phases):
     return model, line
 
 
-def modes_serve(name, model, cfg, phases):
+def modes_serve(name, model, cfg, phases, tag="modes"):
     """One mode's graphed seeded multidraw call (16 x 128 as [serve], or
     MODES_CUT_DRAWS x 128 when a call takes over MODES_CALL_LIMIT_S):
-    graphed == eager entry, uint8 shape, K2's launches a replay (counted at
-    the capture), samples/s and busy share."""
+    graphed == eager entry, uint8 shape, the kernels' launches a replay
+    (counted at the capture), samples/s and busy share; its lines tagged
+    ``tag``."""
     h, w, _ = cfg.io_shape
     fn = make_image_serving_fn(model, cfg.x_d, de_logit=True, quantize_uint8=True)
     y = class_planes(0)
@@ -1380,15 +1401,15 @@ def modes_serve(name, model, cfg, phases):
         eager = make_seeded_multidraw_fn(art.fn, draws, (h, w, 1))(SERVE_SEED, y)
         torch.cuda.synchronize()
         check(first.shape == (draws, BATCH, h, w, 1) and first.dtype == torch.uint8,
-              f"modes {name}: uint8 ({draws}, {BATCH}, 28, 28, 1)")
-        check(torch.equal(first, eager), f"modes {name}: the graphed call is bit-equal to the "
+              f"{tag} {name}: uint8 ({draws}, {BATCH}, 28, 28, 1)")
+        check(torch.equal(first, eager), f"{tag} {name}: the graphed call is bit-equal to the "
               "eager entry")
         call_walls = walls(lambda: art.call(SERVE_SEED, y), SERVE_CALLS)
         call_s = statistics.median(call_walls)
         if call_s <= MODES_CALL_LIMIT_S or draws == MODES_CUT_DRAWS:
             break
         cut = f"{draws * BATCH} samples a call took {call_s:.2f} s: cut to {MODES_CUT_DRAWS * BATCH}"
-        print(f"[modes] serve {name}: {cut}", flush=True)
+        print(f"[{tag}] serve {name}: {cut}", flush=True)
         draws = MODES_CUT_DRAWS
         del art
         torch.cuda.empty_cache()
@@ -1399,8 +1420,8 @@ def modes_serve(name, model, cfg, phases):
                 busy_share=prof["device_busy_ms"] / (call_s * 1e3),
                 port_kernel_launches_a_call=art.graph(y.shape).launches, cut=cut,
                 top=prof["top"])
-    print(f"[modes] serve {json.dumps(line)}", flush=True)
-    phases.done(f"modes {name}: serve")
+    print(f"[{tag}] serve {json.dumps(line)}", flush=True)
+    phases.done(f"{tag} {name}: serve")
     return line
 
 
@@ -1487,6 +1508,114 @@ def check_modes(phases):
                 fraction_of_roofline=v["train"]["roofline"]["fraction_of_roofline"])
         for k, v in out.items()}), flush=True)
     return out
+
+
+#: [wide]: the JAX package's capacity preset (JAX models/arch.py:155-177,
+#: bench.py's BENCH_ARCH=perf) under pallas_subnet at full width and depth:
+#: 28 x 28 x 2, squeeze/factor (0, 1, 0, 0), residual blocks 3/3/3/3, 128
+#: kernels and cardinality 8 at every scale, fused heads, bf16 subnets,
+#: float32 flow, random weights from seed 0 (2,141,512 parameters). Its
+#: channel-wise chains (K 128) take K3's wide variant, its checkerboard ones
+#: (K 64) the narrow kernel
+PRESET = perf_arch_config(experimental_lowering="pallas_subnet")
+WIDE_INNER = 2  # steps a graph
+WIDE_CALLS = 2  # timed calls of the graph and of the eager steps
+#: the preset's flags for the drivers (--no-shared-init: the shared-shape
+#: init refuses pallas_subnet, as JAX's does)
+PRESET_FLAGS = ["--kernels", "128", "128", "128", "128", "--cardinality", "8", "8", "8", "8",
+                "--experimental-lowering", "pallas_subnet", "--fused-subnet", "--dtype",
+                "bfloat16", "--no-shared-init"]
+#: cnf-conv on the class workload: 4 classes of 64 synthetic digits, batch 32,
+#: one epoch of graphed stacks of 4 steps, 16 samples a class at the end
+WIDE_CLI = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-class", "64",
+            "--scan-steps", "4", "--epochs", "1", "--annealing-epochs", "0",
+            "--checkpoint-every", "0", "--eval-samples", "16", *PRESET_FLAGS]
+#: cnf-pretrain-noise at its batch of 512: 4 batches, one epoch of stacks of 2
+WIDE_PRETRAIN = ["--num-batches", "4", "--epochs", "1", "--scan-steps", "2", *PRESET_FLAGS]
+
+
+def check_wide(phases):
+    """[wide]: the preset's conv chains on K3 (the wide variant where the
+    narrow kernel stops), its graphed train step and serving call under
+    pallas_subnet, and the two drivers with its flags."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import pretrain_noise
+
+    kind = torch.cuda.get_device_name(0)
+    model = ConvCFlow(PRESET, seed=0)
+    n = len(model.couplings)
+    specs = chain_specs(model)
+    wide = [s for s in specs if chain.wide(s)]
+    check(len(specs) == 4 and sorted(s.kernels for s in wide) == [128, 128],
+          f"wide: the preset's 4 chains, its 2 of K 128 on the wide variant ({specs})")
+    phases.done("wide: the preset built", arch=arch_string(PRESET),
+                params=sum(p.numel() for p in model.parameters()))
+    rows = []
+    for i, (spec, launches) in enumerate(specs.items()):
+        err_f32 = compare_chain(dataclasses.replace(spec, compute_dtype="float32"), BATCH,
+                                seed=40 + i)[0]
+        for batch in (BATCH, SERVE_BATCH):
+            row = chain_at_batch(spec, launches, 50 + i, batch)
+            row.update(wide=chain.wide(spec), dilations=list(spec.dilations),
+                       out_total=spec.out_total, max_abs_err_f32=err_f32)
+            rows.append(row)
+    phases.done("wide: K3 at the preset's specs")
+
+    train = train_graph_and_eager(PRESET, WIDE_INNER, phases, calls=WIDE_CALLS,
+                                  name="preset pallas_subnet", profile_eager=False)
+    k3 = (train["graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
+          train["eager_port_kernel_launches_a_step"]["fused_subnet"])
+    check(k3 == (n, n), f"wide: K3 launches {n} times a train step in the replay and eagerly "
+          f"({k3})")
+    torch.cuda.empty_cache()
+    serve = modes_serve("preset pallas_subnet", model, PRESET, phases, tag="wide")
+    k3_call = serve["port_kernel_launches_a_call"]["fused_subnet"]
+    check(serve["batch"] == SERVE_BATCH and k3_call == n,
+          f"wide: K3 launches {n} times a serving call of {SERVE_BATCH} ({serve['batch']}, "
+          f"{k3_call})")
+    del model
+    torch.cuda.empty_cache()
+
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (("cnf-conv", lambda out: cnf_conv.main(WIDE_CLI + ["--outdir", out])),
+                          ("cnf-pretrain-noise",
+                           lambda out: pretrain_noise.main(WIDE_PRETRAIN + ["--outdir", out]))):
+            outdir = os.path.join(tmp, name)
+            reset_launches()
+            t = time.perf_counter()
+            res = run(outdir)
+            seconds = time.perf_counter() - t
+            history = history_rows(outdir)
+            per_step = res.train_step.launches  # counted at the capture
+            check(per_step["fused_subnet"] == n, f"wide {name}: K3 {n} times a step ({per_step})")
+            check(history and all(math.isfinite(r[k]) for r in history
+                                  for k in ("loss", "z_loss", "y_loss", "detJ_loss")),
+                  f"wide {name}: finite losses")
+            cli[name] = dict(seconds=seconds, rows=history, k3_launches_a_step=per_step,
+                             wrapper_launches_in_run=launch_counts())
+            if name == "cnf-conv":
+                with open(os.path.join(outdir, "eval.json")) as f:
+                    final = json.load(f)
+                check(math.isfinite(final["val_bits_per_dim"]),
+                      "wide cnf-conv: eval.json has a finite val_bits_per_dim")
+                cli[name].update(val_bits_per_dim=final["val_bits_per_dim"],
+                                 sampling=final["sampling"])
+            print(f"[wide] {name} {json.dumps(cli[name])}", flush=True)
+            phases.done(f"wide: {name} with the preset's flags", seconds=f"{seconds:.2f}")
+            del res
+            torch.cuda.empty_cache()
+    roof = train["roofline"]
+    print(f"[wide] summary: K3 a pass at 128 "
+          f"{sum(r['launches_per_pass'] * r['ms'] for r in rows if r['shape'][0] == BATCH):.3f}"
+          f" ms, at {SERVE_BATCH} "
+          f"{sum(r['launches_per_pass'] * r['ms'] for r in rows if r['shape'][0] != BATCH):.3f}"
+          f" ms; train {train['graph_samples_per_s']:.1f} samples/s graphed (busy share "
+          f"{train['graph_busy_share']:.3f}), {train['eager_samples_per_s']:.1f} eager; "
+          f"fraction_of_roofline {roof['fraction_of_roofline']:.4f}, mfu {roof['mfu']:.4f}; "
+          f"serve {serve['samples_per_s']:.1f} samples/s a call (busy share "
+          f"{serve['busy_share']:.3f})", flush=True)
+    return dict(specs=rows, train=train, serve=serve, cli=cli, device=kind)
 
 
 #: [cli]: the port's drivers through main(argv), on synthetic digits
@@ -1615,7 +1744,7 @@ def pretrain_lowering(name, flags, kernel, tmp, phases):
 
     g = torch.Generator(device="cuda").manual_seed(5)
     stack = torch.randn((PRETRAIN_INNER, PRETRAIN_BATCH, 28, 28, 2), generator=g, device="cuda")
-    call_walls = walls(lambda: res.train_step(res.state, stack), 3)
+    call_walls = walls(lambda: res.train_step(res.state, stack), 2)
     prof = kernel_breakdown(lambda: res.train_step(res.state, stack), top=6)
     step_ms = statistics.median(call_walls) * 1e3 / PRETRAIN_INNER
     line = dict(
@@ -1863,6 +1992,9 @@ RECORDS_FLAGS = ["--batch-size", "128", "--experimental-lowering", "pallas_coupl
                  "bfloat16", "--fused-subnet", "--scan-steps", "16", "--epochs", "1",
                  "--annealing-epochs", "0", "--data-classes", *RECORDS_CLASSES]
 RECORDS_INNER = 16
+#: stacks of a records run timed (after an untimed one; few: the smoke's
+#: time limit)
+RECORDS_TIMED = 4
 #: batches of the streaming sources held against the in-RAM ones, bit for bit
 PARITY_BATCHES = 32
 #: losses of the streamed and in-RAM runs: the same batches through the same
@@ -1952,7 +2084,7 @@ def records_run(cnf_conv, name, flags, big, tmp, phases):
 
     stack_step()
     torch.cuda.synchronize()
-    stack_walls = walls(stack_step, stacks - 2)
+    stack_walls = walls(stack_step, min(stacks - 2, RECORDS_TIMED))
     prof = kernel_breakdown(stack_step, top=4)
     it.close()
     stack_ms = statistics.median(stack_walls) * 1e3
@@ -2148,8 +2280,9 @@ DIST_FLAGS = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-pe
               "--fused-subnet", "--scan-steps", "16", "--epochs", "1", "--annealing-epochs",
               "1", "--checkpoint-every", "0"]
 DIST_INNER = 16
-#: stacks of each run timed, in turns with the other run's
-DIST_TIMED = 6
+#: stacks of each run timed, in turns with the other run's (few: the smoke's
+#: time limit)
+DIST_TIMED = 3
 #: (b): eager steps, 2 processes of DIST_ROWS rows over gloo on the one
 #: card (NCCL refuses two processes on one card) against one process on
 #: 2 * DIST_ROWS, from the same state, with instance noise at alpha 0.5
@@ -2355,8 +2488,9 @@ def check_dist(phases):
 FSDP_INNER = 16
 FSDP_SUBNET_INNER = 4
 FSDP_CALLS = 2
-#: stacks of each graph timed, in turns with the other graph's
-FSDP_TIMED = 6
+#: stacks of each graph timed, in turns with the other graph's (few: the
+#: smoke's time limit)
+FSDP_TIMED = 3
 #: what a graphed FSDP step launches of the collectives, counted at the
 #: capture: the reduce-scatter of the gradients and the all-reduce of the
 #: shards' gradients over "data", the replicated scalars' all-reduce, the
@@ -2688,8 +2822,9 @@ def main() -> int:
     phases.done("build", seconds=f"{time.perf_counter() - t:.2f}",
                 nvcc=build.nvcc_path(), cached=json.dumps(cached))
     sass = sass_summary()
-    check(any(v["hmma"] + v["hgmma"] > 0 for k, v in sass.items() if "mma_kernel" in k),
-          "the bf16 conv-chain kernel runs its products on the tensor cores")
+    for variant in ("mma_kernel", "mma_wide_kernel"):
+        check(any(v["hmma"] + v["hgmma"] > 0 for k, v in sass.items() if variant in k),
+              f"the bf16 conv-chain kernel ({variant}) runs its products on the tensor cores")
     phases.done("SASS of the conv-chain kernels")
 
     results, floor_ms = check_kernels(phases)
@@ -2709,6 +2844,8 @@ def main() -> int:
     train = check_train(phases)
     torch.cuda.empty_cache()
     serve = check_serve(phases)
+    torch.cuda.empty_cache()
+    wide = check_wide(phases)
     torch.cuda.empty_cache()
     modes = check_modes(phases)
     torch.cuda.empty_cache()
@@ -2758,6 +2895,13 @@ def main() -> int:
         at_pretrain_batch=chain_pretrain,
         pass_ms_at_pretrain_batch=chain_pass["pretrain_ms"],
         grad_f32=grads["pallas_subnet_f32"], grad_cpu=grads["pallas_subnet_cpu"],
+        # the capacity preset's four chains ([wide]), at 128 and 2,048, two
+        # of them on the wide variant
+        preset_specs=wide["specs"],
+        launches_a_preset_train_step=wide["train"][
+            "graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
+        launches_a_preset_serving_call=wide["serve"]["port_kernel_launches_a_call"][
+            "fused_subnet"],
     ))
     entries[0]["grad"] = grads["pallas_coupling"]
     # launches a training step inside the CUDA-graph replays (counted at the

@@ -4,8 +4,10 @@ Pallas kernel in interpret mode and against ``subnet_apply_ref``, the weight
 order and packing, and ``FusedChainCouplingNet`` against ``ConvCouplingNet``.
 The kernel itself needs a card (``tests/test_torch_kernels_gpu.py``)."""
 
+import dataclasses
 import math
 import re
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -15,14 +17,20 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from arl_conditional_normalizing_flows_tpu.ops.pallas import fused_subnet as jfs  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models import arch  # noqa: E402
 from arl_conditional_normalizing_flows_tpu_torch.models import subnets as tsubnets  # noqa: E402
+from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow  # noqa: E402
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
     fused_subnet as tfs,
 )
 
 # the spec of tests/test_fused_subnet.py:79-82, then one more residual block,
-# an even kernel size (asymmetric SAME padding), an odd size with both, and
-# three dilations
+# an even kernel size (asymmetric SAME padding), an odd size with both, three
+# and five dilations (a schedule of 66 x 66 images and up), and a trunk and
+# head past the narrow bf16 kernel's tiles (the capacity preset's trunk
+# width, a head of 5 n8 tiles): the wide variant's
+WIDE = dict(h=6, w=6, cin=1, kernels=128, res_blocks=1, cardinality=8, ksize=3,
+            dilations=(1, 2, 4), out_total=40)
 BASE = dict(h=8, w=8, cin=2, kernels=16, res_blocks=1, cardinality=2, ksize=3,
             dilations=(1, 2), out_total=4)
 SPECS = {
@@ -31,7 +39,12 @@ SPECS = {
     "ksize4": dict(BASE, ksize=4),
     "odd": dict(BASE, h=6, w=6, kernels=8, res_blocks=2, ksize=4),
     "dil124": dict(BASE, kernels=32, cardinality=4, dilations=(1, 2, 4)),
+    "dil5": dict(BASE, kernels=32, dilations=(1, 2, 4, 8, 16)),
+    "wide": WIDE,
 }
+#: more dilations than any ConvFlowConfig's schedule gives (its guard stops
+#: at 10): what the kernels refuse
+ELEVEN = dict(BASE, kernels=2048, dilations=tuple(2 ** i for i in range(11)))
 
 
 def spec_pair(name, dtype="float32"):
@@ -66,7 +79,7 @@ def test_flax_param_order_matches_jax(name):
     assert tfs.flax_param_order(spec) == jfs.flax_param_order(jspec)
 
 
-@pytest.mark.parametrize("name", ["base", "res_blocks2", "ksize4", "odd"])
+@pytest.mark.parametrize("name", ["base", "res_blocks2", "ksize4", "odd", "dil5", "wide"])
 def test_reference_matches_jax_pallas_and_ref_f32(name):
     spec, jspec = spec_pair(name)
     flat, x = weights(spec), x_for(spec)
@@ -90,6 +103,20 @@ def test_reference_matches_jax_bf16():
     # intermediate, which moves outputs of size ~1 by about a bf16 ulp (2**-8)
     np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1e-2)
     assert np.abs(out - ref).mean() < 1e-4
+
+
+def test_wide_reference_matches_jax_pallas_bf16():
+    """At the wide spec (K 128, out_total 40), the plain version against
+    JAX's Pallas kernel in interpret mode, in bf16."""
+    spec, jspec = spec_pair("wide", "bfloat16")
+    flat, x = weights(spec), x_for(spec)
+    out = port_reference(spec, x, flat)
+    jflat = [jnp.asarray(w) for w in flat]
+    pallas = np.asarray(jfs.subnet_apply_pallas(jspec, jnp.asarray(x), jflat, interpret=True))
+    # test_reference_matches_jax_bf16's tolerance: a float32 sum in another
+    # order can flip a bf16 rounding of an intermediate
+    np.testing.assert_allclose(out, pallas, rtol=1e-2, atol=1e-2)
+    assert np.abs(out - pallas).mean() < 1e-4
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -160,13 +187,16 @@ def test_packed_weights_follow_load_state_dict():
 
 
 def test_launch_guards_raise_before_launching():
+    # a stage input past shared memory: the wide variant's, no refusal
     big = tfs.SubnetSpec(**dict(BASE, h=64, w=64, kernels=64, compute_dtype="float32"))
-    assert tfs.shared_bytes(big) > tfs.MAX_SHARED_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        tfs.check_launch(big, 1)
-    many = tfs.SubnetSpec(**dict(BASE, kernels=32, dilations=(1, 2, 4, 8, 16)))
+    assert tfs.shared_bytes(big) > tfs.MAX_SHARED_BYTES and tfs.wide(big)
+    tfs.check_launch(big, 1)
+    many = tfs.SubnetSpec(**ELEVEN)
     with pytest.raises(ValueError, match="dilations"):
         tfs.check_launch(many, 1)
+    dil5 = tfs.SubnetSpec(**SPECS["dil5"])
+    tfs.check_launch(dil5, 1)
+    assert tfs.wide(dil5) and not tfs.wide(tfs.SubnetSpec(**SPECS["dil124"]))
     with pytest.raises(ValueError, match="int32"):
         tfs.check_launch(tfs.SubnetSpec(**BASE), 2**31)
     with pytest.raises(ValueError, match="cardinality"):
@@ -189,17 +219,34 @@ def test_launch_limits_mirror_the_cuda_source():
     assert int(consts["kThreads"]) == tfs.THREADS
     assert int(consts["kTile"]) == tfs.TILE
     assert int(consts["kMaxBranches"]) == tfs.MAX_BRANCHES
+    assert int(consts["kNarrowBranches"]) == tfs.NARROW_BRANCHES
     assert int(consts["kMaxShared"]) == tfs.MAX_SHARED_BYTES
     assert int(consts["kMaxTrunkTiles"]) == tfs.MAX_TRUNK_TILES
     assert int(consts["kMaxHeadTiles"]) == tfs.MAX_HEAD_TILES
     assert int(consts["kFrag"]) == tfs.FRAG
     assert int(consts["kMaxTableValue"]) == tfs.MAX_TABLE_VALUE
+    assert int(consts["kTableScalars"]) == tfs.TABLE_SCALARS == len(tfs.TABLE_FIELDS)
+    assert int(consts["kChunkTiles"]) == tfs.CHUNK_TILES
     # the bf16 kernel's B fragment: m16n8k16, 32 lanes x 4 values
     assert tfs.FRAG == 16 * 8 and "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
 
 
 def _cuda_source():
     return (Path(tfs.__file__).resolve().parents[2] / "csrc" / "fused_subnet.cu").read_text()
+
+
+def test_entry_points_mirror_bind_library():
+    """Each C entry point takes as many arguments as ``bind_library``
+    declares for it; the wide one a device copy of the table besides."""
+    src = _cuda_source()
+    lib = types.SimpleNamespace(fused_subnet_forward=types.SimpleNamespace(),
+                                fused_subnet_forward_wide=types.SimpleNamespace())
+    tfs.bind_library(lib)
+    for name in ("fused_subnet_forward", "fused_subnet_forward_wide"):
+        params = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S).group(1)
+        assert len(params.split(",")) == len(getattr(lib, name).argtypes), name
+    wide = re.search(r'extern "C" int fused_subnet_forward_wide\((.*?)\)', src, re.S).group(1)
+    assert "const int* device_table" in wide
 
 
 def test_layout_table_order_mirrors_the_cuda_source():
@@ -249,8 +296,14 @@ LAYOUT_SPECS = {
     # windows of 1-3 slices in one branch: the last tile's moves left
     "groups3_k24": dict(h=3, w=4, cin=1, kernels=24, res_blocks=1, cardinality=8, ksize=3,
                         dilations=(1,), out_total=2),
+    # the JAX package's capacity preset (perf_arch_config): its two specs past
+    # the narrow bf16 kernel, which take the wide variant
+    "preset_28x28x1": dict(h=28, w=28, cin=1, kernels=128, res_blocks=3, cardinality=8,
+                           ksize=3, dilations=(1, 2, 4), out_total=2),
+    "preset_14x14x2": dict(h=14, w=14, cin=2, kernels=128, res_blocks=3, cardinality=8,
+                           ksize=3, dilations=(1, 2), out_total=4),
 }
-SMALL_LAYOUT_SPECS = [n for n in LAYOUT_SPECS if not n.startswith("flagship")]
+SMALL_LAYOUT_SPECS = [n for n in LAYOUT_SPECS if not n.startswith(("flagship", "preset"))]
 
 
 def _bf16_spec(name):
@@ -410,15 +463,81 @@ def test_bf16_layout_table_holds_the_layout(name):
 
 
 def test_bf16_launch_guards():
-    """The bf16 kernel's tiles take a trunk up to 64 wide and a head up to
-    32 wide; past that check_launch raises before any launch."""
-    wide = tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="bfloat16")
-    with pytest.raises(ValueError, match="at most 64"):
-        tfs.check_launch(wide, 1)
-    tfs.check_launch(tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="float32"), 1)
-    many_out = tfs.SubnetSpec(**dict(BASE, out_total=40), compute_dtype="bfloat16")
-    with pytest.raises(ValueError, match="at most 64 and 32"):
-        tfs.check_launch(many_out, 1)
+    """The narrow bf16 kernel's tiles take a trunk up to 64 wide and a head
+    up to 32 wide; past that the wide variant takes the spec, so
+    check_launch accepts it. What stays refused: more branches than any
+    ConvFlowConfig has, and sizes past the layout's ints."""
+    for kw in (dict(BASE, kernels=72), dict(BASE, out_total=40), WIDE):
+        spec = tfs.SubnetSpec(**kw, compute_dtype="bfloat16")
+        assert tfs.wide(spec)
+        tfs.check_launch(spec, 1)
+        tfs.check_launch(dataclasses.replace(spec, compute_dtype="float32"), 1)
+    assert not tfs.wide(tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="float32"))
+    many = tfs.SubnetSpec(**ELEVEN, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="dilations"):
+        tfs.check_launch(many, 1)
+    huge = tfs.SubnetSpec(**dict(BASE, h=4096, w=4096, kernels=64), compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="sizes past"):
+        tfs.check_launch(huge, 1)
     # the flagship's largest spec: the stage input (rows of 72) and a zero
     # row, then one residual block's weights (158 fragments)
     assert tfs.shared_bytes(_bf16_spec("flagship_28x28x1")) == (28 * 28 + 1) * 72 * 2 + 158 * 256
+
+
+# (h, w, cin, K, dilations, out_total) of the capacity preset's four conv
+# chains and, for each dtype, whether it takes the wide variant
+PRESET_SPECS = {(14, 14, 4, 64, (1, 2, 4), 8): (False, False),
+                (28, 28, 1, 128, (1, 2, 4), 2): (True, True),
+                (7, 7, 8, 64, (1, 2), 16): (False, False),
+                (14, 14, 2, 128, (1, 2), 4): (True, False)}
+
+
+def test_every_config_schedule_fits_the_kernels_branches():
+    """ConvFlowConfig's dilation schedule gives at most MAX_BRANCHES
+    dilations a block: 10 at 4096 x 4096, and its guard refuses larger
+    images."""
+    def most(size):
+        cfg = arch.ConvFlowConfig(io_shape=(size, size, 2), x_d=1,
+                                  squeeze_factor_blocks=(0,), res_blocks=(1,),
+                                  num_kernels=(2048,), cardinality=(2,))
+        return max(len(b.dilations_channelwise) for b in arch.derive_blocks(cfg))
+
+    assert most(28) == 3 and most(66) == 5 and most(4096) == tfs.MAX_BRANCHES == 10
+    with pytest.raises(AssertionError, match="ran away"):
+        most(8192)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_check_launch_takes_the_capacity_preset(dtype):
+    """Every conv chain that the JAX package's perf_arch_config builds under
+    pallas_subnet launches, at 128 and 2,048: the flagship's specs and the
+    preset's narrow ones on the narrow kernels, the rest on the wide variant,
+    whose scratch holds the trunk, the stage input and (bf16) the branch
+    outputs."""
+    cfg = arch.perf_arch_config(experimental_lowering="pallas_subnet", compute_dtype=dtype)
+    model = ConvCFlow(cfg, device="cpu", seed=0)
+    specs = {}
+    for m in model.modules():
+        if isinstance(m, tsubnets.FusedChainCouplingNet):
+            specs[m.spec] = specs.get(m.spec, 0) + 1
+    got = {(s.h, s.w, s.cin, s.kernels, s.dilations, s.out_total): s for s in specs}
+    assert set(got) == set(PRESET_SPECS) and set(specs.values()) == {4}
+    for key, spec in got.items():
+        assert spec.compute_dtype == dtype and spec.res_blocks == 3 and spec.cardinality == 8
+        for batch in (128, 2048):
+            tfs.check_launch(spec, batch)
+        is_wide = PRESET_SPECS[key][dtype == "float32"]
+        assert tfs.wide(spec) == is_wide
+        hw = spec.h * spec.w
+        if not is_wide:
+            assert tfs.trunk_elements(spec, 2) == 2 * tfs.scratch_per_sample(spec, False)
+        elif dtype == "bfloat16":
+            L = tfs.mma_layout(spec)
+            assert tfs.trunk_elements(spec, 2) == 2 * (
+                L.trunk_per_sample + L.act_bytes // 4 + L.n_mt * L.ch_post * 32 * 4)
+        else:
+            act, rows = tfs._f32_stage_bytes(spec)
+            assert tfs.trunk_elements(spec, 2) == 2 * (hw * spec.kernels + (act + rows) // 4)
+    for name in LAYOUT_SPECS:  # the flagship's and the small specs stay on the narrow kernel
+        if name.startswith("flagship"):
+            assert not tfs.wide(_bf16_spec(name))

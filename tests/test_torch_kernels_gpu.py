@@ -276,20 +276,116 @@ def test_chain_gradients_match_plain_version(cuda, no_tf32, name, dtype):
 
 
 def test_bf16_chain_kernel_rejects_what_it_does_not_take(cuda):
-    """Past its tiles (a trunk over 64 wide) the bf16 kernel raises before
-    launching; a packed buffer of another layout's size raises too."""
+    """More branches than any config has raise before launching; a packed
+    buffer of another layout's size raises too. A trunk over 64 wide, once
+    refused, takes the wide variant."""
+    many = tfs.SubnetSpec(**dict(CHAIN_SPECS["odd_6x6x2"], kernels=2048, cardinality=2,
+                                 dilations=tuple(2 ** i for i in range(11))),
+                          compute_dtype="float32")
+    x = torch.zeros(2, many.h, many.w, many.cin, device=cuda)
+    packed = [torch.zeros(n, device=cuda) for n in tfs.packed_sizes(many)]
+    with pytest.raises(ValueError, match="dilations"):
+        with torch.no_grad():
+            tfs.subnet_apply(many, x, packed)
     wide = tfs.SubnetSpec(**dict(CHAIN_SPECS["odd_6x6x2"], kernels=72),
                           compute_dtype="bfloat16")
     x, packed = _chain_inputs(wide, 2, cuda)
-    with pytest.raises(ValueError, match="at most 64"):
-        with torch.no_grad():
-            tfs.subnet_apply(wide, x, packed)
+    with torch.no_grad():
+        out = tfs.subnet_apply(wide, x, packed)
+        torch.testing.assert_close(out, tfs.subnet_apply_reference(wide, x, packed),
+                                   rtol=2e-2, atol=2e-2)
     spec = tfs.SubnetSpec(**CHAIN_SPECS["odd_6x6x2"], compute_dtype="bfloat16")
     x, (w, b) = _chain_inputs(spec, 2, cuda)
     f32 = dataclasses.replace(spec, compute_dtype="float32")
     with pytest.raises(ValueError, match="packed sizes"):
         with torch.no_grad():
             tfs.subnet_apply(spec, x, (w[: tfs.packed_sizes(f32)[0]], b))
+
+
+# the JAX package's capacity preset (perf_arch_config): its four conv chains,
+# two past the narrow bf16 kernel (K 128), and a small spec past both its
+# trunk and head tiles
+WIDE_SPECS = {
+    "preset_14x14x4": dict(h=14, w=14, cin=4, kernels=64, res_blocks=3, cardinality=8,
+                           ksize=3, dilations=(1, 2, 4), out_total=8),
+    "preset_28x28x1": dict(h=28, w=28, cin=1, kernels=128, res_blocks=3, cardinality=8,
+                           ksize=3, dilations=(1, 2, 4), out_total=2),
+    "preset_7x7x8": dict(h=7, w=7, cin=8, kernels=64, res_blocks=3, cardinality=8, ksize=3,
+                         dilations=(1, 2), out_total=16),
+    "preset_14x14x2": dict(h=14, w=14, cin=2, kernels=128, res_blocks=3, cardinality=8,
+                           ksize=3, dilations=(1, 2), out_total=4),
+    "wide_6x6x1": dict(h=6, w=6, cin=1, kernels=128, res_blocks=1, cardinality=8, ksize=3,
+                       dilations=(1, 2, 4), out_total=40),
+    # five dilated branches (a schedule of 66 x 66 images and up)
+    "dil5_8x8x2": dict(h=8, w=8, cin=2, kernels=32, res_blocks=2, cardinality=2, ksize=3,
+                       dilations=(1, 2, 4, 8, 16), out_total=4),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(WIDE_SPECS))
+def test_chain_kernel_matches_plain_version_at_the_preset(cuda, no_tf32, name, dtype):
+    """K3 at the capacity preset's specs (batch 128) and a small wide spec,
+    on the variant the spec picks, with the tolerances of the flagship's."""
+    spec = tfs.SubnetSpec(**WIDE_SPECS[name], compute_dtype=dtype)
+    batch = BATCH if name.startswith("preset") else 3
+    x, packed = _chain_inputs(spec, batch, cuda)
+    before = tfs.LAUNCHES["fused_subnet"]
+    with torch.no_grad():
+        out = tfs.subnet_apply(spec, x, packed)
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    assert out.shape == (batch, spec.h, spec.w, spec.out_total)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["odd_6x6x2", "flagship_28x28x1", "tiles_5x3x3",
+                                  "groups3_3x4x1"])
+def test_wide_variant_matches_plain_version_at_narrow_specs(cuda, no_tf32, name, dtype):
+    """The wide variant, launched by hand at specs the narrow kernels take
+    (odd sizes, ragged tiles, windows moved left), gives the plain version's
+    chain as the narrow kernel does."""
+    spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
+    assert not tfs.wide(spec)
+    batch = BATCH if name.startswith("flagship") else 3
+    x, packed = _chain_inputs(spec, batch, cuda)
+    trunk = torch.empty(tfs.trunk_elements(spec, batch, wide_variant=True), device=cuda)
+    out = torch.empty(batch, spec.h, spec.w, spec.out_total, device=cuda)
+    with torch.no_grad():
+        tfs.launch_library(tfs._library(), spec, x, packed, trunk, out, wide_variant=True)
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["preset_28x28x1", "preset_14x14x2", "wide_6x6x1",
+                                  "dil5_8x8x2"])
+def test_wide_chain_gradients_match_plain_version(cuda, no_tf32, name, dtype):
+    """test_chain_gradients_match_plain_version at the wide specs: the
+    recomputing backward needs no change there."""
+    spec = tfs.SubnetSpec(**WIDE_SPECS[name], compute_dtype=dtype)
+    batch = BATCH if name.startswith("preset") else 3
+    x, _ = _chain_inputs(spec, batch, cuda)
+    flat = [t.requires_grad_() for t in _chain_weights(spec, cuda, np.random.default_rng(1))]
+    x.requires_grad_()
+
+    def grads(fn):
+        out = fn(spec, x, tfs.pack(spec, flat))
+        return torch.autograd.grad(out.square().sum() / 2, [x] + flat)
+
+    before = tfs.LAUNCHES["fused_subnet"]
+    got = grads(tfs.subnet_apply)
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    want = grads(tfs.subnet_apply_reference)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for (n, _), g, w in zip([("x", None)] + list(tfs.flax_param_order(spec)), got, want):
+        assert _rel(g, w) < tol, n
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ the CPU: ``fused_dilated`` and ``dense_groups`` (``forward``, ``inverse``,
 (JAX tests/test_models.py:290-398) and the models' with weights carried by
 ``convert/lowerings.py``; the ``.npz`` trees of both new lowerings in both
 directions; where ``shared_shape_reinit`` refuses them, case by case
-against JAX's; and 3 Adam steps against optax.
+against JAX's; 3 Adam steps against optax; and the JAX package's capacity
+preset (``perf_arch_config``, K 128) under ``pallas_subnet``, cut to 8 x 8,
+in float32 and bf16, with one Adam step.
 
 The arch is 16 x 16 (:data:`ARCH`): its block 0 has the dilations (1, 2), so
 ``fused_dilated`` builds a fused kernel there, which 8 x 8's one-level
@@ -54,7 +56,11 @@ from arl_conditional_normalizing_flows_tpu_torch.models.init_compat import (  # 
 from arl_conditional_normalizing_flows_tpu_torch.models.subnets import (  # noqa: E402
     DenseMaskedGroupConv,
     DilatedResidualBlock,
+    FusedChainCouplingNet,
     dilated_branch_mask,
+)
+from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import (  # noqa: E402
+    fused_subnet as tfs,
 )
 from arl_conditional_normalizing_flows_tpu_torch.train import (  # noqa: E402
     create_train_state,
@@ -450,3 +456,123 @@ def test_adam_steps_match_optax(case):
                           for n, p in tm.named_parameters()])
     assert np.mean(err <= tight) >= fraction, np.quantile(err, [0.9, 0.99, 0.999])
     assert err.max() <= 2 * LR * STEPS, err.max()
+
+
+# ---------------------------------------------------------------------------
+# (h) the JAX package's capacity preset under pallas_subnet
+# ---------------------------------------------------------------------------
+
+#: perf_arch_config cut to 8 x 8 and one residual block a scale, as JAX's
+#: tests/test_models.py:237-243 cuts it, on the conv-chain kernel's
+#: lowering: K 128 at both scales, a trunk that takes K3's wide variant on
+#: the card in bf16 (the preset's compute dtype)
+PRESET = dict(io_shape=(8, 8, 2), squeeze_factor_blocks=(0, 1), res_blocks=(1, 1),
+              num_kernels=(128, 128), cardinality=(8, 8), experimental_lowering="pallas_subnet")
+
+
+@functools.lru_cache(maxsize=None)
+def preset_models(dtype):
+    """(jax model, flax params as numpy, port model on the CPU) of the cut
+    preset at ``dtype``, sharing weights (biases perturbed off zero)."""
+    from arl_conditional_normalizing_flows_tpu.models.arch import (
+        perf_arch_config as j_perf_arch_config,
+    )
+
+    jm = JConvCFlow(j_perf_arch_config(**PRESET, compute_dtype=dtype))
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((2,) + PRESET["io_shape"]))["params"]
+    params = flow.perturb(flow.to_numpy_tree(params), np.random.default_rng(1))
+    tm = ConvCFlow(perf_arch_config(**PRESET, compute_dtype=dtype), device="cpu", seed=3)
+    tm.load_state_dict(state_dict_from_flax(params, tm))
+    return jm, params, tm
+
+
+def preset_inputs():
+    h, w, _ = PRESET["io_shape"]
+    rng = np.random.default_rng(7)
+    x = rng.uniform(size=(B, h, w, 1))
+    y = np.broadcast_to(rng.uniform(size=(B, 1, 1, 1)), (B, h, w, 1))
+    return np.concatenate([x, y], axis=-1).astype(np.float32)
+
+
+def test_preset_builds_the_wide_chain():
+    """The cut preset's channel-wise couplings run a 128-wide trunk, past
+    the narrow bf16 kernel: on the card they take K3's wide variant."""
+    tm = preset_models("bfloat16")[2]
+    specs = {m.spec for m in tm.modules() if isinstance(m, FusedChainCouplingNet)}
+    assert {s.kernels for s in specs} == {64, 128}
+    assert any(tfs.wide(s) for s in specs) and not all(tfs.wide(s) for s in specs)
+    for s in specs:
+        tfs.check_launch(s, B)
+
+
+# (zy and inverse, log-det, loss components relative). float32: the small
+# arch's (test_torch_flow.TOLS); measured zy 1.8e-7, log-det 9.5e-7 on |4.8|,
+# loss 1e-7 relative. bf16: both chains round the same operands to bf16 and
+# sum in float32; measured zy 1.1e-6, log-det 3.3e-6, inverse 1.8e-7, loss
+# 2e-7 relative; the bounds are 10-30x that
+PRESET_TOLS = {"float32": (3e-5, 3e-4, 3e-4), "bfloat16": (3e-5, 1e-4, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_preset_matches_jax(dtype):
+    """forward, inverse and log_loss of the cut preset against JAX's with
+    the same weights; JAX's conv chain off the TPU is its plain version, run
+    op by op in bf16 (flax rounds each bf16 op)."""
+    jm, params, tm = preset_models(dtype)
+    xy = preset_inputs()
+
+    def run(params, xy):
+        v = {"params": params}
+        zy, ld = jm.apply(v, xy)
+        return dict(zy=zy, ld=ld, back=jm.apply(v, zy, method="inverse"),
+                    loss=jm.apply(v, xy, method="log_loss"))
+
+    with jax.disable_jit(dtype == "bfloat16"):
+        want = run(params, jnp.asarray(xy))
+    with torch.no_grad():
+        zy, ld = tm(torch.from_numpy(xy))
+        back = tm.inverse(zy)
+        loss = tm.log_loss(torch.from_numpy(xy))
+    tol, ld_tol, loss_rtol = PRESET_TOLS[dtype]
+    np.testing.assert_allclose(zy.numpy(), want["zy"], rtol=tol, atol=tol)
+    np.testing.assert_allclose(ld.numpy(), want["ld"], rtol=ld_tol, atol=ld_tol)
+    np.testing.assert_allclose(back.numpy(), want["back"], rtol=tol, atol=tol)
+    np.testing.assert_allclose(back.numpy(), xy, rtol=tol, atol=tol)
+    assert set(loss) == set(want["loss"]) == {"loss", "z_loss", "y_loss", "detJ_loss"}
+    for k, v in want["loss"].items():
+        np.testing.assert_allclose(float(loss[k]), float(v), rtol=loss_rtol, err_msg=k)
+
+
+# (loss rtol, tight bound, the fraction of elements within it). float32,
+# measured: loss bit-equal, 99.9993% of elements within 1e-7 (max 1.1e-6).
+# bf16: loss 2.1e-7 relative, 99.95% within 1e-5; an element whose gradient
+# is near zero may take Adam's full step the other way (max 6.0e-4, 2 LR)
+PRESET_ADAM_TOLS = {"float32": (1e-5, 1e-7, 0.9999), "bfloat16": (1e-5, 1e-5, 0.999)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_preset_adam_step_matches_optax(dtype):
+    """One Adam step (3e-4, no noise) of the cut preset against optax's from
+    the same weights: the loss and the updated parameters."""
+    jm, params, _ = preset_models(dtype)
+    xy = preset_inputs()
+    state = jloop.TrainState.create(
+        apply_fn=jm.apply, params={"params": jax.tree_util.tree_map(jnp.asarray, params)},
+        tx=optax.adam(LR))
+    jstep, _ = jloop.make_step_fns(jm, noise_mode="none")
+    with jax.disable_jit(dtype == "bfloat16"):
+        state, out = jstep(state, jnp.asarray(xy), jax.random.PRNGKey(0), jnp.float32(1.0))
+    want = flow.to_numpy_tree(state.params["params"])
+
+    tm = ConvCFlow(perf_arch_config(**PRESET, compute_dtype=dtype), device="cpu", seed=3)
+    tm.load_state_dict(state_dict_from_flax(params, tm))
+    tstate = create_train_state(tm, LR)
+    step, _ = make_step_fns(tm, noise_mode="none")
+    loss = float(step(tstate, torch.from_numpy(xy))[1]["loss"])
+    target = state_dict_from_flax(want, tm)
+    err = np.concatenate([np.abs(p.detach().numpy() - target[n].numpy()).ravel()
+                          for n, p in tm.named_parameters()])
+    loss_rtol, tight, fraction = PRESET_ADAM_TOLS[dtype]
+    np.testing.assert_allclose(loss, float(out["loss"]), rtol=loss_rtol)
+    assert np.mean(err <= tight) >= fraction, np.quantile(err, [0.9, 0.99, 0.999])
+    assert err.max() <= 2 * LR, err.max()
