@@ -76,32 +76,74 @@
 // shared memory and all K/8 trunk tiles of a pixel tile in registers, so it
 // stops at K 64, out_total 32 and a stage input of ~227 KB; the narrow
 // float32 one at a stage input that fits shared memory; both at
-// kNarrowBranches branches, so that what they take by value stays small. The wide variant keeps the same packing and the same
-// one block a sample, and moves what did not fit into the sample's slice of
-// the scratch tensor (L2, then device memory):
-//  - bfloat16: the stage input lives in scratch in the same rows, and each
-//    lane reads its A fragments' four 32-bit words with plain loads (ldmatrix
-//    reads shared memory only); each lane reads its B fragments straight from
-//    the packed weights (__ldg, L2-resident), so no stage's weights are
-//    staged; every stage walks its output channels in chunks of kChunkTiles
-//    n8 tiles (64 channels), so the accumulators stay at the narrow kernel's
-//    8 tiles; the branch outputs, which the post 1x1 needs all of for every
-//    output chunk, go to scratch as its A fragments ([pixel tile][k16
-//    chunk][lane] uint4, each lane writing and reading only its own); the
-//    branch tiles' windows and offsets come from a device copy of the layout
-//    table, which the wrapper makes from the same table the entry checks.
-//    It uses no shared memory.
-//  - float32: the same kernel, its stage input and rows in scratch.
+// kNarrowBranches branches, so that what they take by value stays small.
+//  - float32: the narrow float32 kernel, its stage input and rows in the
+//    sample's slice of the scratch tensor.
+//  - bfloat16, written for Hopper. Bound: operations (the capacity preset's
+//    (28, 28, 1) K 128: 42.4 GFLOP a call of 128, 42.9 us at 989 TFLOP/s,
+//    against 1.6 MB of inputs and outputs). One block a sample, kWideGroups
+//    warpgroups, each a 64-pixel tile a round (its warps the 16-pixel tiles
+//    4M..4M+3, so that the f32 trunk keeps the accumulator layout above).
+//    What held a first version of it (mma.sync, no shared memory) to 0.019
+//    of that bound, and what this one does about each:
+//    * no operand came from shared memory: the stage input now lives there
+//      wherever it fits beside the ring (213,520 B at the preset's 28 x 28 x
+//      128; the layout's act_in_shared, checked here) and its A fragments
+//      come through the narrow kernel's ldmatrix gather; where it does not
+//      fit (28 x 28 x 256, ~414 KB) it stays in the sample's scratch and
+//      each lane loads its A words (kShared false), the same code otherwise;
+//    * every B fragment was an 8-byte __ldg from L2 for each mma of each
+//      warp: the weights now stream through a ring of kSlots slots of
+//      kSlotBytes (Ring): each piece (one k16 chunk of a 128-wide stage,
+//      several chunks of a narrower one, chunks of a branch group) is one
+//      cp.async.bulk (TMA) completing on its slot's mbarrier, read from L2
+//      once for the block's four 64-pixel tiles of a round; the warp that
+//      frees a slot last copies the next piece into it, from the schedule
+//      the wrapper computes (fused_subnet.py::wide_schedule) and the entry
+//      checks against walk_pieces. The wrapper packs each k16 x n8 B tile as
+//      two 8 x 8 core matrices, and each branch group chunk by chunk
+//      (fused_subnet.py::_wide_order), so that a piece is one copy and is
+//      what wgmma and ldmatrix read;
+//    * A was gathered again for each chunk of 8 output tiles, on mma.sync
+//      with nothing in flight: the entry, pre 1x1, post 1x1 and head are
+//      wgmma.mma_async m64nNk16, A from registers (mma.sync's A layout: the
+//      ldmatrix gather and the trunk's accumulator tiles as they are), B
+//      from the ring, N up to 128 (kPassTiles tiles) a pass, so that A is
+//      gathered once for the whole trunk. The branch tiles (n8 each, with
+//      their own input windows) stay on mma.sync, kGroupTiles of them
+//      sharing a walk over the chunks and B from the ring through ldmatrix;
+//    * the branch outputs went to scratch as the post 1x1's A fragments
+//      (351,232 B a sample at the preset): two finished tiles are one k16
+//      chunk of the post 1x1's A operand and go straight into its wgmma. The
+//      scratch is the f32 trunk alone where the stage input fits (401,408 B
+//      a sample at the preset's 28 x 28 x 128).
+//    No warp only feeds the ring: registers are split among the SM's four
+//    sub-partitions, and a 17th (or 13th) warp would leave the sub-partition
+//    that holds it too few for the others. 16 warps get 128 registers a
+//    thread (ptxas spills ~300 bytes); 12 warps 168, but 5 rounds of
+//    64-pixel tiles at 28 x 28 instead of 4, and 2 instead of 1 at 14 x 14.
+//    Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's [kernel]
+//    lines, a call of 128 from a CUDA graph, inputs warm in L2): 820.0 us at
+//    the preset's (28, 28, 1) K 128, 0.052 of its bound (the first version:
+//    2,218-2,222 us), 182.9 us at (14, 14, 2) K 128, 0.055; 12.3 and 2.8 ms
+//    at 2,048. What bounds it now is latency: each warp is a chain of waits
+//    (the ring, ldmatrix, the branch tiles' mma.sync, the post 1x1's wgmma
+//    a tile pair), 4 warps to a sub-partition to hide them, and at 28 x 28
+//    a 4th round for 16 pixels (784 = 3 x 256 + 16). Forced at the
+//    flagship's K 64 it is still 1.5x the narrow kernel (354 against 241 us).
 // A two-block cluster per sample sharing the stage input through distributed
-// shared memory was the alternative; it still fails at a stage input over
-// ~450 KB and halves the blocks a batch has, where scratch takes any size.
-// Being fast is later work.
+// shared memory was the alternative for a stage input past shared memory;
+// it still fails at ~450 KB and halves the blocks a batch has, where
+// scratch takes any size.
 //
 // Barriers: every __syncthreads() is at the top level of a kernel or inside
 // loops whose trip counts (res_blocks, pixel tiles of the float32 path) are
-// the same for every thread of the block. The entry points return
-// cudaGetLastError(), and cudaErrorInvalidValue for sizes they do not take or
-// packed buffers of another size than its layout's, without launching.
+// the same for every thread of the block. In the wide bf16 kernel every warp
+// takes every piece of the ring and releases it, a warpgroup that has no
+// pixels in a round included; a wait for a piece traps after kWaitLimitNs.
+// The entry points return cudaGetLastError(), and cudaErrorInvalidValue for
+// sizes they do not take or packed buffers of another size than its
+// layout's, without launching.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,8 +168,15 @@ constexpr int kMaxHeadTiles = 4;   // bfloat16: n8 tiles of the head (out_total 
 constexpr int kFrag = 128;         // bfloat16: elements of one k16 x n8 B fragment
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTableValue = 1073741824;  // bfloat16: 2**30, the layout's largest int
-constexpr int kTableScalars = 25;  // bfloat16: the layout table's scalars (TABLE_FIELDS)
-constexpr int kChunkTiles = 8;     // wide bfloat16: n8 tiles of output channels a pass
+constexpr int kTableScalars = 28;  // bfloat16: the layout table's scalars (TABLE_FIELDS)
+constexpr int kWideGroups = 4;     // wide bfloat16: warpgroups a block
+constexpr int kWideThreads = 512;  // wide bfloat16: threads a block
+constexpr int kSlotBytes = 4096;   // wide bfloat16: a slot of the weights' ring
+constexpr int kSlots = 4;          // wide bfloat16: slots of the ring
+constexpr int kBarrierBytes = 64;  // wide bfloat16: a full mbarrier and a counter a slot
+constexpr int kSlack = 2048;       // wide bfloat16: bytes past the ring wgmma may over-read
+constexpr int kGroupTiles = 8;     // wide bfloat16: branch tiles that share a walk over the chunks
+constexpr int kPassTiles = 16;     // wide bfloat16: n8 tiles of one wgmma (N <= 128)
 constexpr float kSlope = 0.3f;
 static_assert(kTile % kRows == 0, "a tile holds whole row groups");
 
@@ -411,7 +460,16 @@ struct MmaLayout {
   int br_tile0[B], br_tiles[B];  // each branch's first tile, its tiles
   BranchTile tile[B * kMaxTrunkTiles];
 };
-static_assert(sizeof(Dims<kMaxBranches>) + sizeof(MmaLayout<kMaxBranches>) + 8 * sizeof(void*) <=
+
+// The table's scalars that only the wide kernel reads (kept out of MmaLayout,
+// so that the narrow kernel's parameters stay as they were).
+struct WidePlan {
+  int act_in_shared;  // 1 if the stage input lives in shared memory
+  int wide_shared;    // dynamic shared memory a block
+  int n_pieces;       // pieces of one round of every stage (the table's schedule)
+};
+static_assert(sizeof(Dims<kMaxBranches>) + sizeof(MmaLayout<kMaxBranches>) + sizeof(WidePlan) +
+                      8 * sizeof(void*) <=
                   4096,
               "a kernel's parameters fit the 4 KB every toolkit takes");
 
@@ -419,23 +477,26 @@ static_assert(sizeof(Dims<kMaxBranches>) + sizeof(MmaLayout<kMaxBranches>) + 8 *
 // tile count.
 constexpr int kTableTiles = kTableScalars + 2 * kMaxBranches;
 
-// The wrapper's table (fused_subnet.py::layout_table) into L: the scalars in
-// this order (TABLE_FIELDS there), each of kMaxBranches branches' first tile
+// The wrapper's table (fused_subnet.py::layout_table) into L and W: the
+// scalars in this order (TABLE_FIELDS there), each of kMaxBranches branches' first tile
 // and tile count (the first B into L), then lo8, q, chunks, w_off, b_off a
-// tile (the first B * kMaxTrunkTiles into L.tile, the narrow kernel's copy).
-// False if the table has another length or a value outside [0,
+// tile (the first B * kMaxTrunkTiles into L.tile, the narrow kernel's copy),
+// then the wide kernel's schedule (schedule_matches checks it). False if
+// the table is too short for them or has a value outside [0,
 // kMaxTableValue].
 template <int B>
-bool read_mma_layout(const int* t, int n, MmaLayout<B>& L) {
+bool read_mma_layout(const int* t, int n, MmaLayout<B>& L, WidePlan& W) {
   int* head[] = {&L.Kp,       &L.NT,       &L.NO,      &L.xs,       &L.ts,
                  &L.qx,       &L.n_mt,     &L.ch_entry, &L.ch_pre,  &L.ch_post,
                  &L.ch_head,  &L.n_tiles,  &L.w_block0, &L.w_block, &L.w_post,
                  &L.w_head,   &L.w_total,  &L.b_block0, &L.b_block, &L.b_post,
-                 &L.b_head,   &L.b_total,  &L.trunk_per_sample, &L.act_bytes, &L.w_stage};
+                 &L.b_head,   &L.b_total,  &L.trunk_per_sample, &L.act_bytes, &L.w_stage,
+                 &W.act_in_shared, &W.wide_shared, &W.n_pieces};
   static_assert(sizeof(head) / sizeof(head[0]) == kTableScalars, "the table's scalars");
   if (t == nullptr || n < kTableTiles) return false;
   for (int i = 0; i < kTableScalars; ++i) *head[i] = t[i];
-  if (L.n_tiles < 1 || (n - kTableTiles) % 5 != 0 || (n - kTableTiles) / 5 != L.n_tiles)
+  if (L.n_tiles < 1 || W.n_pieces < 1 ||
+      n - kTableTiles < 5 * static_cast<int64_t>(L.n_tiles) + 2 * static_cast<int64_t>(W.n_pieces))
     return false;
   for (int i = 0; i < n; ++i)  // so that no sum of two overflows
     if (t[i] < 0 || t[i] > kMaxTableValue) return false;
@@ -450,12 +511,24 @@ bool read_mma_layout(const int* t, int n, MmaLayout<B>& L) {
   return true;
 }
 
-// float32 scratch elements a sample of the wide bf16 kernel: the trunk, the
-// stage input (act_bytes, a multiple of 16), then each pixel tile's post-1x1
-// A fragments, ch_post k16 chunks of 32 lanes x 4 words
+// float32 scratch elements a sample of the wide bf16 kernel: the trunk, then
+// the stage input (act_bytes, a multiple of 16) where it does not fit shared
+// memory
 template <int B>
-int64_t wide_scratch(const MmaLayout<B>& L) {
-  return L.trunk_per_sample + L.act_bytes / 4 + static_cast<int64_t>(L.n_mt) * L.ch_post * 128;
+int64_t wide_scratch(const MmaLayout<B>& L, const WidePlan& W) {
+  return L.trunk_per_sample + (W.act_in_shared ? 0 : L.act_bytes / 4);
+}
+
+// The wide kernel's shared memory: the ring's barriers, the ring of
+// weights, then the stage input if it fits beside them (else kSlack bytes,
+// what wgmma may read past the ring). Whether it fits is the layout's
+// (fused_subnet.py::_wide_plan); this checks it.
+template <int B>
+bool wide_plan_ok(const MmaLayout<B>& L, const WidePlan& W) {
+  const int64_t ring = static_cast<int64_t>(kSlots) * kSlotBytes + kBarrierBytes;
+  const int64_t with_act = ring + (L.act_bytes > kSlack ? L.act_bytes : kSlack);
+  const bool fits = with_act <= kMaxShared;
+  return W.act_in_shared == (fits ? 1 : 0) && W.wide_shared == (fits ? with_act : ring + kSlack);
 }
 
 // Whether the kernel (wide: the wide kernel), run with L and the table's
@@ -464,7 +537,8 @@ int64_t wide_scratch(const MmaLayout<B>& L) {
 // n8 tile of each stage. Checks only: what L computes is held to the chain on
 // the CPU (tests/test_torch_fused_subnet.py) and on the card.
 template <int B>
-bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const int* tiles, bool wide,
+bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const WidePlan& W, const int* tiles,
+                   bool wide,
                    int64_t n_weights, int64_t n_biases) {
   const int64_t hw = static_cast<int64_t>(d.h) * d.w, kk = static_cast<int64_t>(d.ksize) * d.ksize;
   const int64_t f = kFrag, Kp = L.Kp;
@@ -475,7 +549,7 @@ bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const int* tiles, bo
       L.ts >= Kp && L.xs % 8 == 0 && L.ts % 8 == 0 && hw <= INT32_MAX / 16 &&
       hw * d.out_total <= INT32_MAX && L.n_mt == (hw + 15) / 16 &&
       L.trunk_per_sample == 16 * static_cast<int64_t>(L.n_mt) * Kp &&
-      L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * 2;
+      L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * 2 && wide_plan_ok(L, W);
   const bool stages =
       2LL * L.ch_entry >= kk * L.qx && L.ch_pre == (L.NT + 1) / 2 &&
       L.ch_post == (L.n_tiles + 1) / 2 && 2LL * L.ch_head >= kk * L.NT &&
@@ -491,7 +565,7 @@ bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const int* tiles, bo
   const bool narrow = L.NT <= kMaxTrunkTiles && L.NO <= kMaxHeadTiles &&
                       L.n_tiles <= B * kMaxTrunkTiles &&
                       L.act_bytes + 2 * static_cast<int64_t>(L.w_stage) <= kMaxShared;
-  if (!sizes || !stages || !(wide ? wide_scratch(L) <= INT32_MAX : narrow)) return false;
+  if (!sizes || !stages || !(wide ? wide_scratch(L, W) <= INT32_MAX : narrow)) return false;
   // branch tiles: in order, branch by branch, one window size a branch, each
   // window inside the trunk's channels, weights and biases between the pre
   // and the post 1x1's
@@ -847,10 +921,181 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
 // bfloat16, wide: any trunk and head width, any stage input size
 // ---------------------------------------------------------------------------
 
-// lane's B fragment `frag` of the stage whose fragments start at w, read from
-// the packed weights in global memory (L2-resident)
-__device__ __forceinline__ uint2 frag_b_global(const __nv_bfloat16* __restrict__ w, int64_t frag) {
-  return __ldg(reinterpret_cast<const uint2*>(w + frag * kFrag) + (threadIdx.x & 31));
+constexpr int kWideWarps = 4 * kWideGroups;
+constexpr int kRingBytes = kSlots * kSlotBytes;
+constexpr int kLoadTiles = 4;  // the trunk's float4s a lane loads together
+constexpr unsigned long long kWaitLimitNs = 4000000000ull;  // a ring wait past it traps
+static_assert(kWideThreads == 32 * kWideWarps, "warpgroups of 128 threads");
+static_assert(kBarrierBytes == 16 * kSlots, "a full mbarrier and a counter (padded) a slot");
+static_assert(kSlotBytes == kPassTiles * 2 * kFrag, "a slot holds one chunk of a pass");
+static_assert(kSlack >= (kPassTiles / 2 - 1) * 2 * kFrag + 64,
+              "the slack covers wgmma's widest over-read (N a power of two at or above 8 nt)");
+static_assert(kGroupTiles % 2 == 0 && kPassTiles % kGroupTiles == 0, "groups of tile pairs");
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// one arrival on bar that also makes it wait for `bytes` of asynchronous copies
+__device__ __forceinline__ void barrier_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of bar with this parity has completed. Past
+// kWaitLimitNs it traps, so that a piece that is never copied (a schedule
+// the warps disagree on) fails the launch instead of hanging the card.
+__device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > kWaitLimitNs)
+      __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst with the tensor
+// memory accelerator's bulk copy, completing on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits for every wgmma of this warpgroup, then pins d after the wait
+__device__ __forceinline__ void wgmma_wait_all(float (&d)[4 * kPassTiles]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 4 * kPassTiles; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The descriptor of a B operand at shared address addr: no swizzle, K-major
+// core matrices of 8 n rows x 16 bytes, the k16 chunk's second half 128
+// bytes on (leading byte offset), the next n8 tile 256 bytes on (stride byte
+// offset): the wide packing (fused_subnet.py::CORE_ORDER).
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+// d += a x B: wgmma.mma_async m64nNk16, N = 8 kTiles, bf16 x bf16 -> f32, A
+// from registers (each warp its 16 rows of the warpgroup's 64, in
+// mma.m16n8k16's A layout), B from shared memory at desc; d in the
+// accumulator layout (n8 tile j is d[4j, 4j + 4), as an m16n8 tile of mma.sync)
+template <int kTiles>
+__device__ __forceinline__ void wgmma_tiles(float (&d)[4 * kPassTiles], const uint32_t (&a)[4],
+                                            uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_tiles<1>(float (&d)[4 * kPassTiles],
+                                                const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tiles<2>(float (&d)[4 * kPassTiles],
+                                                const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tiles<4>(float (&d)[4 * kPassTiles],
+                                                const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tiles<8>(float (&d)[4 * kPassTiles],
+                                                const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tiles<16>(float (&d)[4 * kPassTiles],
+                                                const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // A SAME k x k conv's A operand in the wide kernel, read from the stage input
@@ -898,218 +1143,560 @@ __device__ __forceinline__ void fragment_a_scratch(const __nv_bfloat16* act, con
     a[e] = off[e] < 0 ? 0u : *reinterpret_cast<const uint32_t*>(act + off[e] + lo8);
 }
 
-// acc[0, nt) += conv(G) into n8 tiles [j0, j0 + nt) of a stage of `tiles` n8
-// tiles and `chunks` k16 chunks whose fragments start at w
-template <class D>
-__device__ __forceinline__ void conv_chunk(const D& d, const WideGather& G,
-                                           const __nv_bfloat16* act, int chunks,
-                                           const __nv_bfloat16* __restrict__ w, int tiles, int j0,
-                                           int nt, float (&acc)[kChunkTiles][4]) {
-  for (int c = 0; c < chunks; ++c) {
-    int off[4];
-    uint32_t a[4];
-    chunk_offsets(d, G, c, off);
-    fragment_a_scratch(act, off, 0, a);
+// d += a x the B tiles at shared address b for n8 tiles [0, nt) of d: N is
+// the power of two at or above 8 nt, so the columns past nt read what lies
+// past the piece (inside kSlack) and are never used
+__device__ __forceinline__ void wgmma_n(int nt, float (&d)[4 * kPassTiles],
+                                        const uint32_t (&a)[4], uint32_t b) {
+  const uint64_t desc = b_descriptor(b);
+  if (nt > 8)
+    wgmma_tiles<16>(d, a, desc);
+  else if (nt > 4)
+    wgmma_tiles<8>(d, a, desc);
+  else if (nt > 2)
+    wgmma_tiles<4>(d, a, desc);
+  else if (nt > 1)
+    wgmma_tiles<2>(d, a, desc);
+  else
+    wgmma_tiles<1>(d, a, desc);
+}
+
+// rounds of the warpgroups over a sample's 64-pixel tiles
+__host__ __device__ __forceinline__ int wide_rounds(const MmaLayout<kMaxBranches>& L) {
+  return (L.n_mt + kWideWarps - 1) / kWideWarps;
+}
+
+// k16 chunks a piece of a pass over a stage of NTs n8 tiles that takes its
+// tiles [j0, j0 + nt): as many as a slot holds where the pass takes every
+// tile (its chunks lie end to end), one otherwise
+__host__ __device__ __forceinline__ int chunks_a_piece(int NTs, int nt) {
+  return nt == NTs ? kPassTiles / nt : 1;
+}
+
+// element offset of chunk c, tile j0 of a stage of NTs tiles at w
+__host__ __device__ __forceinline__ int64_t pass_src(int64_t w, int c, int NTs, int j0) {
+  return w + (static_cast<int64_t>(c) * NTs + j0) * kFrag;
+}
+
+// The schedule's entry of piece p of the chain: each stage (the entry, per
+// residual block the pre 1x1 and the branches with the post 1x1, the head)
+// takes the same pieces every round, lens[s] of them, one stage after
+// another; the host's table lists one round of each.
+inline int schedule_entry(const int* lens, int stages, int rounds, int p) {
+  int start = 0;
+  for (int s = 0; s < stages; ++s) {
+    const int len = lens[s];
+    if (p < rounds * len) return start + p % len;
+    p -= rounds * len;
+    start += len;
+  }
+  return start;  // past the chain: schedule_matches refuses such a table
+}
+
+// The ring of weights as the warps walk it: piece k sits in slot k % kSlots;
+// its full barrier completes when its copy has landed. The warps count
+// themselves out of a slot in shared memory (`freed`, one arrival a warp);
+// the warp that frees it last copies the piece kSlots on into it, from the
+// schedule in the device copy of the layout table: every piece of the chain
+// in order (fused_subnet.py::wide_schedule, one round a stage in the host's
+// table, which schedule_matches checks, and each stage's round repeated in
+// the device's). So no warp is kept back to feed the ring (a
+// 17th warp would put 5 on one of the SM's four sub-partitions, whose 16,384
+// registers would then give each thread 96), and a slot is refilled the
+// moment it is free.
+struct Ring {
+  uint32_t slots, full;
+  int* freed;
+  int k;  // the next piece to take
+  int n;  // pieces of the whole chain
+  const int* sched;  // (element offset, bytes) a piece
+  const __nv_bfloat16* w;
+  __device__ __forceinline__ uint32_t slot() const { return slots + (k % kSlots) * kSlotBytes; }
+  // one lane: piece p into its slot
+  __device__ __forceinline__ void issue(int p) const {
+    const int s = p % kSlots, bytes = __ldg(sched + 2 * p + 1);
+    barrier_expect(full + 8 * s, bytes);
+    bulk_copy(slots + s * kSlotBytes, w + __ldg(sched + 2 * p), bytes, full + 8 * s);
+  }
+  __device__ __forceinline__ void wait() const {
+    barrier_wait(full + 8 * (k % kSlots), (k / kSlots) & 1);
+  }
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      const int s = k % kSlots;
+      __threadfence_block();
+      if (atomicAdd(freed + s, 1) == kWideWarps - 1) {
+        freed[s] = 0;
+        __threadfence_block();
+        if (k + kSlots < n) issue(k + kSlots);
+      }
+    }
+    ++k;
+  }
+};
+
+// Where a k x k conv's A fragments come from: the stage input in dt, in
+// shared memory (act_s, its row of zeros at zero_s) or in scratch (act).
+struct StageIn {
+  const __nv_bfloat16* act;
+  uint32_t act_s, zero_s;
+};
+
+template <bool kShared>
+struct Taps;
+
+// the stage input in shared memory: ldmatrix.x4 at the narrow kernel's Gather
+template <>
+struct Taps<true> {
+  Gather G;
+  uint32_t at;
+  template <class D>
+  __device__ __forceinline__ void start(const D& d, const StageIn& in, int mt, int stride, int q,
+                                        int dil) {
+    G = gather_at(d, mt, in.act_s, in.zero_s, stride, q, dil);
+  }
+  template <class D>
+  __device__ __forceinline__ void next(const D& d) {
+    at = take_chunk(d, G);
+  }
+  __device__ __forceinline__ void fetch(int lo8, uint32_t (&a)[4]) const {
+    fragment_a(at + 2 * lo8, a);
+  }
+};
+
+// the stage input in scratch: four plain loads a fragment (ldmatrix reads
+// shared memory only)
+template <>
+struct Taps<false> {
+  WideGather G;
+  const __nv_bfloat16* act;
+  int c, off[4];
+  template <class D>
+  __device__ __forceinline__ void start(const D& d, const StageIn& in, int mt, int stride, int q,
+                                        int dil) {
+    G = wide_gather(d, mt, q, dil, stride);
+    act = in.act;
+    c = 0;
+  }
+  template <class D>
+  __device__ __forceinline__ void next(const D& d) {
+    chunk_offsets(d, G, c++, off);
+  }
+  __device__ __forceinline__ void fetch(int lo8, uint32_t (&a)[4]) const {
+    fragment_a_scratch(act, off, lo8, a);
+  }
+};
+
+// acc = the SAME k x k conv (dilation 1) of this warp's 16-pixel tile mt of
+// the stage input (`stride` elements a pixel, q slices a tap) over `ch` k16
+// chunks, into n8 tiles [j0, j0 + nt) of a stage of NTs tiles whose B pieces
+// come from the ring. `active`: the warpgroup has pixels this round; an
+// idle one only walks the ring.
+template <bool kShared, class D>
+__device__ __forceinline__ void conv_pass(const D& d, const StageIn& in, int mt, int stride, int q,
+                                          int ch, int NTs, int j0, int nt, bool active,
+                                          Ring& ring, float (&acc)[4 * kPassTiles]) {
 #pragma unroll
-    for (int j = 0; j < kChunkTiles; ++j)
-      if (j < nt) mma(acc[j], a, frag_b_global(w, static_cast<int64_t>(c) * tiles + j0 + j));
+  for (int i = 0; i < 4 * kPassTiles; ++i) acc[i] = 0.f;
+  Taps<kShared> A;
+  if (active) A.start(d, in, mt, stride, q, 1);
+  const int per = chunks_a_piece(NTs, nt);
+  for (int c0 = 0; c0 < ch; c0 += per) {
+    ring.wait();
+    if (active) {
+      for (int i = 0; i < min(per, ch - c0); ++i) {
+        uint32_t a[4];
+        A.next(d);
+        A.fetch(0, a);
+        wgmma_fence();
+        wgmma_n(nt, acc, a, ring.slot() + i * nt * 2 * kFrag);
+        wgmma_commit();
+      }
+      wgmma_wait_all(acc);
+    }
+    ring.release();
   }
 }
 
-// The chain of fused_subnet_mma_kernel with its stage input, branch outputs
-// and weights outside shared memory (the source note): the same packing, the
-// same stages and roundings, each stage over output chunks of kChunkTiles n8
-// tiles. `tiles`: the layout table's tiles in device memory; per_sample: the
+// u += the post 1x1's k16 chunk whose A fragment is a (two branch tiles'
+// outputs), its B the ring's next piece
+__device__ __forceinline__ void post_piece(Ring& ring, bool active, int nt,
+                                           const uint32_t (&a)[4], float (&u)[4 * kPassTiles]) {
+  ring.wait();
+  if (active) {
+    wgmma_fence();
+    wgmma_n(nt, u, a, ring.slot());
+    wgmma_commit();
+    wgmma_wait_all(u);
+  }
+  ring.release();
+}
+
+// The chain of fused_subnet_mma_kernel for any trunk and head width, as the
+// source note's wide variant: kWideGroups warpgroups, each a 64-pixel
+// tile a round (its warps the 16-pixel tiles 4M..4M+3), that feed every
+// stage's weights through a ring of kSlots shared slots themselves (Ring).
+// kShared: the stage input lives in shared memory after the ring (else in
+// the sample's scratch after its trunk). `tiles`: the layout table's tiles,
+// then every piece of the schedule, in device memory; per_sample: the
 // scratch elements a sample (wide_scratch).
-__global__ void __launch_bounds__(kThreads, 1)
+template <bool kShared>
+__global__ void __launch_bounds__(kWideThreads, 1)
 fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
                              const float* __restrict__ bias, float* scratch,
                              float* __restrict__ out, const Dims<kMaxBranches> d,
-                             const MmaLayout<kMaxBranches> L, const int* __restrict__ tiles,
-                             int64_t per_sample) {
-  const int hw = d.h * d.w, NT = L.NT;
+                             const MmaLayout<kMaxBranches> L, const WidePlan W,
+                             const int* __restrict__ tiles, int64_t per_sample) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the barriers first, so that what wgmma reads past a slot is the next
+  // slot, the stage input or the slack, never an mbarrier
+  const uint32_t full = shared_addr(smem), slots = full + kBarrierBytes;
+  int* freed = reinterpret_cast<int*>(smem + 8 * kSlots);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rounds = wide_rounds(L);
+  Ring ring{slots, full, freed, 0, rounds * W.n_pieces, tiles + 5 * L.n_tiles, wts};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      barrier_init(full + 8 * s, 1);
+      freed[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int p = 0; p < kSlots && p < ring.n; ++p) ring.issue(p);
+  }
+  __syncthreads();
+
+  // warpgroup and warp within it, uniform as the compiler sees them (so that
+  // no wgmma sits on a path it takes for divergent)
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), wq = __shfl_sync(0xffffffffu, warp & 3, 0);
+  const int hw = d.h * d.w, NT = L.NT;
   const int64_t n = blockIdx.x;
   const float* xs = x + n * hw * d.cin;
   float* mine = scratch + n * per_sample;
   // the trunk in accumulator layout, [pixel tile][n8 tile][lane] float4: each
   // float4 is only ever read and written by its own lane
   float4* y = reinterpret_cast<float4*>(mine);
-  // the stage input, rows as in the narrow kernel's shared memory
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(mine + L.trunk_per_sample);
-  // the branch outputs as the post 1x1's A fragments, [pixel tile][k16
-  // chunk][lane] uint4: each only ever read and written by its own lane
-  uint4* frags = reinterpret_cast<uint4*>(mine + L.trunk_per_sample + L.act_bytes / 4);
+  // the stage input, rows as in the narrow kernel's shared memory, then (in
+  // shared memory) a row of zeros: what a padding pixel reads
+  const int row = L.xs > L.ts ? L.xs : L.ts;
+  __nv_bfloat16* act =
+      kShared ? reinterpret_cast<__nv_bfloat16*>(smem + kBarrierBytes + kRingBytes)
+              : reinterpret_cast<__nv_bfloat16*>(mine + L.trunk_per_sample);
+  StageIn in{act, 0u, 0u};
+  if (kShared) {
+    in.act_s = shared_addr(act);
+    in.zero_s = in.act_s + 2 * hw * row;
+    for (int e = threadIdx.x; e < row; e += kWideThreads)
+      act[hw * row + e] = __float2bfloat16(0.f);
+  }
   float* o = out + n * hw * d.out_total;
   auto y_at = [&](int mt, int j) -> float4& { return y[(mt * NT + j) * 32 + lane]; };
 
-  // x -> bf16 in scratch, channels zero-padded to the slices
+  // x -> bf16, channels zero-padded to the slices
   const int cin_p = 8 * L.qx;
-  for (int e = threadIdx.x; e < hw * cin_p; e += kThreads) {
+  for (int e = threadIdx.x; e < hw * cin_p; e += kWideThreads) {
     const int p = e / cin_p, c = e - p * cin_p;
     act[p * L.xs + c] = __float2bfloat16(c < d.cin ? xs[p * d.cin + c] : 0.f);
   }
   __syncthreads();
 
   // entry conv: y = conv_k(x) + entry_b
-  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-    const WideGather G = wide_gather(d, mt, L.qx, 1, L.xs);
-    for (int j0 = 0; j0 < NT; j0 += kChunkTiles) {
-      const int nt = min(kChunkTiles, NT - j0);
-      float acc[kChunkTiles][4] = {};
-      conv_chunk(d, G, act, L.ch_entry, wts, NT, j0, nt, acc);
+  for (int r = 0; r < rounds; ++r) {
+    const int mt = 4 * (r * kWideGroups + wg) + wq;
+    const bool active = 4 * (r * kWideGroups + wg) < L.n_mt;
+    for (int j0 = 0; j0 < NT; j0 += kPassTiles) {
+      const int nt = min(kPassTiles, NT - j0);
+      float acc[4 * kPassTiles];
+      conv_pass<kShared>(d, in, mt, L.xs, L.qx, L.ch_entry, NT, j0, nt, active, ring, acc);
+      if (mt < L.n_mt) {
 #pragma unroll
-      for (int j = 0; j < kChunkTiles; ++j) {
-        if (j >= nt) break;
-        const float2 b = bias2(bias, j0 + j);
-        y_at(mt, j0 + j) = make_float4(acc[j][0] + b.x, acc[j][1] + b.y, acc[j][2] + b.x,
-                                       acc[j][3] + b.y);
+        for (int j = 0; j < kPassTiles; ++j) {
+          if (j >= nt) break;
+          const float2 b = bias2(bias, j0 + j);
+          y_at(mt, j0 + j) = make_float4(acc[4 * j] + b.x, acc[4 * j + 1] + b.y,
+                                         acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+        }
       }
     }
   }
   __syncthreads();
 
   for (int blk = 0; blk < d.res_blocks; ++blk) {
-    const __nv_bfloat16* wb = wts + L.w_block0 + static_cast<int64_t>(blk) * L.w_block;
     const float* bb = bias + L.b_block0 + static_cast<int64_t>(blk) * L.b_block;
 
-    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b)) into scratch;
-    // accumulator tiles 2c and 2c+1 of y are chunk c's A fragment
-    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-      const Rows r = tile_rows(d, mt);
-      for (int j0 = 0; j0 < NT; j0 += kChunkTiles) {
-        const int nt = min(kChunkTiles, NT - j0);
-        float acc[kChunkTiles][4] = {};
-        for (int c = 0; c < L.ch_pre; ++c) {
-          const float4 lo = y_at(mt, 2 * c);
-          const float4 hi =
-              2 * c + 1 < NT ? y_at(mt, 2 * c + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
-          const uint32_t a[4] = {pack_bf16(lrelu(lo.x), lrelu(lo.y)),
-                                 pack_bf16(lrelu(lo.z), lrelu(lo.w)),
-                                 pack_bf16(lrelu(hi.x), lrelu(hi.y)),
-                                 pack_bf16(lrelu(hi.z), lrelu(hi.w))};
+    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b)) into the stage
+    // input; accumulator tiles 2c and 2c+1 of y are chunk c's A fragment, up
+    // to kPassTiles / 2 chunks loaded together
+    for (int r = 0; r < rounds; ++r) {
+      const int mt = 4 * (r * kWideGroups + wg) + wq;
+      const bool active = 4 * (r * kWideGroups + wg) < L.n_mt, mine_ok = mt < L.n_mt;
+      for (int j0 = 0; j0 < NT; j0 += kPassTiles) {
+        const int nt = min(kPassTiles, NT - j0), per = chunks_a_piece(NT, nt);
+        float acc[4 * kPassTiles];
 #pragma unroll
-          for (int j = 0; j < kChunkTiles; ++j)
-            if (j < nt) mma(acc[j], a, frag_b_global(wb, static_cast<int64_t>(c) * NT + j0 + j));
+        for (int i = 0; i < 4 * kPassTiles; ++i) acc[i] = 0.f;
+        for (int cb = 0; cb < L.ch_pre; cb += kPassTiles / 2) {
+          uint32_t a[kPassTiles / 2][4];
+#pragma unroll
+          for (int c = 0; c < kPassTiles / 2; ++c) {
+            const int cc = cb + c;
+            float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+            if (mine_ok && cc < L.ch_pre) {
+              lo = y_at(mt, 2 * cc);
+              if (2 * cc + 1 < NT) hi = y_at(mt, 2 * cc + 1);
+            }
+            a[c][0] = pack_bf16(lrelu(lo.x), lrelu(lo.y));
+            a[c][1] = pack_bf16(lrelu(lo.z), lrelu(lo.w));
+            a[c][2] = pack_bf16(lrelu(hi.x), lrelu(hi.y));
+            a[c][3] = pack_bf16(lrelu(hi.z), lrelu(hi.w));
+          }
+#pragma unroll
+          for (int c = 0; c < kPassTiles / 2; ++c) {
+            const int cc = cb + c;
+            if (cc >= L.ch_pre) break;
+            if (cc % per == 0) ring.wait();
+            if (active) {
+              wgmma_fence();
+              wgmma_n(nt, acc, a[c], ring.slot() + (cc % per) * nt * 2 * kFrag);
+              wgmma_commit();
+            }
+            if ((cc + 1) % per == 0 || cc + 1 == L.ch_pre) {
+              if (active) wgmma_wait_all(acc);
+              ring.release();
+            }
+          }
         }
+        if (mine_ok) {
+          const Rows rw = tile_rows(d, mt);
 #pragma unroll
-        for (int j = 0; j < kChunkTiles; ++j) {
-          if (j >= nt) break;
-          const float2 b = bias2(bb, j0 + j);
-          const int ch = 8 * (j0 + j) + 2 * (lane & 3);
+          for (int j = 0; j < kPassTiles; ++j) {
+            if (j >= nt) break;
+            const float2 b = bias2(bb, j0 + j);
+            const int ch = 8 * (j0 + j) + 2 * (lane & 3);
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (r.ok[i])
-              *reinterpret_cast<uint32_t*>(act + (r.py[i] * d.w + r.px[i]) * L.ts + ch) =
-                  pack_bf16(lrelu(acc[j][2 * i] + b.x), lrelu(acc[j][2 * i + 1] + b.y));
+            for (int i = 0; i < 2; ++i)
+              if (rw.ok[i])
+                *reinterpret_cast<uint32_t*>(act + (rw.py[i] * d.w + rw.px[i]) * L.ts + ch) =
+                    pack_bf16(lrelu(acc[4 * j + 2 * i] + b.x), lrelu(acc[4 * j + 2 * i + 1] + b.y));
+          }
         }
       }
     }
     __syncthreads();
 
-    // branches, up to kChunkTiles tiles of a branch at a time: s =
-    // bf16(lrelu(gconv(t) + bb)) into the fragments (an even tile is the
-    // first half of its k16 chunk, an odd one the second); then the post 1x1
-    // over every chunk, an output chunk at a time: y = y + u + post_b
-    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-      uint4* fr = frags + static_cast<int64_t>(mt) * L.ch_post * 32 + lane;  // chunk c: fr[32c]
-      for (int br = 0; br < d.nd; ++br) {
-        const int t0 = L.br_tile0[br], ntb = L.br_tiles[br];
-        const int q = __ldg(tiles + 5 * t0 + 1), chunks = __ldg(tiles + 5 * t0 + 2);
-        const WideGather G = wide_gather(d, mt, q, d.dil[br], L.ts);
-        for (int g0 = 0; g0 < ntb; g0 += kChunkTiles) {
-          const int nt = min(kChunkTiles, ntb - g0);
-          int lo8[kChunkTiles], w_off[kChunkTiles];
+    // branches and post 1x1: the branch tiles in groups of kGroupTiles, each
+    // group's chunks located once for all its tiles (mma.sync, B from the
+    // ring); s = bf16(lrelu(gconv(t) + bb)), two tiles a k16 chunk of the
+    // post 1x1's A operand, multiplied in as soon as both are done (wgmma);
+    // y = y + u + post_b
+    for (int r = 0; r < rounds; ++r) {
+      const int mt = 4 * (r * kWideGroups + wg) + wq;
+      const bool active = 4 * (r * kWideGroups + wg) < L.n_mt;
+      for (int j0 = 0; j0 < NT; j0 += kPassTiles) {
+        const int nt = min(kPassTiles, NT - j0);
+        float u[4 * kPassTiles];
 #pragma unroll
-          for (int j = 0; j < kChunkTiles; ++j) {
-            const int* v = tiles + 5 * (t0 + g0 + min(j, nt - 1));
-            lo8[j] = __ldg(v);
-            w_off[j] = __ldg(v + 3);
-          }
-          float s[kChunkTiles][4] = {};
-          for (int c = 0; c < chunks; ++c) {
-            int off[4];
-            chunk_offsets(d, G, c, off);
+        for (int i = 0; i < 4 * kPassTiles; ++i) u[i] = 0.f;
+        uint32_t pend[2] = {0u, 0u};  // an even tile's fragment half, waiting for its pair
+        for (int br = 0; br < d.nd; ++br) {
+          const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br];
+          const int q = __ldg(tiles + 5 * t0 + 1), chunks = __ldg(tiles + 5 * t0 + 2);
+          for (int g0 = t0; g0 < end; g0 += kGroupTiles) {
+            const int ng = min(kGroupTiles, end - g0), per = kPassTiles / ng;
+            int lo8[kGroupTiles];
 #pragma unroll
-            for (int j = 0; j < kChunkTiles; ++j) {
-              if (j >= nt) break;
-              uint32_t a[4];
-              fragment_a_scratch(act, off, lo8[j], a);
-              mma(s[j], a, frag_b_global(wb + w_off[j], c));
+            for (int j = 0; j < kGroupTiles; ++j) lo8[j] = __ldg(tiles + 5 * (g0 + min(j, ng - 1)));
+            float s[kGroupTiles][4] = {};
+            Taps<kShared> A;
+            if (active) A.start(d, in, mt, L.ts, q, d.dil[br]);
+            for (int c0 = 0; c0 < chunks; c0 += per) {
+              ring.wait();
+              if (active) {
+#pragma unroll 2
+                for (int i = 0; i < min(per, chunks - c0); ++i) {
+                  A.next(d);
+                  // lane l: row l % 8 of core matrix l / 8 of tiles j, j + 1
+                  const uint32_t bq = ring.slot() + i * ng * 2 * kFrag + 16 * lane;
+#pragma unroll
+                  for (int j = 0; j < kGroupTiles; j += 2) {
+                    if (j >= ng) break;
+                    uint32_t b[4], a[4];
+                    fragment_a(bq + j * 2 * kFrag, b);
+                    A.fetch(lo8[j], a);
+                    mma(s[j], a, make_uint2(b[0], b[1]));
+                    if (j + 1 < ng) {
+                      // tiles of one group of a wide branch share their window
+                      if (lo8[j + 1] != lo8[j]) A.fetch(lo8[j + 1], a);
+                      mma(s[j + 1], a, make_uint2(b[2], b[3]));
+                    }
+                  }
+                }
+              }
+              ring.release();
+            }
+#pragma unroll
+            for (int j = 0; j < kGroupTiles; ++j) {
+              if (j >= ng) break;
+              const int gt = g0 + j;
+              const float2 b = bias2(bb + __ldg(tiles + 5 * gt + 4), 0);
+              const uint32_t lo = pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y));
+              const uint32_t hi = pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y));
+              if (gt % 2 == 0) {
+                pend[0] = lo;
+                pend[1] = hi;
+              } else {
+                const uint32_t a[4] = {pend[0], pend[1], lo, hi};
+                post_piece(ring, active, nt, a, u);
+              }
             }
           }
+        }
+        if (L.n_tiles % 2) {
+          const uint32_t a[4] = {pend[0], pend[1], 0u, 0u};
+          post_piece(ring, active, nt, a, u);
+        }
+        // kLoadTiles of y's float4s loaded together, then updated
+        if (mt < L.n_mt) {
 #pragma unroll
-          for (int j = 0; j < kChunkTiles; ++j) {
-            if (j >= nt) break;
-            const int gt = t0 + g0 + j;
-            const float2 b = bias2(bb + __ldg(tiles + 5 * gt + 4), 0);
-            uint2* half = reinterpret_cast<uint2*>(fr + 32 * (gt / 2)) + (gt & 1);
-            *half = make_uint2(pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y)),
-                               pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y)));
-            if (gt == L.n_tiles - 1 && gt % 2 == 0) half[1] = make_uint2(0u, 0u);
+          for (int jb = 0; jb < kPassTiles; jb += kLoadTiles) {
+            float4 old[kLoadTiles];
+#pragma unroll
+            for (int j = 0; j < kLoadTiles; ++j)
+              if (jb + j < nt) old[j] = y_at(mt, j0 + jb + j);
+#pragma unroll
+            for (int j = 0; j < kLoadTiles; ++j) {
+              const int jj = jb + j;
+              if (jj >= nt) break;
+              const float2 b = bias2(bb + L.b_post, j0 + jj);
+              y_at(mt, j0 + jj) =
+                  make_float4((old[j].x + u[4 * jj]) + b.x, (old[j].y + u[4 * jj + 1]) + b.y,
+                              (old[j].z + u[4 * jj + 2]) + b.x, (old[j].w + u[4 * jj + 3]) + b.y);
+            }
           }
-        }
-      }
-      for (int j0 = 0; j0 < NT; j0 += kChunkTiles) {
-        const int nt = min(kChunkTiles, NT - j0);
-        float u[kChunkTiles][4] = {};
-        for (int c = 0; c < L.ch_post; ++c) {
-          const uint4 v = fr[32 * c];
-          const uint32_t a[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int j = 0; j < kChunkTiles; ++j)
-            if (j < nt)
-              mma(u[j], a, frag_b_global(wb + L.w_post, static_cast<int64_t>(c) * NT + j0 + j));
-        }
-#pragma unroll
-        for (int j = 0; j < kChunkTiles; ++j) {
-          if (j >= nt) break;
-          const float2 b = bias2(bb + L.b_post, j0 + j);
-          float4& v = y_at(mt, j0 + j);
-          const float4 old = v;
-          v = make_float4((old.x + u[j][0]) + b.x, (old.y + u[j][1]) + b.y,
-                          (old.z + u[j][2]) + b.x, (old.w + u[j][3]) + b.y);
         }
       }
     }
     __syncthreads();
   }
 
-  // head: t = bf16(lrelu(y)) into scratch; out = conv_k(t) + head_b
-  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-    const Rows r = tile_rows(d, mt);
-    for (int j = 0; j < NT; ++j) {
-      const float4 v = y_at(mt, j);
-      const int ch = 8 * j + 2 * (lane & 3);
-      if (r.ok[0])
-        *reinterpret_cast<uint32_t*>(act + (r.py[0] * d.w + r.px[0]) * L.ts + ch) =
-            pack_bf16(lrelu(v.x), lrelu(v.y));
-      if (r.ok[1])
-        *reinterpret_cast<uint32_t*>(act + (r.py[1] * d.w + r.px[1]) * L.ts + ch) =
-            pack_bf16(lrelu(v.z), lrelu(v.w));
+  // head: t = bf16(lrelu(y)) into the stage input; out = conv_k(t) + head_b
+  for (int r = 0; r < rounds; ++r) {
+    const int mt = 4 * (r * kWideGroups + wg) + wq;
+    if (mt >= L.n_mt) continue;
+    const Rows rw = tile_rows(d, mt);
+    for (int jb = 0; jb < NT; jb += kLoadTiles) {
+      float4 v[kLoadTiles];
+#pragma unroll
+      for (int j = 0; j < kLoadTiles; ++j)
+        if (jb + j < NT) v[j] = y_at(mt, jb + j);
+#pragma unroll
+      for (int j = 0; j < kLoadTiles; ++j) {
+        if (jb + j >= NT) break;
+        const int ch = 8 * (jb + j) + 2 * (lane & 3);
+        if (rw.ok[0])
+          *reinterpret_cast<uint32_t*>(act + (rw.py[0] * d.w + rw.px[0]) * L.ts + ch) =
+              pack_bf16(lrelu(v[j].x), lrelu(v[j].y));
+        if (rw.ok[1])
+          *reinterpret_cast<uint32_t*>(act + (rw.py[1] * d.w + rw.px[1]) * L.ts + ch) =
+              pack_bf16(lrelu(v[j].z), lrelu(v[j].w));
+      }
     }
   }
   __syncthreads();
   const float* hb = bias + L.b_head;
-  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-    const Rows r = tile_rows(d, mt);
-    const WideGather G = wide_gather(d, mt, NT, 1, L.ts);
-    for (int j0 = 0; j0 < L.NO; j0 += kChunkTiles) {
-      const int nt = min(kChunkTiles, L.NO - j0);
-      float acc[kChunkTiles][4] = {};
-      conv_chunk(d, G, act, L.ch_head, wts + L.w_head, L.NO, j0, nt, acc);
+  for (int r = 0; r < rounds; ++r) {
+    const int mt = 4 * (r * kWideGroups + wg) + wq;
+    const bool active = 4 * (r * kWideGroups + wg) < L.n_mt;
+    for (int j0 = 0; j0 < L.NO; j0 += kPassTiles) {
+      const int nt = min(kPassTiles, L.NO - j0);
+      float acc[4 * kPassTiles];
+      conv_pass<kShared>(d, in, mt, L.ts, NT, L.ch_head, L.NO, j0, nt, active, ring, acc);
+      if (mt < L.n_mt) {
+        const Rows rw = tile_rows(d, mt);
 #pragma unroll
-      for (int j = 0; j < kChunkTiles; ++j) {
-        if (j >= nt) break;
+        for (int j = 0; j < kPassTiles; ++j) {
+          if (j >= nt) break;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * (j0 + j) + 2 * (lane & 3) + (e & 1), i = e >> 1;
-          if (r.ok[i] && col < d.out_total)
-            o[(r.py[i] * d.w + r.px[i]) * d.out_total + col] = acc[j][e] + hb[col];
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * (j0 + j) + 2 * (lane & 3) + (e & 1), i = e >> 1;
+            if (rw.ok[i] && col < d.out_total)
+              o[(rw.py[i] * d.w + rw.px[i]) * d.out_total + col] = acc[4 * j + e] + hb[col];
+          }
         }
       }
     }
   }
+}
+
+// Every piece the kernel's warps take from the ring, in their order, to
+// piece(element offset, bytes): each loop here is one of
+// fused_subnet_mma_wide_kernel's (its stages, rounds, passes, branch groups
+// and post chunks). On the host: the schedule the wrapper hands over is
+// checked against it.
+template <class Piece>
+void walk_pieces(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, const int* tiles,
+                 Piece piece) {
+  const int rounds = wide_rounds(L), NT = L.NT;
+  auto imin = [](int a, int b) { return a < b ? a : b; };
+  auto trunk_stage = [&](int64_t w, int ch, int NTs) {
+    for (int r = 0; r < rounds; ++r)
+      for (int j0 = 0; j0 < NTs; j0 += kPassTiles) {
+        const int nt = imin(kPassTiles, NTs - j0), per = chunks_a_piece(NTs, nt);
+        for (int c0 = 0; c0 < ch; c0 += per)
+          piece(pass_src(w, c0, NTs, j0), imin(per, ch - c0) * nt * 2 * kFrag);
+      }
+  };
+  trunk_stage(0, L.ch_entry, NT);
+  for (int blk = 0; blk < d.res_blocks; ++blk) {
+    const int64_t wb = L.w_block0 + static_cast<int64_t>(blk) * L.w_block;
+    trunk_stage(wb, L.ch_pre, NT);
+    for (int r = 0; r < rounds; ++r)
+      for (int j0 = 0; j0 < NT; j0 += kPassTiles) {
+        const int nt = imin(kPassTiles, NT - j0);
+        for (int br = 0; br < d.nd; ++br) {
+          const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br], chunks = tiles[5 * t0 + 2];
+          for (int g0 = t0; g0 < end; g0 += kGroupTiles) {
+            const int ng = imin(kGroupTiles, end - g0), per = kPassTiles / ng;
+            const int64_t wg = wb + tiles[5 * g0 + 3];
+            for (int c0 = 0; c0 < chunks; c0 += per)
+              piece(wg + static_cast<int64_t>(c0) * ng * kFrag,
+                    imin(per, chunks - c0) * ng * 2 * kFrag);
+            for (int gt = g0; gt < g0 + ng; ++gt)
+              if (gt % 2) piece(pass_src(wb + L.w_post, gt / 2, NT, j0), nt * 2 * kFrag);
+          }
+        }
+        if (L.n_tiles % 2) piece(pass_src(wb + L.w_post, L.n_tiles / 2, NT, j0), nt * 2 * kFrag);
+      }
+  }
+  trunk_stage(L.w_head, L.ch_head, L.NO);
+}
+
+// Whether the table's schedule, the n_sched ints after its tiles, is
+// walk_pieces' order: 2 + 2 res_blocks stage lengths adding up to n_pieces,
+// then as many (element offset, bytes) pairs, every piece a multiple of 16
+// bytes, at most a slot, inside the weights.
+bool schedule_matches(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, int n_pieces,
+                      const int* tiles, int64_t n_sched) {
+  const int stages = 2 + 2 * d.res_blocks, rounds = wide_rounds(L);
+  const int* lens = tiles + 5 * L.n_tiles;
+  if (n_sched != stages + 2 * static_cast<int64_t>(n_pieces)) return false;
+  int64_t sum = 0;
+  for (int s = 0; s < stages; ++s) {
+    if (lens[s] < 1) return false;
+    sum += lens[s];
+  }
+  if (sum != n_pieces || static_cast<int64_t>(rounds) * n_pieces > INT32_MAX) return false;
+  int64_t k = 0;
+  bool ok = true;
+  walk_pieces(d, L, tiles, [&](int64_t src, int bytes) {
+    const int* piece =
+        lens + stages + 2 * schedule_entry(lens, stages, rounds, static_cast<int>(k));
+    ok = ok && k < static_cast<int64_t>(rounds) * n_pieces && piece[0] == src &&
+         piece[1] == bytes && bytes > 0 && bytes % 16 == 0 && bytes <= kSlotBytes &&
+         src % 8 == 0 && src + bytes / 2 <= L.w_total;
+    ++k;
+  });
+  return ok && k == static_cast<int64_t>(rounds) * n_pieces;
 }
 
 template <bool kWide>
@@ -1143,20 +1730,38 @@ int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, v
                 int64_t n_trunk, const int* table, int n_table, const int* device_table,
                 cudaStream_t stream) {
   MmaLayout<kWide ? kMaxBranches : kNarrowBranches> L{};
-  if (batch < 1 || !read_mma_layout(table, n_table, L) ||
-      !mma_layout_ok(d, L, table + kTableTiles, kWide, n_weights, n_biases))
+  WidePlan W{};
+  if (batch < 1 || !read_mma_layout(table, n_table, L, W) ||
+      !mma_layout_ok(d, L, W, table + kTableTiles, kWide, n_weights, n_biases))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t per_sample = kWide ? wide_scratch(L) : L.trunk_per_sample;
-  if (n_trunk < static_cast<int64_t>(batch) * per_sample || (kWide && device_table == nullptr))
+  const int64_t per_sample = kWide ? wide_scratch(L, W) : L.trunk_per_sample;
+  if (n_trunk < static_cast<int64_t>(batch) * per_sample)
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kWide) {
+    if (device_table == nullptr ||
+        !schedule_matches(d, L, W.n_pieces, table + kTableTiles,
+                          n_table - kTableTiles - 5 * L.n_tiles))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const float* xf = static_cast<const float*>(x);
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wts);
   const float* bf = static_cast<const float*>(bias);
   float* of = static_cast<float*>(out);
   if constexpr (kWide) {
-    fused_subnet_mma_wide_kernel<<<batch, kThreads, 0, stream>>>(
-        xf, wb, bf, static_cast<float*>(trunk), of, d, L, device_table + kTableTiles,
-        per_sample);
+    static bool limit_set[2][kMaxDevices] = {};
+    float* sf = static_cast<float*>(trunk);
+    const int* tiles = device_table + kTableTiles;
+    if (W.act_in_shared) {
+      cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<true>, limit_set[1]);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fused_subnet_mma_wide_kernel<true><<<batch, kWideThreads, W.wide_shared, stream>>>(
+          xf, wb, bf, sf, of, d, L, W, tiles, per_sample);
+    } else {
+      cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<false>, limit_set[0]);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fused_subnet_mma_wide_kernel<false><<<batch, kWideThreads, W.wide_shared, stream>>>(
+          xf, wb, bf, sf, of, d, L, W, tiles, per_sample);
+    }
   } else {
     static bool limit_set[kMaxDevices] = {};
     cudaError_t err = allow_shared(fused_subnet_mma_kernel, limit_set);

@@ -23,20 +23,31 @@ would round them to TF32 (the source note in ``csrc/fused_subnet.cu``).
 
 Two variants, picked by the spec (:func:`wide`): the narrow kernels above
 take up to 4 dilated branches, a bf16 trunk up to 64 channels, a bf16 head
-up to 32 and a stage input that fits shared memory; the wide variant (``fused_subnet_forward_wide``)
-takes any width and size, as JAX's kernel does, with the same packing: it
-keeps the stage input (and in bf16 the branch outputs) in the sample's slice
-of the scratch tensor, reads the bf16 weights from global memory and walks
-the output channels in chunks of :data:`CHUNK_TILES` n8 tiles.
+up to 32 and a stage input that fits shared memory; the wide variant
+(``fused_subnet_forward_wide``) takes any width and size, as JAX's kernel
+does. In float32 it keeps the stage input in the sample's slice of the
+scratch tensor. In bf16 it is written for Hopper (the source note gives
+what bounds it and its times): the stage input in shared memory where it
+fits beside the ring (:func:`wide_shared_bytes`; else in scratch), the
+weights streamed through a ring of :data:`SLOTS` shared slots by
+``cp.async.bulk`` in the order of :func:`wide_schedule`, the entry, pre and
+post 1x1 and head on ``wgmma`` (N up to 128 a pass), the branch tiles on
+``mma.sync`` in groups of :data:`GROUP_TILES`, their outputs multiplied
+straight into the post 1x1, so that the scratch is the trunk alone. On an
+NVIDIA H100 80GB HBM3 (700 W) it takes 820.0 us at the capacity preset's
+(128, 28, 28, 1) K 128, 0.052 of its bound (the first version 2,218-2,222
+us), and 182.9 us at (128, 14, 14, 2) K 128; it is latency-bound.
 
 Weights are packed once per parameter version (:func:`pack`), every kernel
 into one ``compute_dtype`` buffer and every bias into one float32 buffer. In
 float32 they stay in ``flax_param_order``'s order and flax's HWIO layout; in
 bf16 each stage is written in the tensor cores' B-fragment order with K and
-N zero-padded (:func:`mma_layout`), so the kernel reshuffles nothing. The
-bf16 layout is derived here only: each launch hands it to the kernel as a
-table of ints (:func:`layout_table`), which the C entry checks and does not
-derive again.
+N zero-padded (:func:`mma_layout`), so the kernel reshuffles nothing; for
+the wide variant each fragment as two 8 x 8 core matrices, and each branch
+group chunk by chunk (:func:`_wide_order`), at the same offsets. The bf16
+layout is derived here only: each launch hands it to the kernel as a table
+of ints (:func:`layout_table`), which the C entry checks and does not derive
+again.
 
 Dispatch: a CPU tensor goes to the plain version :func:`subnet_apply_reference`;
 a CUDA tensor launches the kernel or raises. :func:`subnet_apply` counts its
@@ -82,8 +93,15 @@ MAX_TRUNK_TILES = 8  # bf16: n8 tiles of the trunk (K <= 64)
 MAX_HEAD_TILES = 4  # bf16: n8 tiles of the head (out_total <= 32)
 FRAG = 128  # bf16: elements of one k16 x n8 B fragment (32 lanes x 4)
 MAX_TABLE_VALUE = 2**30  # bf16: the largest int of layout_table the C entry takes
-TABLE_SCALARS = 25  # bf16: the scalars that open layout_table (TABLE_FIELDS)
-CHUNK_TILES = 8  # wide bf16: n8 tiles of output channels a pass
+TABLE_SCALARS = 28  # bf16: the scalars that open layout_table (TABLE_FIELDS)
+WIDE_GROUPS = 4  # wide bf16: warpgroups a block
+WIDE_THREADS = 512  # wide bf16: threads a block
+SLOT_BYTES = 4096  # wide bf16: a slot of the weights' ring, 16 B fragments
+SLOTS = 4  # wide bf16: slots of the ring
+BARRIER_BYTES = 64  # wide bf16: a full mbarrier and a counter a slot
+SLACK_BYTES = 2048  # wide bf16: shared memory past the ring that wgmma may over-read
+GROUP_TILES = 8  # wide bf16: branch tiles that share a walk over the chunks
+PASS_TILES = 16  # wide bf16: n8 tiles of one wgmma (N <= 128)
 MAX_THREADS = 1024  # threads a block may have on the card
 _INT_MAX = 2**31 - 1
 _DTYPE_CODE = {"float32": 0, "bfloat16": 1}
@@ -214,10 +232,25 @@ class MmaLayout:
     trunk_per_sample: int  # float32 scratch elements a sample
     act_bytes: int  # shared memory of the stage input and a row of zeros
     w_stage: int  # weights of the largest stage (entry, a residual block, head)
+    act_in_shared: int  # 1: the wide variant holds the stage input in shared memory
+    wide_shared: int  # the wide variant's dynamic shared memory a block
+    n_pieces: int = 0  # pieces of one round of every stage of the wide variant's ring
 
     @property
     def n_tiles(self) -> int:
         return len(self.tiles)
+
+
+def _wide_plan(act_bytes: int) -> Tuple[int, int]:
+    """(act_in_shared, wide_shared) of the wide bf16 kernel: the ring's
+    barriers, the ring of weights, then the stage input where it fits beside
+    them (else it lives in scratch), at least :data:`SLACK_BYTES` past the
+    ring either way."""
+    ring = SLOTS * SLOT_BYTES + BARRIER_BYTES
+    with_act = ring + max(act_bytes, SLACK_BYTES)
+    if with_act <= MAX_SHARED_BYTES:
+        return 1, with_act
+    return 0, ring + SLACK_BYTES
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,14 +282,17 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
     xs, ts = _bank_stride(8 * qx), _bank_stride(kp)
     n_mt = _ceil(spec.h * spec.w, 16)
     w_total = w_head + ch_head * no * FRAG
-    return MmaLayout(
+    act_bytes = _ceil((spec.h * spec.w + 1) * max(xs, ts) * 2, 16) * 16
+    act_in_shared, wide_shared = _wide_plan(act_bytes)
+    L = MmaLayout(
         kp=kp, nt=nt, no=no, xs=xs, ts=ts, qx=qx, n_mt=n_mt, ch_entry=ch_entry,
         ch_pre=ch_pre, ch_post=ch_post, ch_head=ch_head, tiles=tuple(tiles),
         w_block0=w_entry, w_block=wb, w_post=w_post, w_head=w_head, b_block0=kp,
         b_block=bb, b_post=b_post, b_head=b_head,
         w_total=w_total, b_total=b_head + 8 * no, trunk_per_sample=n_mt * 16 * kp,
-        act_bytes=_ceil((spec.h * spec.w + 1) * max(xs, ts) * 2, 16) * 16,
-        w_stage=max(w_entry, wb, w_total - w_head))
+        act_bytes=act_bytes, w_stage=max(w_entry, wb, w_total - w_head),
+        act_in_shared=act_in_shared, wide_shared=wide_shared)
+    return dataclasses.replace(L, n_pieces=sum(map(len, _schedule(spec, L))))
 
 
 #: the scalars of :func:`layout_table`, in the order the C entry reads them
@@ -264,7 +300,7 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
 TABLE_FIELDS = ("kp", "nt", "no", "xs", "ts", "qx", "n_mt", "ch_entry", "ch_pre", "ch_post",
                 "ch_head", "n_tiles", "w_block0", "w_block", "w_post", "w_head", "w_total",
                 "b_block0", "b_block", "b_post", "b_head", "b_total", "trunk_per_sample",
-                "act_bytes", "w_stage")
+                "act_bytes", "w_stage", "act_in_shared", "wide_shared", "n_pieces")
 TILE_FIELDS = ("lo8", "q", "chunks", "w_off", "b_off")
 
 
@@ -273,16 +309,77 @@ def layout_table(spec: SubnetSpec):
     """:func:`mma_layout` as the int32 array the C entry reads: the
     :data:`TABLE_FIELDS`, then each of :data:`MAX_BRANCHES` branches' first
     tile and tile count (0, 0 past the last branch), then the
-    :data:`TILE_FIELDS` of each tile."""
+    :data:`TILE_FIELDS` of each tile, then :func:`wide_schedule`: its
+    stages' lengths, then their pieces."""
+    values = _table_values(spec)
+    return (ctypes.c_int * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_values(spec: SubnetSpec) -> Tuple[int, ...]:
+    """:func:`layout_table`'s values as Python ints (the array would wrap
+    one past int32)."""
     L = mma_layout(spec)
     branches = [0, 0] * MAX_BRANCHES
     for t_i, t in enumerate(L.tiles):
         if branches[2 * t.branch + 1] == 0:
             branches[2 * t.branch] = t_i
         branches[2 * t.branch + 1] += 1
-    values = [getattr(L, f) for f in TABLE_FIELDS] + branches \
-        + [getattr(t, f) for t in L.tiles for f in TILE_FIELDS]
-    return (ctypes.c_int * len(values))(*values)
+    schedule = wide_schedule(spec)
+    return tuple([getattr(L, f) for f in TABLE_FIELDS] + branches
+                 + [getattr(t, f) for t in L.tiles for f in TILE_FIELDS]
+                 + [len(stage) for stage in schedule]
+                 + [v for stage in schedule for piece in stage for v in piece])
+
+
+def wide_schedule(spec: SubnetSpec):
+    """The pieces the wide bf16 kernel's ring carries, (element offset in
+    the packed weights, bytes) each, in the order its warps take them (the
+    C source's ``walk_pieces``, which its entry checks this against): one
+    tuple a stage (the entry, per residual block the pre 1x1 and then the
+    branches with the post 1x1, the head) of the pieces of one round of
+    :data:`WIDE_GROUPS` 64-pixel tiles, which every round takes again, each
+    pass of up to :data:`PASS_TILES` output tiles in turn. A trunk-wide
+    stage is a k16 chunk a piece (several where its tiles are fewer), a
+    branch group :data:`SLOT_BYTES` of its chunks a piece, each post 1x1
+    chunk a piece as soon as its two branch tiles are done."""
+    return _schedule(spec, mma_layout(spec))
+
+
+def _schedule(spec: SubnetSpec, L: MmaLayout):
+    frag = 2 * FRAG
+
+    def trunk_stage(w, ch, nts):
+        out = []
+        for j0 in range(0, nts, PASS_TILES):
+            nt = min(PASS_TILES, nts - j0)
+            per = PASS_TILES // nt if nt == nts else 1
+            out += [(w + (c0 * nts + j0) * FRAG, min(per, ch - c0) * nt * frag)
+                    for c0 in range(0, ch, per)]
+        return tuple(out)
+
+    def branch_stage(wb):
+        out = []
+        for j0 in range(0, L.nt, PASS_TILES):
+            nt = min(PASS_TILES, L.nt - j0)
+
+            def post(c):
+                return wb + L.w_post + (c * L.nt + j0) * FRAG, nt * frag
+
+            for g0, ng in branch_groups(L):
+                per, chunks, wg = PASS_TILES // ng, L.tiles[g0].chunks, wb + L.tiles[g0].w_off
+                out += [(wg + c0 * ng * FRAG, min(per, chunks - c0) * ng * frag)
+                        for c0 in range(0, chunks, per)]
+                out += [post(gt // 2) for gt in range(g0, g0 + ng) if gt % 2]
+            if L.n_tiles % 2:
+                out.append(post(L.n_tiles // 2))
+        return tuple(out)
+
+    stages = [trunk_stage(0, L.ch_entry, L.nt)]
+    for blk in range(spec.res_blocks):
+        wb = L.w_block0 + blk * L.w_block
+        stages += [trunk_stage(wb, L.ch_pre, L.nt), branch_stage(wb)]
+    return tuple(stages + [trunk_stage(L.w_head, L.ch_head, L.no)])
 
 
 def _flat_offsets(spec: SubnetSpec):
@@ -305,11 +402,50 @@ def _fragments(src):
     return src[rows, 8 * j + lane // 4].reshape(-1)
 
 
+#: the wide kernel's order of one fragment: position (k half, n, k % 8) of a
+#: k16 x n8 B tile, two 8 x 8 core matrices of 8 n rows of 16 bytes (what
+#: wgmma and ldmatrix read from shared memory), taken from the m16n8k16 order
+#: (lane 4n + k % 8 // 2, value k % 2 + 2 (k half))
+_kh, _n, _k8 = np.meshgrid(np.arange(2), np.arange(8), np.arange(8), indexing="ij")
+CORE_ORDER = ((4 * _n + _k8 // 2) * 4 + _k8 % 2 + 2 * _kh).reshape(-1)
+
+
+def branch_groups(L: MmaLayout) -> Tuple[Tuple[int, int], ...]:
+    """(first tile, tiles) of each group of the wide kernel's branch tiles:
+    each branch's tiles in runs of :data:`GROUP_TILES` from its first."""
+    out, t = [], 0
+    while t < L.n_tiles:
+        end = t
+        while end < L.n_tiles and L.tiles[end].branch == L.tiles[t].branch:
+            end += 1
+        out += [(g0, min(GROUP_TILES, end - g0)) for g0 in range(t, end, GROUP_TILES)]
+        t = end
+    return tuple(out)
+
+
+def _wide_order(spec: SubnetSpec):
+    """For each element of the wide variant's packing, its position in the
+    narrow one: every fragment in :data:`CORE_ORDER`, and each branch
+    group's fragments chunk by chunk (``[chunk][tile]``, so that a chunk of
+    the whole group is one copy) where the narrow packing has them tile by
+    tile. Every offset of :func:`mma_layout` holds for both."""
+    L = mma_layout(spec)
+    frags = np.arange(L.w_total // FRAG)
+    for r in range(spec.res_blocks):
+        for g0, ng in branch_groups(L):
+            ch = L.tiles[g0].chunks
+            base = (L.w_block0 + r * L.w_block + L.tiles[g0].w_off) // FRAG
+            c, i = np.meshgrid(np.arange(ch), np.arange(ng), indexing="ij")
+            frags[base + (c * ng + i).reshape(-1)] = (base + i * ch + c).reshape(-1)
+    return (frags[:, None] * FRAG + CORE_ORDER[None, :]).reshape(-1)
+
+
 @functools.lru_cache(maxsize=None)
-def _mma_index(spec: SubnetSpec):
-    """For the bf16 packing: ``(w_src, b_src, w_inv, b_inv)`` — for each
-    packed element the index of the flat flax value it holds, -1 for
-    padding; and for each flat value its position in the packing."""
+def _mma_index(spec: SubnetSpec, wide_variant: bool):
+    """For the bf16 packing (the wide variant's if ``wide_variant``):
+    ``(w_src, b_src, w_inv, b_inv)`` — for each packed element the index of
+    the flat flax value it holds, -1 for padding; and for each flat value
+    its position in the packing."""
     L, offs = mma_layout(spec), _flat_offsets(spec)
     k2, K, cin, out = spec.ksize ** 2, spec.kernels, spec.cin, spec.out_total
     w_src = np.full(L.w_total, -1, np.int64)
@@ -367,6 +503,8 @@ def _mma_index(spec: SubnetSpec):
     w_src[L.w_head:] = _fragments(dense(stage(16 * L.ch_head, 8 * L.no), tap, ch, K, out,
                                         offs["Conv_1/kernel"]))
     b_src[L.b_head: L.b_head + out] = offs["Conv_1/bias"] + np.arange(out)
+    if wide_variant:
+        w_src = w_src[_wide_order(spec)]
 
     n_w, n_b = _flax_sizes(spec)
     invs = []
@@ -382,10 +520,10 @@ def _mma_index(spec: SubnetSpec):
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_index_on(spec: SubnetSpec, device: torch.device):
+def _mma_index_on(spec: SubnetSpec, device: torch.device, wide_variant: bool):
     """:func:`_mma_index` on ``device``, copied there once (so that a CUDA
     graph may capture :func:`unpack`)."""
-    return tuple(t.to(device) for t in _mma_index(spec))
+    return tuple(t.to(device) for t in _mma_index(spec, wide_variant))
 
 
 def _flax_sizes(spec: SubnetSpec) -> Tuple[int, int]:
@@ -395,16 +533,22 @@ def _flax_sizes(spec: SubnetSpec) -> Tuple[int, int]:
     return sizes[True], sizes[False]
 
 
-def pack(spec: SubnetSpec, flat):
+def pack(spec: SubnetSpec, flat, wide_variant=None):
     """``(weights, biases)``: the tensors of ``flat`` (flax shapes, in
     :func:`flax_param_order`'s order) packed for the kernel — every kernel
     into one ``compute_dtype`` buffer, every bias into one float32 buffer;
     flat in flax's HWIO in float32, in B-fragment order (:func:`mma_layout`)
-    in bf16. Differentiable: the backward is :func:`unpack`."""
+    in bf16, reordered for the wide variant (:func:`_wide_order`) where
+    :func:`wide` picks it unless ``wide_variant`` says. Differentiable: the
+    backward is :func:`unpack`."""
     order = flax_param_order(spec)
     if len(flat) != len(order):
         raise ValueError(f"expected {len(order)} tensors, got {len(flat)}")
-    return _Pack.apply(spec, *flat)
+    return _Pack.apply(spec, _variant(spec, wide_variant), *flat)
+
+
+def _variant(spec: SubnetSpec, wide_variant) -> bool:
+    return wide(spec) if wide_variant is None else bool(wide_variant)
 
 
 class _Pack(torch.autograd.Function):
@@ -414,17 +558,17 @@ class _Pack(torch.autograd.Function):
     indices: no scatter-add, and nothing for the padding."""
 
     @staticmethod
-    def forward(ctx, spec, *flat):
-        ctx.spec, ctx.dtypes = spec, [t.dtype for t in flat]
-        return _pack(spec, flat)
+    def forward(ctx, spec, wide_variant, *flat):
+        ctx.spec, ctx.wide, ctx.dtypes = spec, wide_variant, [t.dtype for t in flat]
+        return _pack(spec, flat, wide_variant)
 
     @staticmethod
     def backward(ctx, g_w, g_b):
-        grads = unpack(ctx.spec, (g_w, g_b))
-        return (None, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)))
+        grads = unpack(ctx.spec, (g_w, g_b), ctx.wide)
+        return (None, None, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)))
 
 
-def _pack(spec: SubnetSpec, flat):
+def _pack(spec: SubnetSpec, flat, wide_variant: bool):
     order = flax_param_order(spec)
     kernels, biases = [], []
     for (name, shape), t in zip(order, flat):
@@ -434,18 +578,19 @@ def _pack(spec: SubnetSpec, flat):
     dt = getattr(torch, spec.compute_dtype)
     kernels, biases = torch.cat(kernels), torch.cat(biases)
     if spec.compute_dtype == "bfloat16":
-        w_src, b_src, _, _ = _mma_index_on(spec, kernels.device)
+        w_src, b_src, _, _ = _mma_index_on(spec, kernels.device, wide_variant)
         kernels = torch.where(w_src >= 0, kernels[w_src.clamp(min=0)], 0)
         biases = torch.where(b_src >= 0, biases[b_src.clamp(min=0)], 0)
     return kernels.to(dt), biases.float()
 
 
-def unpack(spec: SubnetSpec, packed):
-    """Inverse of :func:`pack`: the weights with the flax shapes, in
-    :func:`flax_param_order`'s order (views of the buffers in float32)."""
+def unpack(spec: SubnetSpec, packed, wide_variant=None):
+    """Inverse of :func:`pack` (with the same ``wide_variant``): the weights
+    with the flax shapes, in :func:`flax_param_order`'s order (views of the
+    buffers in float32)."""
     weights, biases = packed
     if spec.compute_dtype == "bfloat16":
-        _, _, w_inv, b_inv = _mma_index_on(spec, weights.device)
+        _, _, w_inv, b_inv = _mma_index_on(spec, weights.device, _variant(spec, wide_variant))
         weights, biases = weights[w_inv], biases[b_inv]
     out, offsets = [], {True: 0, False: 0}
     for name, shape in flax_param_order(spec):
@@ -473,13 +618,21 @@ def _f32_stage_bytes(spec: SubnetSpec) -> Tuple[int, int]:
 
 def shared_bytes(spec: SubnetSpec) -> int:
     """Dynamic shared memory of one block of the narrow kernels (the wide
-    variant uses none). float32: the stage input (16-byte aligned), then a
-    tile of rows. bf16: the stage input, rows padded, and a row of zeros,
-    then the running stage's weights (:func:`mma_layout`)."""
+    variant's is :func:`wide_shared_bytes`). float32: the stage input
+    (16-byte aligned), then a tile of rows. bf16: the stage input, rows
+    padded, and a row of zeros, then the running stage's weights
+    (:func:`mma_layout`)."""
     if spec.compute_dtype == "bfloat16":
         L = mma_layout(spec)
         return L.act_bytes + 2 * L.w_stage
     return sum(_f32_stage_bytes(spec))
+
+
+def wide_shared_bytes(spec: SubnetSpec) -> int:
+    """Dynamic shared memory of one block of the wide variant: none in
+    float32; in bf16 the ring of weights, its barriers and, where it fits,
+    the stage input (``MmaLayout.wide_shared``)."""
+    return mma_layout(spec).wide_shared if spec.compute_dtype == "bfloat16" else 0
 
 
 def wide(spec: SubnetSpec) -> bool:
@@ -499,11 +652,11 @@ def wide(spec: SubnetSpec) -> bool:
 
 def scratch_per_sample(spec: SubnetSpec, wide_variant: bool) -> int:
     """float32 scratch elements a sample: the trunk; in the wide variant
-    then the stage input and, in bf16, the branch outputs as the post 1x1's
-    A fragments (``wide_scratch`` and ``make_layout`` in the CUDA source)."""
+    then the stage input, in bf16 only where it does not fit shared memory
+    (``wide_scratch`` and ``make_layout`` in the CUDA source)."""
     if spec.compute_dtype == "bfloat16":
         L = mma_layout(spec)
-        extra = L.act_bytes // 4 + L.n_mt * L.ch_post * 128 if wide_variant else 0
+        extra = L.act_bytes // 4 if wide_variant and not L.act_in_shared else 0
         return L.trunk_per_sample + extra
     extra = sum(_f32_stage_bytes(spec)) // 4 if wide_variant else 0
     return spec.h * spec.w * spec.kernels + extra
@@ -628,9 +781,16 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _layout_table_on(spec: SubnetSpec, device: torch.device):
     """:func:`layout_table` as an int32 tensor on ``device``, made once (so
-    that a CUDA graph may capture the launch): the wide bf16 kernel reads
-    its branch tiles from it."""
-    return torch.tensor(list(layout_table(spec)), dtype=torch.int32, device=device)
+    that a CUDA graph may capture the launch), with its schedule written out
+    piece by piece (each stage's round once a round): the wide bf16 kernel
+    reads its branch tiles from it and finds any piece with one load."""
+    L = mma_layout(spec)
+    rounds = _ceil(L.n_mt, 4 * WIDE_GROUPS)
+    head = list(_table_values(spec)[:TABLE_SCALARS + 2 * MAX_BRANCHES
+                                    + len(TILE_FIELDS) * L.n_tiles])
+    pieces = [v for stage in wide_schedule(spec) for _ in range(rounds) for piece in stage
+              for v in piece]
+    return torch.tensor(head + pieces, dtype=torch.int32, device=device)
 
 
 def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out,
@@ -673,7 +833,7 @@ def check_launch(spec: SubnetSpec, batch: int) -> None:
     if len(spec.dilations) > MAX_BRANCHES:
         raise ValueError(f"{len(spec.dilations)} dilations: the kernel takes at most "
                          f"{MAX_BRANCHES}")
-    if spec.compute_dtype == "bfloat16" and max(layout_table(spec)) > MAX_TABLE_VALUE:
+    if spec.compute_dtype == "bfloat16" and max(_table_values(spec)) > MAX_TABLE_VALUE:
         raise ValueError(f"sizes past the bf16 layout's ints: {spec}")
     pixels = spec.h * spec.w
     n_weights = sum(packed_sizes(spec))

@@ -98,7 +98,10 @@ and the all-gather alone.
 under ``pallas_subnet`` at full width and depth, two of whose four conv
 chains (K 128) take K3's wide variant: K3 held against its plain version
 at the preset's four specs (bf16 at 128 and 2,048, float32 at 128) and
-timed beside its bound; a graph of 2 train steps at 128 against 2 eager
+timed beside its bound, with the wide kernel's shared memory a block,
+registers and spills; the wide variant forced at the flagship's four specs
+(weights packed for it) against the plain version and timed beside the
+narrow kernel; a graph of 2 train steps at 128 against 2 eager
 steps from one state (K3 16 times a step, counted at the capture) with
 samples/s, busy share and the step's conv roofline; the seeded 16 x 128
 serving call (K3 16 times a replay); ``cnf-conv`` on the class workload and
@@ -721,14 +724,17 @@ def kernel_breakdown(fn, top=6):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # device events without the ranges of record_function annotations (an
-    # eager optimizer step shows one spanning all of its kernels and the
-    # host's gaps between them)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    # the device events straight from the profiler's raw records, in
+    # microseconds (prof.events() first builds an event tree, which takes
+    # seconds for a stack of 16 train steps' 100,000 kernels), without
+    # record_function annotations (an eager optimizer step's spans all of
+    # its kernels and the host's gaps between them)
+    spans = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy_us += max(0.0, e - max(s, end))
@@ -1534,10 +1540,68 @@ WIDE_CLI = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-
 WIDE_PRETRAIN = ["--num-batches", "4", "--epochs", "1", "--scan-steps", "2", *PRESET_FLAGS]
 
 
-def check_wide(phases):
+def wide_resources(sass):
+    """The wide bf16 kernel's two instantiations (stage input in shared
+    memory, in scratch): registers, stack and local bytes (spills) from
+    ``cuobjdump -res-usage``."""
+    out = {}
+    for name, info in sass.items():
+        if "mma_wide_kernel" in name:
+            path = "shared" if "ILb1E" in name else "scratch"
+            out[path] = dict(resources=info.get("resources"), hgmma=info["hgmma"],
+                             hmma=info["hmma"])
+    return out
+
+
+def wide_at_flagship(narrow):
+    """The wide variant forced at the flagship's four conv-chain specs
+    (batch 128, weights packed for it) against the plain version, timed
+    beside the narrow kernel's [kernel] time at the same spec and batch
+    (``narrow``: :func:`check_chain_kernel`'s rows, in the specs' order)."""
+    lib = chain._library()
+    rows = []
+    specs = chain_specs(ConvCFlow(FLAGSHIP_SUBNET, seed=0))
+    for i, (spec, narrow_row) in enumerate(zip(specs, narrow, strict=True)):
+        check(not chain.wide(spec), f"the flagship's {spec} takes the narrow kernel")
+        check(narrow_row["shape"] == [BATCH, spec.h, spec.w, spec.cin]
+              and narrow_row["kernels"] == spec.kernels, f"[kernel]'s row of {spec}")
+        net, _ = chain_nets(spec, seed=60 + i)
+        g = torch.Generator(device="cuda").manual_seed(60 + i)
+        x = torch.randn(BATCH, spec.h, spec.w, spec.cin, generator=g, device="cuda")
+        out = torch.empty(BATCH, spec.h, spec.w, spec.out_total, device="cuda")
+        with torch.no_grad():
+            flat = net.flax_ordered_weights()
+            packed = chain.pack(spec, flat, wide_variant=True)
+            trunk = torch.empty(chain.trunk_elements(spec, BATCH, wide_variant=True),
+                                device="cuda")
+
+            def launch():
+                chain.launch_library(lib, spec, x, packed, trunk, out, wide_variant=True)
+
+            launch()
+            torch.cuda.synchronize()
+            ref = chain.chain_math(spec, x, chain.unpack(spec, packed, wide_variant=True))
+            err = (out - ref).abs().max().item()
+            tol = CHAIN_TOL["bfloat16"]
+            check(torch.allclose(out, ref, rtol=tol, atol=tol),
+                  f"wide variant forced at the flagship's {spec}")
+            wide_ms = device_time_ms(launch, iters=20, reps=7)
+        narrow_ms = narrow_row["ms"]
+        rows.append(dict(shape=[BATCH, spec.h, spec.w, spec.cin], kernels=spec.kernels,
+                         max_abs_err=err, wide_ms=wide_ms, narrow_ms=narrow_ms,
+                         wide_shared_bytes=chain.wide_shared_bytes(spec)))
+        print(f"[wide] forced at the flagship's {BATCH}x{spec.h}x{spec.w}x{spec.cin} "
+              f"K={spec.kernels}: wide {wide_ms * 1e3:.1f} us, narrow {narrow_ms * 1e3:.1f} us "
+              f"([kernel]'s) (max_abs_err {err:.3g}, tolerance {tol:g})", flush=True)
+    return rows
+
+
+def check_wide(phases, narrow, sass=None):
     """[wide]: the preset's conv chains on K3 (the wide variant where the
-    narrow kernel stops), its graphed train step and serving call under
-    pallas_subnet, and the two drivers with its flags."""
+    narrow kernel stops), the wide variant forced at the flagship's specs,
+    its graphed train step and serving call under pallas_subnet, and the
+    two drivers with its flags. ``narrow``: :func:`check_chain_kernel`'s
+    rows; ``sass``: :func:`sass_summary`'s, else taken here."""
     from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
     from arl_conditional_normalizing_flows_tpu_torch.drivers import pretrain_noise
 
@@ -1558,8 +1622,24 @@ def check_wide(phases):
             row = chain_at_batch(spec, launches, 50 + i, batch)
             row.update(wide=chain.wide(spec), dilations=list(spec.dilations),
                        out_total=spec.out_total, max_abs_err_f32=err_f32)
+            if chain.wide(spec):
+                row.update(wide_shared_bytes=chain.wide_shared_bytes(spec),
+                           act_in_shared=bool(chain.mma_layout(spec).act_in_shared),
+                           scratch_bytes_a_sample=4 * chain.scratch_per_sample(spec, True))
             rows.append(row)
+    resources = wide_resources(sass_summary() if sass is None else sass)
+    for spec in specs:
+        if chain.wide(spec):
+            L = chain.mma_layout(spec)
+            path = "shared" if L.act_in_shared else "scratch"
+            print(f"[wide] {spec.h}x{spec.w}x{spec.cin} K={spec.kernels}: stage input in "
+                  f"{path} memory, {chain.wide_shared_bytes(spec)} bytes of shared memory a "
+                  f"block ({chain.WIDE_THREADS} threads), scratch "
+                  f"{4 * chain.scratch_per_sample(spec, True)} bytes a sample; "
+                  f"{json.dumps(resources.get(path))}", flush=True)
     phases.done("wide: K3 at the preset's specs")
+    forced = wide_at_flagship(narrow)
+    phases.done("wide: the wide variant at the flagship's specs")
 
     train = train_graph_and_eager(PRESET, WIDE_INNER, phases, calls=WIDE_CALLS,
                                   name="preset pallas_subnet", profile_eager=False)
@@ -1615,7 +1695,8 @@ def check_wide(phases):
           f"fraction_of_roofline {roof['fraction_of_roofline']:.4f}, mfu {roof['mfu']:.4f}; "
           f"serve {serve['samples_per_s']:.1f} samples/s a call (busy share "
           f"{serve['busy_share']:.3f})", flush=True)
-    return dict(specs=rows, train=train, serve=serve, cli=cli, device=kind)
+    return dict(specs=rows, train=train, serve=serve, cli=cli, device=kind,
+                resources=resources, forced_at_flagship=forced)
 
 
 #: [cli]: the port's drivers through main(argv), on synthetic digits
@@ -2825,6 +2906,9 @@ def main() -> int:
     for variant in ("mma_kernel", "mma_wide_kernel"):
         check(any(v["hmma"] + v["hgmma"] > 0 for k, v in sass.items() if variant in k),
               f"the bf16 conv-chain kernel ({variant}) runs its products on the tensor cores")
+    wide_sass = [v for k, v in sass.items() if "mma_wide_kernel" in k]
+    check(len(wide_sass) == 2 and all(v["hgmma"] > 0 for v in wide_sass),
+          "both paths of the wide bf16 kernel run their trunk-wide products on wgmma (HGMMA)")
     phases.done("SASS of the conv-chain kernels")
 
     results, floor_ms = check_kernels(phases)
@@ -2845,7 +2929,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = check_serve(phases)
     torch.cuda.empty_cache()
-    wide = check_wide(phases)
+    wide = check_wide(phases, chain_results, sass)
     torch.cuda.empty_cache()
     modes = check_modes(phases)
     torch.cuda.empty_cache()
@@ -2898,6 +2982,7 @@ def main() -> int:
         # the capacity preset's four chains ([wide]), at 128 and 2,048, two
         # of them on the wide variant
         preset_specs=wide["specs"],
+        wide_resources=wide["resources"], wide_forced_at_flagship=wide["forced_at_flagship"],
         launches_a_preset_train_step=wide["train"][
             "graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
         launches_a_preset_serving_call=wide["serve"]["port_kernel_launches_a_call"][

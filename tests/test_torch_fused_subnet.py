@@ -226,9 +226,22 @@ def test_launch_limits_mirror_the_cuda_source():
     assert int(consts["kFrag"]) == tfs.FRAG
     assert int(consts["kMaxTableValue"]) == tfs.MAX_TABLE_VALUE
     assert int(consts["kTableScalars"]) == tfs.TABLE_SCALARS == len(tfs.TABLE_FIELDS)
-    assert int(consts["kChunkTiles"]) == tfs.CHUNK_TILES
-    # the bf16 kernel's B fragment: m16n8k16, 32 lanes x 4 values
+    for name, value in (("kWideGroups", tfs.WIDE_GROUPS), ("kWideThreads", tfs.WIDE_THREADS),
+                        ("kSlotBytes", tfs.SLOT_BYTES), ("kSlots", tfs.SLOTS),
+                        ("kBarrierBytes", tfs.BARRIER_BYTES), ("kSlack", tfs.SLACK_BYTES),
+                        ("kGroupTiles", tfs.GROUP_TILES), ("kPassTiles", tfs.PASS_TILES)):
+        assert int(consts[name]) == value, name
+    # the wide kernel: its warpgroups (one lane of which feeds the ring), a
+    # slot one chunk of a wgmma pass (N <= 128) or of a branch group
+    assert tfs.WIDE_THREADS == 128 * tfs.WIDE_GROUPS <= tfs.MAX_THREADS
+    assert tfs.SLOT_BYTES == tfs.PASS_TILES * 2 * tfs.FRAG and tfs.BARRIER_BYTES == 16 * tfs.SLOTS
+    assert tfs.PASS_TILES % tfs.GROUP_TILES == 0
+    # the bf16 kernel's B fragment: m16n8k16, 32 lanes x 4 values; the wide
+    # kernel's products: wgmma with A from registers, B from the ring
     assert tfs.FRAG == 16 * 8 and "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    for n in (8, 16, 32, 64, 128):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" in src
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
 
 
 def _cuda_source():
@@ -254,7 +267,8 @@ def test_layout_table_order_mirrors_the_cuda_source():
     ``layout_table`` writes it: its scalars, then five ints a branch tile."""
     src = _cuda_source()
     head = re.search(r"int\* head\[\] = \{(.*?)\};", src, re.S).group(1)
-    assert tuple(f.lower() for f in re.findall(r"&L\.(\w+)", head)) == tfs.TABLE_FIELDS
+    # the narrow kernel's layout (L), then the scalars only the wide kernel reads (W)
+    assert tuple(f.lower() for f in re.findall(r"&[LW]\.(\w+)", head)) == tfs.TABLE_FIELDS
     tile = re.search(r"struct BranchTile \{\s*int ([\w, ]+);", src).group(1)
     assert tuple(f.strip() for f in tile.split(",")) == tfs.TILE_FIELDS
 
@@ -310,19 +324,21 @@ def _bf16_spec(name):
     return tfs.SubnetSpec(**LAYOUT_SPECS[name], compute_dtype="bfloat16")
 
 
+@pytest.mark.parametrize("wide_variant", [False, True])
 @pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
-def test_bf16_unpack_of_pack_gives_the_weights(name):
-    """The fragment layout holds every flax value once: unpack gives back
-    the flax-shaped weights (rounded to bf16) and the biases."""
+def test_bf16_unpack_of_pack_gives_the_weights(name, wide_variant):
+    """The fragment layout, and the wide variant's reordering of it, hold
+    every flax value once: unpack gives back the flax-shaped weights
+    (rounded to bf16) and the biases."""
     spec = _bf16_spec(name)
     flat = [torch.from_numpy(w) for w in weights(spec)]
-    packed = tfs.pack(spec, flat)
+    packed = tfs.pack(spec, flat, wide_variant=wide_variant)
     assert tuple(t.numel() for t in packed) == tfs.packed_sizes(spec)
     assert packed[0].dtype == torch.bfloat16 and packed[1].dtype == torch.float32
     n_values = sum(w.numel() for w in flat)
     assert int((packed[0] != 0).sum() + (packed[1] != 0).sum()) == n_values  # the rest is padding
     for (pname, shape), w, back in zip(tfs.flax_param_order(spec), flat,
-                                       tfs.unpack(spec, packed)):
+                                       tfs.unpack(spec, packed, wide_variant=wide_variant)):
         assert tuple(back.shape) == shape, pname
         expect = w.to(torch.bfloat16) if pname.endswith("kernel") else w
         assert torch.equal(back, expect), pname
@@ -338,6 +354,27 @@ def _dense_b(buf, off, chunks, tiles):
                                 np.arange(4), indexing="ij")
     b[16 * c + 2 * (lane % 4) + e % 2 + 8 * (e // 2), 8 * j + lane // 4] = frags
     return b
+
+
+def _core_b(buf, off, chunks, tiles):
+    """A stage's (16 * chunks, 8 * tiles) B matrix from the wide variant's
+    fragments: fragment (c, j) holds B[16c + 8h + k, 8j + n] at 64h + 8n + k
+    (two 8 x 8 core matrices, n rows of 16 bytes)."""
+    frags = buf[off: off + chunks * tiles * tfs.FRAG].reshape(chunks, tiles, 2, 8, 8)
+    return frags.transpose(0, 2, 4, 1, 3).reshape(16 * chunks, 8 * tiles)
+
+
+def _tile_b(buf, w0, L, i, wide_variant):
+    """Branch tile i's (16 * chunks, 8) B matrix in the block whose weights
+    start at w0: its fragments one after another, or (wide) chunk by chunk
+    across its group."""
+    t = L.tiles[i]
+    if not wide_variant:
+        return _dense_b(buf, w0 + t.w_off, t.chunks, 1)
+    g0, ng = next(g for g in tfs.branch_groups(L) if g[0] <= i < g[0] + g[1])
+    first = w0 + L.tiles[g0].w_off
+    return np.concatenate([_core_b(buf, first + (c * ng + i - g0) * tfs.FRAG, 1, 1)
+                           for c in range(t.chunks)])
 
 
 def test_bf16_packing_is_in_fragment_order():
@@ -393,46 +430,53 @@ def _im2col(t, q, lo8, dil, k, chunks):
     return np.concatenate(cols, axis=-1)
 
 
-def _mma_chain(spec, x, packed):
-    """The chain computed from the bf16 packing the way the kernel does: each
-    stage an implicit GEMM of im2col slices by the B fragments, operands
-    rounded to bf16 where the kernel rounds them."""
+def _mma_chain(spec, x, packed, wide_variant=False):
+    """The chain computed from the bf16 packing (``wide_variant``: the wide
+    variant's) the way the kernel does: each stage an implicit GEMM of im2col
+    slices by the B fragments, operands rounded to bf16 where the kernel
+    rounds them."""
     L, k = tfs.mma_layout(spec), spec.ksize
     buf, bias = packed[0].float().numpy(), packed[1].numpy()
+    _b = _core_b if wide_variant else _dense_b
     lrelu = lambda v: np.where(v > 0, v, np.float32(0.3) * v)  # noqa: E731
 
     def pad_to(a, c):
         return np.pad(a, ((0, 0),) * 3 + ((0, c - a.shape[-1]),))
 
     xp = pad_to(_bf16(x), 8 * L.qx)
-    y = _im2col(xp, L.qx, 0, 1, k, L.ch_entry) @ _dense_b(buf, 0, L.ch_entry, L.nt) \
+    y = _im2col(xp, L.qx, 0, 1, k, L.ch_entry) @ _b(buf, 0, L.ch_entry, L.nt) \
         + bias[:L.kp]
     for r in range(spec.res_blocks):
         w0, b0 = L.w_block0 + r * L.w_block, L.b_block0 + r * L.b_block
         a = pad_to(_bf16(lrelu(y)), 16 * L.ch_pre)
-        t = _bf16(lrelu(a @ _dense_b(buf, w0, L.ch_pre, L.nt) + bias[b0: b0 + L.kp]))
+        t = _bf16(lrelu(a @ _b(buf, w0, L.ch_pre, L.nt) + bias[b0: b0 + L.kp]))
         s = [_bf16(lrelu(_im2col(t, tile.q, tile.lo8, tile.dil, k, tile.chunks)
-                         @ _dense_b(buf, w0 + tile.w_off, tile.chunks, 1)
-                         + bias[b0 + tile.b_off: b0 + tile.b_off + 8])) for tile in L.tiles]
+                         @ _tile_b(buf, w0, L, i, wide_variant)
+                         + bias[b0 + tile.b_off: b0 + tile.b_off + 8]))
+             for i, tile in enumerate(L.tiles)]
         s = pad_to(np.concatenate(s, axis=-1), 16 * L.ch_post)
-        u = s @ _dense_b(buf, w0 + L.w_post, L.ch_post, L.nt)
+        u = s @ _b(buf, w0 + L.w_post, L.ch_post, L.nt)
         y = y + u + bias[b0 + L.b_post: b0 + L.b_post + L.kp]
     a = _bf16(lrelu(y))
-    out = _im2col(a, L.nt, 0, 1, k, L.ch_head) @ _dense_b(buf, L.w_head, L.ch_head, L.no) \
+    out = _im2col(a, L.nt, 0, 1, k, L.ch_head) @ _b(buf, L.w_head, L.ch_head, L.no) \
         + bias[L.b_head: L.b_head + 8 * L.no]
     return out[..., :spec.out_total]
 
 
+@pytest.mark.parametrize("wide_variant", [False, True])
 @pytest.mark.parametrize("name", SMALL_LAYOUT_SPECS)
-def test_bf16_layout_computes_the_chain(name):
-    """What the kernel computes from the fragment layout — its K slices,
-    input windows, padding and offsets, emulated at matrix level — is the
-    plain version's chain."""
+def test_bf16_layout_computes_the_chain(name, wide_variant):
+    """What the kernel computes from the fragment layout (or the wide
+    variant's core matrices and branch groups) — its K slices, input
+    windows, padding and offsets, emulated at matrix level — is the plain
+    version's chain."""
     spec = _bf16_spec(name)
     x = x_for(spec, batch=2)
-    packed = tfs.pack(spec, [torch.from_numpy(w) for w in weights(spec)])
-    out = _mma_chain(spec, x, packed)
-    ref = tfs.subnet_apply_reference(spec, torch.from_numpy(x), packed).numpy()
+    packed = tfs.pack(spec, [torch.from_numpy(w) for w in weights(spec)],
+                      wide_variant=wide_variant)
+    out = _mma_chain(spec, x, packed, wide_variant)
+    ref = tfs.chain_math(spec, torch.from_numpy(x),
+                         tfs.unpack(spec, packed, wide_variant=wide_variant)).numpy()
     # the same bf16 roundings; float32 sums in another order (the kernel's
     # tolerance, CHAIN_TOL in chip_smoke.py)
     np.testing.assert_allclose(out, ref, rtol=2e-2, atol=2e-2)
@@ -443,11 +487,18 @@ def test_bf16_layout_computes_the_chain(name):
 def test_bf16_layout_table_holds_the_layout(name):
     """The table the kernel takes is ``mma_layout``: its scalars, each
     branch's run of tiles in order (zeros past the last branch), each
-    tile's window and offsets."""
+    tile's window and offsets, then the wide kernel's schedule."""
     spec = _bf16_spec(name)
     L, table = tfs.mma_layout(spec), list(tfs.layout_table(spec))
     n_head = len(tfs.TABLE_FIELDS)
-    assert len(table) == n_head + 2 * tfs.MAX_BRANCHES + len(tfs.TILE_FIELDS) * L.n_tiles
+    n_tiles = len(tfs.TILE_FIELDS) * L.n_tiles
+    stages = tfs.wide_schedule(spec)
+    n_sched = len(stages) + 2 * L.n_pieces
+    assert len(stages) == 2 + 2 * spec.res_blocks
+    assert len(table) == n_head + 2 * tfs.MAX_BRANCHES + n_tiles + n_sched
+    assert table[len(table) - n_sched:] == [len(st) for st in stages] \
+        + [v for st in stages for piece in st for v in piece]
+    table = table[:len(table) - n_sched]
     assert table[:n_head] == [getattr(L, f) for f in tfs.TABLE_FIELDS]
     runs = table[n_head: n_head + 2 * tfs.MAX_BRANCHES]
     first = 0
@@ -532,12 +583,112 @@ def test_check_launch_takes_the_capacity_preset(dtype):
         if not is_wide:
             assert tfs.trunk_elements(spec, 2) == 2 * tfs.scratch_per_sample(spec, False)
         elif dtype == "bfloat16":
+            # the stage input in shared memory, the branch outputs in
+            # registers: the scratch is the trunk alone
             L = tfs.mma_layout(spec)
-            assert tfs.trunk_elements(spec, 2) == 2 * (
-                L.trunk_per_sample + L.act_bytes // 4 + L.n_mt * L.ch_post * 32 * 4)
+            assert L.act_in_shared and tfs.trunk_elements(spec, 2) == 2 * L.trunk_per_sample
         else:
             act, rows = tfs._f32_stage_bytes(spec)
             assert tfs.trunk_elements(spec, 2) == 2 * (hw * spec.kernels + (act + rows) // 4)
     for name in LAYOUT_SPECS:  # the flagship's and the small specs stay on the narrow kernel
         if name.startswith("flagship"):
             assert not tfs.wide(_bf16_spec(name))
+
+
+#: a trunk of 256 over 28 x 28: a stage input past shared memory, two wgmma
+#: passes over the trunk
+K256 = dict(h=28, w=28, cin=1, kernels=256, res_blocks=3, cardinality=8, ksize=3,
+            dilations=(1, 2, 4), out_total=2)
+# (spec, whether the wide variant holds its stage input in shared memory):
+# the preset's two K 128 specs and the small wide spec do, a trunk of 256
+# over 28 x 28 (rows of 264 channels, ~414 KB) does not
+SHARED_PLAN = {"preset_28x28x1": True, "preset_14x14x2": True, "wide": True,
+               "k256_28x28x1": False}
+
+
+@pytest.mark.parametrize("name", sorted(SHARED_PLAN))
+def test_wide_shared_memory_plan(name):
+    """The wide bf16 kernel's shared memory: the ring of weights and its
+    barriers, then the stage input where it fits in the 232,448 bytes a
+    block may have (else it lives in scratch after the trunk); the branch
+    outputs never reach scratch. At the preset's (28, 28, 1) K 128 the
+    scratch is the trunk's 401,408 bytes a sample."""
+    spec = tfs.SubnetSpec(**(LAYOUT_SPECS.get(name) or K256), compute_dtype="bfloat16")
+    L = tfs.mma_layout(spec)
+    assert tfs.wide(spec) and bool(L.act_in_shared) == SHARED_PLAN[name]
+    ring = tfs.SLOTS * tfs.SLOT_BYTES + tfs.BARRIER_BYTES
+    assert ring == 16448
+    if L.act_in_shared:
+        assert tfs.wide_shared_bytes(spec) == ring + max(L.act_bytes, tfs.SLACK_BYTES)
+        assert tfs.wide_shared_bytes(spec) <= tfs.MAX_SHARED_BYTES
+        assert tfs.scratch_per_sample(spec, True) == L.trunk_per_sample
+    else:
+        assert ring + L.act_bytes > tfs.MAX_SHARED_BYTES
+        assert tfs.wide_shared_bytes(spec) == ring + tfs.SLACK_BYTES
+        assert tfs.scratch_per_sample(spec, True) == L.trunk_per_sample + L.act_bytes // 4
+    assert L.trunk_per_sample == 16 * L.n_mt * L.kp
+    if name == "preset_28x28x1":
+        assert 4 * tfs.scratch_per_sample(spec, True) == 401408
+        assert (L.act_bytes, tfs.wide_shared_bytes(spec)) == (213520, 229968)
+    # the float32 wide kernel uses no shared memory
+    assert tfs.wide_shared_bytes(dataclasses.replace(spec, compute_dtype="float32")) == 0
+
+
+def test_wide_packing_groups_and_core_order():
+    """The wide variant's packing at the preset's (28, 28, 1) K 128: each
+    fragment as two 8 x 8 core matrices of n rows, and each branch group's
+    fragments chunk by chunk, so that one chunk of a group is one copy of
+    8 x 256 bytes; a slot holds one chunk of the pre and post 1x1s."""
+    spec = _bf16_spec("preset_28x28x1")
+    L = tfs.mma_layout(spec)
+    assert tfs.branch_groups(L) == ((0, 8), (8, 8), (16, 8), (24, 4))
+    assert sorted(tfs.CORE_ORDER) == list(range(tfs.FRAG))
+    flat = weights(spec)
+    narrow = tfs.pack(spec, [torch.from_numpy(w) for w in flat], wide_variant=False)[0]
+    wide_buf = tfs.pack(spec, [torch.from_numpy(w) for w in flat], wide_variant=True)[0]
+    narrow, wide_buf = narrow.float().numpy(), wide_buf.float().numpy()
+    # the pre 1x1 of the first block, read both ways, is the flax (K, K) kernel
+    pre = _core_b(wide_buf, L.w_block0, L.ch_pre, L.nt)
+    np.testing.assert_array_equal(pre, _dense_b(narrow, L.w_block0, L.ch_pre, L.nt))
+    np.testing.assert_array_equal(pre, _bf16(flat[2][0, 0]))
+    assert L.nt * tfs.FRAG * 2 == tfs.SLOT_BYTES
+    # the branch tiles, read back through their groups
+    for i in range(L.n_tiles):
+        np.testing.assert_array_equal(_tile_b(wide_buf, L.w_block0, L, i, True),
+                                      _tile_b(narrow, L.w_block0, L, i, False))
+
+
+@pytest.mark.parametrize("name", ["wide", "preset_28x28x1", "preset_14x14x2", "groups3_k12",
+                                  "dil5", "odd", "k256_28x28x1"])
+def test_wide_schedule_covers_every_stage(name):
+    """The wide kernel's ring schedule, one round of each stage (the entry,
+    each block's pre 1x1 and branches with the post 1x1, the head): every
+    piece at most a slot, a multiple of 16 bytes, inside the packed
+    weights; each stage's weights carried once a round and pass (the post
+    1x1's chunk by chunk between the branch groups), so that a round's
+    bytes add up to the stages' weights."""
+    spec = tfs.SubnetSpec(**(LAYOUT_SPECS.get(name) or K256), compute_dtype="bfloat16")
+    L = tfs.mma_layout(spec)
+    stages = tfs.wide_schedule(spec)
+    sched = [piece for st in stages for piece in st]
+    assert len(stages) == 2 + 2 * spec.res_blocks and all(stages)
+    assert len(sched) == L.n_pieces
+    for src, nbytes in sched:
+        assert 0 < nbytes <= tfs.SLOT_BYTES and nbytes % 16 == 0 and src % 8 == 0
+        assert src + nbytes // 2 <= L.w_total
+    passes = -(-L.nt // tfs.PASS_TILES)
+    # a pass splits the trunk-wide stages' tiles and walks every branch again
+    branches = L.w_post - L.ch_pre * L.nt * tfs.FRAG
+    stage_bytes = 2 * (L.w_block0 + (L.w_total - L.w_head)
+                       + spec.res_blocks * (L.w_block + (passes - 1) * branches))
+    assert sum(b for _, b in sched) == stage_bytes
+    # the device's copy of the table: the same head, then every piece of the
+    # chain, each stage's round once a round
+    rounds = -(-L.n_mt // (4 * tfs.WIDE_GROUPS))
+    head = len(tfs.TABLE_FIELDS) + 2 * tfs.MAX_BRANCHES + len(tfs.TILE_FIELDS) * L.n_tiles
+    on_device = tfs._layout_table_on(spec, torch.device("cpu")).tolist()
+    assert on_device[:head] == list(tfs.layout_table(spec))[:head]
+    assert len(on_device) == head + 2 * rounds * L.n_pieces
+    assert sum(on_device[head + 1::2]) == rounds * stage_bytes
+    if name == "preset_28x28x1":  # 13 64-pixel tiles: 4 rounds of 4 warpgroups, 484 pieces
+        assert -(-L.n_mt // (4 * tfs.WIDE_GROUPS)) == 4 and 4 * L.n_pieces == 484

@@ -195,12 +195,14 @@ def _chain_weights(spec, device, rng):
     return [t.to(device) for t in flat]
 
 
-def _chain_inputs(spec, batch, device):
-    """x and packed weights (:func:`_chain_weights`) from numpy."""
+def _chain_inputs(spec, batch, device, wide_variant=None):
+    """x and packed weights (:func:`_chain_weights`) from numpy, packed for
+    the variant :func:`tfs.wide` picks unless ``wide_variant`` says."""
     rng = np.random.default_rng(0)
     flat = _chain_weights(spec, "cpu", rng)
     x = rng.normal(size=(batch, spec.h, spec.w, spec.cin)).astype(np.float32)
-    return torch.from_numpy(x).to(device), [t.to(device) for t in tfs.pack(spec, flat)]
+    packed = tfs.pack(spec, flat, wide_variant=wide_variant)
+    return torch.from_numpy(x).to(device), [t.to(device) for t in packed]
 
 
 BATCH = 128
@@ -211,6 +213,14 @@ def no_tf32(monkeypatch):
     """The plain version's float32 convs in full float32, not TF32."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.fixture
+def deterministic_cudnn(monkeypatch):
+    """cuDNN's deterministic algorithms, for tests that compare two runs bit
+    for bit: its default weight gradients may sum in another order from one
+    run to the next."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -319,15 +329,26 @@ WIDE_SPECS = {
     # five dilated branches (a schedule of 66 x 66 images and up)
     "dil5_8x8x2": dict(h=8, w=8, cin=2, kernels=32, res_blocks=2, cardinality=2, ksize=3,
                        dilations=(1, 2, 4, 8, 16), out_total=4),
+    # a stage input past shared memory (rows of 264 channels, ~414 KB): the
+    # wide bf16 kernel's path with the stage input in scratch, two wgmma
+    # passes over the trunk
+    "scratch_28x28x1": dict(h=28, w=28, cin=1, kernels=256, res_blocks=3, cardinality=8,
+                            ksize=3, dilations=(1, 2, 4), out_total=2),
 }
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(WIDE_SPECS))
 def test_chain_kernel_matches_plain_version_at_the_preset(cuda, no_tf32, name, dtype):
-    """K3 at the capacity preset's specs (batch 128) and a small wide spec,
-    on the variant the spec picks, with the tolerances of the flagship's."""
+    """K3 at the capacity preset's specs (batch 128), small wide specs and
+    one whose stage input does not fit shared memory (the wide bf16 kernel's
+    two paths), on the variant the spec picks, with the tolerances of the
+    flagship's."""
     spec = tfs.SubnetSpec(**WIDE_SPECS[name], compute_dtype=dtype)
+    if dtype == "bfloat16" and name.startswith("preset_") and spec.kernels == 128:
+        assert tfs.mma_layout(spec).act_in_shared
+    if dtype == "bfloat16" and name.startswith("scratch"):
+        assert not tfs.mma_layout(spec).act_in_shared
     batch = BATCH if name.startswith("preset") else 3
     x, packed = _chain_inputs(spec, batch, cuda)
     before = tfs.LAUNCHES["fused_subnet"]
@@ -346,17 +367,17 @@ def test_chain_kernel_matches_plain_version_at_the_preset(cuda, no_tf32, name, d
                                   "groups3_3x4x1"])
 def test_wide_variant_matches_plain_version_at_narrow_specs(cuda, no_tf32, name, dtype):
     """The wide variant, launched by hand at specs the narrow kernels take
-    (odd sizes, ragged tiles, windows moved left), gives the plain version's
-    chain as the narrow kernel does."""
+    (odd sizes, ragged tiles, windows moved left) on weights packed for it,
+    gives the plain version's chain as the narrow kernel does."""
     spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
     assert not tfs.wide(spec)
     batch = BATCH if name.startswith("flagship") else 3
-    x, packed = _chain_inputs(spec, batch, cuda)
+    x, packed = _chain_inputs(spec, batch, cuda, wide_variant=True)
     trunk = torch.empty(tfs.trunk_elements(spec, batch, wide_variant=True), device=cuda)
     out = torch.empty(batch, spec.h, spec.w, spec.out_total, device=cuda)
     with torch.no_grad():
         tfs.launch_library(tfs._library(), spec, x, packed, trunk, out, wide_variant=True)
-        ref = tfs.subnet_apply_reference(spec, x, packed)
+        ref = tfs.chain_math(spec, x, tfs.unpack(spec, packed, wide_variant=True))
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
@@ -546,7 +567,8 @@ def _noisy_runs(model, xy, multi):
 
 
 @pytest.mark.parametrize("lowering", LOWERINGS)
-def test_graphed_data_parallel_step_equals_the_plain_graph(cuda, no_tf32, nccl_mesh, lowering):
+def test_graphed_data_parallel_step_equals_the_plain_graph(cuda, no_tf32, deterministic_cudnn,
+                                                           nccl_mesh, lowering):
     """Two calls of graphed steps with instance noise: with the gradient
     all-reduce inside the graph (one a step, counted at the capture) over
     one process, the losses and parameters of the plain graph bit for bit
@@ -564,7 +586,8 @@ def test_graphed_data_parallel_step_equals_the_plain_graph(cuda, no_tf32, nccl_m
         assert torch.equal(p, q), name
 
 
-def test_eager_data_parallel_step_equals_the_plain_step(cuda, no_tf32, nccl_mesh):
+def test_eager_data_parallel_step_equals_the_plain_step(cuda, no_tf32, deterministic_cudnn,
+                                                        nccl_mesh):
     model, dp_model = _small_model(cuda, "pallas_coupling"), _small_model(cuda, "pallas_coupling")
     plain, _ = loop.make_step_fns(model, noise_mode="full")
     dp, _ = loop.make_step_fns(dp_model, nccl_mesh, noise_mode="full")
@@ -578,8 +601,8 @@ def test_eager_data_parallel_step_equals_the_plain_step(cuda, no_tf32, nccl_mesh
 
 
 @pytest.mark.parametrize("lowering", LOWERINGS)
-def test_graphed_fsdp_step_equals_eager_fsdp_and_the_plain_graph(cuda, no_tf32, nccl_mesh,
-                                                                   lowering):
+def test_graphed_fsdp_step_equals_eager_fsdp_and_the_plain_graph(cuda, no_tf32, deterministic_cudnn,
+                                                                   nccl_mesh, lowering):
     """A (1, 1) FSDP mesh of the one-process group: two calls of graphed
     FSDP steps with instance noise give the plain graph's losses and
     parameters bit for bit (a shard is the whole parameter; the sums over
