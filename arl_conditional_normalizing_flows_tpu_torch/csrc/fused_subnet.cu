@@ -20,18 +20,10 @@
 // Branch d (width w_d = K/dil_d) reads the first w_d trunk channels in
 // `card` groups of g_d = w_d/card: output j reads inputs [j/g_d*g_d, +g_d).
 //
-// Both instantiations give one block to one sample: the chain is sequential
-// within a sample and independent across samples, so block barriers are all
-// the ordering it needs (128 samples fill 128 of the card's 132 SMs). The
-// stage input t lives in dynamic shared memory in dt (at most 28*28*72*2 =
-// 113 KB at the flagship, rows padded); the f32 trunk y (196 KB a sample)
-// does not fit beside it and lives in a scratch tensor the caller allocates
-// (25.7 MB at the largest flagship spec, held by the 50 MB L2). It cannot
-// live in accumulator registers either: 16 warps of up to 128 registers are
-// the SM's whole register file, and the trunk alone would need 98 a thread.
-// chain_ablation.py (at the repo root) measures what the scratch costs. Grouped convs are
-// never expanded block-diagonally over the whole trunk as the TPU kernel does
-// (3.4x the work at the flagship).
+// Every kernel gives one block to one sample: the chain is sequential within
+// a sample and independent across samples, so block barriers are all the
+// ordering it needs. Grouped convs are never expanded block-diagonally over
+// the whole trunk as the TPU kernel does (3.4x the work at the flagship).
 //
 // Bound: operations. At the flagship a pass needs 50.4 GFLOP of grouped
 // products (51 us on the tensor cores at 989 TFLOP/s) against ~1.3 MB of
@@ -41,9 +33,7 @@
 // mma.sync.m16n8k16 bf16 x bf16 -> f32. Each stage is an implicit GEMM: M is a
 // tile of 16 pixels of the sample, N the output channels in n8 tiles, and K
 // the taps x input channels in k16 chunks of two "slices" (one tap, 8
-// consecutive channels). A warp owns the same pixel tiles in every stage, so
-//  - the trunk is kept in global scratch in the accumulator layout, each lane
-//    reading and writing only its own float4s (no barrier, coalesced);
+// consecutive channels). A warp owns the same pixel tiles in every stage:
 //  - the pre 1x1 takes its A operand straight from the trunk's accumulators
 //    (two n8 accumulator tiles are one k16 A fragment), as the post 1x1 takes
 //    its A from two branch-output tiles: no branch output is concatenated or
@@ -51,17 +41,53 @@
 //  - the k x k convs (entry, branches, head) gather their A fragments from
 //    the stage input in shared memory with ldmatrix.x4, rows padded so that
 //    8 consecutive pixels fall on distinct banks, a padding pixel pointed at
-//    a row of zeros.
+//    a row of zeros; a branch's walk over its taps takes its addresses from
+//    a table built once a block (put_taps: no division in the walk), holds
+//    them in registers for all the branch's n8 tiles, so that a product is
+//    an ldmatrix, half a B load and an mma;
+//  - the weights come packed by the wrapper in fragment order, K and N
+//    zero-padded, each lane's B fragment one 8-byte load; nothing is
+//    reshuffled per call;
+//  - the biases sit in shared memory, read before any store.
 // A branch's n8 output tile reads the input window of the groups it covers,
 // so the block-diagonal expansion stays inside one n8 tile (exact where
 // g_d = 8); with the zero padding of K and N the tensor cores are given 1.31x
 // the grouped work at the flagship's largest spec (fused_subnet.mma_flops).
-// Each branch chunk's pixel rows are located once for all the branch's tiles,
-// which load their A fragments from their own channels. The
-// weights come packed by the wrapper in fragment order, K and N zero-padded;
-// each stage's (the entry, one residual block, the head) are copied into
-// shared memory before it runs, and each lane loads its B fragment as one
-// 8-byte load; nothing is reshuffled per call.
+// Two plans, picked by the spec (narrow_plan here, from which the entry
+// launches, mirrored by fused_subnet.py::narrow_plan; the table carries
+// on_chip, which the entry checks against its own):
+//  - on chip (the flagship's three small specs): a warp a 16-pixel tile, its
+//    f32 trunk in registers for the whole chain, every weight brought by one
+//    bulk copy (cp.async.bulk, the TMA) while x is converted, the stage input
+//    in two buffers by turns, so one barrier a stage; no scratch. Trunks of
+//    up to kChipSmallTiles n8 tiles take a build sized to them that two
+//    blocks an SM can hold.
+//  - scratch (28 x 28): 16 warps over the 49 tiles, the f32 trunk (196 KB a
+//    sample) in the caller's scratch tensor in the accumulator layout, each
+//    lane reading and writing only its own float4s (it fits neither beside
+//    the 113 KB stage input in shared memory nor in 16 warps' registers);
+//    each stage's weights brought by a bulk copy into the other of two
+//    buffers while the stage before computes; a residual block one phase, the
+//    next block's pre 1x1 run on each tile's trunk while it is in registers,
+//    into a scratch copy of the stage input that one bulk copy brings in
+//    after the block's barrier; the 49th tile split across warps a post 1x1
+//    chunk each. Each waits on an mbarrier that traps after kWaitLimitNs.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's [kernel]
+// lines, a call of 128 from a CUDA graph, inputs warm in L2): 186.5 us at
+// the flagship's (28, 28, 1) K 64, 0.058 of its bound (mma.sync with the
+// trunk in scratch and synchronous weight copies: 239-243 us), 14.7-27.7
+// us at its three small specs (24.4-45.1). What bounds it now: a product is
+// an ldmatrix, an 8-byte B load and an mma.sync, and shared memory gives an
+// SM 128 B a cycle against 768 B a product; the kernel takes ~2x that rate,
+// each warp's walk over taps, biases, packing and trunk traffic between
+// its products. Two pixel tiles a warp in the residual blocks would share
+// each B load, but spill at 128 registers (the entry and the head take two).
+// The trunk-wide products on wgmma instead (a warpgroup's four tiles one
+// product, their B in core matrices, read once for the four) were measured
+// against this kernel with every tile whole: no faster at 128 (194 us
+// both), 2% faster at 2,048, and ptxas serializes them (C7515); each
+// product taking four warps rules out the split of the 49th tile, which
+// gains 9 us at 128 and 2% at 2,048 (chain_ablation.py --against).
 //
 // float32: kept on CUDA cores (float32 FMAs, each thread kRows pixels of one
 // output channel). The tensor cores would take float32 only as TF32, which
@@ -72,9 +98,9 @@
 // it by the spec, fused_subnet.py::wide): what the kernels above do not take,
 // as JAX's kernel does (its grid runs over batch tiles of 8 with up to 100 MB
 // of VMEM; it takes any trunk and head width and any number of branches).
-// The narrow bf16 kernel holds the stage input and a whole stage's weights in
+// The narrow bf16 kernel holds the stage input and two stages' weights in
 // shared memory and all K/8 trunk tiles of a pixel tile in registers, so it
-// stops at K 64, out_total 32 and a stage input of ~227 KB; the narrow
+// stops at K 64, out_total 32 and a plan of ~227 KB (narrow_plan); the narrow
 // float32 one at a stage input that fits shared memory; both at
 // kNarrowBranches branches, so that what they take by value stays small.
 //  - float32: the narrow float32 kernel, its stage input and rows in the
@@ -130,7 +156,8 @@
 //    (the ring, ldmatrix, the branch tiles' mma.sync, the post 1x1's wgmma
 //    a tile pair), 4 warps to a sub-partition to hide them, and at 28 x 28
 //    a 4th round for 16 pixels (784 = 3 x 256 + 16). Forced at the
-//    flagship's K 64 it is still 1.5x the narrow kernel (354 against 241 us).
+//    flagship's K 64 it was 1.5x the narrow kernel of its time (354 against
+//    241 us), and is 1.9x the narrow kernel of the on-chip and scratch plans.
 // A two-block cluster per sample sharing the stage input through distributed
 // shared memory was the alternative for a stage input past shared memory;
 // it still fails at ~450 KB and halves the blocks a batch has, where
@@ -168,7 +195,20 @@ constexpr int kMaxHeadTiles = 4;   // bfloat16: n8 tiles of the head (out_total 
 constexpr int kFrag = 128;         // bfloat16: elements of one k16 x n8 B fragment
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTableValue = 1073741824;  // bfloat16: 2**30, the layout's largest int
-constexpr int kTableScalars = 28;  // bfloat16: the layout table's scalars (TABLE_FIELDS)
+constexpr int kTableScalars = 29;  // bfloat16: the layout table's scalars (TABLE_FIELDS)
+// narrow bfloat16: its mbarriers (32 bytes) and the branch walks' tap table, before its buffers
+constexpr int kPlanHead = 672;
+// narrow bfloat16, scratch plan: pixel tiles a warp has in flight in the entry and in the head
+constexpr int kEntryPairTiles = 2;
+constexpr int kHeadPairTiles = 2;
+constexpr int kBranchTiles = 2;  // narrow bfloat16: branch tiles a walk over the taps feeds
+// narrow bfloat16, on chip: trunks of at most this many n8 tiles (K <= 32)
+// take an instantiation of the kernel sized to them, two blocks an SM
+constexpr int kChipSmallTiles = 4;
+// narrow bfloat16: chunks of a branch walk held as addresses (the tap table's)
+constexpr int kWalkChunks = 5;
+constexpr int kTapTable = 16 * kNarrowBranches * 2 * kWalkChunks;  // narrow bfloat16: its bytes
+static_assert(kPlanHead == 32 + kTapTable, "the mbarriers, then the tap table");
 constexpr int kWideGroups = 4;     // wide bfloat16: warpgroups a block
 constexpr int kWideThreads = 512;  // wide bfloat16: threads a block
 constexpr int kSlotBytes = 4096;   // wide bfloat16: a slot of the weights' ring
@@ -459,6 +499,7 @@ struct MmaLayout {
   int act_bytes, w_stage;   // the stage input's bytes; the weights of the largest stage
   int br_tile0[B], br_tiles[B];  // each branch's first tile, its tiles
   BranchTile tile[B * kMaxTrunkTiles];
+  int on_chip;  // 1 where narrow_plan puts the narrow kernel on chip (no scratch)
 };
 
 // The table's scalars that only the wide kernel reads (kept out of MmaLayout,
@@ -491,7 +532,7 @@ bool read_mma_layout(const int* t, int n, MmaLayout<B>& L, WidePlan& W) {
                  &L.ch_head,  &L.n_tiles,  &L.w_block0, &L.w_block, &L.w_post,
                  &L.w_head,   &L.w_total,  &L.b_block0, &L.b_block, &L.b_post,
                  &L.b_head,   &L.b_total,  &L.trunk_per_sample, &L.act_bytes, &L.w_stage,
-                 &W.act_in_shared, &W.wide_shared, &W.n_pieces};
+                 &W.act_in_shared, &W.wide_shared, &W.n_pieces, &L.on_chip};
   static_assert(sizeof(head) / sizeof(head[0]) == kTableScalars, "the table's scalars");
   if (t == nullptr || n < kTableTiles) return false;
   for (int i = 0; i < kTableScalars; ++i) *head[i] = t[i];
@@ -531,6 +572,66 @@ bool wide_plan_ok(const MmaLayout<B>& L, const WidePlan& W) {
   return W.act_in_shared == (fits ? 1 : 0) && W.wide_shared == (fits ? with_act : ring + kSlack);
 }
 
+// The narrow bf16 kernel's plan (fused_subnet.py::narrow_plan): on chip
+// where a warp a 16-pixel tile fits a block and the whole packing and two
+// stage inputs fit shared memory beside the barriers; else the scratch
+// plan, kThreads threads with x, the stage input and two stage buffers of
+// weights in shared memory.
+struct NarrowPlan {
+  bool on_chip;
+  int threads;
+  int64_t shared;
+};
+
+// bytes of the scratch plan's x in shared memory: hw rows of xs, a multiple
+// of 16
+template <int B>
+__host__ __device__ __forceinline__ int64_t x_bytes(const Dims<B>& d, const MmaLayout<B>& L) {
+  return (static_cast<int64_t>(d.h) * d.w * L.xs * 2 + 15) / 16 * 16;
+}
+
+// bytes of the narrow kernel's copy of the biases in shared memory (b_total,
+// a multiple of 8 floats)
+template <int B>
+__host__ __device__ __forceinline__ int bias_bytes(const MmaLayout<B>& L) {
+  return 4 * L.b_total;
+}
+
+// float32 scratch elements a sample of the narrow bf16 kernel: none on chip;
+// else the trunk, then a copy of the stage input's hw rows of ts in bf16
+template <int B>
+__host__ __device__ __forceinline__ int64_t narrow_scratch(const Dims<B>& d,
+                                                           const MmaLayout<B>& L) {
+  return L.on_chip ? 0 : L.trunk_per_sample + static_cast<int64_t>(d.h) * d.w * L.ts / 2;
+}
+
+// The scratch plan's split tiles: its last round of 16-pixel tiles over the
+// warps, where that is one or two tiles and their k16 chunks of the post
+// 1x1 are at most kWarps, each tile's residual blocks split across warps a
+// chunk each (post_share); else 0, and every tile is whole.
+template <int B>
+__host__ __device__ __forceinline__ int split_tiles(const MmaLayout<B>& L) {
+  const int tail = L.n_mt % kWarps;
+  return tail <= 2 && tail * L.ch_post <= kWarps ? tail : 0;
+}
+
+// the scratch plan's room after the biases: x, and from the first residual
+// block on the split tiles' shares of the post 1x1 (NT n8 tiles of f32 a lane)
+template <int B>
+__host__ __device__ __forceinline__ int64_t x_room(const Dims<B>& d, const MmaLayout<B>& L) {
+  const int64_t shares = static_cast<int64_t>(split_tiles(L)) * L.ch_post * L.NT * 512;
+  const int64_t x = x_bytes(d, L);
+  return x > shares ? x : shares;
+}
+
+template <int B>
+NarrowPlan narrow_plan(const Dims<B>& d, const MmaLayout<B>& L) {
+  const int64_t head = kPlanHead + bias_bytes(L);
+  const int64_t chip = head + 2LL * L.w_total + 2LL * L.act_bytes;
+  if (L.n_mt <= kWarps && chip <= kMaxShared) return {true, 32 * L.n_mt, chip};
+  return {false, kThreads, head + x_room(d, L) + L.act_bytes + 4LL * L.w_stage};
+}
+
 // Whether the kernel (wide: the wide kernel), run with L and the table's
 // tiles on buffers of n_weights and n_biases elements, stays inside them, its
 // shared memory, its tiles and its scratch, and covers every tap, channel and
@@ -561,10 +662,11 @@ bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const WidePlan& W, c
       L.b_block0 == Kp && L.b_post + Kp == L.b_block &&
       L.b_head == L.b_block0 + d.res_blocks * static_cast<int64_t>(L.b_block) &&
       L.b_total == n_biases && L.b_total == L.b_head + 8LL * L.NO;
-  // the narrow kernel's shared memory, registers and by-value tiles
+  // the narrow kernel's plan, shared memory, registers and by-value tiles
+  const NarrowPlan P = narrow_plan(d, L);
   const bool narrow = L.NT <= kMaxTrunkTiles && L.NO <= kMaxHeadTiles &&
-                      L.n_tiles <= B * kMaxTrunkTiles &&
-                      L.act_bytes + 2 * static_cast<int64_t>(L.w_stage) <= kMaxShared;
+                      L.n_tiles <= B * kMaxTrunkTiles && P.shared <= kMaxShared &&
+                      L.on_chip == (P.on_chip ? 1 : 0);
   if (!sizes || !stages || !(wide ? wide_scratch(L, W) <= INT32_MAX : narrow)) return false;
   // branch tiles: in order, branch by branch, one window size a branch, each
   // window inside the trunk's channels, weights and biases between the pre
@@ -605,15 +707,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint2
 // lane's B fragment `frag` of the stage whose fragments start at `w` (shared)
 __device__ __forceinline__ uint2 frag_b(const __nv_bfloat16* w, int frag) {
   return reinterpret_cast<const uint2*>(w + frag * kFrag)[threadIdx.x & 31];
-}
-
-// n (a multiple of kFrag) packed weights from src into shared memory at dst,
-// 16 bytes a thread and step. No barrier inside.
-__device__ __forceinline__ void stage_weights(const __nv_bfloat16* __restrict__ src, int n,
-                                              __nv_bfloat16* dst) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* o = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < n / 8; i += kThreads) o[i] = __ldg(s + i);
 }
 
 // The two pixel rows (g and g + 8) a lane holds of a 16-pixel tile.
@@ -708,229 +801,21 @@ __device__ __forceinline__ void fragment_a(uint32_t at, uint32_t (&a)[4]) {
                : "r"(at));
 }
 
-// acc[0, nt) += conv(G) over `chunks` chunks with the stage's fragments at w
-template <int kMaxTiles, class D>
-__device__ __forceinline__ void conv_tiles(const D& d, Gather G, int chunks,
-                                           const __nv_bfloat16* w, int nt,
-                                           float (&acc)[kMaxTiles][4]) {
-  // two chunks a step, both loaded first: their loads overlap
-  for (int c = 0; c < chunks; c += 2) {
-    uint32_t a0[4], a1[4];
-    fragment_a(take_chunk(d, G), a0);
-    fragment_a(take_chunk(d, G), a1);
-#pragma unroll
-    for (int j = 0; j < kMaxTiles; ++j)
-      if (j < nt) mma(acc[j], a0, frag_b(w, c * nt + j));
-    if (c + 1 < chunks) {
-#pragma unroll
-      for (int j = 0; j < kMaxTiles; ++j)
-        if (j < nt) mma(acc[j], a1, frag_b(w, (c + 1) * nt + j));
-    }
-  }
-}
-
-// u += the post 1x1's k16 chunk c, whose A fragment is a
-__device__ __forceinline__ void post_chunk(float (&u)[kMaxTrunkTiles][4], const uint32_t (&a)[4],
-                                           const __nv_bfloat16* w, int c, int nt) {
-#pragma unroll
-  for (int j = 0; j < kMaxTrunkTiles; ++j)
-    if (j < nt) mma(u[j], a, frag_b(w, c * nt + j));
-}
-
 // bias (f32 buffer at b) of this lane's two columns of n8 tile j
 __device__ __forceinline__ float2 bias2(const float* __restrict__ b, int j) {
   return __ldg(reinterpret_cast<const float2*>(b + 8 * j + 2 * (threadIdx.x & 3)));
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
-                        const float* __restrict__ bias, float4* trunk,
-                        float* __restrict__ out, const Dims<kNarrowBranches> d,
-                        const MmaLayout<kNarrowBranches> L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
-  // the running stage's weights (the entry, one residual block, the head)
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + L.act_bytes);
-  const int hw = d.h * d.w, NT = L.NT;
-  // a row of zeros after the stage input's rows: what a padding pixel reads
-  const int row = L.xs > L.ts ? L.xs : L.ts;
-  const uint32_t act_s = static_cast<uint32_t>(__cvta_generic_to_shared(act));
-  const uint32_t zero_s = act_s + 2 * hw * row;
-  for (int e = threadIdx.x; e < row; e += kThreads) act[hw * row + e] = __float2bfloat16(0.f);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t n = blockIdx.x;
-  const float* xs = x + n * hw * d.cin;
-  // the trunk in accumulator layout, [pixel tile][n8 tile][lane] float4: each
-  // float4 is only ever read and written by its own lane
-  float4* y = trunk + n * (L.trunk_per_sample / 4);
-  float* o = out + n * hw * d.out_total;
-  auto y_at = [&](int mt, int j) -> float4& { return y[(mt * NT + j) * 32 + lane]; };
-
-  // x -> bf16 in shared memory, channels zero-padded to the slices
-  const int cin_p = 8 * L.qx;
-  for (int e = threadIdx.x; e < hw * cin_p; e += kThreads) {
-    const int p = e / cin_p, c = e - p * cin_p;
-    act[p * L.xs + c] = __float2bfloat16(c < d.cin ? xs[p * d.cin + c] : 0.f);
-  }
-  stage_weights(wts, L.w_block0, wsm);
-  __syncthreads();
-
-  // entry conv: y = conv_k(x) + entry_b
-  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-    float acc[kMaxTrunkTiles][4] = {};
-    conv_tiles(d, gather_at(d, mt, act_s, zero_s, L.xs, L.qx, 1), L.ch_entry, wsm, NT, acc);
-#pragma unroll
-    for (int j = 0; j < kMaxTrunkTiles; ++j) {
-      if (j >= NT) break;
-      const float2 b = bias2(bias, j);
-      y_at(mt, j) = make_float4(acc[j][0] + b.x, acc[j][1] + b.y, acc[j][2] + b.x,
-                                acc[j][3] + b.y);
-    }
-  }
-  __syncthreads();
-
-  for (int blk = 0; blk < d.res_blocks; ++blk) {
-    const float* bb = bias + L.b_block0 + static_cast<int64_t>(blk) * L.b_block;
-    stage_weights(wts + L.w_block0 + static_cast<int64_t>(blk) * L.w_block, L.w_block, wsm);
-    __syncthreads();
-    const __nv_bfloat16* wb = wsm;
-
-    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b)) into shared
-    // memory; accumulator tiles 2c and 2c+1 of y are chunk c's A fragment
-    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-      float acc[kMaxTrunkTiles][4] = {};
-#pragma unroll
-      for (int c = 0; c < kMaxTrunkTiles / 2; ++c) {
-        if (c >= L.ch_pre) break;
-        const float4 lo = y_at(mt, 2 * c);
-        const float4 hi = 2 * c + 1 < NT ? y_at(mt, 2 * c + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const uint32_t a[4] = {pack_bf16(lrelu(lo.x), lrelu(lo.y)),
-                               pack_bf16(lrelu(lo.z), lrelu(lo.w)),
-                               pack_bf16(lrelu(hi.x), lrelu(hi.y)),
-                               pack_bf16(lrelu(hi.z), lrelu(hi.w))};
-#pragma unroll
-        for (int j = 0; j < kMaxTrunkTiles; ++j)
-          if (j < NT) mma(acc[j], a, frag_b(wb, c * NT + j));
-      }
-      const Rows r = tile_rows(d, mt);
-#pragma unroll
-      for (int j = 0; j < kMaxTrunkTiles; ++j) {
-        if (j >= NT) break;
-        const float2 b = bias2(bb, j);
-        const int ch = 8 * j + 2 * (lane & 3);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (r.ok[i])
-            *reinterpret_cast<uint32_t*>(act + (r.py[i] * d.w + r.px[i]) * L.ts + ch) =
-                pack_bf16(lrelu(acc[j][2 * i] + b.x), lrelu(acc[j][2 * i + 1] + b.y));
-      }
-    }
-    __syncthreads();
-
-    // branches and post 1x1, branch by branch: a chunk's rows are located
-    // once and feed every n8 tile of the branch (independent chains); then
-    // s = bf16(lrelu(gconv(t) + bb)), two tiles a k16 chunk of the post 1x1's
-    // A operand; y = y + u + post_b
-    for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-      float u[kMaxTrunkTiles][4] = {};
-      uint32_t pend[2] = {0u, 0u};  // an even tile's fragment half, waiting for its pair
-      for (int br = 0; br < d.nd; ++br) {
-        const int t0 = L.br_tile0[br], nt = L.br_tiles[br];
-        Gather G = gather_at(d, mt, act_s, zero_s, L.ts, L.tile[t0].q, d.dil[br]);
-        float s[kMaxTrunkTiles][4] = {};
-        for (int c = 0; c < L.tile[t0].chunks; ++c) {
-          const uint32_t at = take_chunk(d, G);
-#pragma unroll
-          for (int j = 0; j < kMaxTrunkTiles; ++j) {
-            if (j >= nt) break;
-            uint32_t a[4];
-            fragment_a(at + 2 * L.tile[t0 + j].lo8, a);
-            mma(s[j], a, frag_b(wb + L.tile[t0 + j].w_off, c));
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kMaxTrunkTiles; ++j) {
-          if (j >= nt) break;
-          const int gt = t0 + j;
-          const float2 b = bias2(bb + L.tile[gt].b_off, 0);
-          const uint32_t lo = pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y));
-          const uint32_t hi = pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y));
-          if (gt % 2 == 0) {
-            pend[0] = lo;
-            pend[1] = hi;
-          } else {
-            const uint32_t a[4] = {pend[0], pend[1], lo, hi};
-            post_chunk(u, a, wb + L.w_post, gt / 2, NT);
-          }
-        }
-      }
-      if (L.n_tiles % 2) {
-        const uint32_t a[4] = {pend[0], pend[1], 0u, 0u};
-        post_chunk(u, a, wb + L.w_post, L.n_tiles / 2, NT);
-      }
-#pragma unroll
-      for (int j = 0; j < kMaxTrunkTiles; ++j) {
-        if (j >= NT) break;
-        const float2 b = bias2(bb + L.b_post, j);
-        float4& v = y_at(mt, j);
-        const float4 old = v;
-        v = make_float4((old.x + u[j][0]) + b.x, (old.y + u[j][1]) + b.y,
-                        (old.z + u[j][2]) + b.x, (old.w + u[j][3]) + b.y);
-      }
-    }
-    __syncthreads();
-  }
-
-  // head: t = bf16(lrelu(y)) into shared memory; out = conv_k(t) + head_b
-  stage_weights(wts + L.w_head, L.w_total - L.w_head, wsm);
-  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-    const Rows r = tile_rows(d, mt);
-#pragma unroll
-    for (int j = 0; j < kMaxTrunkTiles; ++j) {
-      if (j >= NT) break;
-      const float4 v = y_at(mt, j);
-      const int ch = 8 * j + 2 * (lane & 3);
-      if (r.ok[0])
-        *reinterpret_cast<uint32_t*>(act + (r.py[0] * d.w + r.px[0]) * L.ts + ch) =
-            pack_bf16(lrelu(v.x), lrelu(v.y));
-      if (r.ok[1])
-        *reinterpret_cast<uint32_t*>(act + (r.py[1] * d.w + r.px[1]) * L.ts + ch) =
-            pack_bf16(lrelu(v.z), lrelu(v.w));
-    }
-  }
-  __syncthreads();
-  for (int mt = warp; mt < L.n_mt; mt += kWarps) {
-    const Rows r = tile_rows(d, mt);
-    float acc[kMaxHeadTiles][4] = {};
-    conv_tiles(d, gather_at(d, mt, act_s, zero_s, L.ts, NT, 1), L.ch_head, wsm, L.NO, acc);
-    const float* hb = bias + L.b_head;
-#pragma unroll
-    for (int j = 0; j < kMaxHeadTiles; ++j) {
-      if (j >= L.NO) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * (lane & 3) + (e & 1), i = e >> 1;
-        if (r.ok[i] && col < d.out_total)
-          o[(r.py[i] * d.w + r.px[i]) * d.out_total + col] = acc[j][e] + hb[col];
-      }
-    }
-  }
+// bias2 from the narrow kernel's copy of the biases in shared memory
+__device__ __forceinline__ float2 bias_pair(const float* b, int j) {
+  return *reinterpret_cast<const float2*>(b + 8 * j + 2 * (threadIdx.x & 3));
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, wide: any trunk and head width, any stage input size
+// asynchronous copies into shared memory (both bf16 kernels)
 // ---------------------------------------------------------------------------
 
-constexpr int kWideWarps = 4 * kWideGroups;
-constexpr int kRingBytes = kSlots * kSlotBytes;
-constexpr int kLoadTiles = 4;  // the trunk's float4s a lane loads together
-constexpr unsigned long long kWaitLimitNs = 4000000000ull;  // a ring wait past it traps
-static_assert(kWideThreads == 32 * kWideWarps, "warpgroups of 128 threads");
-static_assert(kBarrierBytes == 16 * kSlots, "a full mbarrier and a counter (padded) a slot");
-static_assert(kSlotBytes == kPassTiles * 2 * kFrag, "a slot holds one chunk of a pass");
-static_assert(kSlack >= (kPassTiles / 2 - 1) * 2 * kFrag + 64,
-              "the slack covers wgmma's widest over-read (N a power of two at or above 8 nt)");
-static_assert(kGroupTiles % 2 == 0 && kPassTiles % kGroupTiles == 0, "groups of tile pairs");
+constexpr unsigned long long kWaitLimitNs = 4000000000ull;  // a barrier wait past it traps
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -947,8 +832,8 @@ __device__ __forceinline__ void barrier_expect(uint32_t bar, int bytes) {
 }
 
 // Waits until the phase of bar with this parity has completed. Past
-// kWaitLimitNs it traps, so that a piece that is never copied (a schedule
-// the warps disagree on) fails the launch instead of hanging the card.
+// kWaitLimitNs it traps, so that a copy that never lands (a schedule the
+// warps disagree on) fails the launch instead of hanging the card.
 __device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
   unsigned long long t0 = 0;
   for (;;) {
@@ -977,6 +862,820 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// bfloat16, narrow: the flagship's kernel
+// ---------------------------------------------------------------------------
+
+// The narrow kernel's tap walk (Gather's) for kP pixel tiles at once: the
+// slice a lane reads is the same for all of them, so the walk over taps and
+// channels is taken once a chunk and only the kP addresses are located.
+template <int kP>
+struct TileTaps {
+  uint32_t act, zero;  // shared addresses of the stage input and of the zero row
+  int stride;          // bytes a pixel
+  int q, dil, pad;
+  int ty, tx, c8;  // this lane's slice
+  int py[kP], px[kP];
+  bool ok[kP];
+  uint32_t base[kP];  // this lane's pixel of each tile at the slice's tap
+};
+
+template <int kP, class D>
+__device__ __forceinline__ void taps_locate(const D& d, TileTaps<kP>& G) {
+  const int oy = G.ty * G.dil - G.pad, ox = G.tx * G.dil - G.pad;
+  const bool tap = G.ty < d.ksize;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int iy = G.py[i] + oy, ix = G.px[i] + ox;
+    const bool in = G.ok[i] && tap && iy >= 0 && iy < d.h && ix >= 0 && ix < d.w;
+    G.base[i] = in ? G.act + (iy * d.w + ix) * G.stride : G.zero;
+  }
+}
+
+template <int kP, class D>
+__device__ __forceinline__ void taps_advance(const D& d, TileTaps<kP>& G) {
+  if (++G.c8 == G.q) {
+    G.c8 = 0;
+    if (++G.tx == d.ksize) {
+      G.tx = 0;
+      ++G.ty;
+    }
+    taps_locate(d, G);
+  }
+}
+
+// The pixel whose row address this lane gives ldmatrix, in each of the
+// 16-pixel tiles mt (row l % 8 + 8 (l / 8 % 2) of the tile): located once a
+// tile, for every walk over it.
+template <int kP>
+struct TilePix {
+  int py[kP], px[kP];
+  bool ok[kP];
+};
+
+template <int kP, class D>
+__device__ __forceinline__ TilePix<kP> tile_pix(const D& d, const int (&mt)[kP]) {
+  const int lane = static_cast<int>(threadIdx.x & 31), hw = d.h * d.w;
+  const int row = (lane & 7) + 8 * ((lane >> 3) & 1);
+  TilePix<kP> P;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int p = mt[i] * 16 + row;
+    P.ok[i] = p < hw;
+    P.py[i] = p / d.w;
+    P.px[i] = p - P.py[i] * d.w;
+  }
+  return P;
+}
+
+// the walk of a SAME k x k conv (q slices a tap, dilation dil) over the
+// stage input at shared address act (`stride` elements a pixel) for the
+// tiles of P; a tile past the sample reads zeros
+template <int kP, class D>
+__device__ __forceinline__ TileTaps<kP> taps_at(const D& d, const TilePix<kP>& P, uint32_t act,
+                                                uint32_t zero, int stride, int q, int dil) {
+  TileTaps<kP> G;
+  G.act = act;
+  G.zero = zero;
+  G.stride = 2 * stride;
+  G.q = q;
+  G.dil = dil;
+  G.pad = dil * (d.ksize - 1) / 2;
+  G.ty = G.tx = G.c8 = 0;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    G.ok[i] = P.ok[i];
+    G.py[i] = P.py[i];
+    G.px[i] = P.px[i];
+  }
+  taps_locate(d, G);
+  if ((threadIdx.x & 31) >> 4) taps_advance(d, G);  // the chunk's second slice
+  return G;
+}
+
+template <int kP, class D>
+__device__ __forceinline__ TileTaps<kP> taps_at(const D& d, const int (&mt)[kP], uint32_t act,
+                                                uint32_t zero, int stride, int q, int dil) {
+  return taps_at(d, tile_pix(d, mt), act, zero, stride, q, dil);
+}
+
+// this lane's ldmatrix address of the next chunk in each tile, and G moved
+// on by a chunk
+template <int kP, class D>
+__device__ __forceinline__ void taps_take(const D& d, TileTaps<kP>& G, uint32_t (&at)[kP]) {
+#pragma unroll
+  for (int i = 0; i < kP; ++i) at[i] = G.base[i] + 16 * G.c8;
+  taps_advance(d, G);
+  taps_advance(d, G);
+}
+
+// a[i] <- the A fragment of G's next chunk in tile i, and G moved on by a
+// chunk
+template <int kP, class D>
+__device__ __forceinline__ void next_a(const D& d, TileTaps<kP>& G, uint32_t (&a)[kP][4]) {
+  uint32_t at[kP];
+  taps_take(d, G, at);
+#pragma unroll
+  for (int i = 0; i < kP; ++i) fragment_a(at[i], a[i]);
+}
+
+// acc[i] += the k x k conv of G's tile i over `chunks` chunks, n8 tiles
+// [0, nt) of the stage at w (shared): each B fragment feeds all kP tiles
+template <int kT, int kP, class D>
+__device__ __forceinline__ void conv_k(const D& d, TileTaps<kP> G, int chunks,
+                                       const __nv_bfloat16* w, int nt,
+                                       float (&acc)[kP][kT][4]) {
+  for (int c = 0; c < chunks; ++c) {
+    uint32_t a[kP][4];
+    next_a(d, G, a);
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      if (j >= nt) break;
+      const uint2 b = frag_b(w, c * nt + j);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) mma(acc[i][j], a[i], b);
+    }
+  }
+}
+
+// conv_k for the head (n8 tiles [0, no), no <= kMaxHeadTiles): its few
+// output tiles and many chunks make one chain of mma a tile, so even and odd
+// chunks sum apart, two chains a tile
+template <int kP, class D>
+__device__ __forceinline__ void head_conv(const D& d, TileTaps<kP> G, int chunks,
+                                          const __nv_bfloat16* w, int no,
+                                          float (&acc)[kP][kMaxHeadTiles][4]) {
+  float odd[kP][kMaxHeadTiles][4] = {};
+  for (int c = 0; c < chunks; c += 2) {
+    uint32_t a0[kP][4], a1[kP][4];
+    next_a(d, G, a0);
+    next_a(d, G, a1);  // past the last chunk: zero rows, not used
+#pragma unroll
+    for (int j = 0; j < kMaxHeadTiles; ++j) {
+      if (j >= no) break;
+      const uint2 b = frag_b(w, c * no + j);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) mma(acc[i][j], a0[i], b);
+    }
+    if (c + 1 < chunks) {
+#pragma unroll
+      for (int j = 0; j < kMaxHeadTiles; ++j) {
+        if (j >= no) break;
+        const uint2 b = frag_b(w, (c + 1) * no + j);
+#pragma unroll
+        for (int i = 0; i < kP; ++i) mma(odd[i][j], a1[i], b);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kP; ++i)
+#pragma unroll
+    for (int j = 0; j < kMaxHeadTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += odd[i][j][e];
+}
+
+// acc[i] += bf16(lrelu(y[i])) @ the pre 1x1 at w: accumulator tiles 2c and
+// 2c + 1 of y[i] are chunk c's A fragment, all packed before the first mma
+// so that y's registers are free for acc
+template <int kT, int kP>
+__device__ __forceinline__ void pre_1x1(const float (&y)[kP][kT][4], int NT,
+                                        const __nv_bfloat16* w,
+                                        float (&acc)[kP][kT][4]) {
+  uint32_t a[kT / 2][kP][4];
+#pragma unroll
+  for (int c = 0; c < kT / 2; ++c) {
+    const bool hi = 2 * c + 1 < NT;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      a[c][i][0] = pack_bf16(lrelu(y[i][2 * c][0]), lrelu(y[i][2 * c][1]));
+      a[c][i][1] = pack_bf16(lrelu(y[i][2 * c][2]), lrelu(y[i][2 * c][3]));
+      a[c][i][2] = hi ? pack_bf16(lrelu(y[i][2 * c + 1][0]), lrelu(y[i][2 * c + 1][1])) : 0u;
+      a[c][i][3] = hi ? pack_bf16(lrelu(y[i][2 * c + 1][2]), lrelu(y[i][2 * c + 1][3])) : 0u;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kT / 2; ++c) {
+    if (2 * c >= NT) break;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      if (j >= NT) break;
+      const uint2 b = frag_b(w, c * NT + j);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) mma(acc[i][j], a[c][i], b);
+    }
+  }
+}
+
+// v[i] += the bias (shared f32 copy at b) of each of its n8 tiles [0, nt)
+template <int kT, int kP>
+__device__ __forceinline__ void add_bias(const float* b, int nt,
+                                         float (&v)[kP][kT][4]) {
+#pragma unroll
+  for (int j = 0; j < kT; ++j) {
+    if (j >= nt) break;
+    const float2 bj = bias_pair(b, j);
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      v[i][j][0] += bj.x;
+      v[i][j][1] += bj.y;
+      v[i][j][2] += bj.x;
+      v[i][j][3] += bj.y;
+    }
+  }
+}
+
+// the stage input's rows of tiles mt (stride ts) <- bf16(lrelu(v + b)), b
+// the shared f32 biases of its n8 tiles (none where null), all read before
+// the first row is written
+template <int kT, int kP, class D>
+__device__ __forceinline__ void put_rows(const D& d, const int (&mt)[kP], int nt, const float* b,
+                                         const float (&v)[kP][kT][4],
+                                         __nv_bfloat16* act, int ts) {
+  const int lane = threadIdx.x & 31;
+  float2 bs[kT];
+#pragma unroll
+  for (int j = 0; j < kT; ++j)
+    bs[j] = b != nullptr && j < nt ? bias_pair(b, j) : make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const Rows r = tile_rows(d, mt[i]);
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      if (j >= nt) break;
+      const float2 bj = bs[j];
+      const int ch = 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r.ok[h])
+          *reinterpret_cast<uint32_t*>(act + (r.py[h] * d.w + r.px[h]) * ts + ch) =
+              pack_bf16(lrelu(v[i][j][2 * h] + bj.x), lrelu(v[i][j][2 * h + 1] + bj.y));
+    }
+  }
+}
+
+// The branch walks' tap table, one int4 for each branch br and slice s <
+// 2 kWalkChunks of its walk: the slice's byte offset in the stage input
+// (rows of ts) from the pixel, its tap's offset (dy, dx) and, in .w, 16 times
+// its 8-channel slice within the tap and (bit 16) whether the tap exists.
+// Built once a block, so that a walk's addresses take no division.
+template <class D>
+__device__ __forceinline__ void put_taps(const D& d, const MmaLayout<kNarrowBranches>& L,
+                                         int4* tab) {
+  for (int e = threadIdx.x; e < d.nd * 2 * kWalkChunks; e += blockDim.x) {
+    const int br = e / (2 * kWalkChunks), s = e - br * 2 * kWalkChunks;
+    const int q = L.tile[L.br_tile0[br]].q, dil = d.dil[br], pad = dil * (d.ksize - 1) / 2;
+    const int tap = s / q, c8 = s - tap * q, ty = tap / d.ksize, tx = tap - ty * d.ksize;
+    const int dy = ty * dil - pad, dx = tx * dil - pad;
+    tab[e] = make_int4(2 * ((dy * d.w + dx) * L.ts + 8 * c8), dy, dx,
+                       16 * c8 | (tap < d.ksize * d.ksize ? 1 << 16 : 0));
+  }
+}
+
+// u[i] += the post 1x1's k16 chunk c, whose A fragment is a[i], from the
+// residual block's weights at wb
+template <int kT, int kP>
+__device__ __forceinline__ void post_chunk(const MmaLayout<kNarrowBranches>& L,
+                                           const __nv_bfloat16* wb, int c,
+                                           const uint32_t (&a)[kP][4],
+                                           float (&u)[kP][kT][4]) {
+#pragma unroll
+  for (int j = 0; j < kT; ++j) {
+    if (j >= L.NT) break;
+    const uint2 b = frag_b(wb + L.w_post, c * L.NT + j);
+#pragma unroll
+    for (int i = 0; i < kP; ++i) mma(u[i][j], a[i], b);
+  }
+}
+
+// at[c][i]: this lane's ldmatrix address in chunk c < chunks (at most
+// kWalkChunks) of branch br's walk over tile i of P, from the tap table
+template <int kP, class D>
+__device__ __forceinline__ void walk_at(const D& d, const MmaLayout<kNarrowBranches>& L,
+                                        const int4* tab, const TilePix<kP>& P, uint32_t act,
+                                        uint32_t zero, int br, int chunks,
+                                        uint32_t (&at)[kWalkChunks][kP]) {
+  const int4* tb = tab + br * 2 * kWalkChunks + ((threadIdx.x & 31) >> 4);
+  uint32_t base[kP];
+#pragma unroll
+  for (int i = 0; i < kP; ++i) base[i] = act + (P.py[i] * d.w + P.px[i]) * 2 * L.ts;
+#pragma unroll
+  for (int c = 0; c < kWalkChunks; ++c) {
+    if (c >= chunks) break;
+    const int4 e = tb[2 * c];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const unsigned iy = P.py[i] + e.y, ix = P.px[i] + e.z;
+      const bool in = P.ok[i] && (e.w >> 16) && iy < static_cast<unsigned>(d.h) &&
+                      ix < static_cast<unsigned>(d.w);
+      at[c][i] = in ? base[i] + e.x : zero + (e.w & 0xffff);
+    }
+  }
+}
+
+// s[k][i] += the grouped conv of branch br over tile i of P into its branch
+// tiles g + k (k < ng <= kG), weights at wb: from the held addresses at
+// (chunks <= kWalkChunks: nothing but ldmatrix, the B fragment and mma a
+// product), else from a walk taken chunk by chunk
+template <int kP, int kG, class D>
+__device__ __forceinline__ void branch_group(const D& d, const MmaLayout<kNarrowBranches>& L,
+                                             const TilePix<kP>& P, uint32_t act, uint32_t zero,
+                                             const __nv_bfloat16* wb, int br, int g, int ng,
+                                             int chunks, const uint32_t (&at)[kWalkChunks][kP],
+                                             float (&s)[kG][kP][4]) {
+  uint32_t lo[kG];
+  const __nv_bfloat16* w[kG];
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    const int gk = g + min(k, ng - 1);
+    lo[k] = 2 * L.tile[gk].lo8;
+    w[k] = wb + L.tile[gk].w_off;
+  }
+  // s[k] += chunk c's products with the A fragment at ac + each tile's window
+  auto chunk = [&](int c, const uint32_t (&ac)[kP]) {
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+      if (k >= ng) break;
+      const uint2 b = frag_b(w[k], c);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        uint32_t a[4];
+        fragment_a(ac[i] + lo[k], a);
+        mma(s[k][i], a, b);
+      }
+    }
+  };
+  if (chunks <= kWalkChunks) {
+#pragma unroll
+    for (int c = 0; c < kWalkChunks; ++c) {
+      if (c >= chunks) break;
+      chunk(c, at[c]);
+    }
+  } else {
+    TileTaps<kP> G = taps_at(d, P, act, zero, L.ts, L.tile[g].q, d.dil[br]);
+    for (int c = 0; c < chunks; ++c) {
+      uint32_t a_at[kP];
+      taps_take(d, G, a_at);
+      chunk(c, a_at);
+    }
+  }
+}
+
+// bf16(lrelu(s + branch tile gt's biases, at bb)): its rows g and g + 8, the
+// halves of a k16 chunk's A fragment in the post 1x1
+__device__ __forceinline__ uint2 branch_out(const MmaLayout<kNarrowBranches>& L, const float* bb,
+                                            int gt, const float (&s)[4]) {
+  const float2 b = bias_pair(bb + L.tile[gt].b_off, 0);
+  return make_uint2(pack_bf16(lrelu(s[0] + b.x), lrelu(s[1] + b.y)),
+                    pack_bf16(lrelu(s[2] + b.x), lrelu(s[3] + b.y)));
+}
+
+// u[i] += the residual block's branches and post 1x1 at tiles mt, weights
+// at wb (shared) and biases at bb: s = bf16(lrelu(gconv(t) + bb)) of the
+// branch tiles kG at a time (one walk over the chunks feeds them, and each
+// B fragment all kP pixel tiles), two finished tiles a k16 chunk of the post
+// 1x1's A operand, multiplied into u straight away: no branch output leaves
+// registers
+template <int kT, int kP, int kG, class D>
+__device__ __forceinline__ void branches_post(const D& d, const MmaLayout<kNarrowBranches>& L,
+                                              const int4* tab, const int (&mt)[kP],
+                                              uint32_t act, uint32_t zero,
+                                              const __nv_bfloat16* wb, const float* bb,
+                                              float (&u)[kP][kT][4]) {
+  uint32_t pend[kP][2] = {};  // an even tile's fragment half, waiting for its pair
+  const TilePix<kP> P = tile_pix(d, mt);
+  for (int br = 0; br < d.nd; ++br) {
+    const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br];
+    const int chunks = L.tile[t0].chunks;
+    // a short walk's addresses, once for all the branch's tiles
+    uint32_t at[kWalkChunks][kP];
+    if (chunks <= kWalkChunks) walk_at(d, L, tab, P, act, zero, br, chunks, at);
+    for (int g = t0; g < end; g += kG) {
+      const int ng = min(kG, end - g);
+      float s[kG][kP][4] = {};
+      branch_group(d, L, P, act, zero, wb, br, g, ng, chunks, at, s);
+#pragma unroll
+      for (int k = 0; k < kG; ++k) {
+        if (k >= ng) break;
+        const int gt = g + k;
+        uint32_t a[kP][4];
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          const uint2 o = branch_out(L, bb, gt, s[k][i]);
+          a[i][0] = pend[i][0];
+          a[i][1] = pend[i][1];
+          a[i][2] = pend[i][0] = o.x;
+          a[i][3] = pend[i][1] = o.y;
+        }
+        if (gt % 2) post_chunk(L, wb, gt / 2, a, u);
+      }
+    }
+  }
+  if (L.n_tiles % 2) {
+    uint32_t a[kP][4];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      a[i][0] = pend[i][0];
+      a[i][1] = pend[i][1];
+      a[i][2] = a[i][3] = 0u;
+    }
+    post_chunk(L, wb, L.n_tiles / 2, a, u);
+  }
+}
+
+// part = tile mt's share of the post 1x1 from its k16 chunk c alone: the
+// chunk's two branch tiles (2c, 2c + 1, each from its own branch), then
+// their rows of the post 1x1. The scratch plan splits a tile of its last
+// round so across warps (narrow_split); the shares add up to branches_post.
+template <int kT, class D>
+__device__ __forceinline__ void post_share(const D& d, const MmaLayout<kNarrowBranches>& L,
+                                           const int4* tab, int mt, uint32_t act, uint32_t zero,
+                                           const __nv_bfloat16* wb, const float* bb, int c,
+                                           float (&part)[1][kT][4]) {
+  const int mts[1] = {mt};
+  const TilePix<1> P = tile_pix(d, mts);
+  uint32_t a[1][4] = {};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gt = 2 * c + h;
+    if (gt >= L.n_tiles) break;
+    int br = 0;
+    while (br + 1 < d.nd && gt >= L.br_tile0[br + 1]) ++br;
+    const int chunks = L.tile[gt].chunks;
+    uint32_t at[kWalkChunks][1];
+    if (chunks <= kWalkChunks) walk_at(d, L, tab, P, act, zero, br, chunks, at);
+    float s[1][1][4] = {};
+    branch_group(d, L, P, act, zero, wb, br, gt, 1, chunks, at, s);
+    const uint2 o = branch_out(L, bb, gt, s[0][0]);
+    a[0][2 * h] = o.x;
+    a[0][2 * h + 1] = o.y;
+  }
+  post_chunk(L, wb, c, a, part);
+}
+
+// the trunk of tiles mt, in accumulator layout in the sample's scratch y
+// ([pixel tile][n8 tile][lane] float4, each float4 read and written by its
+// own lane only), into v; zeros for a tile past the sample
+template <int kT, int kP>
+__device__ __forceinline__ void load_trunk(const float4* y, int NT, int n_mt, const int (&mt)[kP],
+                                           float (&v)[kP][kT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kP; ++i)
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      if (j >= NT) break;
+      const float4 t = mt[i] < n_mt ? y[(mt[i] * NT + j) * 32 + lane]
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i][j][0] = t.x;
+      v[i][j][1] = t.y;
+      v[i][j][2] = t.z;
+      v[i][j][3] = t.w;
+    }
+}
+
+template <int kT, int kP>
+__device__ __forceinline__ void store_trunk(float4* y, int NT, int n_mt, const int (&mt)[kP],
+                                            const float (&v)[kP][kT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    if (mt[i] >= n_mt) continue;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      if (j >= NT) break;
+      y[(mt[i] * NT + j) * 32 + lane] = make_float4(v[i][j][0], v[i][j][1], v[i][j][2], v[i][j][3]);
+    }
+  }
+}
+
+// out of tiles mt <- acc + the head's biases at hb (shared), the real
+// columns only
+template <int kP, class D>
+__device__ __forceinline__ void put_head(const D& d, const int (&mt)[kP], int no, const float* hb,
+                                         const float (&acc)[kP][kMaxHeadTiles][4], float* o) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const Rows r = tile_rows(d, mt[i]);
+#pragma unroll
+    for (int j = 0; j < kMaxHeadTiles; ++j) {
+      if (j >= no) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * (lane & 3) + (e & 1), h = e >> 1;
+        if (r.ok[h] && col < d.out_total)
+          o[(r.py[h] * d.w + r.px[h]) * d.out_total + col] = acc[i][j][e] + hb[col];
+      }
+    }
+  }
+}
+
+// x of the sample (hw pixels of cin) -> bf16 rows of `stride` in shared
+// memory, channels zero-padded to 8 qx: a thread a pixel, its channels'
+// loads started together
+template <class D>
+__device__ __forceinline__ void put_x(const D& d, const float* __restrict__ xs, int qx,
+                                      int stride, __nv_bfloat16* dst) {
+  const int hw = d.h * d.w;
+  for (int p = threadIdx.x; p < hw; p += blockDim.x) {
+    const float* px = xs + p * d.cin;
+    uint32_t* row = reinterpret_cast<uint32_t*>(dst + p * stride);
+    for (int c = 0; c < 8 * qx; c += 2)
+      row[c / 2] = pack_bf16(c < d.cin ? __ldg(px + c) : 0.f,
+                             c + 1 < d.cin ? __ldg(px + c + 1) : 0.f);
+  }
+}
+
+// the packed biases (n floats, a multiple of 4) into shared memory at dst
+__device__ __forceinline__ void put_biases(const float* __restrict__ bias, int n, float* dst) {
+  for (int e = threadIdx.x; e < n / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(dst)[e] = __ldg(reinterpret_cast<const float4*>(bias) + e);
+}
+
+// Weight stage s of the narrow kernel (0 the entry, 1 + r residual block r,
+// res_blocks + 1 the head): (element offset, elements) in the packing.
+template <int B>
+__device__ __forceinline__ int2 weight_stage(const Dims<B>& d, const MmaLayout<B>& L, int s) {
+  if (s == 0) return make_int2(0, L.w_block0);
+  if (s <= d.res_blocks) return make_int2(L.w_block0 + (s - 1) * L.w_block, L.w_block);
+  return make_int2(L.w_head, L.w_total - L.w_head);
+}
+
+// The on-chip plan (fused_subnet.py::narrow_plan): one block a sample, a
+// warp a 16-pixel tile (blockDim 32 n_mt), its trunk in registers for the
+// whole chain. Shared memory: an mbarrier, the whole packing (one bulk copy
+// at the start, landing while x is converted), then the stage input in two
+// buffers by turns: x in act[0], block r's t in act[(r + 1) % 2], the head's
+// input in act[(res_blocks + 1) % 2]. A buffer is written only once every
+// warp has passed the barrier after its last reading, so one barrier a
+// stage is enough.
+template <int kT>
+__global__ void __launch_bounds__(kThreads, kT <= kChipSmallTiles ? 2 : 1)
+fused_subnet_mma_chip_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
+                             const float* __restrict__ bias, float* __restrict__ out,
+                             const Dims<kNarrowBranches> d, const MmaLayout<kNarrowBranches> L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t bar = shared_addr(smem);
+  const int nb = bias_bytes(L);
+  int4* tab = reinterpret_cast<int4*>(smem + kPlanHead - kTapTable);
+  float* sb = reinterpret_cast<float*>(smem + kPlanHead);
+  const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(smem + kPlanHead + nb);
+  __nv_bfloat16* acts[2];
+  acts[0] = reinterpret_cast<__nv_bfloat16*>(smem + kPlanHead + nb + 2 * L.w_total);
+  acts[1] = acts[0] + L.act_bytes / 2;
+  const int hw = d.h * d.w, NT = L.NT, row = L.xs > L.ts ? L.xs : L.ts;
+  const int64_t n = blockIdx.x;
+  if (threadIdx.x == 0) {
+    barrier_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    barrier_expect(bar, 2 * L.w_total);
+    bulk_copy(shared_addr(w), wts, 2 * L.w_total, bar);
+  }
+  // a row of zeros after x's rows: what a padding pixel reads, in any stage
+  for (int e = threadIdx.x; e < row; e += blockDim.x) acts[0][hw * row + e] = __float2bfloat16(0.f);
+  put_x(d, x + n * hw * d.cin, L.qx, L.xs, acts[0]);
+  put_biases(bias, L.b_total, sb);
+  put_taps(d, L, tab);
+  __syncthreads();
+  barrier_wait(bar, 0);
+
+  const uint32_t zero = shared_addr(acts[0]) + 2 * hw * row;
+  const int mt[1] = {static_cast<int>(threadIdx.x >> 5)};
+  // entry conv: y = conv_k(x) + entry_b
+  float y[1][kT][4] = {};
+  conv_k(d, taps_at(d, mt, shared_addr(acts[0]), zero, L.xs, L.qx, 1), L.ch_entry, w, NT, y);
+  add_bias(sb, NT, y);
+  for (int blk = 0; blk < d.res_blocks; ++blk) {
+    const __nv_bfloat16* wb = w + L.w_block0 + blk * L.w_block;
+    const float* bb = sb + L.b_block0 + blk * L.b_block;
+    __nv_bfloat16* t = acts[(blk + 1) & 1];
+    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b))
+    float acc[1][kT][4] = {};
+    pre_1x1(y, NT, wb, acc);
+    put_rows(d, mt, NT, bb, acc, t, L.ts);
+    __syncthreads();
+    // branches and post 1x1 into the trunk: y = y + u + post_b
+    branches_post<kT, 1, kBranchTiles>(d, L, tab, mt, shared_addr(t), zero, wb, bb, y);
+    add_bias(bb + L.b_post, NT, y);
+  }
+  // head: t = bf16(lrelu(y)); out = conv_k(t) + head_b
+  __nv_bfloat16* t = acts[(d.res_blocks + 1) & 1];
+  put_rows(d, mt, NT, nullptr, y, t, L.ts);
+  __syncthreads();
+  float acc[1][kMaxHeadTiles][4] = {};
+  head_conv(d, taps_at(d, mt, shared_addr(t), zero, L.ts, NT, 1), L.ch_head, w + L.w_head, L.NO,
+            acc);
+  put_head(d, mt, L.NO, sb + L.b_head, acc, out + n * hw * d.out_total);
+}
+
+// The scratch plan: one block a sample, kThreads threads, each warp
+// kPairTiles pixel tiles in flight (units of kPairTiles tiles over the
+// warps). The sample's scratch holds the f32 trunk and a copy of the next
+// stage input in its shared-memory layout. Shared memory: three mbarriers,
+// x, the stage input (a row of zeros after it), then two buffers of
+// weights: stage s (weight_stage) in buffer s % 2, brought by a bulk copy
+// that thread 0 starts once every warp is past the stage two before it, so
+// that each copy lands while the stage before it computes. Each tile's
+// pre 1x1 runs where its trunk is in registers: block 0's after the entry
+// (x has its own buffer, so t goes straight into the stage input), block
+// r + 1's after block r's post 1x1, with the head's lrelu(y) after the last
+// block's; those go to the scratch copy, which one bulk copy brings into the
+// stage input once every warp is past the block (the stage input is still
+// being read until then). A residual block is thus one phase and one
+// barrier, and the trunk is read once and written once a block.
+__global__ void __launch_bounds__(kThreads, 1)
+fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
+                        const float* __restrict__ bias, float4* trunk,
+                        float* __restrict__ out, const Dims<kNarrowBranches> d,
+                        const MmaLayout<kNarrowBranches> L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t bars = shared_addr(smem), act_bar = bars + 16;
+  const int64_t xb = x_room(d, L), nb = bias_bytes(L);
+  int4* tab = reinterpret_cast<int4*>(smem + kPlanHead - kTapTable);
+  int* shares_done = reinterpret_cast<int*>(smem + 24);  // a count for each split tile
+  float* sb = reinterpret_cast<float*>(smem + kPlanHead);
+  __nv_bfloat16* xsm = reinterpret_cast<__nv_bfloat16*>(smem + kPlanHead + nb);
+  // the split tiles' post 1x1 shares, once x is no longer read
+  float4* shares = reinterpret_cast<float4*>(smem + kPlanHead + nb);
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem + kPlanHead + nb + xb);
+  unsigned char* wbuf = smem + kPlanHead + nb + xb + L.act_bytes;
+  const int wbytes = 2 * L.w_stage, R = d.res_blocks;
+  const int hw = d.h * d.w, NT = L.NT, row = L.xs > L.ts ? L.xs : L.ts;
+  const int warp = threadIdx.x >> 5;
+  const int64_t n = blockIdx.x;
+  // one lane: weight stage s into its buffer
+  auto fetch = [&](int s) {
+    const int2 st = weight_stage(d, L, s);
+    const uint32_t b = bars + 8 * (s & 1);
+    barrier_expect(b, 2 * st.y);
+    bulk_copy(shared_addr(wbuf + (s & 1) * wbytes), wts + st.x, 2 * st.y, b);
+  };
+  auto wait_stage = [&](int s) { barrier_wait(bars + 8 * (s & 1), (s >> 1) & 1); };
+  auto stage_w = [&](int s) {
+    return reinterpret_cast<const __nv_bfloat16*>(wbuf + (s & 1) * wbytes);
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 3; ++b) barrier_init(bars + 8 * b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fetch(0);
+    fetch(1);
+    shares_done[0] = shares_done[1] = 0;
+  }
+  for (int e = threadIdx.x; e < row; e += kThreads) act[hw * row + e] = __float2bfloat16(0.f);
+  put_x(d, x + n * hw * d.cin, L.qx, L.xs, xsm);
+  put_biases(bias, L.b_total, sb);
+  put_taps(d, L, tab);
+  float4* y = trunk + n * (narrow_scratch(d, L) / 4);
+  // the next stage input, rows of ts as in shared memory
+  __nv_bfloat16* t_next = reinterpret_cast<__nv_bfloat16*>(y + L.trunk_per_sample / 4);
+  const int t_bytes = 2 * hw * L.ts;
+  float* o = out + n * hw * d.out_total;
+  const uint32_t act_s = shared_addr(act), zero = act_s + 2 * hw * row;
+  const int lane = threadIdx.x & 31;
+  // the residual blocks' whole tiles and the shares of the split tiles
+  const int split = split_tiles(L), n_shares = split * L.ch_post, whole = L.n_mt - split;
+  __syncthreads();
+
+  // entry conv: y = conv_k(x) + entry_b; then block 0's pre 1x1 on it (the
+  // head's input where there is no block) straight into the stage input
+  wait_stage(0);
+  if (R > 0) wait_stage(1);
+  // (kEntryPairTiles tiles a warp's conv, then each tile's pre 1x1 alone)
+  constexpr int kE = kEntryPairTiles;
+  for (int u = warp; u < (L.n_mt + kE - 1) / kE; u += kWarps) {
+    int mt[kE];
+#pragma unroll
+    for (int i = 0; i < kE; ++i) mt[i] = u * kE + i;
+    float v[kE][kMaxTrunkTiles][4] = {};
+    conv_k(d, taps_at(d, mt, shared_addr(xsm), zero, L.xs, L.qx, 1), L.ch_entry, stage_w(0), NT,
+           v);
+    add_bias(sb, NT, v);
+    store_trunk(y, NT, L.n_mt, mt, v);
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const int mi[1] = {mt[i]};
+      float vi[1][kMaxTrunkTiles][4], acc[1][kMaxTrunkTiles][4] = {};
+#pragma unroll
+      for (int j = 0; j < kMaxTrunkTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vi[0][j][e] = v[i][j][e];
+      if (R > 0) {
+        pre_1x1(vi, NT, stage_w(1), acc);
+        put_rows(d, mi, NT, sb + L.b_block0, acc, act, L.ts);
+      } else {
+        put_rows(d, mi, NT, nullptr, vi, act, L.ts);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && 2 <= R + 1) fetch(2);
+
+  for (int blk = 0; blk < R; ++blk) {
+    const int s = 1 + blk;
+    const bool last = blk + 1 == R;
+    const float* bb = sb + L.b_block0 + blk * L.b_block;
+    // each stage is waited for once: this block's in the phase before
+    if (blk > 0) barrier_wait(act_bar, (blk - 1) & 1);
+    if (!last) wait_stage(s + 1);
+    // y = y + u + post_b, then block + 1's pre 1x1 on it, or the head's
+    // lrelu(y), into the scratch copy of the next stage input
+    auto finish = [&](const int (&mt)[1], float (&v)[1][kMaxTrunkTiles][4]) {
+      add_bias(bb + L.b_post, NT, v);
+      if (last) {
+        put_rows(d, mt, NT, nullptr, v, t_next, L.ts);
+      } else {
+        store_trunk(y, NT, L.n_mt, mt, v);
+        float acc[1][kMaxTrunkTiles][4] = {};
+        pre_1x1(v, NT, stage_w(s + 1), acc);
+        put_rows(d, mt, NT, bb + L.b_block, acc, t_next, L.ts);
+      }
+    };
+    // branches and post 1x1, the products summed into the trunk's tiles as
+    // loaded, a tile a warp (two spill): the whole tiles, kWarps a round ...
+    for (int u = warp; u < whole; u += kWarps) {
+      const int mt[1] = {u};
+      float v[1][kMaxTrunkTiles][4];
+      load_trunk(y, NT, L.n_mt, mt, v);
+      branches_post<kMaxTrunkTiles, 1, kBranchTiles>(d, L, tab, mt, act_s, zero, stage_w(s), bb,
+                                                     v);
+      finish(mt, v);
+    }
+    // ... then the last round's split tiles, a k16 chunk of the post 1x1 a
+    // warp (the last warps, which the whole tiles left idlest): each share
+    // to shared memory; the warp that writes a tile's last share adds them
+    // up in chunk order (whatever the order they came in) and finishes it
+    for (int su = kWarps - 1 - warp; su < n_shares; su += kWarps) {
+      const int ti = su / L.ch_post, c = su - ti * L.ch_post;
+      const int mt[1] = {whole + ti};
+      float v[1][kMaxTrunkTiles][4] = {};
+      post_share(d, L, tab, mt[0], act_s, zero, stage_w(s), bb, c, v);
+#pragma unroll
+      for (int j = 0; j < kMaxTrunkTiles; ++j)
+        if (j < NT) shares[(su * NT + j) * 32 + lane] = make_float4(v[0][j][0], v[0][j][1],
+                                                                      v[0][j][2], v[0][j][3]);
+      __syncwarp();
+      int before = 0;
+      if (lane == 0) {
+        __threadfence_block();
+        before = atomicAdd(shares_done + ti, 1);
+      }
+      if (__shfl_sync(0xffffffffu, before, 0) == L.ch_post - 1) {
+        __syncwarp();
+        __threadfence_block();
+        load_trunk(y, NT, L.n_mt, mt, v);
+        for (int cc = 0; cc < L.ch_post; ++cc) {
+#pragma unroll
+          for (int j = 0; j < kMaxTrunkTiles; ++j) {
+            if (j >= NT) break;
+            const float4 p = shares[((ti * L.ch_post + cc) * NT + j) * 32 + lane];
+            v[0][j][0] += p.x;
+            v[0][j][1] += p.y;
+            v[0][j][2] += p.z;
+            v[0][j][3] += p.w;
+          }
+        }
+        finish(mt, v);
+        if (lane == 0) shares_done[ti] = 0;
+      }
+    }
+    // the copy's writes, made by this thread, before the bulk copy reads them
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (s + 2 <= R + 1) fetch(s + 2);
+      barrier_expect(act_bar, t_bytes);
+      bulk_copy(act_s, t_next, t_bytes, act_bar);
+    }
+  }
+
+  // head: out = conv_k(t) + head_b, t = bf16(lrelu(y)) in the stage input
+  if (R > 0) barrier_wait(act_bar, (R - 1) & 1);
+  wait_stage(R + 1);
+  for (int u = warp; u < (L.n_mt + kHeadPairTiles - 1) / kHeadPairTiles; u += kWarps) {
+    int mt[kHeadPairTiles];
+#pragma unroll
+    for (int i = 0; i < kHeadPairTiles; ++i) mt[i] = u * kHeadPairTiles + i;
+    float acc[kHeadPairTiles][kMaxHeadTiles][4] = {};
+    head_conv(d, taps_at(d, mt, act_s, zero, L.ts, NT, 1), L.ch_head, stage_w(R + 1), L.NO, acc);
+    put_head(d, mt, L.NO, sb + L.b_head, acc, o);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, wide: any trunk and head width, any stage input size
+// ---------------------------------------------------------------------------
+
+constexpr int kWideWarps = 4 * kWideGroups;
+constexpr int kRingBytes = kSlots * kSlotBytes;
+constexpr int kLoadTiles = 4;  // the trunk's float4s a lane loads together
+static_assert(kWideThreads == 32 * kWideWarps, "warpgroups of 128 threads");
+static_assert(kBarrierBytes == 16 * kSlots, "a full mbarrier and a counter (padded) a slot");
+static_assert(kSlotBytes == kPassTiles * 2 * kFrag, "a slot holds one chunk of a pass");
+static_assert(kSlack >= (kPassTiles / 2 - 1) * 2 * kFrag + 64,
+              "the slack covers wgmma's widest over-read (N a power of two at or above 8 nt)");
+static_assert(kGroupTiles % 2 == 0 && kPassTiles % kGroupTiles == 0, "groups of tile pairs");
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -1734,7 +2433,7 @@ int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, v
   if (batch < 1 || !read_mma_layout(table, n_table, L, W) ||
       !mma_layout_ok(d, L, W, table + kTableTiles, kWide, n_weights, n_biases))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t per_sample = kWide ? wide_scratch(L, W) : L.trunk_per_sample;
+  const int64_t per_sample = kWide ? wide_scratch(L, W) : narrow_scratch(d, L);
   if (n_trunk < static_cast<int64_t>(batch) * per_sample)
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kWide) {
@@ -1747,6 +2446,7 @@ int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, v
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wts);
   const float* bf = static_cast<const float*>(bias);
   float* of = static_cast<float*>(out);
+  const NarrowPlan P = narrow_plan(d, L);
   if constexpr (kWide) {
     static bool limit_set[2][kMaxDevices] = {};
     float* sf = static_cast<float*>(trunk);
@@ -1762,11 +2462,23 @@ int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, v
       fused_subnet_mma_wide_kernel<false><<<batch, kWideThreads, W.wide_shared, stream>>>(
           xf, wb, bf, sf, of, d, L, W, tiles, per_sample);
     }
+  } else if (L.on_chip && L.NT <= kChipSmallTiles) {
+    static bool limit_set[kMaxDevices] = {};
+    cudaError_t err = allow_shared(fused_subnet_mma_chip_kernel<kChipSmallTiles>, limit_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_mma_chip_kernel<kChipSmallTiles>
+        <<<batch, P.threads, P.shared, stream>>>(xf, wb, bf, of, d, L);
+  } else if (L.on_chip) {
+    static bool limit_set[kMaxDevices] = {};
+    cudaError_t err = allow_shared(fused_subnet_mma_chip_kernel<kMaxTrunkTiles>, limit_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_mma_chip_kernel<kMaxTrunkTiles>
+        <<<batch, P.threads, P.shared, stream>>>(xf, wb, bf, of, d, L);
   } else {
     static bool limit_set[kMaxDevices] = {};
     cudaError_t err = allow_shared(fused_subnet_mma_kernel, limit_set);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_subnet_mma_kernel<<<batch, kThreads, L.act_bytes + 2 * L.w_stage, stream>>>(
+    fused_subnet_mma_kernel<<<batch, P.threads, P.shared, stream>>>(
         xf, wb, bf, static_cast<float4*>(trunk), of, d, L);
   }
   return static_cast<int>(cudaGetLastError());

@@ -13,13 +13,19 @@ Bound on an H100: operations. At the flagship (batch 128, 16 launches a
 pass over four specs) a pass needs 50.4 GFLOP of grouped products, 51 us at
 989 TFLOP/s in bf16, against ~1.3 MB of inputs and outputs per launch
 (0.4 us at 3.35 TB/s). The design: one block per sample, the stage input in
-shared memory, the float32 trunk in an L2-resident scratch tensor, and each
-branch output multiplied straight into the post-1x1 so that no branch output
-reaches device memory. In bf16 every product runs on the tensor cores
-(``mma.sync`` m16n8k16, each stage an implicit GEMM over 16-pixel tiles,
-grouped convs expanded block-diagonally only inside an n8 output tile); in
-float32 the products stay float32 FMAs on CUDA cores, since the tensor cores
-would round them to TF32 (the source note in ``csrc/fused_subnet.cu``).
+shared memory, and each branch output multiplied straight into the post-1x1
+so that no branch output reaches device memory. In bf16 every product runs
+on the tensor cores (``mma.sync`` m16n8k16, each stage an implicit GEMM over
+16-pixel tiles, grouped convs expanded block-diagonally only inside an n8
+output tile), on one of two plans that :func:`narrow_plan` picks by the
+spec: on chip (the trunk in registers, every weight brought into shared
+memory by one bulk copy) or the scratch plan (the trunk in an L2-resident
+scratch tensor, each stage's weights brought by a bulk copy while the stage
+before computes); in float32 the products stay float32 FMAs on CUDA cores,
+with the trunk in scratch, since the tensor cores would round them to TF32
+(the source note in ``csrc/fused_subnet.cu``). On an NVIDIA H100 80GB HBM3
+(700 W) the narrow bf16 kernel takes 186.5 us at the flagship's (128, 28,
+28, 1) K 64, 0.058 of its bound, and 14.7-27.7 us at its three small specs.
 
 Two variants, picked by the spec (:func:`wide`): the narrow kernels above
 take up to 4 dilated branches, a bf16 trunk up to 64 channels, a bf16 head
@@ -93,7 +99,9 @@ MAX_TRUNK_TILES = 8  # bf16: n8 tiles of the trunk (K <= 64)
 MAX_HEAD_TILES = 4  # bf16: n8 tiles of the head (out_total <= 32)
 FRAG = 128  # bf16: elements of one k16 x n8 B fragment (32 lanes x 4)
 MAX_TABLE_VALUE = 2**30  # bf16: the largest int of layout_table the C entry takes
-TABLE_SCALARS = 28  # bf16: the scalars that open layout_table (TABLE_FIELDS)
+TABLE_SCALARS = 29  # bf16: the scalars that open layout_table (TABLE_FIELDS)
+PLAN_HEAD = 672  # narrow bf16: its mbarriers and the branch walks' tap table
+CHIP_SMALL_TILES = 4  # narrow bf16, on chip: trunk n8 tiles of its two-blocks-an-SM build
 WIDE_GROUPS = 4  # wide bf16: warpgroups a block
 WIDE_THREADS = 512  # wide bf16: threads a block
 SLOT_BYTES = 4096  # wide bf16: a slot of the weights' ring, 16 B fragments
@@ -235,6 +243,7 @@ class MmaLayout:
     act_in_shared: int  # 1: the wide variant holds the stage input in shared memory
     wide_shared: int  # the wide variant's dynamic shared memory a block
     n_pieces: int = 0  # pieces of one round of every stage of the wide variant's ring
+    on_chip: int = 0  # 1: :func:`narrow_plan` puts the narrow bf16 kernel on chip
 
     @property
     def n_tiles(self) -> int:
@@ -251,6 +260,80 @@ def _wide_plan(act_bytes: int) -> Tuple[int, int]:
     if with_act <= MAX_SHARED_BYTES:
         return 1, with_act
     return 0, ring + SLACK_BYTES
+
+
+def _split_tiles(n_mt: int, ch_post: int) -> int:
+    """The scratch plan's split tiles (the C source's ``split_tiles``): its
+    last round of 16-pixel tiles over the warps where that is one or two
+    tiles whose k16 chunks of the post 1x1 are at most a warp each, else 0."""
+    warps = THREADS // 32
+    tail = n_mt % warps
+    return tail if tail <= 2 and tail * ch_post <= warps else 0
+
+
+def _narrow_plan(n_mt: int, w_total: int, b_total: int, act_bytes: int, w_stage: int,
+                 x_bytes: int, shares: int) -> Tuple[int, int, int]:
+    """(on_chip, threads, shared bytes) of the narrow bf16 kernel, as the C
+    source's ``narrow_plan``, from which the C entry launches (the layout
+    table carries ``on_chip`` alone, which the entry checks). Both open with
+    the barriers, the branch walks' tap table and the biases. On chip where a warp a 16-pixel tile fits a
+    block and the whole packing and two stage inputs fit shared memory beside
+    them; else the scratch plan: :data:`THREADS` threads, x (then, in its
+    room, the split tiles' ``shares`` bytes), the stage input and two stage
+    buffers of weights."""
+    head = PLAN_HEAD + 4 * b_total
+    chip = head + 2 * w_total + 2 * act_bytes
+    if n_mt <= THREADS // 32 and chip <= MAX_SHARED_BYTES:
+        return 1, 32 * n_mt, chip
+    return 0, THREADS, head + max(x_bytes, shares) + act_bytes + 4 * w_stage
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowPlan:
+    """How the narrow bf16 kernel runs a spec (:func:`narrow_plan`)."""
+
+    on_chip: bool  # the trunk in registers, no scratch, one load of every weight
+    threads: int  # threads a block (one sample a block)
+    shared: int  # dynamic shared memory a block, in bytes
+    split_tiles: int = 0  # scratch plan: last-round tiles split across warps
+
+
+def narrow_plan(spec: SubnetSpec) -> NarrowPlan:
+    """The narrow bf16 kernel's plan for ``spec``, picked by its sizes
+    alone and mirrored by the C entry, which launches it.
+
+    *On chip* (a sample of at most 16 pixel tiles whose whole packing and two
+    stage inputs fit shared memory: the flagship's three small specs): a
+    warp a 16-pixel tile, its trunk in registers for the whole chain, every
+    stage's weights brought by one bulk copy (TMA) at the start, while x is
+    converted, and the stage input in two buffers by turns, so that one
+    block barrier a stage is enough. No scratch.
+
+    *Scratch* (the rest, the flagship's 28 x 28 among them): :data:`THREADS`
+    threads, a 16-pixel tile a warp in the residual blocks (two in the entry
+    and the head; two in the blocks spill registers), the float32
+    trunk in the scratch tensor, x and the stage input in shared memory, and
+    the weights in two stage buffers, the next stage's brought by a bulk copy
+    while the running one computes. The one or two tiles of the last round of
+    warps (``split_tiles``: 49 = 3 x 16 + 1 at 28 x 28) are split across
+    warps in the residual blocks, a k16 chunk of the post 1x1 each, their
+    shares added in chunk order. A residual block is one phase: each
+    tile's post 1x1 is followed by the next block's pre 1x1 while the trunk
+    is in registers, its output written to a scratch copy of the stage input
+    that one bulk copy brings in after the block's barrier."""
+    if spec.compute_dtype != "bfloat16":
+        raise ValueError(f"narrow_plan: the bf16 kernel's plan; {spec.compute_dtype} has none")
+    L = mma_layout(spec)
+    on_chip, threads, shared = _narrow_plan(*_plan_sizes(spec, L))
+    return NarrowPlan(bool(on_chip), threads, shared,
+                      0 if on_chip else _split_tiles(L.n_mt, L.ch_post))
+
+
+def _plan_sizes(spec: SubnetSpec, L: MmaLayout) -> Tuple[int, ...]:
+    """:func:`_narrow_plan`'s arguments for ``spec`` of layout ``L``."""
+    return (L.n_mt, L.w_total, L.b_total, L.act_bytes, L.w_stage,
+            _ceil(spec.h * spec.w * L.xs * 2, 16) * 16,
+            _split_tiles(L.n_mt, L.ch_post) * L.ch_post * L.nt * 512)
 
 
 @functools.lru_cache(maxsize=None)
@@ -292,7 +375,8 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
         w_total=w_total, b_total=b_head + 8 * no, trunk_per_sample=n_mt * 16 * kp,
         act_bytes=act_bytes, w_stage=max(w_entry, wb, w_total - w_head),
         act_in_shared=act_in_shared, wide_shared=wide_shared)
-    return dataclasses.replace(L, n_pieces=sum(map(len, _schedule(spec, L))))
+    return dataclasses.replace(L, n_pieces=sum(map(len, _schedule(spec, L))),
+                               on_chip=_narrow_plan(*_plan_sizes(spec, L))[0])
 
 
 #: the scalars of :func:`layout_table`, in the order the C entry reads them
@@ -300,7 +384,8 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
 TABLE_FIELDS = ("kp", "nt", "no", "xs", "ts", "qx", "n_mt", "ch_entry", "ch_pre", "ch_post",
                 "ch_head", "n_tiles", "w_block0", "w_block", "w_post", "w_head", "w_total",
                 "b_block0", "b_block", "b_post", "b_head", "b_total", "trunk_per_sample",
-                "act_bytes", "w_stage", "act_in_shared", "wide_shared", "n_pieces")
+                "act_bytes", "w_stage", "act_in_shared", "wide_shared", "n_pieces",
+                "on_chip")
 TILE_FIELDS = ("lo8", "q", "chunks", "w_off", "b_off")
 
 
@@ -619,12 +704,9 @@ def _f32_stage_bytes(spec: SubnetSpec) -> Tuple[int, int]:
 def shared_bytes(spec: SubnetSpec) -> int:
     """Dynamic shared memory of one block of the narrow kernels (the wide
     variant's is :func:`wide_shared_bytes`). float32: the stage input
-    (16-byte aligned), then a tile of rows. bf16: the stage input, rows
-    padded, and a row of zeros, then the running stage's weights
-    (:func:`mma_layout`)."""
+    (16-byte aligned), then a tile of rows. bf16: :func:`narrow_plan`'s."""
     if spec.compute_dtype == "bfloat16":
-        L = mma_layout(spec)
-        return L.act_bytes + 2 * L.w_stage
+        return narrow_plan(spec).shared
     return sum(_f32_stage_bytes(spec))
 
 
@@ -651,13 +733,16 @@ def wide(spec: SubnetSpec) -> bool:
 
 
 def scratch_per_sample(spec: SubnetSpec, wide_variant: bool) -> int:
-    """float32 scratch elements a sample: the trunk; in the wide variant
-    then the stage input, in bf16 only where it does not fit shared memory
-    (``wide_scratch`` and ``make_layout`` in the CUDA source)."""
+    """float32 scratch elements a sample: the trunk (none in the narrow
+    bf16 kernel's on-chip plan), in its scratch plan then a bf16 copy of the
+    next stage input (``narrow_scratch`` in the CUDA source); in the wide
+    variant then the stage input, in bf16 only where it does not fit shared
+    memory (``wide_scratch`` and ``make_layout`` there)."""
     if spec.compute_dtype == "bfloat16":
         L = mma_layout(spec)
-        extra = L.act_bytes // 4 if wide_variant and not L.act_in_shared else 0
-        return L.trunk_per_sample + extra
+        if not wide_variant:  # the trunk, then the next stage input's rows (bf16)
+            return 0 if L.on_chip else L.trunk_per_sample + spec.h * spec.w * L.ts // 2
+        return L.trunk_per_sample + (0 if L.act_in_shared else L.act_bytes // 4)
     extra = sum(_f32_stage_bytes(spec)) // 4 if wide_variant else 0
     return spec.h * spec.w * spec.kernels + extra
 

@@ -3,14 +3,18 @@
     python3 chain_ablation.py
 
 Builds the kernel of ``csrc/fused_subnet.cu`` as it is and in altered
-copies, each with one part of the work cut out (so their outputs are wrong
-on purpose), and times every build at each conv-chain spec of the flagship
-that ``chip_smoke.py`` drives, batch 128, on its weights. A part's cost is
-the time the full kernel loses over the copy without it. The parts: the
-branch convs, the head conv, the post 1x1 and the copies of the weights
-into shared memory; and, as a check of the L2's hold on the float32 trunk,
-a copy in which every sample shares one trunk. Each edit is a line of the
-kernel's text and raises if the text has changed. Times are
+copies, each with one part of the narrow bf16 kernel's work cut out (so
+their outputs are wrong on purpose), and times every build at each
+conv-chain spec of the flagship that ``chip_smoke.py`` drives, at batch 128
+and at the serving call's 2,048 (:data:`BATCHES`), on its weights. A
+part's cost is the time the full kernel loses over the copy without it. The
+parts (:data:`VARIANTS`): the branch convs, the head conv, the post 1x1,
+the entry conv, the pre 1x1, the overlap of the weights' bulk copies (TMA)
+with the stage before them, the scratch plan's split of its last round's
+tiles across warps (every tile whole instead); and a copy in which every
+sample shares one scratch (trunk and stage-input copy), which on the
+scratch plan also makes the samples contend for the same L2 lines. Each edit is a piece of the
+kernel's text and raises if that text has changed. Times are
 ``chip_smoke.device_time_ms``. Needs a card; exits 1 without one.
 
     python3 chain_ablation.py --against OTHER_TREE
@@ -21,15 +25,16 @@ directory git ignores), in turns: other, this, this, other. Each turn is a
 fresh process whose working directory and import path are its tree, so
 that it builds and launches that tree's own K3 (its source, its packing,
 the variant its ``wide`` picks) through ``subnet_apply``, and times it
-with that tree's ``chip_smoke.device_time_ms`` at :data:`AB_SPECS`, batch
-128, on the same seeded weights and inputs, held against the tree's plain
-chain. Prints one line a turn and spec, then each tree's times side by
-side and as JSON.
+with that tree's ``chip_smoke.device_time_ms`` at :data:`AB_SPECS`, at
+each of :data:`BATCHES`, on the same seeded weights and inputs, held
+against the tree's plain chain. Prints one line a turn, spec and batch,
+then each tree's times side by side and as JSON.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -44,16 +49,32 @@ from arl_conditional_normalizing_flows_tpu_torch.models.conv import ConvCFlow
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import build
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import fused_subnet as chain
 
-#: each altered copy: (text of the bf16 kernel, what replaces it)
+#: each altered copy: (text of the narrow bf16 kernels, what replaces it)
 VARIANTS = {
     "full": [],
-    "no branch convs": [("for (int c = 0; c < L.tile[t0].chunks; ++c) {",
-                         "for (int c = 0; c < 0; ++c) {")],
-    "no head conv": [("L.ch_head, wsm, L.NO, acc);", "0, wsm, L.NO, acc);")],
-    "no post 1x1": [("post_chunk(u, a, wb + L.w_post, gt / 2, NT);", "u[0][0] += a[0];")],
-    "no weight copies": [("stage_weights(wts", "if (false) stage_weights(wts")],
-    "one trunk for all samples": [("float4* y = trunk + n * (L.trunk_per_sample / 4);",
-                                   "float4* y = trunk;")],
+    "no branch convs": [("    const int chunks = L.tile[t0].chunks;\n",
+                         "    const int chunks = 0;\n")],
+    "no head conv": [("  float odd[kP][kMaxHeadTiles][4] = {};\n",
+                      "  float odd[kP][kMaxHeadTiles][4] = {};\n  chunks = 0;\n")],
+    "no post 1x1": [("for (int i = 0; i < kP; ++i) mma(u[i][j], a[i], b);",
+                     "for (int i = 0; i < kP; ++i) u[i][j][0] += __uint_as_float(a[i][0]);")],
+    "no entry conv": [("float (&acc)[kP][kT][4]) {\n  for (int c = 0; c < chunks; ++c) {",
+                       "float (&acc)[kP][kT][4]) {\n  chunks = 0;\n"
+                       "  for (int c = 0; c < chunks; ++c) {")],
+    "no pre 1x1": [("    if (2 * c >= NT) break;\n#pragma unroll\n    for (int j",
+                    "    if (2 * c >= 0) break;\n#pragma unroll\n    for (int j")],
+    "no weight prefetch": [
+        ("auto wait_stage = [&](int s) { barrier_wait(",
+         "auto wait_stage = [&](int s) { if (s >= 2 && threadIdx.x == 0) fetch(s);\n"
+         "    barrier_wait("),
+        ("  if (threadIdx.x == 0 && 2 <= R + 1) fetch(2);\n", ""),
+        ("      if (s + 2 <= R + 1) fetch(s + 2);\n", ""),
+        ("  // a row of zeros after x's rows: what a padding pixel reads, in any stage\n",
+         "  __syncthreads();\n  barrier_wait(bar, 0);\n")],
+    "one scratch for all samples": [("float4* y = trunk + n * (narrow_scratch(d, L) / 4);",
+                                     "float4* y = trunk;")],
+    "no split tiles": [("const int split = split_tiles(L), n_shares",
+                        "const int split = 0, n_shares")],
 }
 
 
@@ -73,12 +94,18 @@ def build_variant(name: str) -> ctypes.CDLL:
     return chain.bind_library(ctypes.CDLL(str(lib)))
 
 
-#: --against: (h, w, cin, K, dilations, out_total) of the capacity preset's
-#: wide specs and the flagship's largest (res_blocks 3, cardinality 8,
+#: the batches of the ablation: the main path's and the serving call's
+BATCHES = (chip_smoke.BATCH, chip_smoke.SERVE_BATCH)
+
+#: --against: (h, w, cin, K, cardinality, dilations, out_total) of the
+#: capacity preset's wide specs and the flagship's four (res_blocks 3 and
 #: ksize 3 each)
-AB_SPECS = {"preset_28x28x1_k128": (28, 28, 1, 128, (1, 2, 4), 2),
-            "preset_14x14x2_k128": (14, 14, 2, 128, (1, 2), 4),
-            "flagship_28x28x1_k64": (28, 28, 1, 64, (1, 2, 4), 2)}
+AB_SPECS = {"preset_28x28x1_k128": (28, 28, 1, 128, 8, (1, 2, 4), 2),
+            "preset_14x14x2_k128": (14, 14, 2, 128, 8, (1, 2), 4),
+            "flagship_28x28x1_k64": (28, 28, 1, 64, 8, (1, 2, 4), 2),
+            "flagship_14x14x4_k32": (14, 14, 4, 32, 8, (1, 2, 4), 8),
+            "flagship_7x7x8_k16": (7, 7, 8, 16, 4, (1, 2), 16),
+            "flagship_14x14x2_k32": (14, 14, 2, 32, 4, (1, 2), 4)}
 
 #: --against: one turn, run in a tree with AB_SPECS as its argument
 AB_TURN = """
@@ -89,27 +116,32 @@ sys.path.insert(0, ".")
 import chip_smoke
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import fused_subnet as fs
 out = {}
-for name, (h, w, cin, k, dil, o) in json.loads(sys.argv[1]).items():
-    spec = fs.SubnetSpec(h, w, cin, k, 3, 8, 3, tuple(dil), o, compute_dtype="bfloat16")
-    rng = np.random.default_rng(0)
-    flat = [torch.from_numpy((rng.normal(size=shape) * (0.1 if len(shape) == 1 else
-                              1 / math.sqrt(math.prod(shape[:-1])))).astype(np.float32)).cuda()
-            for _, shape in fs.flax_param_order(spec)]
-    x = torch.from_numpy(rng.normal(size=(128, h, w, cin)).astype(np.float32)).cuda()
-    with torch.no_grad():
-        packed = fs.pack(spec, flat)
-        err = (fs.subnet_apply(spec, x, packed) - fs.chain_math(spec, x, flat)).abs().max().item()
-        ms = chip_smoke.device_time_ms(lambda: fs.subnet_apply(spec, x, packed), iters=20, reps=7)
-    out[name] = dict(us=ms * 1e3, max_abs_err=err, wide=fs.wide(spec))
+for batch in json.loads(sys.argv[2]):
+    for name, (h, w, cin, k, card, dil, o) in json.loads(sys.argv[1]).items():
+        spec = fs.SubnetSpec(h, w, cin, k, 3, card, 3, tuple(dil), o, compute_dtype="bfloat16")
+        rng = np.random.default_rng(0)
+        flat = [torch.from_numpy((rng.normal(size=shape) * (0.1 if len(shape) == 1 else
+                                  1 / math.sqrt(math.prod(shape[:-1])))).astype(np.float32)).cuda()
+                for _, shape in fs.flax_param_order(spec)]
+        x = torch.from_numpy(rng.normal(size=(batch, h, w, cin)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            packed = fs.pack(spec, flat)
+            err = (fs.subnet_apply(spec, x, packed)
+                   - fs.chain_math(spec, x, flat)).abs().max().item()
+            ms = chip_smoke.device_time_ms(lambda: fs.subnet_apply(spec, x, packed), iters=20,
+                                           reps=7)
+        out[f"{name} x{batch}"] = dict(us=ms * 1e3, max_abs_err=err, wide=fs.wide(spec))
 print(json.dumps(out))
 """
 
 
 def ab_turn(tree: Path) -> dict:
-    """One turn of --against in ``tree``: its K3's times at AB_SPECS."""
+    """One turn of --against in ``tree``: its K3's times at AB_SPECS and
+    BATCHES."""
     env = dict(os.environ, PYTHONPATH=str(tree))
-    done = subprocess.run([sys.executable, "-c", AB_TURN, json.dumps(AB_SPECS)], cwd=tree,
-                          env=env, capture_output=True, text=True, timeout=600)
+    done = subprocess.run([sys.executable, "-c", AB_TURN, json.dumps(AB_SPECS),
+                           json.dumps(BATCHES)], cwd=tree, env=env, capture_output=True,
+                          text=True, timeout=600)
     if done.returncode:
         raise RuntimeError(f"turn in {tree} failed:\n{done.stderr[-4000:]}")
     return json.loads(done.stdout.strip().splitlines()[-1])
@@ -118,10 +150,10 @@ def ab_turn(tree: Path) -> dict:
 def against(other: Path) -> int:
     """K3 here against K3 in ``other``, in turns (other, this, this, other)."""
     trees = {"this": Path(__file__).resolve().parent, "other": other.resolve()}
-    times = {name: {tree: [] for tree in trees} for name in AB_SPECS}
+    times = {}
     for i, which in enumerate(("other", "this", "this", "other")):
         for name, row in ab_turn(trees[which]).items():
-            times[name][which].append(row["us"])
+            times.setdefault(name, {tree: [] for tree in trees})[which].append(row["us"])
             print(f"[ab] turn {i} {which}: {name} {row['us']:.1f} us (max_abs_err "
                   f"{row['max_abs_err']:.3g}, wide {row['wide']})", flush=True)
     for name, by_tree in times.items():
@@ -142,9 +174,8 @@ def main() -> int:
         return against(Path(sys.argv[2]))
     with ThreadPoolExecutor(max_workers=len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
-    batch = chip_smoke.BATCH
     specs = chip_smoke.chain_specs(ConvCFlow(chip_smoke.FLAGSHIP_SUBNET, seed=0))
-    for i, spec in enumerate(specs):
+    for batch, (i, spec) in itertools.product(BATCHES, enumerate(specs)):
         net, _ = chip_smoke.chain_nets(spec, seed=10 + i)
         g = torch.Generator(device="cuda").manual_seed(10 + i)
         x = torch.randn(batch, spec.h, spec.w, spec.cin, generator=g, device="cuda")

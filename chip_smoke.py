@@ -6,7 +6,13 @@ Builds the port's CUDA kernels from ``csrc/`` with nvcc (one process per
 source, all at once) and holds each kernel against its plain PyTorch version
 at the shapes of the main path: the coupling law (K1/K2) and the coupling
 subnet's conv chain (K3, first at a small size, synchronised, then at the
-flagship's four specs). Then it drives two serving paths of the flagship
+flagship's four specs, its float32 build timed beside its bound there too).
+``[sass]`` reads the built kernels' instructions: every instantiation of the
+narrow bf16 K3 (its on-chip and scratch plans) must run its products as
+HMMA, bring its weights by bulk copies (UBLKCP) and wait on mbarriers, and
+the wide one's must use HGMMA; the ``kernels`` line carries each one's
+registers, spills, shared bytes and threads a block. Then it drives two
+serving paths of the flagship
 conv cINN at full width (batch 128, random weights from a seed), the
 ``pallas_coupling`` lowering (K1/K2) and the ``pallas_subnet`` lowering (K3):
 conditional-sampling requests through ``make_image_serving_fn`` and a
@@ -102,8 +108,10 @@ timed beside its bound, with the wide kernel's shared memory a block,
 registers and spills; the wide variant forced at the flagship's four specs
 (weights packed for it) against the plain version and timed beside the
 narrow kernel; a graph of 2 train steps at 128 against 2 eager
-steps from one state (K3 16 times a step, counted at the capture) with
-samples/s, busy share and the step's conv roofline; the seeded 16 x 128
+steps from one state, on cuDNN's deterministic algorithms (K3 16 times a
+step, counted at the capture), then the graph captured again on its default
+algorithms with samples/s, busy share and the step's conv roofline; the
+seeded 16 x 128
 serving call (K3 16 times a replay); ``cnf-conv`` on the class workload and
 ``cnf-pretrain-noise`` with the preset's flags.
 ``[dist2]`` runs only where the machine has two cards or more (on one it
@@ -474,8 +482,9 @@ def check_chain_small(phases):
 
 def sass_summary():
     """Per kernel of the built K3 library: its tensor-core instructions
-    (HMMA, HGMMA) in ``cuobjdump -sass`` and its registers and spills from
-    ``cuobjdump -res-usage``."""
+    (HMMA, HGMMA), bulk copies (UBLKCP, the TMA's ``cp.async.bulk``) and
+    mbarrier waits (SYNCS.PHASECHK) in ``cuobjdump -sass``, and its registers
+    and spills from ``cuobjdump -res-usage``."""
     cuobjdump = build.nvcc_path().removesuffix("nvcc") + "cuobjdump"
     lib = str(build.library_path("fused_subnet"))
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
@@ -488,7 +497,9 @@ def sass_summary():
         lines = part.splitlines()
         out[name] = dict(hmma=sum("HMMA" in ln for ln in lines),
                          hgmma=sum("HGMMA" in ln for ln in lines),
-                         ffma=sum("FFMA" in ln for ln in lines))
+                         ffma=sum("FFMA" in ln for ln in lines),
+                         bulk_copies=sum("UBLKCP" in ln for ln in lines),
+                         barrier_waits=sum("SYNCS.PHASECHK" in ln for ln in lines))
     for line in usage.splitlines():
         if "Function" in line and ":" in line:
             name = line.split("Function", 1)[1].split(":", 1)[0].strip()
@@ -536,18 +547,38 @@ def chain_at_batch(spec, launches, seed, batch):
     return row
 
 
+def chain_f32_time(s, x, packed):
+    """The narrow float32 K3 (CUDA cores) at ``s``: its time, its plain
+    version's (TF32 off) and its bound at 67 TFLOP/s float32."""
+    with torch.no_grad():
+        ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=5, reps=5)
+        plain_ms = device_time_ms(lambda: chain.subnet_apply_reference(s, x, packed), iters=5,
+                                  reps=5)
+    batch = x.shape[0]
+    flops, nbytes = chain.flops(s, batch), chain.io_bytes(s, batch)
+    ops_s, bytes_s = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms = max(ops_s, bytes_s) * 1e3
+    print(f"[kernel] fused_subnet {batch}x{s.h}x{s.w}x{s.cin} float32: {ms * 1e3:.1f} us on the "
+          f"card (CUDA cores; bound {bound_ms * 1e3:.2f} us for {flops / 1e9:.2f} GFLOP at 67 "
+          f"TFLOP/s, {bound_ms / ms:.4f} of it), plain version {plain_ms * 1e3:.1f} us",
+          flush=True)
+    return dict(ms_f32=ms, plain_ms_f32=plain_ms, bound_ms_f32=bound_ms,
+                bound_by_f32="operations" if ops_s >= bytes_s else "bytes",
+                bound_share_f32=bound_ms / ms)
+
+
 def check_chain_kernel(specs, phases):
     """K3 against its plain version at each spec of the flagship, batch 128,
     in bf16 and float32, and at the serving and pre-training batches in
-    bf16; times at bf16 (the main path's dtype). ``specs``:
-    :func:`chain_specs`."""
+    bf16; times at bf16 (the main path's dtype) and, at 128, of the float32
+    kernel ([grad]'s float32 path). ``specs``: :func:`chain_specs`."""
     results, serving, pretrain = [], [], []
     for i, spec in enumerate(specs):
         for dtype in ("bfloat16", "float32"):
             s = dataclasses.replace(spec, compute_dtype=dtype)
             err, x, packed, eager = compare_chain(s, BATCH, seed=10 + i)
             if dtype == "float32":
-                results[-1]["max_abs_err_f32"] = err
+                results[-1].update(max_abs_err_f32=err, **chain_f32_time(s, x, packed))
                 continue
             with torch.no_grad():
                 ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=20)
@@ -1003,11 +1034,14 @@ def bench_stack(cfg, inner):
 
 
 def train_graph_and_eager(cfg, inner, phases, calls=TRAIN_CALLS, name=None,
-                          profile_eager=True):
+                          profile_eager=True, deterministic=False):
     """One lowering's [train] line (``name``: the lowering's unless given):
     a graph of ``inner`` steps against ``inner`` eager steps from the same
     state, then ``calls`` timed calls of each and a profile of the graph's
     call and (``profile_eager``) of an eager step and its Adam update.
+    ``deterministic``: the graph against the eager steps on cuDNN's
+    deterministic algorithms, then the graph captured again on its default
+    ones, which the timing and the profiles run on, as a user's run does.
     Returns the line's dict."""
     lowering = name or cfg.experimental_lowering or "default"
     stack = bench_stack(cfg, inner)
@@ -1019,17 +1053,21 @@ def train_graph_and_eager(cfg, inner, phases, calls=TRAIN_CALLS, name=None,
     train_step, _ = make_step_fns(eager, noise_mode="none")
 
     reset_launches()
-    t = time.perf_counter()
-    multi.capture(state_g, stack)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t
-    capture_launches = launch_counts()  # the warm-up steps and the capture
-    check(multi.graph is not None and state_g.step == 0,
-          f"{lowering}: captured, and the state is as it was before the warm-up")
-    step_launches = multi.launches  # what each replay launches, counted at the capture
-    state_g, first = multi(state_g, stack)
-    eager_losses = torch.stack([train_step(state_e, xy)[1]["loss"] for xy in stack])
-    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        t = time.perf_counter()
+        multi.capture(state_g, stack)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        capture_launches = launch_counts()  # the warm-up steps and the capture
+        check(multi.graph is not None and state_g.step == 0,
+              f"{lowering}: captured, and the state is as it was before the warm-up")
+        step_launches = multi.launches  # what each replay launches, counted at the capture
+        state_g, first = multi(state_g, stack)
+        eager_losses = torch.stack([train_step(state_e, xy)[1]["loss"] for xy in stack])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
     max_diff, tight = param_agreement(graphed, eager)
     graph_loss, eager_loss = first["loss"].item(), eager_losses.mean().item()
     print(f"[train] {lowering}: {inner} graph steps against {inner} eager steps from one state: "
@@ -1042,6 +1080,11 @@ def train_graph_and_eager(cfg, inner, phases, calls=TRAIN_CALLS, name=None,
     check(max_diff <= TRAIN_MAX and tight >= TRAIN_FRACTION,
           f"{lowering}: graph and eager parameters agree")
     phases.done(f"train {lowering}: capture and the graph against eager steps")
+    if deterministic:  # the graph that is timed: cuDNN's default algorithms
+        multi = make_scan_train_step(graphed, inner, noise_mode="none")
+        multi.capture(state_g, stack)
+        check(multi.graph is not None and state_g.step == inner,
+              f"{lowering}: captured again on cuDNN's default algorithms")
 
     def eager_steps():
         for xy in stack:
@@ -1540,6 +1583,37 @@ WIDE_CLI = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-
 WIDE_PRETRAIN = ["--num-batches", "4", "--epochs", "1", "--scan-steps", "2", *PRESET_FLAGS]
 
 
+def narrow_resources(sass):
+    """The narrow bf16 kernel's plans (fused_subnet.py::narrow_plan): on
+    chip, in its instantiations for trunks of up to 4 n8 tiles (two blocks
+    an SM) and up to 8, and the scratch plan; for each, its registers and
+    spills from ``cuobjdump -res-usage``, its tensor-core instructions, bulk
+    copies and mbarrier waits, and, at each of the flagship's specs that
+    takes it, its threads and shared bytes a block."""
+    out = {}
+    for name, info in sass.items():
+        if "mma_chip_kernel" in name:
+            key = "on_chip_4_tiles" if "mma_chip_kernelILi4E" in name else "on_chip_8_tiles"
+        elif "mma_kernel" in name and "wide" not in name:
+            key = "scratch"
+        else:
+            continue
+        out[key] = dict(resources=info.get("resources"), hmma=info["hmma"],
+                        bulk_copies=info["bulk_copies"], barrier_waits=info["barrier_waits"],
+                        specs=[])
+    for spec in chain_specs(ConvCFlow(FLAGSHIP_SUBNET, seed=0, device="cpu")):
+        plan = chain.narrow_plan(spec)
+        tiles = chain.mma_layout(spec).nt
+        key = "scratch" if not plan.on_chip else (
+            "on_chip_4_tiles" if tiles <= chain.CHIP_SMALL_TILES else "on_chip_8_tiles")
+        if key in out:
+            out[key]["specs"].append(dict(shape=[spec.h, spec.w, spec.cin], kernels=spec.kernels,
+                                          threads_a_block=plan.threads,
+                                          shared_bytes_a_block=plan.shared,
+                                          split_tiles=plan.split_tiles))
+    return out
+
+
 def wide_resources(sass):
     """The wide bf16 kernel's two instantiations (stage input in shared
     memory, in scratch): registers, stack and local bytes (spills) from
@@ -1641,8 +1715,14 @@ def check_wide(phases, narrow, sass=None):
     forced = wide_at_flagship(narrow)
     phases.done("wide: the wide variant at the flagship's specs")
 
+    # the graph against the eager steps on cuDNN's deterministic algorithms,
+    # as [fsdp]'s pallas_subnet runs: on the default ones K3's float32
+    # recompute (the backward) moves the graph's parameters from the eager
+    # ones' by 2.8e-5 to 1.05e-4 after two steps, while K3's forward repeats
+    # itself bit for bit; timed on the default ones
     train = train_graph_and_eager(PRESET, WIDE_INNER, phases, calls=WIDE_CALLS,
-                                  name="preset pallas_subnet", profile_eager=False)
+                                  name="preset pallas_subnet", profile_eager=False,
+                                  deterministic=True)
     k3 = (train["graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
           train["eager_port_kernel_launches_a_step"]["fused_subnet"])
     check(k3 == (n, n), f"wide: K3 launches {n} times a train step in the replay and eagerly "
@@ -2909,6 +2989,12 @@ def main() -> int:
     wide_sass = [v for k, v in sass.items() if "mma_wide_kernel" in k]
     check(len(wide_sass) == 2 and all(v["hgmma"] > 0 for v in wide_sass),
           "both paths of the wide bf16 kernel run their trunk-wide products on wgmma (HGMMA)")
+    narrow = narrow_resources(sass)
+    check(set(narrow) == {"on_chip_4_tiles", "on_chip_8_tiles", "scratch"}
+          and all(v["hmma"] > 0 and v["bulk_copies"] > 0 and v["barrier_waits"] > 0
+                  for v in narrow.values()),
+          "every instantiation of the narrow bf16 kernel runs its products on the tensor cores "
+          f"(HMMA), brings its weights by bulk copies (UBLKCP) and waits on mbarriers ({narrow})")
     phases.done("SASS of the conv-chain kernels")
 
     results, floor_ms = check_kernels(phases)
@@ -2983,6 +3069,13 @@ def main() -> int:
         # of them on the wide variant
         preset_specs=wide["specs"],
         wide_resources=wide["resources"], wide_forced_at_flagship=wide["forced_at_flagship"],
+        narrow_resources=narrow_resources(sass),
+        # the narrow float32 kernel (CUDA cores) at the flagship's specs, 128:
+        # [grad]'s float32 path launches it 16 times a forward+backward
+        f32_specs=[{k: r[k] for k in ("shape", "kernels", "ms_f32", "plain_ms_f32",
+                                      "bound_ms_f32", "bound_by_f32", "bound_share_f32",
+                                      "max_abs_err_f32")} for r in chain_results],
+        f32_launches_a_grad_pass=grads["pallas_subnet_f32"]["launches"]["fused_subnet"],
         launches_a_preset_train_step=wide["train"][
             "graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
         launches_a_preset_serving_call=wide["serve"]["port_kernel_launches_a_call"][

@@ -7,6 +7,7 @@ The kernel itself needs a card (``tests/test_torch_kernels_gpu.py``)."""
 import dataclasses
 import math
 import re
+import sys
 import types
 from pathlib import Path
 
@@ -231,6 +232,20 @@ def test_launch_limits_mirror_the_cuda_source():
                         ("kBarrierBytes", tfs.BARRIER_BYTES), ("kSlack", tfs.SLACK_BYTES),
                         ("kGroupTiles", tfs.GROUP_TILES), ("kPassTiles", tfs.PASS_TILES)):
         assert int(consts[name]) == value, name
+    for name, value in (("kPlanHead", tfs.PLAN_HEAD), ("kChipSmallTiles", tfs.CHIP_SMALL_TILES)):
+        assert int(consts[name]) == value, name
+    # the narrow bf16 kernel's plan: the same two sizes on both sides
+    # (narrow_plan there, _narrow_plan here); the C entry launches from its
+    # own and refuses a table whose on_chip is not its own
+    plan = re.search(r"NarrowPlan narrow_plan\(.*?\n\}", src, re.S).group(0)
+    assert "kPlanHead + bias_bytes(L)" in plan
+    assert "head + 2LL * L.w_total + 2LL * L.act_bytes" in plan
+    assert "L.n_mt <= kWarps && chip <= kMaxShared" in plan
+    assert "head + x_room(d, L) + L.act_bytes + 4LL * L.w_stage" in plan
+    split = re.search(r"int split_tiles\(.*?\n\}", src, re.S).group(0)
+    assert "tail <= 2 && tail * L.ch_post <= kWarps ? tail : 0" in split
+    assert "L.on_chip == (P.on_chip ? 1 : 0)" in src
+    assert src.count("<<<batch, P.threads, P.shared, stream>>>") == 3
     # the wide kernel: its warpgroups (one lane of which feeds the ring), a
     # slot one chunk of a wgmma pass (N <= 128) or of a branch group
     assert tfs.WIDE_THREADS == 128 * tfs.WIDE_GROUPS <= tfs.MAX_THREADS
@@ -242,6 +257,20 @@ def test_launch_limits_mirror_the_cuda_source():
     for n in (8, 16, 32, 64, 128):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" in src
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
+
+
+def test_ablation_variants_find_their_text():
+    """chain_ablation.py's altered copies of the kernel each find the text
+    they edit once in the CUDA source (a build of a stale one raises on the
+    card; this says so on the CPU)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chain_ablation
+
+    src = _cuda_source()
+    assert chain_ablation.VARIANTS["full"] == []
+    for name, edits in chain_ablation.VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, (name, old)
 
 
 def _cuda_source():
@@ -310,6 +339,10 @@ LAYOUT_SPECS = {
     # windows of 1-3 slices in one branch: the last tile's moves left
     "groups3_k24": dict(h=3, w=4, cin=1, kernels=24, res_blocks=1, cardinality=8, ksize=3,
                         dilations=(1,), out_total=2),
+    # 17 pixel tiles: the narrow kernel's scratch plan at a small size, the
+    # 17th tile split across warps
+    "scratch_17x16x1": dict(h=17, w=16, cin=1, kernels=40, res_blocks=1, cardinality=4, ksize=3,
+                            dilations=(1, 2), out_total=20),
     # the JAX package's capacity preset (perf_arch_config): its two specs past
     # the narrow bf16 kernel, which take the wide variant
     "preset_28x28x1": dict(h=28, w=28, cin=1, kernels=128, res_blocks=3, cardinality=8,
@@ -530,9 +563,76 @@ def test_bf16_launch_guards():
     huge = tfs.SubnetSpec(**dict(BASE, h=4096, w=4096, kernels=64), compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="sizes past"):
         tfs.check_launch(huge, 1)
-    # the flagship's largest spec: the stage input (rows of 72) and a zero
-    # row, then one residual block's weights (158 fragments)
-    assert tfs.shared_bytes(_bf16_spec("flagship_28x28x1")) == (28 * 28 + 1) * 72 * 2 + 158 * 256
+    # the flagship's largest spec (the scratch plan): the mbarriers and the
+    # tap table, the biases (792), x's room (rows of 8, then the 49th tile's
+    # 7 shares of the post 1x1), the stage input (rows of 72) and a zero row,
+    # then two buffers of one residual block's weights (158 fragments)
+    assert tfs.shared_bytes(_bf16_spec("flagship_28x28x1")) == \
+        672 + 4 * 792 + 7 * 8 * 512 + (28 * 28 + 1) * 72 * 2 + 2 * 158 * 256
+
+
+#: the narrow bf16 kernel's plan at each spec of LAYOUT_SPECS that it takes:
+#: on chip (the trunk in registers, a warp a pixel tile) or the scratch plan
+ON_CHIP = {"flagship_28x28x1": False, "scratch_17x16x1": False, "odd": True, "groups3_k12": True, "flagship_7x7x8": True,
+           "flagship_14x14x4": True, "flagship_14x14x2": True}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
+def test_narrow_plan_follows_the_spec(name):
+    """narrow_plan picks on chip where a warp a 16-pixel tile fits a block
+    (16 tiles) and the packing and two stage inputs fit shared memory beside
+    the barriers; else the scratch plan of 512 threads, x, the stage input
+    and two stage buffers of weights. The shared bytes, threads and scratch
+    follow the plan, wide() takes what the plan cannot fit, and the table
+    carries on_chip to the C entry, which checks it against its own plan."""
+    spec = _bf16_spec(name)
+    L, plan = tfs.mma_layout(spec), tfs.narrow_plan(spec)
+    hw = spec.h * spec.w
+    head = tfs.PLAN_HEAD + 4 * L.b_total  # the mbarriers, the tap table and the biases
+    chip = head + 2 * L.w_total + 2 * L.act_bytes
+    # the last round's one or two tiles split a post 1x1 chunk a warp, their
+    # shares (NT n8 tiles of f32 a lane) in x's room
+    tail = L.n_mt % 16
+    split = tail if tail <= 2 and tail * L.ch_post <= 16 else 0
+    room = max(-(-hw * L.xs * 2 // 16) * 16, split * L.ch_post * L.nt * 512)
+    scratch = head + room + L.act_bytes + 4 * L.w_stage
+    on_chip = L.n_mt <= tfs.THREADS // 32 and chip <= tfs.MAX_SHARED_BYTES
+    assert plan == tfs.NarrowPlan(on_chip, 32 * L.n_mt if on_chip else tfs.THREADS,
+                                  chip if on_chip else scratch, 0 if on_chip else split)
+    table = list(tfs.layout_table(spec))
+    assert L.on_chip == table[tfs.TABLE_FIELDS.index("on_chip")] == int(on_chip)
+    assert plan.threads % 32 == 0 and plan.threads <= tfs.THREADS
+    if name in ON_CHIP:
+        assert plan.on_chip == ON_CHIP[name] and not tfs.wide(spec)
+    # on chip no scratch; else the trunk and a bf16 copy of the stage input
+    want = 0 if plan.on_chip else 3 * (L.trunk_per_sample + hw * L.ts // 2)
+    assert tfs.trunk_elements(spec, 3, wide_variant=False) == want
+    if not tfs.wide(spec):
+        assert tfs.shared_bytes(spec) == plan.shared <= tfs.MAX_SHARED_BYTES
+        assert tfs.trunk_elements(spec, 3) == want
+    with pytest.raises(ValueError, match="plan"):
+        tfs.narrow_plan(dataclasses.replace(spec, compute_dtype="float32"))
+
+
+def test_narrow_plan_at_the_flagship_and_the_preset():
+    """The flagship's three small specs and the preset's two narrow ones run
+    on chip, a block of 13 or 4 warps and no scratch; its 28 x 28 on the
+    scratch plan in 226,448 bytes (the tap table, the biases, x's room, which
+    then holds the 49th tile's 7 shares of the post 1x1, the stage input, two
+    buffers of a residual block's 40,448 bytes of weights), its scratch the trunk's
+    200,704 bytes and a 112,896-byte copy of the stage input a sample."""
+    want = {(14, 14, 4, 32, 8, (1, 2, 4), 8): (True, 416, 88832),
+            (28, 28, 1, 64, 8, (1, 2, 4), 2): (False, 512, 226448, 1),
+            (7, 7, 8, 16, 4, (1, 2), 16): (True, 128, 29568),
+            (14, 14, 2, 32, 4, (1, 2), 4): (True, 416, 81824),
+            (14, 14, 4, 64, 8, (1, 2, 4), 8): (True, 416, 201376),
+            (7, 7, 8, 64, 8, (1, 2), 16): (True, 128, 154272)}
+    for (h, w, cin, k, card, dil, out), plan in want.items():
+        spec = tfs.SubnetSpec(h, w, cin, k, 3, card, 3, dil, out)
+        assert tfs.narrow_plan(spec) == tfs.NarrowPlan(*plan) and not tfs.wide(spec)
+        scratch = 0 if plan[0] else 128 * (200704 + 112896) // 4
+        assert tfs.narrow_plan(spec).split_tiles == (0 if plan[0] else 1)
+        assert tfs.trunk_elements(spec, 128) == scratch
 
 
 # (h, w, cin, K, dilations, out_total) of the capacity preset's four conv

@@ -362,6 +362,52 @@ def test_chain_kernel_matches_plain_version_at_the_preset(cuda, no_tf32, name, d
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
+#: the narrow bf16 kernel's scratch plan besides the flagship's 28 x 28 (49
+#: tiles, the 49th split): 34 tiles (two split), 25 and 32 tiles (none), 17
+SCRATCH_SPECS = {
+    "scratch_23x23x1": dict(h=23, w=23, cin=1, kernels=32, res_blocks=2, cardinality=8,
+                            ksize=3, dilations=(1, 2, 4), out_total=2),
+    "scratch_20x20x2": dict(h=20, w=20, cin=2, kernels=16, res_blocks=1, cardinality=4,
+                            ksize=3, dilations=(1, 2), out_total=4),
+    "scratch_32x16x3": dict(h=32, w=16, cin=3, kernels=24, res_blocks=2, cardinality=8,
+                            ksize=3, dilations=(1,), out_total=2),
+    # 17 tiles (one split), a trunk of 5 n8 tiles and a head of 3
+    "scratch_17x16x1": dict(h=17, w=16, cin=1, kernels=40, res_blocks=1, cardinality=4,
+                            ksize=3, dilations=(1, 2), out_total=20),
+}
+#: the narrow bf16 kernel's specs: the flagship's four (its 28 x 28 on the
+#: scratch plan, the rest on chip), the preset's two narrow ones, the odd
+#: ones (on chip) and the scratch plan's others
+NARROW_SPECS = [*CHAIN_SPECS, "preset_14x14x4", "preset_7x7x8", *SCRATCH_SPECS]
+SPLIT = {"flagship_28x28x1": 1, "scratch_23x23x1": 2, "scratch_20x20x2": 0, "scratch_32x16x3": 0,
+         "scratch_17x16x1": 1}
+
+
+@pytest.mark.parametrize("batch", [1, BATCH, 133, 2048])
+@pytest.mark.parametrize("name", NARROW_SPECS)
+def test_narrow_bf16_kernel_matches_plain_version_at_every_batch(cuda, no_tf32, name, batch):
+    """The narrow bf16 kernel on the plan its spec picks (narrow_plan), at
+    one sample, the main path's 128, a batch past one block an SM (133 on
+    132 SMs) and the serving call's 2,048, against its plain version, with
+    the tolerances of batch 128."""
+    spec = tfs.SubnetSpec(**(CHAIN_SPECS.get(name) or WIDE_SPECS.get(name)
+                             or SCRATCH_SPECS[name]), compute_dtype="bfloat16")
+    plan = tfs.narrow_plan(spec)
+    assert not tfs.wide(spec) and plan.on_chip == (name not in SPLIT)
+    assert plan.split_tiles == SPLIT.get(name, 0)
+    assert (tfs.trunk_elements(spec, batch) == 0) == plan.on_chip
+    x, packed = _chain_inputs(spec, batch, cuda)
+    before = tfs.LAUNCHES["fused_subnet"]
+    with torch.no_grad():
+        out = tfs.subnet_apply(spec, x, packed)
+        torch.cuda.synchronize()
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    assert out.shape == (batch, spec.h, spec.w, spec.out_total)
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["odd_6x6x2", "flagship_28x28x1", "tiles_5x3x3",
                                   "groups3_3x4x1"])
