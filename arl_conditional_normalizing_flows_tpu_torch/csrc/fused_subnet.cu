@@ -89,22 +89,64 @@
 // product taking four warps rules out the split of the 49th tile, which
 // gains 9 us at 128 and 2% at 2,048 (chain_ablation.py --against).
 //
-// float32: kept on CUDA cores (float32 FMAs, each thread kRows pixels of one
-// output channel). The tensor cores would take float32 only as TF32, which
-// keeps ~10 bits of mantissa and breaks the 1e-4 agreement with the CPU that
-// the float32 model is held to. Its weights are packed flat in flax's HWIO.
+// float32 (cnf-conv's default dtype; the same TPU kernel at compute_dtype
+// float32, subnet_math with float32 operands): the same narrow kernel, its
+// skeleton templated over the product (Bf16, Tf32: the chunk depth, the
+// element size, the A and B fragments, the trunk hand-off), on the tensor
+// cores as three TF32 products a k8 chunk. TF32 keeps 10 bits of mantissa,
+// so one product would miss the 1e-4 agreement with the CPU that float32 is
+// held to (the CPU test's emulation: 9.1e-4 to 5.9e-3 off); split operands,
+// a = hi + lo (Tf32::split), and lo*hi + hi*lo + hi*hi keep ~20 bits of
+// each, an error of order 2^-19 a product at worst (the same emulation: at
+// most 3.8e-6 from JAX, whose plain float32 chain the port's is 2.5e-6 from).
+// Bound: operations, the products' rate, 165 TFLOP/s (495 TF32 / 3): at the
+// flagship's (128, 28, 28, 1) K 64, 10.77 GFLOP, 65.3 us (160.8 at the 67
+// TFLOP/s of float32 FMAs that the CUDA-core kernel was held to). The
+// design keeps the bf16 kernel's: A by ldmatrix.x4 from the stage input in
+// shared memory (rows of K + 4 floats, an odd number of 16-byte units), split
+// once a gather and used for every n8 tile it feeds; B packed by the wrapper
+// in m16n8k8 fragment order (one float32 plane, split once a load; a hi and
+// a lo plane, 16 bytes a lane and no split, measured against it with
+// chain_ablation.py); the trunk handed to the pre 1x1 as it stands in the
+// accumulators (one n8 tile is one k8 A fragment once the wrapper permutes
+// each chunk's rows: fused_subnet.py::HANDOFF_ROWS), each branch tile to the
+// post 1x1 so. Plans, sized for float32 (narrow_plan<Tf32>):
+//  - on chip: the flagship's three small specs, one block of 4-13 warps, the
+//    whole packing and two stage inputs in 51,712-159,616 bytes;
+//  - scratch (its 28 x 28, and the preset's two K 64 specs, whose packing
+//    does not fit on chip): the stage input in shared memory (213,520 B at
+//    28 x 28), the weights streamed through a ring of kSlots bulk copies as
+//    the wide kernel's are (fused_subnet_tf32_ring_kernel), 230,640 B;
+// past the tiles or shared memory the CUDA-core kernel below (wide).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's [kernel]
+// lines, a call of 128 from a CUDA graph, inputs warm in L2): 620.5 us at
+// the flagship's (28, 28, 1) K 64, 0.105 of its bound at 165 TFLOP/s (0.259
+// at 67; the CUDA-core kernel: 2,487-2,502 us in chain_ablation.py
+// --against), 22.4-53.6 us at its three small specs (67-252 us); at 2,048
+// 9,228 us at 28 x 28. What bounds it now: at 28 x 28 the products (three
+// mma and the split a chunk) take about half the launch, and the rest is
+// the skeleton: the ring walked by every warp once a round in four rounds
+// (49 tiles over 16 warps), the trunk and stage-input copies through L2,
+// the entry's and head's fourth round of one tile. What
+// could not be shared with the bf16 scratch plan: its stage buffers of
+// weights (a float32 residual block's 80 KB twice do not fit beside a
+// 213 KB stage input), x's own buffer (so block 0's pre 1x1 goes through
+// the scratch copy), the entry's and head's pairs of tiles and the split of
+// the 49th tile (each warp walks every piece of the ring, so a tile's share
+// would not shorten the walk).
 //
 // The wide variant (entry point fused_subnet_forward_wide; the wrapper picks
 // it by the spec, fused_subnet.py::wide): what the kernels above do not take,
 // as JAX's kernel does (its grid runs over batch tiles of 8 with up to 100 MB
 // of VMEM; it takes any trunk and head width and any number of branches).
-// The narrow bf16 kernel holds the stage input and two stages' weights in
-// shared memory and all K/8 trunk tiles of a pixel tile in registers, so it
-// stops at K 64, out_total 32 and a plan of ~227 KB (narrow_plan); the narrow
-// float32 one at a stage input that fits shared memory; both at
-// kNarrowBranches branches, so that what they take by value stays small.
-//  - float32: the narrow float32 kernel, its stage input and rows in the
-//    sample's slice of the scratch tensor.
+// The narrow kernel holds the stage input in shared memory and all K/8
+// trunk tiles of a pixel tile in registers, so it stops at K 64, out_total
+// 32 and a plan of ~227 KB (narrow_plan), and at kNarrowBranches branches,
+// so that what it takes by value stays small.
+//  - float32: on CUDA cores (float32 FMAs, each thread kRows pixels of one
+//    output channel), its weights flat in flax's HWIO, its stage input and
+//    rows in the sample's slice of the scratch tensor: the first float32
+//    kernel of this port, kept for the capacity preset's two K 128 specs.
 //  - bfloat16, written for Hopper. Bound: operations (the capacity preset's
 //    (28, 28, 1) K 128: 42.4 GFLOP a call of 128, 42.9 us at 989 TFLOP/s,
 //    against 1.6 MB of inputs and outputs). One block a sample, kWideGroups
@@ -205,9 +247,9 @@ constexpr int kBranchTiles = 2;  // narrow bfloat16: branch tiles a walk over th
 // narrow bfloat16, on chip: trunks of at most this many n8 tiles (K <= 32)
 // take an instantiation of the kernel sized to them, two blocks an SM
 constexpr int kChipSmallTiles = 4;
-// narrow bfloat16: chunks of a branch walk held as addresses (the tap table's)
-constexpr int kWalkChunks = 5;
-constexpr int kTapTable = 16 * kNarrowBranches * 2 * kWalkChunks;  // narrow bfloat16: its bytes
+// narrow: slices of a branch walk held as addresses (the tap table's)
+constexpr int kWalkSlices = 10;
+constexpr int kTapTable = 16 * kNarrowBranches * kWalkSlices;  // narrow: its bytes
 static_assert(kPlanHead == 32 + kTapTable, "the mbarriers, then the tap table");
 constexpr int kWideGroups = 4;     // wide bfloat16: warpgroups a block
 constexpr int kWideThreads = 512;  // wide bfloat16: threads a block
@@ -260,7 +302,7 @@ cudaError_t allow_shared(Kernel kernel, bool (&done)[kMaxDevices]) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32 past the narrow kernel (the wide variant): CUDA cores
 // ---------------------------------------------------------------------------
 
 // Offsets, in elements, of each weight and bias in the packed buffers. The
@@ -274,7 +316,7 @@ struct Layout {
   int b_block0, b_block, b_branch[B], b_post, b_head;
   int64_t w_total, b_total;
   int act_bytes, stage_bytes;
-  int scratch_per_sample;  // f32 scratch elements a sample: the trunk (wide: then act, rows)
+  int scratch_per_sample;  // f32 scratch elements a sample: the trunk, then act and rows
 };
 
 // SAME k x k conv at dilation 1 over act (h*w pixels of cs channels) into dst
@@ -324,23 +366,20 @@ __device__ __forceinline__ void tile_1x1(const float* in, int n, int np,
   }
 }
 
-template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 fused_subnet_f32_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                         const float* __restrict__ bias, float* trunk,
-                        float* __restrict__ out, const DimsOf<kWide> d,
-                        const Layout<kWide ? kMaxBranches : kNarrowBranches> L) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                        float* __restrict__ out, const Dims<kMaxBranches> d,
+                        const Layout<kMaxBranches> L) {
   const int hw = d.h * d.w, K = d.K, k = d.ksize, S = L.sum_w;
   const int64_t n = blockIdx.x;
   const float* xs = x + n * hw * d.cin;
   // y, act and stage are written and read back by other threads of the
   // block: plain loads, never the read-only path
   float* y = trunk + n * L.scratch_per_sample;
-  // the stage input and kTile pixel rows: in shared memory, or (wide) in
-  // the sample's scratch after its trunk
-  float* act = kWide ? y + hw * K : reinterpret_cast<float*>(smem);
-  float* stage = kWide ? act + L.act_bytes / 4 : reinterpret_cast<float*>(smem + L.act_bytes);
+  // the stage input and kTile pixel rows, in the sample's scratch after its trunk
+  float* act = y + hw * K;
+  float* stage = act + L.act_bytes / 4;
   float* o = out + n * hw * d.out_total;
 
   for (int e = threadIdx.x; e < hw * d.cin; e += kThreads) act[e] = xs[e];
@@ -425,10 +464,9 @@ fused_subnet_f32_kernel(const float* __restrict__ x, const float* __restrict__ w
   conv_same(d, act, K, wts + L.w_head, bias + L.b_head, d.out_total, o);
 }
 
-// Fills L from d; false for sizes the kernel (wide: its wide variant) does
-// not take.
+// Fills L from d; false for sizes the kernel does not take.
 template <int B>
-bool make_layout(const Dims<B>& d, bool wide, Layout<B>& L) {
+bool make_layout(const Dims<B>& d, Layout<B>& L) {
   if (!dims_ok(d)) return false;
   const int64_t kk = static_cast<int64_t>(d.ksize) * d.ksize;
   int64_t sum_w = 0, branch_w = 0;
@@ -450,9 +488,9 @@ bool make_layout(const Dims<B>& d, bool wide, Layout<B>& L) {
   const int64_t stage_bytes = kTile * (sum_w > d.K ? sum_w : d.K) * 4;
   L.w_total = w_entry + d.res_blocks * w_block + kk * d.K * d.out_total;
   L.b_total = d.K + d.res_blocks * (2 * d.K + sum_w) + d.out_total;
-  const int64_t scratch = hw * d.K + (wide ? (act_bytes + stage_bytes) / 4 : 0);
+  const int64_t scratch = hw * d.K + (act_bytes + stage_bytes) / 4;
   if (L.w_total > INT32_MAX || hw * d.K > INT32_MAX || hw * d.out_total > INT32_MAX ||
-      scratch > INT32_MAX || (!wide && act_bytes + stage_bytes > kMaxShared))
+      scratch > INT32_MAX)
     return false;
   L.scratch_per_sample = static_cast<int>(scratch);
   L.sum_w = static_cast<int>(sum_w);
@@ -470,23 +508,178 @@ bool make_layout(const Dims<B>& d, bool wide, Layout<B>& L) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// tensor cores: the products
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 operands, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+
+// the A fragment at this lane's address `at` (+ 2 bytes a channel of offset)
+__device__ __forceinline__ void fragment_a(uint32_t at, uint32_t (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(at));
+}
+
+// The narrow kernels' product, one of two. A chunk of K is 8 consecutive
+// channels of one tap (a "slice") times kSlices; an A fragment comes from
+// the stage input in shared memory by ldmatrix.x4 (rows padded to an odd
+// number of 16-byte units), a B fragment is one 8-byte load a lane from the
+// wrapper's packing (kFrag elements, 256 bytes, a fragment).
+//  - Bf16: mma.sync m16n8k16, bf16 operands; two slices a chunk, lanes 16-31
+//    of ldmatrix on the second.
+//  - Tf32: the float32 chain on the tensor cores. mma.sync m16n8k8 takes tf32
+//    (10 bits of mantissa; it reads the top 19 bits of each 32-bit operand):
+//    one product would miss the 1e-4 agreement that float32 is held to. Each
+//    operand is split, a = hi + lo with hi = a's top 19 bits (a mask) and lo
+//    = a - hi (exact, and read as tf32: its top 11 significant bits), and a
+//    product is lo*hi + hi*lo + hi*hi, the cross terms summed apart where a
+//    walk has few output tiles (lo*lo, ~2^-20 relative, left out): ~20 bits
+//    of each operand kept, an error of order 2^-19 a product at worst, two
+//    instructions a value. One slice a chunk: ldmatrix's four 8 x 16-byte
+//    matrices are pixels 0-7 and 8-15 of floats 0-3, then of floats 4-7,
+//    which is the m16n8k8 A layout as it stands (lanes 16-31 16 bytes on).
+//    A is split once a gather, B (one float32 plane) once a load.
+struct Bf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kSlices = 2;
+  static constexpr int kFrag = 128;
+  static constexpr int kItem = 2;  // bytes an element
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint2 v;
+  };
+  static __device__ __forceinline__ A load_a(uint32_t at) {
+    A a;
+    fragment_a(at, a.r);
+    return a;
+  }
+  // lane's B fragment `frag` of the stage whose fragments start at w (shared)
+  static __device__ __forceinline__ B load_b(const T* w, int frag) {
+    return B{reinterpret_cast<const uint2*>(w + frag * kFrag)[threadIdx.x & 31]};
+  }
+  static __device__ __forceinline__ void product(float (&c)[4], const A& a, const B& b) {
+    mma(c, a.r, b.v);
+  }
+  // product with a second sum for what Tf32 sums apart (none here)
+  static __device__ __forceinline__ void product(float (&c)[4], float (&)[4], const A& a,
+                                                 const B& b) {
+    mma(c, a.r, b.v);
+  }
+  // from a lane's ldmatrix address in its slice to where it reads
+  static __device__ __forceinline__ uint32_t lane_bytes() { return 0; }
+  static __device__ __forceinline__ void store2(T* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  }
+  static __device__ __forceinline__ T zero() { return __float2bfloat16(0.f); }
+};
+
+struct Tf32 {
+  using T = float;
+  static constexpr int kSlices = 1;
+  static constexpr int kFrag = 64;
+  static constexpr int kItem = 4;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  static __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(v) & 0xffffe000u;
+    lo = __float_as_uint(v - __uint_as_float(hi));
+  }
+  // the A fragment of the m16n8k8 values (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  static __device__ __forceinline__ A split_a(float a0, float a1, float a2, float a3) {
+    A a;
+    split(a0, a.hi[0], a.lo[0]);
+    split(a1, a.hi[1], a.lo[1]);
+    split(a2, a.hi[2], a.lo[2]);
+    split(a3, a.hi[3], a.lo[3]);
+    return a;
+  }
+  // An accumulator tile c of lrelu-ed values as the A fragment of a k8
+  // chunk: a lane holds columns 2t, 2t + 1 of rows g, g + 8, which are A's
+  // columns t and t + 4 once the wrapper has permuted the chunk's rows
+  // (fused_subnet.py::HANDOFF_ROWS)
+  static __device__ __forceinline__ A tile_a(float c0, float c1, float c2, float c3) {
+    return split_a(c0, c2, c1, c3);
+  }
+  static __device__ __forceinline__ A load_a(uint32_t at) {
+    uint32_t r[4];
+    fragment_a(at, r);
+    return split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
+                   __uint_as_float(r[3]));
+  }
+  static __device__ __forceinline__ B load_b(const T* w, int frag) {
+    const float2 v = reinterpret_cast<const float2*>(w + frag * kFrag)[threadIdx.x & 31];
+    B b;
+    split(v.x, b.hi[0], b.lo[0]);
+    split(v.y, b.hi[1], b.lo[1]);
+    return b;
+  }
+  static __device__ __forceinline__ void product(float (&c)[4], const A& a, const B& b) {
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+  // the cross terms into x, hi*hi into c: two chains of products
+  static __device__ __forceinline__ void product(float (&c)[4], float (&x)[4], const A& a,
+                                                 const B& b) {
+    mma_tf32(x, a.lo, b.hi);
+    mma_tf32(x, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+  static __device__ __forceinline__ uint32_t lane_bytes() {
+    return 16 * ((threadIdx.x & 31) >> 4);
+  }
+  static __device__ __forceinline__ void store2(T* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ T zero() { return 0.f; }
+};
+
+// ---------------------------------------------------------------------------
+// tensor cores: the layout
 // ---------------------------------------------------------------------------
 
 // One n8 output tile of a branch: the first channel of its input window (a
-// multiple of 8), the window's 8-channel slices per tap and its k16 chunks
+// multiple of 8), the window's 8-channel slices per tap and its k chunks
 // (both the same for every tile of a branch), and its weights' and biases'
 // offsets within a block.
 struct BranchTile {
   int lo8, q, chunks, w_off, b_off;
 };
 
-// The bf16 packing, derived only in ops/kernels/fused_subnet.py::mma_layout
-// and handed to every launch as a table of ints: weights in one buffer,
-// every stage as [k16 chunk][n8 tile][lane][4] B fragments (kFrag elements
-// each): the entry, then per residual block the pre 1x1, each branch tile in
-// order (branch by branch), the post 1x1; then the head. Biases in one f32
-// buffer, each stage's padded to its n8 tiles.
+// The tensor-core packing, derived only in
+// ops/kernels/fused_subnet.py::mma_layout and handed to every launch as a
+// table of ints: weights in one buffer, every stage as [k chunk][n8 tile]
+// [lane][values] B fragments (the product's kFrag elements each): the entry,
+// then per residual block the pre 1x1, each branch tile in order (branch by
+// branch), the post 1x1; then the head. Biases in one f32 buffer, each
+// stage's padded to its n8 tiles. Offsets count elements of the dtype.
 template <int B>
 struct MmaLayout {
   int Kp, NT, NO;           // trunk width padded to 8, its n8 tiles, the head's
@@ -502,12 +695,12 @@ struct MmaLayout {
   int on_chip;  // 1 where narrow_plan puts the narrow kernel on chip (no scratch)
 };
 
-// The table's scalars that only the wide kernel reads (kept out of MmaLayout,
-// so that the narrow kernel's parameters stay as they were).
+// The table's scalars that the narrow bf16 kernel does not read (kept out of
+// MmaLayout, so that its parameters stay as they were).
 struct WidePlan {
-  int act_in_shared;  // 1 if the stage input lives in shared memory
-  int wide_shared;    // dynamic shared memory a block
-  int n_pieces;       // pieces of one round of every stage (the table's schedule)
+  int act_in_shared;  // bf16 wide: 1 if the stage input lives in shared memory
+  int wide_shared;    // bf16 wide: dynamic shared memory a block
+  int n_pieces;       // pieces of one round of every stage of a ring (the table's schedule)
 };
 static_assert(sizeof(Dims<kMaxBranches>) + sizeof(MmaLayout<kMaxBranches>) + sizeof(WidePlan) +
                       8 * sizeof(void*) <=
@@ -572,11 +765,12 @@ bool wide_plan_ok(const MmaLayout<B>& L, const WidePlan& W) {
   return W.act_in_shared == (fits ? 1 : 0) && W.wide_shared == (fits ? with_act : ring + kSlack);
 }
 
-// The narrow bf16 kernel's plan (fused_subnet.py::narrow_plan): on chip
-// where a warp a 16-pixel tile fits a block and the whole packing and two
-// stage inputs fit shared memory beside the barriers; else the scratch
-// plan, kThreads threads with x, the stage input and two stage buffers of
-// weights in shared memory.
+// The narrow kernel's plan (fused_subnet.py::narrow_plan): on chip where a
+// warp a 16-pixel tile fits a block and the whole packing and two stage
+// inputs fit shared memory beside the barriers, the tap table and the
+// biases; else the scratch plan of kThreads threads: in bf16 x, the stage
+// input and two stage buffers of weights in shared memory; in tf32 the
+// stage input and a ring of kSlots slots of weights.
 struct NarrowPlan {
   bool on_chip;
   int threads;
@@ -597,18 +791,12 @@ __host__ __device__ __forceinline__ int bias_bytes(const MmaLayout<B>& L) {
   return 4 * L.b_total;
 }
 
-// float32 scratch elements a sample of the narrow bf16 kernel: none on chip;
-// else the trunk, then a copy of the stage input's hw rows of ts in bf16
-template <int B>
-__host__ __device__ __forceinline__ int64_t narrow_scratch(const Dims<B>& d,
-                                                           const MmaLayout<B>& L) {
-  return L.on_chip ? 0 : L.trunk_per_sample + static_cast<int64_t>(d.h) * d.w * L.ts / 2;
-}
 
 // The scratch plan's split tiles: its last round of 16-pixel tiles over the
-// warps, where that is one or two tiles and their k16 chunks of the post
-// 1x1 are at most kWarps, each tile's residual blocks split across warps a
-// chunk each (post_share); else 0, and every tile is whole.
+// warps, where that is one or two tiles and their chunks of the post 1x1
+// are at most kWarps, each tile's residual blocks split across warps a chunk
+// each (bf16: post_share, two branch tiles a k16 chunk; tf32: a branch tile
+// a k8 chunk); else 0, and every tile is whole.
 template <int B>
 __host__ __device__ __forceinline__ int split_tiles(const MmaLayout<B>& L) {
   const int tail = L.n_mt % kWarps;
@@ -624,37 +812,52 @@ __host__ __device__ __forceinline__ int64_t x_room(const Dims<B>& d, const MmaLa
   return x > shares ? x : shares;
 }
 
-template <int B>
+// float32 scratch elements a sample of the narrow kernel: none on chip;
+// else the trunk, then a copy of the stage input's hw rows of ts in the
+// dtype, then in tf32 the split tiles' shares of the post 1x1
+template <class Prod, int B>
+__host__ __device__ __forceinline__ int64_t narrow_scratch(const Dims<B>& d,
+                                                           const MmaLayout<B>& L) {
+  if (L.on_chip) return 0;
+  const int64_t shares = Prod::kSlices == 1 ? 128LL * split_tiles(L) * L.ch_post * L.NT : 0;
+  return L.trunk_per_sample + static_cast<int64_t>(d.h) * d.w * L.ts * Prod::kItem / 4 + shares;
+}
+
+template <class Prod, int B>
 NarrowPlan narrow_plan(const Dims<B>& d, const MmaLayout<B>& L) {
   const int64_t head = kPlanHead + bias_bytes(L);
-  const int64_t chip = head + 2LL * L.w_total + 2LL * L.act_bytes;
+  const int64_t chip = head + static_cast<int64_t>(Prod::kItem) * L.w_total + 2LL * L.act_bytes;
   if (L.n_mt <= kWarps && chip <= kMaxShared) return {true, 32 * L.n_mt, chip};
+  if (Prod::kSlices == 1)  // tf32: the ring's barriers, the plan head, the stage input, the ring
+    return {false, kThreads, kBarrierBytes + kPlanHead + L.act_bytes + kSlots * kSlotBytes};
   return {false, kThreads, head + x_room(d, L) + L.act_bytes + 4LL * L.w_stage};
 }
 
-// Whether the kernel (wide: the wide kernel), run with L and the table's
-// tiles on buffers of n_weights and n_biases elements, stays inside them, its
-// shared memory, its tiles and its scratch, and covers every tap, channel and
-// n8 tile of each stage. Checks only: what L computes is held to the chain on
-// the CPU (tests/test_torch_fused_subnet.py) and on the card.
-template <int B>
+// Whether the kernel of product Prod (wide: the wide bf16 kernel), run with
+// L and the table's tiles on buffers of n_weights and n_biases elements,
+// stays inside them, its shared memory, its tiles and its scratch, and covers
+// every tap, channel and n8 tile of each stage. Checks only: what L computes
+// is held to the chain on the CPU (tests/test_torch_fused_subnet.py) and on
+// the card.
+template <class Prod, int B>
 bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const WidePlan& W, const int* tiles,
                    bool wide,
                    int64_t n_weights, int64_t n_biases) {
   const int64_t hw = static_cast<int64_t>(d.h) * d.w, kk = static_cast<int64_t>(d.ksize) * d.ksize;
-  const int64_t f = kFrag, Kp = L.Kp;
+  const int64_t f = Prod::kFrag, Kp = L.Kp, S = Prod::kSlices, item = Prod::kItem;
   const int64_t row = L.xs > L.ts ? L.xs : L.ts;
   const bool sizes =
       dims_ok(d) && L.NT >= 1 && Kp == 8LL * L.NT && Kp >= d.K && L.NO >= 1 &&
       8LL * L.NO >= d.out_total && L.qx >= 1 && 8LL * L.qx >= d.cin && L.xs >= 8LL * L.qx &&
-      L.ts >= Kp && L.xs % 8 == 0 && L.ts % 8 == 0 && hw <= INT32_MAX / 16 &&
+      L.ts >= Kp && L.xs * item % 16 == 0 && L.ts * item % 16 == 0 && hw <= INT32_MAX / 16 &&
       hw * d.out_total <= INT32_MAX && L.n_mt == (hw + 15) / 16 &&
       L.trunk_per_sample == 16 * static_cast<int64_t>(L.n_mt) * Kp &&
-      L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * 2 && wide_plan_ok(L, W);
+      L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * item &&
+      (S == 1 || wide_plan_ok(L, W));
   const bool stages =
-      2LL * L.ch_entry >= kk * L.qx && L.ch_pre == (L.NT + 1) / 2 &&
-      L.ch_post == (L.n_tiles + 1) / 2 && 2LL * L.ch_head >= kk * L.NT &&
-      L.w_block0 == f * L.ch_entry * L.NT && L.w_post % kFrag == 0 &&
+      S * L.ch_entry >= kk * L.qx && L.ch_pre == (L.NT + S - 1) / S &&
+      L.ch_post == (L.n_tiles + S - 1) / S && S * L.ch_head >= kk * L.NT &&
+      L.w_block0 == f * L.ch_entry * L.NT && L.w_post % f == 0 &&
       L.w_post + f * L.ch_post * L.NT == L.w_block &&
       L.w_head == L.w_block0 + d.res_blocks * static_cast<int64_t>(L.w_block) &&
       L.w_total == n_weights && L.w_total - L.w_head == f * L.ch_head * L.NO &&
@@ -663,7 +866,7 @@ bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const WidePlan& W, c
       L.b_head == L.b_block0 + d.res_blocks * static_cast<int64_t>(L.b_block) &&
       L.b_total == n_biases && L.b_total == L.b_head + 8LL * L.NO;
   // the narrow kernel's plan, shared memory, registers and by-value tiles
-  const NarrowPlan P = narrow_plan(d, L);
+  const NarrowPlan P = narrow_plan<Prod>(d, L);
   const bool narrow = L.NT <= kMaxTrunkTiles && L.NO <= kMaxHeadTiles &&
                       L.n_tiles <= B * kMaxTrunkTiles && P.shared <= kMaxShared &&
                       L.on_chip == (P.on_chip ? 1 : 0);
@@ -681,32 +884,14 @@ bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const WidePlan& W, c
     for (int64_t j = t0; j < t0 + nt; ++j) {
       const int* v = tiles + 5 * j;  // lo8, q, chunks, w_off, b_off
       const int64_t lo8 = v[0], q = v[1], chunks = v[2], w_off = v[3], b_off = v[4];
-      if (q != first[1] || chunks != first[2] || q < 1 || 2 * chunks < kk * q ||
-          lo8 % 8 != 0 || lo8 + 8 * q > Kp || w_off < f * L.ch_pre * L.NT || w_off % kFrag != 0 ||
+      if (q != first[1] || chunks != first[2] || q < 1 || S * chunks < kk * q ||
+          lo8 % 8 != 0 || lo8 + 8 * q > Kp || w_off < f * L.ch_pre * L.NT || w_off % f != 0 ||
           w_off + chunks * f > L.w_post || b_off < Kp || b_off + 8 > L.b_post)
         return false;
     }
     next = t0 + nt;
   }
   return next == L.n_tiles;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 sums
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// lane's B fragment `frag` of the stage whose fragments start at `w` (shared)
-__device__ __forceinline__ uint2 frag_b(const __nv_bfloat16* w, int frag) {
-  return reinterpret_cast<const uint2*>(w + frag * kFrag)[threadIdx.x & 31];
 }
 
 // The two pixel rows (g and g + 8) a lane holds of a 16-pixel tile.
@@ -794,13 +979,6 @@ __device__ __forceinline__ uint32_t take_chunk(const D& d, Gather& G) {
   return at;
 }
 
-// the A fragment at this lane's address `at` (+ 2 bytes a channel of offset)
-__device__ __forceinline__ void fragment_a(uint32_t at, uint32_t (&a)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(at));
-}
-
 // bias (f32 buffer at b) of this lane's two columns of n8 tile j
 __device__ __forceinline__ float2 bias2(const float* __restrict__ b, int j) {
   return __ldg(reinterpret_cast<const float2*>(b + 8 * j + 2 * (threadIdx.x & 3)));
@@ -864,7 +1042,7 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, narrow: the flagship's kernel
+// narrow: the flagship's kernel, bf16 and tf32 (Bf16, Tf32)
 // ---------------------------------------------------------------------------
 
 // The narrow kernel's tap walk (Gather's) for kP pixel tiles at once: the
@@ -932,13 +1110,13 @@ __device__ __forceinline__ TilePix<kP> tile_pix(const D& d, const int (&mt)[kP])
 // the walk of a SAME k x k conv (q slices a tap, dilation dil) over the
 // stage input at shared address act (`stride` elements a pixel) for the
 // tiles of P; a tile past the sample reads zeros
-template <int kP, class D>
+template <class Prod, int kP, class D>
 __device__ __forceinline__ TileTaps<kP> taps_at(const D& d, const TilePix<kP>& P, uint32_t act,
                                                 uint32_t zero, int stride, int q, int dil) {
   TileTaps<kP> G;
   G.act = act;
   G.zero = zero;
-  G.stride = 2 * stride;
+  G.stride = Prod::kItem * stride;
   G.q = q;
   G.dil = dil;
   G.pad = dil * (d.ksize - 1) / 2;
@@ -950,51 +1128,52 @@ __device__ __forceinline__ TileTaps<kP> taps_at(const D& d, const TilePix<kP>& P
     G.px[i] = P.px[i];
   }
   taps_locate(d, G);
-  if ((threadIdx.x & 31) >> 4) taps_advance(d, G);  // the chunk's second slice
+  // bf16: lanes 16-31 take the chunk's second slice
+  if (Prod::kSlices == 2 && (threadIdx.x & 31) >> 4) taps_advance(d, G);
   return G;
 }
 
-template <int kP, class D>
+template <class Prod, int kP, class D>
 __device__ __forceinline__ TileTaps<kP> taps_at(const D& d, const int (&mt)[kP], uint32_t act,
                                                 uint32_t zero, int stride, int q, int dil) {
-  return taps_at(d, tile_pix(d, mt), act, zero, stride, q, dil);
+  return taps_at<Prod>(d, tile_pix(d, mt), act, zero, stride, q, dil);
 }
 
 // this lane's ldmatrix address of the next chunk in each tile, and G moved
 // on by a chunk
-template <int kP, class D>
+template <class Prod, int kP, class D>
 __device__ __forceinline__ void taps_take(const D& d, TileTaps<kP>& G, uint32_t (&at)[kP]) {
 #pragma unroll
-  for (int i = 0; i < kP; ++i) at[i] = G.base[i] + 16 * G.c8;
-  taps_advance(d, G);
-  taps_advance(d, G);
+  for (int i = 0; i < kP; ++i) at[i] = G.base[i] + 8 * Prod::kItem * G.c8 + Prod::lane_bytes();
+#pragma unroll
+  for (int s = 0; s < Prod::kSlices; ++s) taps_advance(d, G);
 }
 
 // a[i] <- the A fragment of G's next chunk in tile i, and G moved on by a
 // chunk
-template <int kP, class D>
-__device__ __forceinline__ void next_a(const D& d, TileTaps<kP>& G, uint32_t (&a)[kP][4]) {
+template <class Prod, int kP, class D>
+__device__ __forceinline__ void next_a(const D& d, TileTaps<kP>& G, typename Prod::A (&a)[kP]) {
   uint32_t at[kP];
-  taps_take(d, G, at);
+  taps_take<Prod>(d, G, at);
 #pragma unroll
-  for (int i = 0; i < kP; ++i) fragment_a(at[i], a[i]);
+  for (int i = 0; i < kP; ++i) a[i] = Prod::load_a(at[i]);
 }
 
 // acc[i] += the k x k conv of G's tile i over `chunks` chunks, n8 tiles
 // [0, nt) of the stage at w (shared): each B fragment feeds all kP tiles
-template <int kT, int kP, class D>
+template <class Prod, int kT, int kP, class D>
 __device__ __forceinline__ void conv_k(const D& d, TileTaps<kP> G, int chunks,
-                                       const __nv_bfloat16* w, int nt,
+                                       const typename Prod::T* w, int nt,
                                        float (&acc)[kP][kT][4]) {
   for (int c = 0; c < chunks; ++c) {
-    uint32_t a[kP][4];
-    next_a(d, G, a);
+    typename Prod::A a[kP];
+    next_a<Prod>(d, G, a);
 #pragma unroll
     for (int j = 0; j < kT; ++j) {
       if (j >= nt) break;
-      const uint2 b = frag_b(w, c * nt + j);
+      const typename Prod::B b = Prod::load_b(w, c * nt + j);
 #pragma unroll
-      for (int i = 0; i < kP; ++i) mma(acc[i][j], a[i], b);
+      for (int i = 0; i < kP; ++i) Prod::product(acc[i][j], a[i], b);
     }
   }
 }
@@ -1002,29 +1181,29 @@ __device__ __forceinline__ void conv_k(const D& d, TileTaps<kP> G, int chunks,
 // conv_k for the head (n8 tiles [0, no), no <= kMaxHeadTiles): its few
 // output tiles and many chunks make one chain of mma a tile, so even and odd
 // chunks sum apart, two chains a tile
-template <int kP, class D>
+template <class Prod, int kP, class D>
 __device__ __forceinline__ void head_conv(const D& d, TileTaps<kP> G, int chunks,
-                                          const __nv_bfloat16* w, int no,
+                                          const typename Prod::T* w, int no,
                                           float (&acc)[kP][kMaxHeadTiles][4]) {
   float odd[kP][kMaxHeadTiles][4] = {};
   for (int c = 0; c < chunks; c += 2) {
-    uint32_t a0[kP][4], a1[kP][4];
-    next_a(d, G, a0);
-    next_a(d, G, a1);  // past the last chunk: zero rows, not used
+    typename Prod::A a0[kP], a1[kP];
+    next_a<Prod>(d, G, a0);
+    next_a<Prod>(d, G, a1);  // past the last chunk: zero rows, not used
 #pragma unroll
     for (int j = 0; j < kMaxHeadTiles; ++j) {
       if (j >= no) break;
-      const uint2 b = frag_b(w, c * no + j);
+      const typename Prod::B b = Prod::load_b(w, c * no + j);
 #pragma unroll
-      for (int i = 0; i < kP; ++i) mma(acc[i][j], a0[i], b);
+      for (int i = 0; i < kP; ++i) Prod::product(acc[i][j], a0[i], b);
     }
     if (c + 1 < chunks) {
 #pragma unroll
       for (int j = 0; j < kMaxHeadTiles; ++j) {
         if (j >= no) break;
-        const uint2 b = frag_b(w, (c + 1) * no + j);
+        const typename Prod::B b = Prod::load_b(w, (c + 1) * no + j);
 #pragma unroll
-        for (int i = 0; i < kP; ++i) mma(odd[i][j], a1[i], b);
+        for (int i = 0; i < kP; ++i) Prod::product(odd[i][j], a1[i], b);
       }
     }
   }
@@ -1036,34 +1215,55 @@ __device__ __forceinline__ void head_conv(const D& d, TileTaps<kP> G, int chunks
       for (int e = 0; e < 4; ++e) acc[i][j][e] += odd[i][j][e];
 }
 
-// acc[i] += bf16(lrelu(y[i])) @ the pre 1x1 at w: accumulator tiles 2c and
-// 2c + 1 of y[i] are chunk c's A fragment, all packed before the first mma
-// so that y's registers are free for acc
-template <int kT, int kP>
+// acc[i] += dt(lrelu(y[i])) @ the pre 1x1 at w. bf16: accumulator tiles 2c
+// and 2c + 1 of y[i] are chunk c's A fragment, all packed before the first
+// mma so that y's registers are free for acc. tf32: tile c is chunk c's
+// (Tf32::tile_a), split as the chunk comes (the split fragments are twice
+// y's registers)
+template <class Prod, int kT, int kP>
 __device__ __forceinline__ void pre_1x1(const float (&y)[kP][kT][4], int NT,
-                                        const __nv_bfloat16* w,
+                                        const typename Prod::T* w,
                                         float (&acc)[kP][kT][4]) {
-  uint32_t a[kT / 2][kP][4];
+  if constexpr (Prod::kSlices == 1) {
 #pragma unroll
-  for (int c = 0; c < kT / 2; ++c) {
-    const bool hi = 2 * c + 1 < NT;
+    for (int c = 0; c < kT; ++c) {
+      if (c >= NT) break;
+      typename Prod::A a[kP];
 #pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      a[c][i][0] = pack_bf16(lrelu(y[i][2 * c][0]), lrelu(y[i][2 * c][1]));
-      a[c][i][1] = pack_bf16(lrelu(y[i][2 * c][2]), lrelu(y[i][2 * c][3]));
-      a[c][i][2] = hi ? pack_bf16(lrelu(y[i][2 * c + 1][0]), lrelu(y[i][2 * c + 1][1])) : 0u;
-      a[c][i][3] = hi ? pack_bf16(lrelu(y[i][2 * c + 1][2]), lrelu(y[i][2 * c + 1][3])) : 0u;
+      for (int i = 0; i < kP; ++i)
+        a[i] = Prod::tile_a(lrelu(y[i][c][0]), lrelu(y[i][c][1]), lrelu(y[i][c][2]),
+                            lrelu(y[i][c][3]));
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        if (j >= NT) break;
+        const typename Prod::B b = Prod::load_b(w, c * NT + j);
+#pragma unroll
+        for (int i = 0; i < kP; ++i) Prod::product(acc[i][j], a[i], b);
+      }
     }
-  }
+  } else {
+    uint32_t a[kT / 2][kP][4];
 #pragma unroll
-  for (int c = 0; c < kT / 2; ++c) {
-    if (2 * c >= NT) break;
+    for (int c = 0; c < kT / 2; ++c) {
+      const bool hi = 2 * c + 1 < NT;
 #pragma unroll
-    for (int j = 0; j < kT; ++j) {
-      if (j >= NT) break;
-      const uint2 b = frag_b(w, c * NT + j);
+      for (int i = 0; i < kP; ++i) {
+        a[c][i][0] = pack_bf16(lrelu(y[i][2 * c][0]), lrelu(y[i][2 * c][1]));
+        a[c][i][1] = pack_bf16(lrelu(y[i][2 * c][2]), lrelu(y[i][2 * c][3]));
+        a[c][i][2] = hi ? pack_bf16(lrelu(y[i][2 * c + 1][0]), lrelu(y[i][2 * c + 1][1])) : 0u;
+        a[c][i][3] = hi ? pack_bf16(lrelu(y[i][2 * c + 1][2]), lrelu(y[i][2 * c + 1][3])) : 0u;
+      }
+    }
 #pragma unroll
-      for (int i = 0; i < kP; ++i) mma(acc[i][j], a[c][i], b);
+    for (int c = 0; c < kT / 2; ++c) {
+      if (2 * c >= NT) break;
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        if (j >= NT) break;
+        const uint2 b = Bf16::load_b(w, c * NT + j).v;
+#pragma unroll
+        for (int i = 0; i < kP; ++i) mma(acc[i][j], a[c][i], b);
+      }
     }
   }
 }
@@ -1086,13 +1286,13 @@ __device__ __forceinline__ void add_bias(const float* b, int nt,
   }
 }
 
-// the stage input's rows of tiles mt (stride ts) <- bf16(lrelu(v + b)), b
-// the shared f32 biases of its n8 tiles (none where null), all read before
-// the first row is written
-template <int kT, int kP, class D>
+// the stage input's rows of tiles mt (stride ts) <- dt(lrelu(v + b)), b
+// the f32 biases of its n8 tiles (none where null), all read before the
+// first row is written
+template <class Prod, int kT, int kP, class D>
 __device__ __forceinline__ void put_rows(const D& d, const int (&mt)[kP], int nt, const float* b,
                                          const float (&v)[kP][kT][4],
-                                         __nv_bfloat16* act, int ts) {
+                                         typename Prod::T* act, int ts) {
   const int lane = threadIdx.x & 31;
   float2 bs[kT];
 #pragma unroll
@@ -1109,116 +1309,129 @@ __device__ __forceinline__ void put_rows(const D& d, const int (&mt)[kP], int nt
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (r.ok[h])
-          *reinterpret_cast<uint32_t*>(act + (r.py[h] * d.w + r.px[h]) * ts + ch) =
-              pack_bf16(lrelu(v[i][j][2 * h] + bj.x), lrelu(v[i][j][2 * h + 1] + bj.y));
+          Prod::store2(act + (r.py[h] * d.w + r.px[h]) * ts + ch,
+                       lrelu(v[i][j][2 * h] + bj.x), lrelu(v[i][j][2 * h + 1] + bj.y));
     }
   }
 }
 
 // The branch walks' tap table, one int4 for each branch br and slice s <
-// 2 kWalkChunks of its walk: the slice's byte offset in the stage input
-// (rows of ts) from the pixel, its tap's offset (dy, dx) and, in .w, 16 times
-// its 8-channel slice within the tap and (bit 16) whether the tap exists.
-// Built once a block, so that a walk's addresses take no division.
-template <class D>
+// kWalkSlices of its walk: the slice's byte offset in the stage input (rows
+// of ts) from the pixel, its tap's offset (dy, dx) and, in .w, the slice's
+// bytes from its tap (8 channels a slice) and (bit 16) whether the tap
+// exists. Built once a block, so that a walk's addresses take no division.
+template <class Prod, class D>
 __device__ __forceinline__ void put_taps(const D& d, const MmaLayout<kNarrowBranches>& L,
                                          int4* tab) {
-  for (int e = threadIdx.x; e < d.nd * 2 * kWalkChunks; e += blockDim.x) {
-    const int br = e / (2 * kWalkChunks), s = e - br * 2 * kWalkChunks;
+  for (int e = threadIdx.x; e < d.nd * kWalkSlices; e += blockDim.x) {
+    const int br = e / kWalkSlices, s = e - br * kWalkSlices;
     const int q = L.tile[L.br_tile0[br]].q, dil = d.dil[br], pad = dil * (d.ksize - 1) / 2;
     const int tap = s / q, c8 = s - tap * q, ty = tap / d.ksize, tx = tap - ty * d.ksize;
     const int dy = ty * dil - pad, dx = tx * dil - pad;
-    tab[e] = make_int4(2 * ((dy * d.w + dx) * L.ts + 8 * c8), dy, dx,
-                       16 * c8 | (tap < d.ksize * d.ksize ? 1 << 16 : 0));
+    tab[e] = make_int4(Prod::kItem * ((dy * d.w + dx) * L.ts + 8 * c8), dy, dx,
+                       8 * Prod::kItem * c8 | (tap < d.ksize * d.ksize ? 1 << 16 : 0));
   }
 }
 
-// u[i] += the post 1x1's k16 chunk c, whose A fragment is a[i], from the
+// u[i] += the post 1x1's chunk c, whose A fragment is a[i], from the
 // residual block's weights at wb
-template <int kT, int kP>
+template <class Prod, int kT, int kP>
 __device__ __forceinline__ void post_chunk(const MmaLayout<kNarrowBranches>& L,
-                                           const __nv_bfloat16* wb, int c,
-                                           const uint32_t (&a)[kP][4],
+                                           const typename Prod::T* wb, int c,
+                                           const typename Prod::A (&a)[kP],
                                            float (&u)[kP][kT][4]) {
 #pragma unroll
   for (int j = 0; j < kT; ++j) {
     if (j >= L.NT) break;
-    const uint2 b = frag_b(wb + L.w_post, c * L.NT + j);
+    const typename Prod::B b = Prod::load_b(wb + L.w_post, c * L.NT + j);
 #pragma unroll
-    for (int i = 0; i < kP; ++i) mma(u[i][j], a[i], b);
+    for (int i = 0; i < kP; ++i) Prod::product(u[i][j], a[i], b);
   }
 }
 
+// chunks of a branch walk whose addresses a warp holds: the tap table's
+// kWalkSlices slices (5 k16 chunks in bf16, 10 k8 chunks in tf32)
+template <class Prod>
+constexpr int kWalk = kWalkSlices / Prod::kSlices;
+
 // at[c][i]: this lane's ldmatrix address in chunk c < chunks (at most
-// kWalkChunks) of branch br's walk over tile i of P, from the tap table
-template <int kP, class D>
+// kWalk<Prod>) of branch br's walk over tile i of P, from the tap table
+template <class Prod, int kP, class D>
 __device__ __forceinline__ void walk_at(const D& d, const MmaLayout<kNarrowBranches>& L,
                                         const int4* tab, const TilePix<kP>& P, uint32_t act,
                                         uint32_t zero, int br, int chunks,
-                                        uint32_t (&at)[kWalkChunks][kP]) {
-  const int4* tb = tab + br * 2 * kWalkChunks + ((threadIdx.x & 31) >> 4);
+                                        uint32_t (&at)[kWalk<Prod>][kP]) {
+  // bf16: lanes 16-31 read the chunk's second slice
+  const int4* tb =
+      tab + br * kWalkSlices + (Prod::kSlices == 2 ? (threadIdx.x & 31) >> 4 : 0);
   uint32_t base[kP];
 #pragma unroll
-  for (int i = 0; i < kP; ++i) base[i] = act + (P.py[i] * d.w + P.px[i]) * 2 * L.ts;
+  for (int i = 0; i < kP; ++i) base[i] = act + (P.py[i] * d.w + P.px[i]) * Prod::kItem * L.ts;
 #pragma unroll
-  for (int c = 0; c < kWalkChunks; ++c) {
+  for (int c = 0; c < kWalk<Prod>; ++c) {
     if (c >= chunks) break;
-    const int4 e = tb[2 * c];
+    const int4 e = tb[Prod::kSlices * c];
 #pragma unroll
     for (int i = 0; i < kP; ++i) {
       const unsigned iy = P.py[i] + e.y, ix = P.px[i] + e.z;
       const bool in = P.ok[i] && (e.w >> 16) && iy < static_cast<unsigned>(d.h) &&
                       ix < static_cast<unsigned>(d.w);
-      at[c][i] = in ? base[i] + e.x : zero + (e.w & 0xffff);
+      at[c][i] = (in ? base[i] + e.x : zero + (e.w & 0xffff)) + Prod::lane_bytes();
     }
   }
 }
 
 // s[k][i] += the grouped conv of branch br over tile i of P into its branch
 // tiles g + k (k < ng <= kG), weights at wb: from the held addresses at
-// (chunks <= kWalkChunks: nothing but ldmatrix, the B fragment and mma a
-// product), else from a walk taken chunk by chunk
-template <int kP, int kG, class D>
+// (chunks <= kWalk: nothing but ldmatrix, the B fragment and the product),
+// else from a walk taken chunk by chunk
+template <class Prod, int kP, int kG, class D>
 __device__ __forceinline__ void branch_group(const D& d, const MmaLayout<kNarrowBranches>& L,
                                              const TilePix<kP>& P, uint32_t act, uint32_t zero,
-                                             const __nv_bfloat16* wb, int br, int g, int ng,
-                                             int chunks, const uint32_t (&at)[kWalkChunks][kP],
+                                             const typename Prod::T* wb, int br, int g, int ng,
+                                             int chunks, const uint32_t (&at)[kWalk<Prod>][kP],
                                              float (&s)[kG][kP][4]) {
   uint32_t lo[kG];
-  const __nv_bfloat16* w[kG];
+  const typename Prod::T* w[kG];
 #pragma unroll
   for (int k = 0; k < kG; ++k) {
     const int gk = g + min(k, ng - 1);
-    lo[k] = 2 * L.tile[gk].lo8;
+    lo[k] = Prod::kItem * L.tile[gk].lo8;
     w[k] = wb + L.tile[gk].w_off;
   }
+  float x[kG][kP][4] = {};  // tf32: the cross terms, summed apart
   // s[k] += chunk c's products with the A fragment at ac + each tile's window
   auto chunk = [&](int c, const uint32_t (&ac)[kP]) {
 #pragma unroll
     for (int k = 0; k < kG; ++k) {
       if (k >= ng) break;
-      const uint2 b = frag_b(w[k], c);
+      const typename Prod::B b = Prod::load_b(w[k], c);
 #pragma unroll
-      for (int i = 0; i < kP; ++i) {
-        uint32_t a[4];
-        fragment_a(ac[i] + lo[k], a);
-        mma(s[k][i], a, b);
-      }
+      for (int i = 0; i < kP; ++i)
+        Prod::product(s[k][i], x[k][i], Prod::load_a(ac[i] + lo[k]), b);
     }
   };
-  if (chunks <= kWalkChunks) {
+  if (chunks <= kWalk<Prod>) {
 #pragma unroll
-    for (int c = 0; c < kWalkChunks; ++c) {
+    for (int c = 0; c < kWalk<Prod>; ++c) {
       if (c >= chunks) break;
       chunk(c, at[c]);
     }
   } else {
-    TileTaps<kP> G = taps_at(d, P, act, zero, L.ts, L.tile[g].q, d.dil[br]);
+    TileTaps<kP> G = taps_at<Prod>(d, P, act, zero, L.ts, L.tile[g].q, d.dil[br]);
     for (int c = 0; c < chunks; ++c) {
       uint32_t a_at[kP];
-      taps_take(d, G, a_at);
+      taps_take<Prod>(d, G, a_at);
       chunk(c, a_at);
     }
+  }
+  if constexpr (Prod::kSlices == 1) {
+#pragma unroll
+    for (int k = 0; k < kG; ++k)
+#pragma unroll
+      for (int i = 0; i < kP; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[k][i][e] += x[k][i][e];
   }
 }
 
@@ -1231,63 +1444,80 @@ __device__ __forceinline__ uint2 branch_out(const MmaLayout<kNarrowBranches>& L,
                     pack_bf16(lrelu(s[2] + b.x), lrelu(s[3] + b.y)));
 }
 
+// tf32: lrelu(s + branch tile gt's biases, at bb) as the A fragment of the
+// post 1x1's chunk gt (Tf32::tile_a)
+__device__ __forceinline__ Tf32::A branch_a(const MmaLayout<kNarrowBranches>& L, const float* bb,
+                                            int gt, const float (&s)[4]) {
+  const float2 b = bias_pair(bb + L.tile[gt].b_off, 0);
+  return Tf32::tile_a(lrelu(s[0] + b.x), lrelu(s[1] + b.y), lrelu(s[2] + b.x),
+                      lrelu(s[3] + b.y));
+}
+
 // u[i] += the residual block's branches and post 1x1 at tiles mt, weights
-// at wb (shared) and biases at bb: s = bf16(lrelu(gconv(t) + bb)) of the
+// at wb (shared) and biases at bb: s = dt(lrelu(gconv(t) + bb)) of the
 // branch tiles kG at a time (one walk over the chunks feeds them, and each
-// B fragment all kP pixel tiles), two finished tiles a k16 chunk of the post
-// 1x1's A operand, multiplied into u straight away: no branch output leaves
-// registers
-template <int kT, int kP, int kG, class D>
+// B fragment all kP pixel tiles) multiplied into u straight away, no branch
+// output leaving registers: in bf16 two finished tiles a k16 chunk of the
+// post 1x1's A operand, in tf32 each tile a k8 chunk
+template <class Prod, int kT, int kP, int kG, class D>
 __device__ __forceinline__ void branches_post(const D& d, const MmaLayout<kNarrowBranches>& L,
                                               const int4* tab, const int (&mt)[kP],
                                               uint32_t act, uint32_t zero,
-                                              const __nv_bfloat16* wb, const float* bb,
+                                              const typename Prod::T* wb, const float* bb,
                                               float (&u)[kP][kT][4]) {
-  uint32_t pend[kP][2] = {};  // an even tile's fragment half, waiting for its pair
+  uint32_t pend[kP][2] = {};  // bf16: an even tile's fragment half, waiting for its pair
   const TilePix<kP> P = tile_pix(d, mt);
   for (int br = 0; br < d.nd; ++br) {
     const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br];
     const int chunks = L.tile[t0].chunks;
     // a short walk's addresses, once for all the branch's tiles
-    uint32_t at[kWalkChunks][kP];
-    if (chunks <= kWalkChunks) walk_at(d, L, tab, P, act, zero, br, chunks, at);
+    uint32_t at[kWalk<Prod>][kP];
+    if (chunks <= kWalk<Prod>) walk_at<Prod>(d, L, tab, P, act, zero, br, chunks, at);
     for (int g = t0; g < end; g += kG) {
       const int ng = min(kG, end - g);
       float s[kG][kP][4] = {};
-      branch_group(d, L, P, act, zero, wb, br, g, ng, chunks, at, s);
+      branch_group<Prod>(d, L, P, act, zero, wb, br, g, ng, chunks, at, s);
 #pragma unroll
       for (int k = 0; k < kG; ++k) {
         if (k >= ng) break;
         const int gt = g + k;
-        uint32_t a[kP][4];
+        typename Prod::A a[kP];
+        if constexpr (Prod::kSlices == 1) {
 #pragma unroll
-        for (int i = 0; i < kP; ++i) {
-          const uint2 o = branch_out(L, bb, gt, s[k][i]);
-          a[i][0] = pend[i][0];
-          a[i][1] = pend[i][1];
-          a[i][2] = pend[i][0] = o.x;
-          a[i][3] = pend[i][1] = o.y;
+          for (int i = 0; i < kP; ++i) a[i] = branch_a(L, bb, gt, s[k][i]);
+          post_chunk<Prod>(L, wb, gt, a, u);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kP; ++i) {
+            const uint2 o = branch_out(L, bb, gt, s[k][i]);
+            a[i].r[0] = pend[i][0];
+            a[i].r[1] = pend[i][1];
+            a[i].r[2] = pend[i][0] = o.x;
+            a[i].r[3] = pend[i][1] = o.y;
+          }
+          if (gt % 2) post_chunk<Prod>(L, wb, gt / 2, a, u);
         }
-        if (gt % 2) post_chunk(L, wb, gt / 2, a, u);
       }
     }
   }
-  if (L.n_tiles % 2) {
-    uint32_t a[kP][4];
+  if constexpr (Prod::kSlices == 2) {
+    if (L.n_tiles % 2) {
+      typename Prod::A a[kP];
 #pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      a[i][0] = pend[i][0];
-      a[i][1] = pend[i][1];
-      a[i][2] = a[i][3] = 0u;
+      for (int i = 0; i < kP; ++i) {
+        a[i].r[0] = pend[i][0];
+        a[i].r[1] = pend[i][1];
+        a[i].r[2] = a[i].r[3] = 0u;
+      }
+      post_chunk<Prod>(L, wb, L.n_tiles / 2, a, u);
     }
-    post_chunk(L, wb, L.n_tiles / 2, a, u);
   }
 }
 
 // part = tile mt's share of the post 1x1 from its k16 chunk c alone: the
 // chunk's two branch tiles (2c, 2c + 1, each from its own branch), then
-// their rows of the post 1x1. The scratch plan splits a tile of its last
-// round so across warps (narrow_split); the shares add up to branches_post.
+// their rows of the post 1x1. The bf16 scratch plan splits a tile of its
+// last round so across warps; the shares add up to branches_post.
 template <int kT, class D>
 __device__ __forceinline__ void post_share(const D& d, const MmaLayout<kNarrowBranches>& L,
                                            const int4* tab, int mt, uint32_t act, uint32_t zero,
@@ -1295,7 +1525,7 @@ __device__ __forceinline__ void post_share(const D& d, const MmaLayout<kNarrowBr
                                            float (&part)[1][kT][4]) {
   const int mts[1] = {mt};
   const TilePix<1> P = tile_pix(d, mts);
-  uint32_t a[1][4] = {};
+  Bf16::A a[1] = {};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int gt = 2 * c + h;
@@ -1303,15 +1533,15 @@ __device__ __forceinline__ void post_share(const D& d, const MmaLayout<kNarrowBr
     int br = 0;
     while (br + 1 < d.nd && gt >= L.br_tile0[br + 1]) ++br;
     const int chunks = L.tile[gt].chunks;
-    uint32_t at[kWalkChunks][1];
-    if (chunks <= kWalkChunks) walk_at(d, L, tab, P, act, zero, br, chunks, at);
+    uint32_t at[kWalk<Bf16>][1];
+    if (chunks <= kWalk<Bf16>) walk_at<Bf16>(d, L, tab, P, act, zero, br, chunks, at);
     float s[1][1][4] = {};
-    branch_group(d, L, P, act, zero, wb, br, gt, 1, chunks, at, s);
+    branch_group<Bf16>(d, L, P, act, zero, wb, br, gt, 1, chunks, at, s);
     const uint2 o = branch_out(L, bb, gt, s[0][0]);
-    a[0][2 * h] = o.x;
-    a[0][2 * h + 1] = o.y;
+    a[0].r[2 * h] = o.x;
+    a[0].r[2 * h + 1] = o.y;
   }
-  post_chunk(L, wb, c, a, part);
+  post_chunk<Bf16>(L, wb, c, a, part);
 }
 
 // the trunk of tiles mt, in accumulator layout in the sample's scratch y
@@ -1372,19 +1602,18 @@ __device__ __forceinline__ void put_head(const D& d, const int (&mt)[kP], int no
   }
 }
 
-// x of the sample (hw pixels of cin) -> bf16 rows of `stride` in shared
-// memory, channels zero-padded to 8 qx: a thread a pixel, its channels'
-// loads started together
-template <class D>
+// x of the sample (hw pixels of cin) -> rows of `stride` in the dtype in
+// shared memory, channels zero-padded to 8 qx: a thread a pixel, its
+// channels' loads started together
+template <class Prod, class D>
 __device__ __forceinline__ void put_x(const D& d, const float* __restrict__ xs, int qx,
-                                      int stride, __nv_bfloat16* dst) {
+                                      int stride, typename Prod::T* dst) {
   const int hw = d.h * d.w;
   for (int p = threadIdx.x; p < hw; p += blockDim.x) {
     const float* px = xs + p * d.cin;
-    uint32_t* row = reinterpret_cast<uint32_t*>(dst + p * stride);
     for (int c = 0; c < 8 * qx; c += 2)
-      row[c / 2] = pack_bf16(c < d.cin ? __ldg(px + c) : 0.f,
-                             c + 1 < d.cin ? __ldg(px + c + 1) : 0.f);
+      Prod::store2(dst + p * stride + c, c < d.cin ? __ldg(px + c) : 0.f,
+                   c + 1 < d.cin ? __ldg(px + c + 1) : 0.f);
   }
 }
 
@@ -1410,63 +1639,68 @@ __device__ __forceinline__ int2 weight_stage(const Dims<B>& d, const MmaLayout<B
 // buffers by turns: x in act[0], block r's t in act[(r + 1) % 2], the head's
 // input in act[(res_blocks + 1) % 2]. A buffer is written only once every
 // warp has passed the barrier after its last reading, so one barrier a
-// stage is enough.
-template <int kT>
-__global__ void __launch_bounds__(kThreads, kT <= kChipSmallTiles ? 2 : 1)
-fused_subnet_mma_chip_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
+// stage is enough. Trunks of up to kChipSmallTiles n8 tiles take a build
+// sized to them, which in bf16 two blocks an SM can hold (a float32 plan
+// fits one).
+template <class Prod, int kT>
+__global__ void __launch_bounds__(kThreads, Prod::kSlices == 2 && kT <= kChipSmallTiles ? 2 : 1)
+fused_subnet_mma_chip_kernel(const float* __restrict__ x,
+                             const typename Prod::T* __restrict__ wts,
                              const float* __restrict__ bias, float* __restrict__ out,
                              const Dims<kNarrowBranches> d, const MmaLayout<kNarrowBranches> L) {
+  using T = typename Prod::T;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t bar = shared_addr(smem);
-  const int nb = bias_bytes(L);
+  const int nb = bias_bytes(L), w_bytes = Prod::kItem * L.w_total;
   int4* tab = reinterpret_cast<int4*>(smem + kPlanHead - kTapTable);
   float* sb = reinterpret_cast<float*>(smem + kPlanHead);
-  const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(smem + kPlanHead + nb);
-  __nv_bfloat16* acts[2];
-  acts[0] = reinterpret_cast<__nv_bfloat16*>(smem + kPlanHead + nb + 2 * L.w_total);
-  acts[1] = acts[0] + L.act_bytes / 2;
+  const T* w = reinterpret_cast<const T*>(smem + kPlanHead + nb);
+  T* acts[2];
+  acts[0] = reinterpret_cast<T*>(smem + kPlanHead + nb + w_bytes);
+  acts[1] = acts[0] + L.act_bytes / Prod::kItem;
   const int hw = d.h * d.w, NT = L.NT, row = L.xs > L.ts ? L.xs : L.ts;
   const int64_t n = blockIdx.x;
   if (threadIdx.x == 0) {
     barrier_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    barrier_expect(bar, 2 * L.w_total);
-    bulk_copy(shared_addr(w), wts, 2 * L.w_total, bar);
+    barrier_expect(bar, w_bytes);
+    bulk_copy(shared_addr(w), wts, w_bytes, bar);
   }
   // a row of zeros after x's rows: what a padding pixel reads, in any stage
-  for (int e = threadIdx.x; e < row; e += blockDim.x) acts[0][hw * row + e] = __float2bfloat16(0.f);
-  put_x(d, x + n * hw * d.cin, L.qx, L.xs, acts[0]);
+  for (int e = threadIdx.x; e < row; e += blockDim.x) acts[0][hw * row + e] = Prod::zero();
+  put_x<Prod>(d, x + n * hw * d.cin, L.qx, L.xs, acts[0]);
   put_biases(bias, L.b_total, sb);
-  put_taps(d, L, tab);
+  put_taps<Prod>(d, L, tab);
   __syncthreads();
   barrier_wait(bar, 0);
 
-  const uint32_t zero = shared_addr(acts[0]) + 2 * hw * row;
+  const uint32_t zero = shared_addr(acts[0]) + Prod::kItem * hw * row;
   const int mt[1] = {static_cast<int>(threadIdx.x >> 5)};
   // entry conv: y = conv_k(x) + entry_b
   float y[1][kT][4] = {};
-  conv_k(d, taps_at(d, mt, shared_addr(acts[0]), zero, L.xs, L.qx, 1), L.ch_entry, w, NT, y);
+  conv_k<Prod>(d, taps_at<Prod>(d, mt, shared_addr(acts[0]), zero, L.xs, L.qx, 1), L.ch_entry,
+               w, NT, y);
   add_bias(sb, NT, y);
   for (int blk = 0; blk < d.res_blocks; ++blk) {
-    const __nv_bfloat16* wb = w + L.w_block0 + blk * L.w_block;
+    const T* wb = w + L.w_block0 + blk * L.w_block;
     const float* bb = sb + L.b_block0 + blk * L.b_block;
-    __nv_bfloat16* t = acts[(blk + 1) & 1];
-    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b))
+    T* t = acts[(blk + 1) & 1];
+    // pre 1x1: t = dt(lrelu(dt(lrelu(y)) @ pre_w + pre_b))
     float acc[1][kT][4] = {};
-    pre_1x1(y, NT, wb, acc);
-    put_rows(d, mt, NT, bb, acc, t, L.ts);
+    pre_1x1<Prod>(y, NT, wb, acc);
+    put_rows<Prod>(d, mt, NT, bb, acc, t, L.ts);
     __syncthreads();
     // branches and post 1x1 into the trunk: y = y + u + post_b
-    branches_post<kT, 1, kBranchTiles>(d, L, tab, mt, shared_addr(t), zero, wb, bb, y);
+    branches_post<Prod, kT, 1, kBranchTiles>(d, L, tab, mt, shared_addr(t), zero, wb, bb, y);
     add_bias(bb + L.b_post, NT, y);
   }
-  // head: t = bf16(lrelu(y)); out = conv_k(t) + head_b
-  __nv_bfloat16* t = acts[(d.res_blocks + 1) & 1];
-  put_rows(d, mt, NT, nullptr, y, t, L.ts);
+  // head: t = dt(lrelu(y)); out = conv_k(t) + head_b
+  T* t = acts[(d.res_blocks + 1) & 1];
+  put_rows<Prod>(d, mt, NT, nullptr, y, t, L.ts);
   __syncthreads();
   float acc[1][kMaxHeadTiles][4] = {};
-  head_conv(d, taps_at(d, mt, shared_addr(t), zero, L.ts, NT, 1), L.ch_head, w + L.w_head, L.NO,
-            acc);
+  head_conv<Prod>(d, taps_at<Prod>(d, mt, shared_addr(t), zero, L.ts, NT, 1), L.ch_head,
+                  w + L.w_head, L.NO, acc);
   put_head(d, mt, L.NO, sb + L.b_head, acc, out + n * hw * d.out_total);
 }
 
@@ -1524,10 +1758,10 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
     shares_done[0] = shares_done[1] = 0;
   }
   for (int e = threadIdx.x; e < row; e += kThreads) act[hw * row + e] = __float2bfloat16(0.f);
-  put_x(d, x + n * hw * d.cin, L.qx, L.xs, xsm);
+  put_x<Bf16>(d, x + n * hw * d.cin, L.qx, L.xs, xsm);
   put_biases(bias, L.b_total, sb);
-  put_taps(d, L, tab);
-  float4* y = trunk + n * (narrow_scratch(d, L) / 4);
+  put_taps<Bf16>(d, L, tab);
+  float4* y = trunk + n * (narrow_scratch<Bf16>(d, L) / 4);
   // the next stage input, rows of ts as in shared memory
   __nv_bfloat16* t_next = reinterpret_cast<__nv_bfloat16*>(y + L.trunk_per_sample / 4);
   const int t_bytes = 2 * hw * L.ts;
@@ -1549,8 +1783,8 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
     for (int i = 0; i < kE; ++i) mt[i] = u * kE + i;
     float v[kE][kMaxTrunkTiles][4] = {};
-    conv_k(d, taps_at(d, mt, shared_addr(xsm), zero, L.xs, L.qx, 1), L.ch_entry, stage_w(0), NT,
-           v);
+    conv_k<Bf16>(d, taps_at<Bf16>(d, mt, shared_addr(xsm), zero, L.xs, L.qx, 1), L.ch_entry,
+                 stage_w(0), NT, v);
     add_bias(sb, NT, v);
     store_trunk(y, NT, L.n_mt, mt, v);
 #pragma unroll
@@ -1562,10 +1796,10 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
         for (int e = 0; e < 4; ++e) vi[0][j][e] = v[i][j][e];
       if (R > 0) {
-        pre_1x1(vi, NT, stage_w(1), acc);
-        put_rows(d, mi, NT, sb + L.b_block0, acc, act, L.ts);
+        pre_1x1<Bf16>(vi, NT, stage_w(1), acc);
+        put_rows<Bf16>(d, mi, NT, sb + L.b_block0, acc, act, L.ts);
       } else {
-        put_rows(d, mi, NT, nullptr, vi, act, L.ts);
+        put_rows<Bf16>(d, mi, NT, nullptr, vi, act, L.ts);
       }
     }
   }
@@ -1584,12 +1818,12 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
     auto finish = [&](const int (&mt)[1], float (&v)[1][kMaxTrunkTiles][4]) {
       add_bias(bb + L.b_post, NT, v);
       if (last) {
-        put_rows(d, mt, NT, nullptr, v, t_next, L.ts);
+        put_rows<Bf16>(d, mt, NT, nullptr, v, t_next, L.ts);
       } else {
         store_trunk(y, NT, L.n_mt, mt, v);
         float acc[1][kMaxTrunkTiles][4] = {};
-        pre_1x1(v, NT, stage_w(s + 1), acc);
-        put_rows(d, mt, NT, bb + L.b_block, acc, t_next, L.ts);
+        pre_1x1<Bf16>(v, NT, stage_w(s + 1), acc);
+        put_rows<Bf16>(d, mt, NT, bb + L.b_block, acc, t_next, L.ts);
       }
     };
     // branches and post 1x1, the products summed into the trunk's tiles as
@@ -1598,8 +1832,8 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
       const int mt[1] = {u};
       float v[1][kMaxTrunkTiles][4];
       load_trunk(y, NT, L.n_mt, mt, v);
-      branches_post<kMaxTrunkTiles, 1, kBranchTiles>(d, L, tab, mt, act_s, zero, stage_w(s), bb,
-                                                     v);
+      branches_post<Bf16, kMaxTrunkTiles, 1, kBranchTiles>(d, L, tab, mt, act_s, zero,
+                                                           stage_w(s), bb, v);
       finish(mt, v);
     }
     // ... then the last round's split tiles, a k16 chunk of the post 1x1 a
@@ -1658,7 +1892,8 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
     for (int i = 0; i < kHeadPairTiles; ++i) mt[i] = u * kHeadPairTiles + i;
     float acc[kHeadPairTiles][kMaxHeadTiles][4] = {};
-    head_conv(d, taps_at(d, mt, act_s, zero, L.ts, NT, 1), L.ch_head, stage_w(R + 1), L.NO, acc);
+    head_conv<Bf16>(d, taps_at<Bf16>(d, mt, act_s, zero, L.ts, NT, 1), L.ch_head, stage_w(R + 1),
+                    L.NO, acc);
     put_head(d, mt, L.NO, sb + L.b_head, acc, o);
   }
 }
@@ -1902,14 +2137,16 @@ inline int schedule_entry(const int* lens, int stages, int rounds, int p) {
 // the device's). So no warp is kept back to feed the ring (a
 // 17th warp would put 5 on one of the SM's four sub-partitions, whose 16,384
 // registers would then give each thread 96), and a slot is refilled the
-// moment it is free.
+// moment it is free. The tf32 scratch plan's kernel walks its own ring so,
+// its weights float32 (T).
+template <class T>
 struct Ring {
   uint32_t slots, full;
   int* freed;
   int k;  // the next piece to take
   int n;  // pieces of the whole chain
   const int* sched;  // (element offset, bytes) a piece
-  const __nv_bfloat16* w;
+  const T* w;
   __device__ __forceinline__ uint32_t slot() const { return slots + (k % kSlots) * kSlotBytes; }
   // one lane: piece p into its slot
   __device__ __forceinline__ void issue(int p) const {
@@ -1925,7 +2162,7 @@ struct Ring {
     if ((threadIdx.x & 31) == 0) {
       const int s = k % kSlots;
       __threadfence_block();
-      if (atomicAdd(freed + s, 1) == kWideWarps - 1) {
+      if (atomicAdd(freed + s, 1) == kWideWarps - 1) {  // every warp of the block
         freed[s] = 0;
         __threadfence_block();
         if (k + kSlots < n) issue(k + kSlots);
@@ -1934,6 +2171,8 @@ struct Ring {
     ++k;
   }
 };
+
+using WideRing = Ring<__nv_bfloat16>;
 
 // Where a k x k conv's A fragments come from: the stage input in dt, in
 // shared memory (act_s, its row of zeros at zero_s) or in scratch (act).
@@ -1995,7 +2234,7 @@ struct Taps<false> {
 template <bool kShared, class D>
 __device__ __forceinline__ void conv_pass(const D& d, const StageIn& in, int mt, int stride, int q,
                                           int ch, int NTs, int j0, int nt, bool active,
-                                          Ring& ring, float (&acc)[4 * kPassTiles]) {
+                                          WideRing& ring, float (&acc)[4 * kPassTiles]) {
 #pragma unroll
   for (int i = 0; i < 4 * kPassTiles; ++i) acc[i] = 0.f;
   Taps<kShared> A;
@@ -2020,7 +2259,7 @@ __device__ __forceinline__ void conv_pass(const D& d, const StageIn& in, int mt,
 
 // u += the post 1x1's k16 chunk whose A fragment is a (two branch tiles'
 // outputs), its B the ring's next piece
-__device__ __forceinline__ void post_piece(Ring& ring, bool active, int nt,
+__device__ __forceinline__ void post_piece(WideRing& ring, bool active, int nt,
                                            const uint32_t (&a)[4], float (&u)[4 * kPassTiles]) {
   ring.wait();
   if (active) {
@@ -2054,7 +2293,7 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
   int* freed = reinterpret_cast<int*>(smem + 8 * kSlots);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rounds = wide_rounds(L);
-  Ring ring{slots, full, freed, 0, rounds * W.n_pieces, tiles + 5 * L.n_tiles, wts};
+  WideRing ring{slots, full, freed, 0, rounds * W.n_pieces, tiles + 5 * L.n_tiles, wts};
   if (threadIdx.x == 0) {
     for (int s = 0; s < kSlots; ++s) {
       barrier_init(full + 8 * s, 1);
@@ -2327,6 +2566,399 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// tf32, narrow: the scratch plan
+// ---------------------------------------------------------------------------
+
+constexpr int kSlotFrags = kSlotBytes / (4 * Tf32::kFrag);  // B fragments a slot holds
+static_assert(kWarps == kWideWarps, "the ring counts every warp of the block out of a slot");
+static_assert(kWalkSlices <= kSlotFrags, "a walk whose addresses a warp holds is one piece");
+
+// the ring's slot of the piece being taken (slot0: its first slot, in shared memory)
+__device__ __forceinline__ const float* ring_slot(const Ring<float>& ring, const float* slot0) {
+  return slot0 + (ring.k % kSlots) * (kSlotBytes / 4);
+}
+
+// acc += the k x k conv of G's tile over ch k8 chunks into n8 tiles [0, nts)
+// of a stage whose B fragments come through the ring, as many whole chunks a
+// piece as a slot holds; a warp without a tile (mine false) only walks the ring
+template <int kT, class D>
+__device__ __forceinline__ void ring_conv(const D& d, Ring<float>& ring, const float* slot0,
+                                          bool mine, TileTaps<1> G, int ch, int nts,
+                                          float (&acc)[1][kT][4]) {
+  const int per = kSlotFrags / nts;
+  for (int c0 = 0; c0 < ch; c0 += per) {
+    ring.wait();
+    if (mine) {
+      const float* w = ring_slot(ring, slot0);
+      const int end = min(c0 + per, ch);
+      for (int c = c0; c < end; ++c) {
+        Tf32::A a[1];
+        next_a<Tf32>(d, G, a);
+#pragma unroll
+        for (int j = 0; j < kT; ++j) {
+          if (j >= nts) break;
+          Tf32::product(acc[0][j], a[0], Tf32::load_b(w, (c - c0) * nts + j));
+        }
+      }
+    }
+    ring.release();
+  }
+}
+
+// acc = the head's k x k conv of G's tile over ch k8 chunks into its n8
+// tiles [0, no), B through the ring as in ring_conv: its few output tiles
+// make one chain of products a tile, so even and odd chunks and the cross
+// terms sum apart, four chains a tile
+template <class D>
+__device__ __forceinline__ void ring_head(const D& d, Ring<float>& ring, const float* slot0,
+                                          bool mine, TileTaps<1> G, int ch, int no,
+                                          float (&acc)[1][kMaxHeadTiles][4]) {
+  float odd[kMaxHeadTiles][4] = {}, x[2][kMaxHeadTiles][4] = {};
+  const int per = kSlotFrags / no;
+  for (int c0 = 0; c0 < ch; c0 += per) {
+    ring.wait();
+    if (mine) {
+      const float* w = ring_slot(ring, slot0);
+      const int end = min(c0 + per, ch);
+      for (int c = c0; c < end; c += 2) {
+        Tf32::A a0[1], a1[1];
+        next_a<Tf32>(d, G, a0);
+#pragma unroll
+        for (int j = 0; j < kMaxHeadTiles; ++j) {
+          if (j >= no) break;
+          Tf32::product(acc[0][j], x[0][j], a0[0], Tf32::load_b(w, (c - c0) * no + j));
+        }
+        if (c + 1 < end) {  // the walk moves on by a chunk only where the piece has one
+          next_a<Tf32>(d, G, a1);
+#pragma unroll
+          for (int j = 0; j < kMaxHeadTiles; ++j) {
+            if (j >= no) break;
+            Tf32::product(odd[j], x[1][j], a1[0], Tf32::load_b(w, (c + 1 - c0) * no + j));
+          }
+        }
+      }
+    }
+    ring.release();
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxHeadTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][j][e] += odd[j][e] + (x[0][j][e] + x[1][j][e]);
+}
+
+// acc += lrelu(y) @ the pre 1x1, NT k8 chunks (Tf32::tile_a) whose B comes
+// through the ring
+template <int kT>
+__device__ __forceinline__ void ring_pre(Ring<float>& ring, const float* slot0, bool mine,
+                                         const float (&y)[1][kT][4], int NT,
+                                         float (&acc)[1][kT][4]) {
+  const int per = kSlotFrags / NT;
+  int cp = 0;  // c's chunk within its piece
+#pragma unroll
+  for (int c = 0; c < kT; ++c, cp = cp + 1 == per ? 0 : cp + 1) {
+    if (c >= NT) break;
+    if (cp == 0) ring.wait();
+    if (mine) {
+      const float* w = ring_slot(ring, slot0);
+      const Tf32::A a =
+          Tf32::tile_a(lrelu(y[0][c][0]), lrelu(y[0][c][1]), lrelu(y[0][c][2]), lrelu(y[0][c][3]));
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        if (j >= NT) break;
+        Tf32::product(acc[0][j], a, Tf32::load_b(w, cp * NT + j));
+      }
+    }
+    if (cp == per - 1 || c + 1 == NT) ring.release();
+  }
+}
+
+// s += branch tile gt's grouped conv over the tile of P, its k8 chunks
+// through the ring (a slot of them a piece): where the walk is short, from
+// the held addresses at, even and odd chunks into s[0] and s[1] and their
+// cross terms into x[0] and x[1] (four chains of products); else from a walk
+// taken chunk by chunk
+template <class D>
+__device__ __forceinline__ void ring_branch(const D& d, const MmaLayout<kNarrowBranches>& L,
+                                            Ring<float>& ring, const float* slot0, bool mine,
+                                            const TilePix<1>& P, uint32_t act, uint32_t zero,
+                                            int br, int gt,
+                                            const uint32_t (&at)[kWalk<Tf32>][1],
+                                            float (&s)[2][4], float (&x)[2][4]) {
+  const int chunks = L.tile[gt].chunks;
+  const uint32_t lo = Tf32::kItem * L.tile[gt].lo8;
+  if (chunks <= kWalk<Tf32>) {
+    ring.wait();
+    if (mine) {
+      const float* w = ring_slot(ring, slot0);
+#pragma unroll
+      for (int c = 0; c < kWalk<Tf32>; ++c) {
+        if (c >= chunks) break;
+        Tf32::product(s[c & 1], x[c & 1], Tf32::load_a(at[c][0] + lo), Tf32::load_b(w, c));
+      }
+    }
+    ring.release();
+    return;
+  }
+  TileTaps<1> G = taps_at<Tf32>(d, P, act, zero, L.ts, L.tile[gt].q, d.dil[br]);
+  for (int c0 = 0; c0 < chunks; c0 += kSlotFrags) {
+    ring.wait();
+    if (mine) {
+      const float* w = ring_slot(ring, slot0);
+      const int end = min(c0 + kSlotFrags, chunks);
+      for (int c = c0; c < end; ++c) {
+        uint32_t a_at[1];
+        taps_take<Tf32>(d, G, a_at);
+        Tf32::product(s[0], x[0], Tf32::load_a(a_at[0] + lo), Tf32::load_b(w, c - c0));
+      }
+    }
+    ring.release();
+  }
+}
+
+// The tf32 scratch plan (fused_subnet.py::narrow_plan, float32): one block a
+// sample, kThreads threads, a 16-pixel tile a warp a round in every phase.
+// Shared memory: the ring's barriers and counters (kBarrierBytes), the plan
+// head (the stage input's mbarrier, then the tap table), the stage input and
+// its row of zeros (x at first), then the ring's kSlots slots, through which
+// every phase's weights stream once a round (Ring: refilled by the warp that
+// frees a slot last, in the order of the wrapper's schedule,
+// fused_subnet.py::wide_schedule, which the entry checks against ring_walk).
+// The biases are read from device memory: at 28 x 28 they do not fit beside
+// the ring. The f32 trunk lives in the sample's scratch in the accumulator
+// layout, each lane reading and writing only its own float4s. Phases: the
+// entry with block 0's pre 1x1; each residual block (its branches and post
+// 1x1 on each tile's trunk, then the next block's pre 1x1, or the head's
+// lrelu(y)); the head. Each phase but the head writes the next stage input
+// to the sample's scratch copy, which one bulk copy brings into the stage
+// input after the phase's barrier (x has no buffer of its own here, so block
+// 0's pre 1x1 takes that way too).
+__global__ void __launch_bounds__(kThreads, 1)
+fused_subnet_tf32_ring_kernel(const float* __restrict__ x, const float* __restrict__ wts,
+                              const float* __restrict__ bias, float4* trunk,
+                              float* __restrict__ out, const Dims<kNarrowBranches> d,
+                              const MmaLayout<kNarrowBranches> L, const int* __restrict__ sched,
+                              int n_pieces) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t full = shared_addr(smem), act_bar = full + kBarrierBytes;
+  int* freed = reinterpret_cast<int*>(smem + 8 * kSlots);
+  int* shares_done = reinterpret_cast<int*>(smem + kBarrierBytes + 8);  // a count a split tile
+  int4* tab = reinterpret_cast<int4*>(smem + kBarrierBytes + kPlanHead - kTapTable);
+  float* act = reinterpret_cast<float*>(smem + kBarrierBytes + kPlanHead);
+  const float* slot0 =
+      reinterpret_cast<const float*>(smem + kBarrierBytes + kPlanHead + L.act_bytes);
+  const int R = d.res_blocks, hw = d.h * d.w, NT = L.NT, row = L.xs > L.ts ? L.xs : L.ts;
+  const int warp = threadIdx.x >> 5, rounds = (L.n_mt + kWarps - 1) / kWarps;
+  const int64_t n = blockIdx.x;
+  Ring<float> ring{shared_addr(slot0), full, freed, 0, n_pieces, sched, wts};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      barrier_init(full + 8 * s, 1);
+      freed[s] = 0;
+    }
+    barrier_init(act_bar, 1);
+    shares_done[0] = shares_done[1] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int p = 0; p < kSlots && p < ring.n; ++p) ring.issue(p);
+  }
+  for (int e = threadIdx.x; e < row; e += kThreads) act[hw * row + e] = 0.f;
+  put_x<Tf32>(d, x + n * hw * d.cin, L.qx, L.xs, act);
+  put_taps<Tf32>(d, L, tab);
+  float4* y = trunk + n * (narrow_scratch<Tf32>(d, L) / 4);
+  // the next stage input, rows of ts as in shared memory; then the split
+  // tiles' shares of the post 1x1 (NT n8 tiles of f32 a lane each)
+  float* t_next = reinterpret_cast<float*>(y + L.trunk_per_sample / 4);
+  float4* shares = reinterpret_cast<float4*>(t_next + hw * L.ts);
+  const int t_bytes = 4 * hw * L.ts;
+  float* o = out + n * hw * d.out_total;
+  const uint32_t act_s = shared_addr(act), zero = act_s + 4 * hw * row;
+  // once every warp is past the phase: the scratch copy into the stage input
+  auto next_stage = [&]() {
+    // the copy's writes, made by this thread, before the bulk copy reads them
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      barrier_expect(act_bar, t_bytes);
+      bulk_copy(act_s, t_next, t_bytes, act_bar);
+    }
+  };
+  __syncthreads();
+
+  // entry conv: y = conv_k(x) + entry_b; then block 0's pre 1x1 on it (the
+  // head's input where there is no block) into the scratch copy
+  for (int r = 0; r < rounds; ++r) {
+    const int mt[1] = {r * kWarps + warp};
+    const bool mine = mt[0] < L.n_mt;
+    float v[1][kMaxTrunkTiles][4] = {};
+    ring_conv(d, ring, slot0, mine, taps_at<Tf32>(d, mt, act_s, zero, L.xs, L.qx, 1), L.ch_entry,
+              NT, v);
+    add_bias(bias, NT, v);
+    if (R > 0) {
+      if (mine) store_trunk(y, NT, L.n_mt, mt, v);
+      float acc[1][kMaxTrunkTiles][4] = {};
+      ring_pre(ring, slot0, mine, v, NT, acc);
+      if (mine) put_rows<Tf32>(d, mt, NT, bias + L.b_block0, acc, t_next, L.ts);
+    } else if (mine) {
+      put_rows<Tf32>(d, mt, NT, nullptr, v, t_next, L.ts);
+    }
+  }
+  next_stage();
+
+  // the residual blocks' whole tiles, then (split) the last round's one or
+  // two tiles split across warps, a branch tile and its post 1x1 chunk each
+  const int split = split_tiles(L), whole = L.n_mt - split, n_shares = split * L.ch_post;
+  for (int blk = 0; blk < R; ++blk) {
+    const bool last = blk + 1 == R;
+    const float* bb = bias + L.b_block0 + blk * L.b_block;
+    barrier_wait(act_bar, blk & 1);
+    for (int r = 0; r < rounds; ++r) {
+      const bool split_round = split > 0 && r + 1 == rounds;
+      // a warp's tile, or in the split round its share's tile and branch tile
+      const int ti = warp / L.ch_post, share_gt = warp - ti * L.ch_post;
+      const int mt[1] = {split_round ? whole + (warp < n_shares ? ti : 0) : r * kWarps + warp};
+      const bool mine = split_round ? warp < n_shares : mt[0] < whole;
+      // y = y + u + post_b: each branch tile's output, lrelu(gconv(t) + bb),
+      // a k8 chunk of the post 1x1 multiplied into the trunk's tiles as soon
+      // as its pair is done, two chunks a piece (in the split round into the
+      // share, which starts at zero)
+      float v[1][kMaxTrunkTiles][4] = {};
+      if (!split_round) load_trunk(y, NT, L.n_mt, mt, v);
+      const TilePix<1> P = tile_pix(d, mt);
+      Tf32::A pend{};  // an even tile's output, waiting for its pair
+      bool pend_on = false;
+      for (int br = 0; br < d.nd; ++br) {
+        const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br];
+        uint32_t at[kWalk<Tf32>][1];
+        if (L.tile[t0].chunks <= kWalk<Tf32>)
+          walk_at<Tf32>(d, L, tab, P, act_s, zero, br, L.tile[t0].chunks, at);
+        for (int gt = t0; gt < end; ++gt) {
+          const bool on = mine && (!split_round || gt == share_gt);
+          float s[2][4] = {}, x[2][4] = {};
+          ring_branch(d, L, ring, slot0, on, P, act_s, zero, br, gt, at, s, x);
+          Tf32::A a{};
+          if (on) {
+            float sum[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[e] = (s[0][e] + s[1][e]) + (x[0][e] + x[1][e]);
+            a = branch_a(L, bb, gt, sum);
+          }
+          if (gt % 2 == 0 && gt + 1 < L.n_tiles) {
+            pend = a;
+            pend_on = on;
+            continue;
+          }
+          ring.wait();  // post 1x1 chunks gt - gt % 2 .. gt
+          const float* w = ring_slot(ring, slot0);
+          if (gt % 2 && pend_on) {
+#pragma unroll
+            for (int j = 0; j < kMaxTrunkTiles; ++j) {
+              if (j >= NT) break;
+              Tf32::product(v[0][j], pend, Tf32::load_b(w, j));
+            }
+          }
+          if (on) {
+#pragma unroll
+            for (int j = 0; j < kMaxTrunkTiles; ++j) {
+              if (j >= NT) break;
+              Tf32::product(v[0][j], a, Tf32::load_b(w, (gt % 2) * NT + j));
+            }
+          }
+          ring.release();
+        }
+      }
+      bool done = mine;  // this warp finishes its tile's block
+      if (split_round) {
+        // each share to the sample's scratch; the warp that writes a tile's
+        // last share adds them up in branch-tile order (whatever the order
+        // they came in) onto the trunk
+        done = false;
+        if (mine) {
+          const int lane = threadIdx.x & 31;
+#pragma unroll
+          for (int j = 0; j < kMaxTrunkTiles; ++j)
+            if (j < NT) shares[(warp * NT + j) * 32 + lane] =
+                make_float4(v[0][j][0], v[0][j][1], v[0][j][2], v[0][j][3]);
+          __syncwarp();
+          int before = 0;
+          if (lane == 0) {
+            __threadfence_block();
+            before = atomicAdd(shares_done + ti, 1);
+          }
+          done = __shfl_sync(0xffffffffu, before, 0) == L.ch_post - 1;
+          if (done) {
+            __syncwarp();
+            __threadfence_block();
+            load_trunk(y, NT, L.n_mt, mt, v);
+            for (int g = 0; g < L.ch_post; ++g) {
+#pragma unroll
+              for (int j = 0; j < kMaxTrunkTiles; ++j) {
+                if (j >= NT) break;
+                const float4 p = shares[((ti * L.ch_post + g) * NT + j) * 32 + lane];
+                v[0][j][0] += p.x;
+                v[0][j][1] += p.y;
+                v[0][j][2] += p.z;
+                v[0][j][3] += p.w;
+              }
+            }
+            if (lane == 0) shares_done[ti] = 0;
+          }
+        }
+      }
+      add_bias(bb + L.b_post, NT, v);
+      if (last) {
+        if (done) put_rows<Tf32>(d, mt, NT, nullptr, v, t_next, L.ts);
+      } else {
+        if (done) store_trunk(y, NT, L.n_mt, mt, v);
+        float acc[1][kMaxTrunkTiles][4] = {};
+        ring_pre(ring, slot0, done, v, NT, acc);
+        if (done) put_rows<Tf32>(d, mt, NT, bb + L.b_block, acc, t_next, L.ts);
+      }
+    }
+    next_stage();
+  }
+
+  // head: out = conv_k(t) + head_b, t = lrelu(y) in the stage input
+  barrier_wait(act_bar, R & 1);
+  for (int r = 0; r < rounds; ++r) {
+    const int mt[1] = {r * kWarps + warp};
+    const bool mine = mt[0] < L.n_mt;
+    float acc[1][kMaxHeadTiles][4] = {};
+    ring_head(d, ring, slot0, mine, taps_at<Tf32>(d, mt, act_s, zero, L.ts, NT, 1), L.ch_head,
+              L.NO, acc);
+    if (mine) put_head(d, mt, L.NO, bias + L.b_head, acc, o);
+  }
+}
+
+// Every piece fused_subnet_tf32_ring_kernel's warps take from its ring, in
+// their order, to piece(element offset, bytes): its phases, rounds, branch
+// tiles, the post 1x1's chunks two branch tiles at a time and the pre 1x1's. On the host: the schedule the wrapper
+// hands over is checked against it.
+template <class Piece>
+void ring_walk(const Dims<kNarrowBranches>& d, const MmaLayout<kNarrowBranches>& L, Piece piece) {
+  const int rounds = (L.n_mt + kWarps - 1) / kWarps, R = d.res_blocks, F = Tf32::kFrag;
+  auto chunks = [&](int64_t w, int ch, int nts) {
+    const int per = kSlotFrags / nts;
+    for (int c0 = 0; c0 < ch; c0 += per)
+      piece(w + static_cast<int64_t>(c0) * nts * F, (ch - c0 < per ? ch - c0 : per) * nts * 4 * F);
+  };
+  for (int r = 0; r < rounds; ++r) {
+    chunks(0, L.ch_entry, L.NT);
+    if (R > 0) chunks(L.w_block0, L.ch_pre, L.NT);
+  }
+  for (int blk = 0; blk < R; ++blk) {
+    const int64_t wb = L.w_block0 + static_cast<int64_t>(blk) * L.w_block;
+    for (int r = 0; r < rounds; ++r) {
+      for (int i = 0; i < L.n_tiles; ++i) {
+        chunks(wb + L.tile[i].w_off, L.tile[i].chunks, 1);
+        if (i % 2 || i + 1 == L.n_tiles)  // post 1x1 chunks i - i % 2 .. i
+          chunks(wb + L.w_post + static_cast<int64_t>(i - i % 2) * L.NT * F, 1 + i % 2, L.NT);
+      }
+      if (blk + 1 < R) chunks(wb + L.w_block, L.ch_pre, L.NT);
+    }
+  }
+  for (int r = 0; r < rounds; ++r) chunks(L.w_head, L.ch_head, L.NO);
+}
+
 // Every piece the kernel's warps take from the ring, in their order, to
 // piece(element offset, bytes): each loop here is one of
 // fused_subnet_mma_wide_kernel's (its stages, rounds, passes, branch groups
@@ -2370,14 +3002,14 @@ void walk_pieces(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, 
   trunk_stage(L.w_head, L.ch_head, L.NO);
 }
 
-// Whether the table's schedule, the n_sched ints after its tiles, is
-// walk_pieces' order: 2 + 2 res_blocks stage lengths adding up to n_pieces,
-// then as many (element offset, bytes) pairs, every piece a multiple of 16
-// bytes, at most a slot, inside the weights.
-bool schedule_matches(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, int n_pieces,
-                      const int* tiles, int64_t n_sched) {
-  const int stages = 2 + 2 * d.res_blocks, rounds = wide_rounds(L);
-  const int* lens = tiles + 5 * L.n_tiles;
+// Whether the table's schedule, the n_sched ints at lens (after its tiles),
+// is the order in which walk(piece) visits a ring's pieces over `rounds`
+// rounds: `stages` stage lengths adding up to n_pieces, then as many
+// (element offset, bytes) pairs, every piece a multiple of 16 bytes, at most
+// a slot, inside the weights (of `item` bytes an element).
+template <int B, class Walk>
+bool schedule_matches(const MmaLayout<B>& L, int stages, int rounds, int n_pieces,
+                      const int* lens, int64_t n_sched, int item, Walk walk) {
   if (n_sched != stages + 2 * static_cast<int64_t>(n_pieces)) return false;
   int64_t sum = 0;
   for (int s = 0; s < stages; ++s) {
@@ -2387,99 +3019,123 @@ bool schedule_matches(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>
   if (sum != n_pieces || static_cast<int64_t>(rounds) * n_pieces > INT32_MAX) return false;
   int64_t k = 0;
   bool ok = true;
-  walk_pieces(d, L, tiles, [&](int64_t src, int bytes) {
+  walk([&](int64_t src, int bytes) {
     const int* piece =
         lens + stages + 2 * schedule_entry(lens, stages, rounds, static_cast<int>(k));
     ok = ok && k < static_cast<int64_t>(rounds) * n_pieces && piece[0] == src &&
          piece[1] == bytes && bytes > 0 && bytes % 16 == 0 && bytes <= kSlotBytes &&
-         src % 8 == 0 && src + bytes / 2 <= L.w_total;
+         src * item % 16 == 0 && src + bytes / item <= L.w_total;
     ++k;
   });
   return ok && k == static_cast<int64_t>(rounds) * n_pieces;
 }
 
-template <bool kWide>
+// The float32 wide variant: the CUDA-core kernel on flat HWIO weights.
 int launch_f32(const void* x, const void* wts, const void* bias, void* trunk, void* out,
-               int batch, const DimsOf<kWide>& d, int64_t n_weights, int64_t n_biases,
+               int batch, const Dims<kMaxBranches>& d, int64_t n_weights, int64_t n_biases,
                int64_t n_trunk, cudaStream_t stream) {
-  Layout<kWide ? kMaxBranches : kNarrowBranches> L;
-  if (batch < 1 || !make_layout(d, kWide, L) || L.w_total != n_weights ||
-      L.b_total != n_biases || n_trunk < static_cast<int64_t>(batch) * L.scratch_per_sample)
+  Layout<kMaxBranches> L;
+  if (batch < 1 || !make_layout(d, L) || L.w_total != n_weights || L.b_total != n_biases ||
+      n_trunk < static_cast<int64_t>(batch) * L.scratch_per_sample)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(wts);
-  const float* bf = static_cast<const float*>(bias);
-  float* tf = static_cast<float*>(trunk);
-  float* of = static_cast<float*>(out);
-  if constexpr (kWide) {
-    fused_subnet_f32_kernel<true><<<batch, kThreads, 0, stream>>>(xf, wf, bf, tf, of, d, L);
-  } else {
-    static bool limit_set[kMaxDevices] = {};
-    cudaError_t err = allow_shared(fused_subnet_f32_kernel<false>, limit_set);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fused_subnet_f32_kernel<false><<<batch, kThreads, L.act_bytes + L.stage_bytes, stream>>>(
-        xf, wf, bf, tf, of, d, L);
-  }
+  fused_subnet_f32_kernel<<<batch, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wts),
+      static_cast<const float*>(bias), static_cast<float*>(trunk), static_cast<float*>(out), d,
+      L);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kWide>
-int launch_bf16(const void* x, const void* wts, const void* bias, void* trunk, void* out,
-                int batch, const DimsOf<kWide>& d, int64_t n_weights, int64_t n_biases,
-                int64_t n_trunk, const int* table, int n_table, const int* device_table,
-                cudaStream_t stream) {
-  MmaLayout<kWide ? kMaxBranches : kNarrowBranches> L{};
+// The narrow tensor-core kernel of product Prod on the plan narrow_plan
+// picks: on chip (the build sized to the trunk), or the scratch plan (bf16:
+// two stage buffers of weights; tf32: the ring, its schedule checked against
+// ring_walk and read from device_table).
+template <class Prod>
+int launch_narrow(const void* x, const void* wts, const void* bias, void* trunk, void* out,
+                  int batch, const Dims<kNarrowBranches>& d, int64_t n_weights, int64_t n_biases,
+                  int64_t n_trunk, const int* table, int n_table, const int* device_table,
+                  cudaStream_t stream) {
+  MmaLayout<kNarrowBranches> L{};
   WidePlan W{};
   if (batch < 1 || !read_mma_layout(table, n_table, L, W) ||
-      !mma_layout_ok(d, L, W, table + kTableTiles, kWide, n_weights, n_biases))
+      !mma_layout_ok<Prod>(d, L, W, table + kTableTiles, false, n_weights, n_biases) ||
+      n_trunk < static_cast<int64_t>(batch) * narrow_scratch<Prod>(d, L))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t per_sample = kWide ? wide_scratch(L, W) : narrow_scratch(d, L);
-  if (n_trunk < static_cast<int64_t>(batch) * per_sample)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kWide) {
-    if (device_table == nullptr ||
-        !schedule_matches(d, L, W.n_pieces, table + kTableTiles,
-                          n_table - kTableTiles - 5 * L.n_tiles))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  using T = typename Prod::T;
   const float* xf = static_cast<const float*>(x);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wts);
+  const T* wt = static_cast<const T*>(wts);
   const float* bf = static_cast<const float*>(bias);
   float* of = static_cast<float*>(out);
-  const NarrowPlan P = narrow_plan(d, L);
-  if constexpr (kWide) {
-    static bool limit_set[2][kMaxDevices] = {};
-    float* sf = static_cast<float*>(trunk);
-    const int* tiles = device_table + kTableTiles;
-    if (W.act_in_shared) {
-      cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<true>, limit_set[1]);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      fused_subnet_mma_wide_kernel<true><<<batch, kWideThreads, W.wide_shared, stream>>>(
-          xf, wb, bf, sf, of, d, L, W, tiles, per_sample);
-    } else {
-      cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<false>, limit_set[0]);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      fused_subnet_mma_wide_kernel<false><<<batch, kWideThreads, W.wide_shared, stream>>>(
-          xf, wb, bf, sf, of, d, L, W, tiles, per_sample);
-    }
-  } else if (L.on_chip && L.NT <= kChipSmallTiles) {
+  const NarrowPlan P = narrow_plan<Prod>(d, L);
+  if (L.on_chip && L.NT <= kChipSmallTiles) {
     static bool limit_set[kMaxDevices] = {};
-    cudaError_t err = allow_shared(fused_subnet_mma_chip_kernel<kChipSmallTiles>, limit_set);
+    cudaError_t err = allow_shared(fused_subnet_mma_chip_kernel<Prod, kChipSmallTiles>, limit_set);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_subnet_mma_chip_kernel<kChipSmallTiles>
-        <<<batch, P.threads, P.shared, stream>>>(xf, wb, bf, of, d, L);
+    fused_subnet_mma_chip_kernel<Prod, kChipSmallTiles>
+        <<<batch, P.threads, P.shared, stream>>>(xf, wt, bf, of, d, L);
   } else if (L.on_chip) {
     static bool limit_set[kMaxDevices] = {};
-    cudaError_t err = allow_shared(fused_subnet_mma_chip_kernel<kMaxTrunkTiles>, limit_set);
+    cudaError_t err = allow_shared(fused_subnet_mma_chip_kernel<Prod, kMaxTrunkTiles>, limit_set);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_subnet_mma_chip_kernel<kMaxTrunkTiles>
-        <<<batch, P.threads, P.shared, stream>>>(xf, wb, bf, of, d, L);
-  } else {
+    fused_subnet_mma_chip_kernel<Prod, kMaxTrunkTiles>
+        <<<batch, P.threads, P.shared, stream>>>(xf, wt, bf, of, d, L);
+  } else if constexpr (Prod::kSlices == 2) {
     static bool limit_set[kMaxDevices] = {};
     cudaError_t err = allow_shared(fused_subnet_mma_kernel, limit_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     fused_subnet_mma_kernel<<<batch, P.threads, P.shared, stream>>>(
-        xf, wb, bf, static_cast<float4*>(trunk), of, d, L);
+        xf, wt, bf, static_cast<float4*>(trunk), of, d, L);
+  } else {
+    const int rounds = (L.n_mt + kWarps - 1) / kWarps;
+    const int* lens = table + kTableTiles + 5 * L.n_tiles;
+    if (device_table == nullptr ||
+        !schedule_matches(L, 2 + d.res_blocks, rounds, W.n_pieces, lens,
+                          n_table - kTableTiles - 5 * L.n_tiles, Prod::kItem,
+                          [&](auto piece) { ring_walk(d, L, piece); }))
+      return static_cast<int>(cudaErrorInvalidValue);
+    static bool limit_set[kMaxDevices] = {};
+    cudaError_t err = allow_shared(fused_subnet_tf32_ring_kernel, limit_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_tf32_ring_kernel<<<batch, P.threads, P.shared, stream>>>(
+        xf, wt, bf, static_cast<float4*>(trunk), of, d, L,
+        device_table + kTableTiles + 5 * L.n_tiles, rounds * W.n_pieces);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 wide kernel, the stage input in shared memory where it fits.
+int launch_wide(const void* x, const void* wts, const void* bias, void* trunk, void* out,
+                int batch, const Dims<kMaxBranches>& d, int64_t n_weights, int64_t n_biases,
+                int64_t n_trunk, const int* table, int n_table, const int* device_table,
+                cudaStream_t stream) {
+  MmaLayout<kMaxBranches> L{};
+  WidePlan W{};
+  if (batch < 1 || !read_mma_layout(table, n_table, L, W) ||
+      !mma_layout_ok<Bf16>(d, L, W, table + kTableTiles, true, n_weights, n_biases))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_sample = wide_scratch(L, W);
+  const int* tiles = table + kTableTiles;
+  if (n_trunk < static_cast<int64_t>(batch) * per_sample || device_table == nullptr ||
+      !schedule_matches(L, 2 + 2 * d.res_blocks, wide_rounds(L), W.n_pieces,
+                        tiles + 5 * L.n_tiles, n_table - kTableTiles - 5 * L.n_tiles,
+                        Bf16::kItem, [&](auto piece) { walk_pieces(d, L, tiles, piece); }))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wts);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  static bool limit_set[2][kMaxDevices] = {};
+  float* sf = static_cast<float*>(trunk);
+  const int* on_card = device_table + kTableTiles;
+  if (W.act_in_shared) {
+    cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<true>, limit_set[1]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_mma_wide_kernel<true><<<batch, kWideThreads, W.wide_shared, stream>>>(
+        xf, wb, bf, sf, of, d, L, W, on_card, per_sample);
+  } else {
+    cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<false>, limit_set[0]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_subnet_mma_wide_kernel<false><<<batch, kWideThreads, W.wide_shared, stream>>>(
+        xf, wb, bf, sf, of, d, L, W, on_card, per_sample);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2498,13 +3154,20 @@ int launch(const void* x, const void* weights, const void* biases, void* trunk, 
            int batch, const DimsOf<kWide>& d, int dtype, long long n_weights,
            long long n_biases, long long n_trunk, const int* table, int n_table,
            const int* device_table, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_f32<kWide>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
-                             n_trunk, stream);
-  if (dtype == 1)
-    return launch_bf16<kWide>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
-                              n_trunk, table, n_table, device_table, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kWide) {
+    if (dtype == 0)
+      return launch_f32(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk,
+                        stream);
+    return launch_wide(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk,
+                       table, n_table, device_table, stream);
+  } else {
+    if (dtype == 0)
+      return launch_narrow<Tf32>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
+                                 n_trunk, table, n_table, device_table, stream);
+    return launch_narrow<Bf16>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
+                               n_trunk, table, n_table, device_table, stream);
+  }
 }
 
 // The entry points' common part: the dilations checked and copied into the
@@ -2526,29 +3189,31 @@ int forward(const void* x, const void* weights, const void* biases, void* trunk,
 
 // x (batch, h, w, cin) f32; weights: the packed dt kernels (n_weights
 // elements); biases: the packed f32 biases (n_biases); trunk: f32 scratch of
-// n_trunk elements; out (batch, h, w, out_total) f32. dtype: 0 = float32,
-// 1 = bfloat16 (the type of weights and of the products' operands; each has
-// its own packing). dilations: the n_dil branches' dilations (at most
-// kNarrowBranches; the wide entry takes kMaxBranches). table, n_table: the
-// bfloat16 layout
-// (fused_subnet.py::layout_table), which the float32 instantiation does not
-// read.
+// n_trunk elements; out (batch, h, w, out_total) f32. dtype: 0 = float32
+// (tf32 products), 1 = bfloat16 (the type of weights and of the products'
+// operands; each has its own packing). dilations: the n_dil branches'
+// dilations (at most kNarrowBranches; the wide entry takes kMaxBranches).
+// table, n_table: the tensor-core layout (fused_subnet.py::layout_table);
+// device_table: a copy of it in device memory with its ring's schedule
+// written out (fused_subnet.py::_layout_table_on), which the float32 scratch
+// plan reads (null elsewhere).
 extern "C" int fused_subnet_forward(const void* x, const void* weights, const void* biases,
                                     void* trunk, void* out, int batch, int h, int w, int cin,
                                     int kernels, int res_blocks, int cardinality, int ksize,
                                     int n_dil, const int* dilations, int out_total, int dtype,
                                     long long n_weights, long long n_biases, long long n_trunk,
-                                    const int* table, int n_table, void* stream) {
+                                    const int* table, int n_table, const int* device_table,
+                                    void* stream) {
   const Dims<kNarrowBranches> d{h, w, cin, kernels, res_blocks, cardinality, ksize, 0,
                                 out_total, {}};
   return forward<false>(x, weights, biases, trunk, out, batch, d, n_dil, dilations, dtype,
-                        n_weights, n_biases, n_trunk, table, n_table, nullptr, stream);
+                        n_weights, n_biases, n_trunk, table, n_table, device_table, stream);
 }
 
 // The wide variant (the source note), with fused_subnet_forward's arguments;
 // trunk is the wide scratch (fused_subnet.py::trunk_elements), and
 // device_table, for bfloat16, a copy of `table` in device memory, from which
-// the kernel reads the branch tiles.
+// the kernel reads the branch tiles; float32 reads no table (flat weights).
 extern "C" int fused_subnet_forward_wide(const void* x, const void* weights, const void* biases,
                                          void* trunk, void* out, int batch, int h, int w,
                                          int cin, int kernels, int res_blocks, int cardinality,

@@ -14,25 +14,27 @@ pass over four specs) a pass needs 50.4 GFLOP of grouped products, 51 us at
 989 TFLOP/s in bf16, against ~1.3 MB of inputs and outputs per launch
 (0.4 us at 3.35 TB/s). The design: one block per sample, the stage input in
 shared memory, and each branch output multiplied straight into the post-1x1
-so that no branch output reaches device memory. In bf16 every product runs
-on the tensor cores (``mma.sync`` m16n8k16, each stage an implicit GEMM over
-16-pixel tiles, grouped convs expanded block-diagonally only inside an n8
-output tile), on one of two plans that :func:`narrow_plan` picks by the
-spec: on chip (the trunk in registers, every weight brought into shared
-memory by one bulk copy) or the scratch plan (the trunk in an L2-resident
-scratch tensor, each stage's weights brought by a bulk copy while the stage
-before computes); in float32 the products stay float32 FMAs on CUDA cores,
-with the trunk in scratch, since the tensor cores would round them to TF32
-(the source note in ``csrc/fused_subnet.cu``). On an NVIDIA H100 80GB HBM3
-(700 W) the narrow bf16 kernel takes 186.5 us at the flagship's (128, 28,
-28, 1) K 64, 0.058 of its bound, and 14.7-27.7 us at its three small specs.
+so that no branch output reaches device memory. Every product runs on the
+tensor cores (``mma.sync``, each stage an implicit GEMM over 16-pixel tiles,
+grouped convs expanded block-diagonally only inside an n8 output tile): in
+bf16 one m16n8k16 a k16 chunk, in float32 three m16n8k8 TF32 products a k8
+chunk on split operands (``hi = tf32(a)``, ``lo = tf32(a - hi)``; ``lo*hi +
+hi*lo + hi*hi`` keeps ~21 bits of each operand, inside the 1e-4 float32 is
+held to), on one of two plans that :func:`narrow_plan` picks by the spec:
+on chip (the trunk in registers, every weight brought into shared memory by
+one bulk copy) or the scratch plan (the trunk in an L2-resident scratch
+tensor; in bf16 each stage's weights brought by a bulk copy while the stage
+before computes, in float32 streamed through a ring of bulk copies). On an
+NVIDIA H100 80GB HBM3 (700 W) the narrow bf16 kernel takes 186.5 us at the
+flagship's (128, 28, 28, 1) K 64, 0.058 of its bound, and 14.7-27.7 us at
+its three small specs (the source note gives the float32 build's).
 
 Two variants, picked by the spec (:func:`wide`): the narrow kernels above
-take up to 4 dilated branches, a bf16 trunk up to 64 channels, a bf16 head
-up to 32 and a stage input that fits shared memory; the wide variant
+take up to 4 dilated branches, a trunk up to 64 channels, a head up to 32
+and a plan that fits shared memory; the wide variant
 (``fused_subnet_forward_wide``) takes any width and size, as JAX's kernel
-does. In float32 it keeps the stage input in the sample's slice of the
-scratch tensor. In bf16 it is written for Hopper (the source note gives
+does. In float32 it is the CUDA-core kernel (float32 FMAs), its stage input
+in the sample's slice of the scratch tensor. In bf16 it is written for Hopper (the source note gives
 what bounds it and its times): the stage input in shared memory where it
 fits beside the ring (:func:`wide_shared_bytes`; else in scratch), the
 weights streamed through a ring of :data:`SLOTS` shared slots by
@@ -45,19 +47,21 @@ NVIDIA H100 80GB HBM3 (700 W) it takes 820.0 us at the capacity preset's
 us), and 182.9 us at (128, 14, 14, 2) K 128; it is latency-bound.
 
 Weights are packed once per parameter version (:func:`pack`), every kernel
-into one ``compute_dtype`` buffer and every bias into one float32 buffer. In
-float32 they stay in ``flax_param_order``'s order and flax's HWIO layout; in
-bf16 each stage is written in the tensor cores' B-fragment order with K and
-N zero-padded (:func:`mma_layout`), so the kernel reshuffles nothing; for
-the wide variant each fragment as two 8 x 8 core matrices, and each branch
-group chunk by chunk (:func:`_wide_order`), at the same offsets. The bf16
+into one ``compute_dtype`` buffer and every bias into one float32 buffer.
+For the tensor cores each stage is written in their B-fragment order with K
+and N zero-padded (:func:`mma_layout`), so the kernel reshuffles nothing; in
+float32 the pre and post 1x1s' rows permuted chunk by chunk for the trunk
+hand-off (:data:`HANDOFF_ROWS`); for the bf16 wide variant each fragment as
+two 8 x 8 core matrices, and each branch group chunk by chunk
+(:func:`_wide_order`), at the same offsets. The float32 wide variant (CUDA
+cores) keeps ``flax_param_order``'s order and flax's HWIO layout. The
 layout is derived here only: each launch hands it to the kernel as a table
 of ints (:func:`layout_table`), which the C entry checks and does not derive
 again.
 
 Dispatch: a CPU tensor goes to the plain version :func:`subnet_apply_reference`;
 a CUDA tensor launches the kernel or raises. :func:`subnet_apply` counts its
-launches in :data:`LAUNCHES`.
+launches in :data:`LAUNCHES`, and by build in :data:`BUILD_LAUNCHES`.
 
 Gradients: :func:`subnet_apply` is a ``torch.autograd.Function`` over ``x``
 and the packed buffers, the counterpart of the JAX ``make_subnet_fn``'s
@@ -86,6 +90,9 @@ from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import build
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"fused_subnet": 0}
+#: the same launches by the build of the CUDA source that ran them
+#: (:func:`kernel_build`)
+BUILD_LAUNCHES: dict = {}
 
 LEAKY_SLOPE = 0.3
 
@@ -95,13 +102,14 @@ TILE = 32  # float32: pixels per tile of the 1x1 stages
 MAX_BRANCHES = 10  # the most dilations ConvFlowConfig's schedule gives (its guard)
 NARROW_BRANCHES = 4  # the narrow kernels' most; more take the wide variant
 MAX_SHARED_BYTES = 232448
-MAX_TRUNK_TILES = 8  # bf16: n8 tiles of the trunk (K <= 64)
-MAX_HEAD_TILES = 4  # bf16: n8 tiles of the head (out_total <= 32)
+MAX_TRUNK_TILES = 8  # tensor cores: n8 tiles of the trunk (K <= 64)
+MAX_HEAD_TILES = 4  # tensor cores: n8 tiles of the head (out_total <= 32)
 FRAG = 128  # bf16: elements of one k16 x n8 B fragment (32 lanes x 4)
-MAX_TABLE_VALUE = 2**30  # bf16: the largest int of layout_table the C entry takes
-TABLE_SCALARS = 29  # bf16: the scalars that open layout_table (TABLE_FIELDS)
-PLAN_HEAD = 672  # narrow bf16: its mbarriers and the branch walks' tap table
-CHIP_SMALL_TILES = 4  # narrow bf16, on chip: trunk n8 tiles of its two-blocks-an-SM build
+TF32_FRAG = 64  # tf32: elements of one k8 x n8 B fragment (32 lanes x 2), also 256 bytes
+MAX_TABLE_VALUE = 2**30  # the largest int of layout_table the C entry takes
+TABLE_SCALARS = 29  # the scalars that open layout_table (TABLE_FIELDS)
+PLAN_HEAD = 672  # narrow kernels: their mbarriers and the branch walks' tap table
+CHIP_SMALL_TILES = 4  # narrow, on chip: trunk n8 tiles of the build sized to small trunks
 WIDE_GROUPS = 4  # wide bf16: warpgroups a block
 WIDE_THREADS = 512  # wide bf16: threads a block
 SLOT_BYTES = 4096  # wide bf16: a slot of the weights' ring, 16 B fragments
@@ -118,6 +126,7 @@ _DTYPE_CODE = {"float32": 0, "bfloat16": 1}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BUILD_LAUNCHES.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,15 +192,34 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _bank_stride(c: int) -> int:
-    """A shared-memory row stride of ``c`` channels (a multiple of 8) whose
-    32-bit words put 8 consecutive pixels on distinct banks."""
+def _bank_stride(c: int, item: int) -> int:
+    """A shared-memory row stride of ``c`` channels (a multiple of 8) of
+    ``item`` bytes each: an odd number of 16-byte units, so that the rows of
+    8 consecutive pixels that ldmatrix reads fall on distinct banks."""
+    if item == 4:
+        return c + 4
     return c + 8 if (c // 8) % 2 == 0 else c
+
+
+def _slices(spec: SubnetSpec) -> int:
+    """8-channel slices a k chunk: two in bf16 (m16n8k16), one in tf32
+    (m16n8k8)."""
+    return 2 if spec.compute_dtype == "bfloat16" else 1
+
+
+def _frag(spec: SubnetSpec) -> int:
+    """Elements of one B fragment: :data:`FRAG` in bf16, :data:`TF32_FRAG`
+    in float32 (256 bytes either way)."""
+    return FRAG if spec.compute_dtype == "bfloat16" else TF32_FRAG
+
+
+def _item(spec: SubnetSpec) -> int:
+    return 2 if spec.compute_dtype == "bfloat16" else 4
 
 
 @dataclasses.dataclass(frozen=True)
 class BranchTile:
-    """One n8 output tile of a branch in the bf16 kernel: columns
+    """One n8 output tile of a branch in the tensor-core kernels: columns
     ``[c0, c0 + 8)`` of branch ``branch``, reading the input window of
     ``q`` 8-channel slices per tap from channel ``lo8`` (``q`` and
     ``chunks`` are the same for every tile of a branch)."""
@@ -201,19 +229,21 @@ class BranchTile:
     dil: int
     lo8: int
     q: int
-    chunks: int  # k16 chunks: two slices each
+    chunks: int  # k chunks: two slices each in bf16 (k16), one in tf32 (k8)
     w_off: int  # offsets within a residual block's weights and biases
     b_off: int
 
 
 @dataclasses.dataclass(frozen=True)
 class MmaLayout:
-    """The bf16 kernel's tiling and packing, its one source: the C entry
-    takes it as :func:`layout_table` and checks it. Weights: every stage as
-    ``[k16 chunk][n8 tile][lane][4]`` B fragments (:data:`FRAG` elements
-    each) — the entry, then per residual block the pre 1x1, each branch tile
-    in order, the post 1x1; then the head. Biases: each stage's padded to its
-    n8 tiles."""
+    """The tensor-core kernels' tiling and packing, its one source: the C
+    entry takes it as :func:`layout_table` and checks it. Weights: every
+    stage as ``[k chunk][n8 tile][lane][values]`` B fragments — in bf16 k16
+    chunks, :data:`FRAG` elements each (4 a lane), in float32 k8 chunks,
+    :data:`TF32_FRAG` each (2 a lane) — the entry, then per residual block
+    the pre 1x1, each branch tile in order, the post 1x1; then the head.
+    Biases: each stage's padded to its n8 tiles. Offsets count elements of
+    the compute dtype."""
 
     kp: int  # trunk width K padded to 8
     nt: int  # n8 tiles of the trunk
@@ -240,10 +270,10 @@ class MmaLayout:
     trunk_per_sample: int  # float32 scratch elements a sample
     act_bytes: int  # shared memory of the stage input and a row of zeros
     w_stage: int  # weights of the largest stage (entry, a residual block, head)
-    act_in_shared: int  # 1: the wide variant holds the stage input in shared memory
-    wide_shared: int  # the wide variant's dynamic shared memory a block
-    n_pieces: int = 0  # pieces of one round of every stage of the wide variant's ring
-    on_chip: int = 0  # 1: :func:`narrow_plan` puts the narrow bf16 kernel on chip
+    act_in_shared: int  # bf16: 1 where the wide variant holds the stage input in shared memory
+    wide_shared: int  # bf16: the wide variant's dynamic shared memory a block
+    n_pieces: int = 0  # pieces of one round of every stage of a ring (:func:`wide_schedule`)
+    on_chip: int = 0  # 1: :func:`narrow_plan` puts the narrow kernel on chip
 
     @property
     def n_tiles(self) -> int:
@@ -265,32 +295,38 @@ def _wide_plan(act_bytes: int) -> Tuple[int, int]:
 def _split_tiles(n_mt: int, ch_post: int) -> int:
     """The scratch plan's split tiles (the C source's ``split_tiles``): its
     last round of 16-pixel tiles over the warps where that is one or two
-    tiles whose k16 chunks of the post 1x1 are at most a warp each, else 0."""
+    tiles whose chunks of the post 1x1 (k16 in bf16, k8 in float32) are at
+    most a warp each, else 0."""
     warps = THREADS // 32
     tail = n_mt % warps
     return tail if tail <= 2 and tail * ch_post <= warps else 0
 
 
 def _narrow_plan(n_mt: int, w_total: int, b_total: int, act_bytes: int, w_stage: int,
-                 x_bytes: int, shares: int) -> Tuple[int, int, int]:
-    """(on_chip, threads, shared bytes) of the narrow bf16 kernel, as the C
-    source's ``narrow_plan``, from which the C entry launches (the layout
-    table carries ``on_chip`` alone, which the entry checks). Both open with
-    the barriers, the branch walks' tap table and the biases. On chip where a warp a 16-pixel tile fits a
-    block and the whole packing and two stage inputs fit shared memory beside
-    them; else the scratch plan: :data:`THREADS` threads, x (then, in its
-    room, the split tiles' ``shares`` bytes), the stage input and two stage
-    buffers of weights."""
+                 x_bytes: int, shares: int, item: int) -> Tuple[int, int, int]:
+    """(on_chip, threads, shared bytes) of the narrow tensor-core kernel
+    whose weights have ``item`` bytes an element, as the C source's
+    ``narrow_plan``, from which the C entry launches (the layout table
+    carries ``on_chip`` alone, which the entry checks). On chip where a warp
+    a 16-pixel tile fits a block and the barriers, the branch walks' tap
+    table, the biases, the whole packing and two stage inputs fit shared
+    memory; else the scratch plan of :data:`THREADS` threads. In bf16 its
+    head as on chip, then x (then, in its room, the split tiles' ``shares``
+    bytes), the stage input and two stage buffers of weights. In float32
+    (tf32 products) a ring's barriers, the plan head, the stage input and
+    the ring of :data:`SLOTS` slots; its biases stay in device memory."""
     head = PLAN_HEAD + 4 * b_total
-    chip = head + 2 * w_total + 2 * act_bytes
+    chip = head + item * w_total + 2 * act_bytes
     if n_mt <= THREADS // 32 and chip <= MAX_SHARED_BYTES:
         return 1, 32 * n_mt, chip
+    if item == 4:
+        return 0, THREADS, BARRIER_BYTES + PLAN_HEAD + act_bytes + SLOTS * SLOT_BYTES
     return 0, THREADS, head + max(x_bytes, shares) + act_bytes + 4 * w_stage
 
 
 @dataclasses.dataclass(frozen=True)
 class NarrowPlan:
-    """How the narrow bf16 kernel runs a spec (:func:`narrow_plan`)."""
+    """How the narrow tensor-core kernel runs a spec (:func:`narrow_plan`)."""
 
     on_chip: bool  # the trunk in registers, no scratch, one load of every weight
     threads: int  # threads a block (one sample a block)
@@ -299,8 +335,8 @@ class NarrowPlan:
 
 
 def narrow_plan(spec: SubnetSpec) -> NarrowPlan:
-    """The narrow bf16 kernel's plan for ``spec``, picked by its sizes
-    alone and mirrored by the C entry, which launches it.
+    """The narrow tensor-core kernel's plan for ``spec``, picked by its
+    sizes alone and mirrored by the C entry, which launches it. In bf16:
 
     *On chip* (a sample of at most 16 pixel tiles whose whole packing and two
     stage inputs fit shared memory: the flagship's three small specs): a
@@ -320,9 +356,17 @@ def narrow_plan(spec: SubnetSpec) -> NarrowPlan:
     shares added in chunk order. A residual block is one phase: each
     tile's post 1x1 is followed by the next block's pre 1x1 while the trunk
     is in registers, its output written to a scratch copy of the stage input
-    that one bulk copy brings in after the block's barrier."""
-    if spec.compute_dtype != "bfloat16":
-        raise ValueError(f"narrow_plan: the bf16 kernel's plan; {spec.compute_dtype} has none")
+    that one bulk copy brings in after the block's barrier.
+
+    In float32 (three TF32 products a k8 chunk) the same two plans, sized
+    for float32: on chip as in bf16 (the flagship's three small specs); the
+    scratch plan (its 28 x 28) with the stage input in shared memory and the
+    weights streamed through a ring of :data:`SLOTS` bulk copies in the
+    order of :func:`wide_schedule`, a 16-pixel tile a warp a round in every
+    phase, the residual blocks' last round split as in bf16 (a branch tile
+    and its post 1x1 chunk a warp, the shares in the scratch); the block's
+    first pre 1x1 goes through the scratch copy like the others (x has no
+    buffer of its own)."""
     L = mma_layout(spec)
     on_chip, threads, shared = _narrow_plan(*_plan_sizes(spec, L))
     return NarrowPlan(bool(on_chip), threads, shared,
@@ -331,19 +375,21 @@ def narrow_plan(spec: SubnetSpec) -> NarrowPlan:
 
 def _plan_sizes(spec: SubnetSpec, L: MmaLayout) -> Tuple[int, ...]:
     """:func:`_narrow_plan`'s arguments for ``spec`` of layout ``L``."""
+    item = _item(spec)
     return (L.n_mt, L.w_total, L.b_total, L.act_bytes, L.w_stage,
-            _ceil(spec.h * spec.w * L.xs * 2, 16) * 16,
-            _split_tiles(L.n_mt, L.ch_post) * L.ch_post * L.nt * 512)
+            _ceil(spec.h * spec.w * L.xs * item, 16) * 16,
+            _split_tiles(L.n_mt, L.ch_post) * L.ch_post * L.nt * 512, item)
 
 
 @functools.lru_cache(maxsize=None)
 def mma_layout(spec: SubnetSpec) -> MmaLayout:
-    """The bf16 kernel's layout of ``spec``."""
+    """The tensor-core kernels' layout of ``spec`` (its compute dtype's)."""
     kk, K = spec.ksize ** 2, spec.kernels
+    S, frag, item = _slices(spec), _frag(spec), _item(spec)
     kp = _ceil(K, 8) * 8
     nt, no, qx = kp // 8, _ceil(spec.out_total, 8), _ceil(spec.cin, 8)
-    ch_pre = _ceil(nt, 2)
-    wb, bb = ch_pre * nt * FRAG, kp  # the pre 1x1 opens each block
+    ch_pre = _ceil(nt, S)
+    wb, bb = ch_pre * nt * frag, kp  # the pre 1x1 opens each block
     tiles = []
     for i, (w_, g, dil) in enumerate(zip(spec.widths, spec.groups, spec.dilations)):
         # every tile of a branch takes the widest window's slices per tap, its
@@ -351,22 +397,22 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
         windows = [(c0 // g * g // 8 * 8, (min(c0 + 8, w_) - 1) // g * g + g)
                    for c0 in range(0, w_, 8)]
         q = max(_ceil(hi - lo8, 8) for lo8, hi in windows)
-        chunks = _ceil(kk * q, 2)
+        chunks = _ceil(kk * q, S)
         for c0, (lo8, _) in zip(range(0, w_, 8), windows):
             tiles.append(BranchTile(i, c0, dil, min(lo8, kp - 8 * q), q, chunks, wb, bb))
-            wb, bb = wb + chunks * FRAG, bb + 8
-    ch_post = _ceil(len(tiles), 2)
+            wb, bb = wb + chunks * frag, bb + 8
+    ch_post = _ceil(len(tiles), S)
     w_post, b_post = wb, bb
-    wb, bb = wb + ch_post * nt * FRAG, bb + kp
-    ch_entry, ch_head = _ceil(kk * qx, 2), _ceil(kk * nt, 2)
-    w_entry = ch_entry * nt * FRAG
+    wb, bb = wb + ch_post * nt * frag, bb + kp
+    ch_entry, ch_head = _ceil(kk * qx, S), _ceil(kk * nt, S)
+    w_entry = ch_entry * nt * frag
     w_head = w_entry + spec.res_blocks * wb
     b_head = kp + spec.res_blocks * bb
-    xs, ts = _bank_stride(8 * qx), _bank_stride(kp)
+    xs, ts = _bank_stride(8 * qx, item), _bank_stride(kp, item)
     n_mt = _ceil(spec.h * spec.w, 16)
-    w_total = w_head + ch_head * no * FRAG
-    act_bytes = _ceil((spec.h * spec.w + 1) * max(xs, ts) * 2, 16) * 16
-    act_in_shared, wide_shared = _wide_plan(act_bytes)
+    w_total = w_head + ch_head * no * frag
+    act_bytes = _ceil((spec.h * spec.w + 1) * max(xs, ts) * item, 16) * 16
+    act_in_shared, wide_shared = _wide_plan(act_bytes) if S == 2 else (0, 0)
     L = MmaLayout(
         kp=kp, nt=nt, no=no, xs=xs, ts=ts, qx=qx, n_mt=n_mt, ch_entry=ch_entry,
         ch_pre=ch_pre, ch_post=ch_post, ch_head=ch_head, tiles=tuple(tiles),
@@ -418,20 +464,31 @@ def _table_values(spec: SubnetSpec) -> Tuple[int, ...]:
 
 
 def wide_schedule(spec: SubnetSpec):
-    """The pieces the wide bf16 kernel's ring carries, (element offset in
-    the packed weights, bytes) each, in the order its warps take them (the
-    C source's ``walk_pieces``, which its entry checks this against): one
-    tuple a stage (the entry, per residual block the pre 1x1 and then the
-    branches with the post 1x1, the head) of the pieces of one round of
-    :data:`WIDE_GROUPS` 64-pixel tiles, which every round takes again, each
-    pass of up to :data:`PASS_TILES` output tiles in turn. A trunk-wide
-    stage is a k16 chunk a piece (several where its tiles are fewer), a
-    branch group :data:`SLOT_BYTES` of its chunks a piece, each post 1x1
-    chunk a piece as soon as its two branch tiles are done."""
+    """The pieces a ring of weights carries, (element offset in the packed
+    weights, bytes) each, in the order the warps take them: one tuple a
+    stage of the pieces of one round, which every round takes again.
+
+    bf16: the wide kernel's ring (the C source's ``walk_pieces``, which its
+    entry checks this against): the stages are the entry, per residual block
+    the pre 1x1 and then the branches with the post 1x1, the head; a round
+    is :data:`WIDE_GROUPS` 64-pixel tiles, each pass of up to
+    :data:`PASS_TILES` output tiles in turn. A trunk-wide stage is a k16
+    chunk a piece (several where its tiles are fewer), a branch group
+    :data:`SLOT_BYTES` of its chunks a piece, each post 1x1 chunk a piece as
+    soon as its two branch tiles are done.
+
+    float32: the narrow tf32 kernel's scratch plan (``ring_walk`` there):
+    the stages are its phases, the entry with block 0's pre 1x1, each
+    residual block (each branch tile's chunks, up to a slot of them a
+    piece, and after each pair of tiles their two post 1x1 chunks; then the
+    next block's pre 1x1) and the head; a round is a 16-pixel tile a warp;
+    a trunk-wide stage is as many k8 chunks a piece as a slot holds."""
     return _schedule(spec, mma_layout(spec))
 
 
 def _schedule(spec: SubnetSpec, L: MmaLayout):
+    if spec.compute_dtype != "bfloat16":
+        return _ring_schedule(spec, L)
     frag = 2 * FRAG
 
     def trunk_stage(w, ch, nts):
@@ -467,6 +524,31 @@ def _schedule(spec: SubnetSpec, L: MmaLayout):
     return tuple(stages + [trunk_stage(L.w_head, L.ch_head, L.no)])
 
 
+def _ring_schedule(spec: SubnetSpec, L: MmaLayout):
+    slot = SLOT_BYTES // (4 * TF32_FRAG)  # fragments a slot
+
+    def chunks(w, ch, nts):
+        """ch k8 chunks of nts fragments each from w, a slot of whole chunks a piece"""
+        per = max(1, slot // nts)  # past the narrow kernel's tiles no ring runs it
+        return [(w + c0 * nts * TF32_FRAG, min(per, ch - c0) * nts * 4 * TF32_FRAG)
+                for c0 in range(0, ch, per)]
+
+    R = spec.res_blocks
+    stages = [chunks(0, L.ch_entry, L.nt) + (chunks(L.w_block0, L.ch_pre, L.nt) if R else [])]
+    for blk in range(R):
+        wb = L.w_block0 + blk * L.w_block
+        stage = []
+        for i, t in enumerate(L.tiles):
+            stage += chunks(wb + t.w_off, t.chunks, 1)
+            if i % 2 or i + 1 == L.n_tiles:  # the post 1x1's chunks of a pair of tiles
+                stage += chunks(wb + L.w_post + (i - i % 2) * L.nt * TF32_FRAG, 1 + i % 2, L.nt)
+        if blk + 1 < R:
+            stage += chunks(wb + L.w_block, L.ch_pre, L.nt)
+        stages.append(stage)
+    stages.append(chunks(L.w_head, L.ch_head, L.no))
+    return tuple(tuple(st) for st in stages)
+
+
 def _flat_offsets(spec: SubnetSpec):
     """Offset of each flax param in the flat kernels (or biases), by name."""
     offs, at = {}, {True: 0, False: 0}
@@ -477,14 +559,27 @@ def _flat_offsets(spec: SubnetSpec):
     return offs
 
 
-def _fragments(src):
-    """A stage's B matrix of source indices (16 * chunks, 8 * tiles) in
-    fragment order: [chunk][n8 tile][lane][4], lane = 4 * n + k // 2 % 4,
-    holding rows 2t, 2t+1, 2t+8, 2t+9 of its column (t = lane % 4)."""
-    c, j, lane, e = np.meshgrid(np.arange(src.shape[0] // 16), np.arange(src.shape[1] // 8),
-                                np.arange(32), np.arange(4), indexing="ij")
-    rows = 16 * c + 2 * (lane % 4) + (e & 1) + 8 * (e >> 1)
+def _fragments(src, S: int = 2):
+    """A stage's B matrix of source indices (8 S * chunks, 8 * tiles) in
+    fragment order, [chunk][n8 tile][lane][values], t = lane % 4: in bf16
+    (S = 2, m16n8k16) 4 values a lane, rows 2t, 2t+1, 2t+8, 2t+9 of column
+    lane // 4; in tf32 (S = 1, m16n8k8) 2 values, rows t and t+4."""
+    n = 2 * S
+    c, j, lane, e = np.meshgrid(np.arange(src.shape[0] // (8 * S)), np.arange(src.shape[1] // 8),
+                                np.arange(32), np.arange(n), indexing="ij")
+    if S == 2:
+        rows = 16 * c + 2 * (lane % 4) + (e & 1) + 8 * (e >> 1)
+    else:
+        rows = 8 * c + lane % 4 + 4 * e
     return src[rows, 8 * j + lane // 4].reshape(-1)
+
+
+#: tf32: the row of a k8 chunk of the pre and post 1x1s that holds A's
+#: column k. Their A is an accumulator tile as it stands (a lane's columns
+#: 2t, 2t+1 of rows g, g+8 are the m16n8k8 A registers of columns t, t+4),
+#: so the wrapper permutes the chunk's rows instead: column t holds
+#: channel 2t, column t+4 channel 2t+1.
+HANDOFF_ROWS = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
 
 #: the wide kernel's order of one fragment: position (k half, n, k % 8) of a
@@ -527,22 +622,33 @@ def _wide_order(spec: SubnetSpec):
 
 @functools.lru_cache(maxsize=None)
 def _mma_index(spec: SubnetSpec, wide_variant: bool):
-    """For the bf16 packing (the wide variant's if ``wide_variant``):
-    ``(w_src, b_src, w_inv, b_inv)`` — for each packed element the index of
-    the flat flax value it holds, -1 for padding; and for each flat value
-    its position in the packing."""
+    """For the tensor cores' packing (the bf16 wide variant's if
+    ``wide_variant``): ``(w_src, b_src, w_inv, b_inv)`` — for each packed
+    element the index of the flat flax value it holds, -1 for padding; and
+    for each flat value its position in the packing. In tf32 the pre and
+    post 1x1s' rows are permuted chunk by chunk (:data:`HANDOFF_ROWS`)."""
     L, offs = mma_layout(spec), _flat_offsets(spec)
     k2, K, cin, out = spec.ksize ** 2, spec.kernels, spec.cin, spec.out_total
+    S, L_frag = _slices(spec), _frag(spec)
     w_src = np.full(L.w_total, -1, np.int64)
     b_src = np.full(L.b_total, -1, np.int64)
 
     def stage(rows, cols):
         return np.full((rows, cols), -1, np.int64)
 
+    def fragments(b):
+        return _fragments(b, S)
+
+    def handoff(b):
+        """b's rows as an accumulator-fed stage takes them"""
+        if S == 2:
+            return b
+        return b.reshape(-1, 8, b.shape[1])[:, HANDOFF_ROWS].reshape(b.shape)
+
     def slices(n_chunks, q):
         """(tap, channel) of each K row of a k x k conv stage, tap k2 past
         the last."""
-        r = np.arange(16 * n_chunks)
+        r = np.arange(8 * S * n_chunks)
         return r // 8 // q, 8 * (r // 8 % q) + r % 8
 
     def dense(b, tap, ch, n_ch, n_out, off):
@@ -552,18 +658,18 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
         return b
 
     tap, ch = slices(L.ch_entry, L.qx)
-    w_src[:L.w_block0] = _fragments(dense(stage(16 * L.ch_entry, 8 * L.nt), tap, ch, cin, K,
-                                          offs["Conv_0/kernel"]))
+    w_src[:L.w_block0] = fragments(dense(stage(8 * S * L.ch_entry, 8 * L.nt), tap, ch, cin, K,
+                                         offs["Conv_0/kernel"]))
     b_src[:K] = offs["Conv_0/bias"] + np.arange(K)
     nd = len(spec.dilations)
     for r in range(spec.res_blocks):
         blk = f"DilatedResidualBlock_{r}"
         w0, b0 = L.w_block0 + r * L.w_block, L.b_block0 + r * L.b_block
-        pre = stage(16 * L.ch_pre, 8 * L.nt)
+        pre = stage(8 * S * L.ch_pre, 8 * L.nt)
         pre[:K, :K] = offs[f"{blk}/Conv_0/kernel"] + np.arange(K * K).reshape(K, K)
-        w_src[w0: w0 + pre.size] = _fragments(pre)
+        w_src[w0: w0 + pre.size] = fragments(handoff(pre))
         b_src[b0: b0 + K] = offs[f"{blk}/Conv_0/bias"] + np.arange(K)
-        post = stage(16 * L.ch_post, 8 * L.nt)
+        post = stage(8 * S * L.ch_post, 8 * L.nt)
         rows_before = np.cumsum((0,) + spec.widths)
         for i, t in enumerate(L.tiles):
             w_, g = spec.widths[t.branch], spec.groups[t.branch]
@@ -575,18 +681,18 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
             ok = (tap[:, None] < k2) & (col < w_) & (ch[:, None] >= start) \
                 & (ch[:, None] < start + g)
             src = kern + ((tap[:, None] * g + ch[:, None] - start) * w_ + col)
-            w_src[w0 + t.w_off: w0 + t.w_off + t.chunks * FRAG] = \
-                _fragments(np.where(ok, src, -1))
+            w_src[w0 + t.w_off: w0 + t.w_off + t.chunks * L_frag] = \
+                fragments(np.where(ok, src, -1))
             real = col < w_
             b_src[b0 + t.b_off: b0 + t.b_off + 8][real] = \
                 offs[f"{blk}/Conv_{1 + t.branch}/bias"] + col[real]
             post[8 * i: 8 * i + 8][real, :K] = offs[f"{blk}/Conv_{1 + nd}/kernel"] \
                 + (rows_before[t.branch] + col[real])[:, None] * K + np.arange(K)
-        w_src[w0 + L.w_post: w0 + L.w_post + post.size] = _fragments(post)
+        w_src[w0 + L.w_post: w0 + L.w_post + post.size] = fragments(handoff(post))
         b_src[b0 + L.b_post: b0 + L.b_post + K] = offs[f"{blk}/Conv_{1 + nd}/bias"] + np.arange(K)
     tap, ch = slices(L.ch_head, L.nt)
-    w_src[L.w_head:] = _fragments(dense(stage(16 * L.ch_head, 8 * L.no), tap, ch, K, out,
-                                        offs["Conv_1/kernel"]))
+    w_src[L.w_head:] = fragments(dense(stage(8 * S * L.ch_head, 8 * L.no), tap, ch, K, out,
+                                       offs["Conv_1/kernel"]))
     b_src[L.b_head: L.b_head + out] = offs["Conv_1/bias"] + np.arange(out)
     if wide_variant:
         w_src = w_src[_wide_order(spec)]
@@ -622,9 +728,10 @@ def pack(spec: SubnetSpec, flat, wide_variant=None):
     """``(weights, biases)``: the tensors of ``flat`` (flax shapes, in
     :func:`flax_param_order`'s order) packed for the kernel — every kernel
     into one ``compute_dtype`` buffer, every bias into one float32 buffer;
-    flat in flax's HWIO in float32, in B-fragment order (:func:`mma_layout`)
-    in bf16, reordered for the wide variant (:func:`_wide_order`) where
-    :func:`wide` picks it unless ``wide_variant`` says. Differentiable: the
+    in B-fragment order (:func:`mma_layout`) for the tensor-core kernels,
+    reordered for the bf16 wide variant (:func:`_wide_order`); flat in
+    flax's HWIO for the float32 wide variant (CUDA cores); the variant
+    :func:`wide` picks unless ``wide_variant`` says. Differentiable: the
     backward is :func:`unpack`."""
     order = flax_param_order(spec)
     if len(flat) != len(order):
@@ -636,10 +743,16 @@ def _variant(spec: SubnetSpec, wide_variant) -> bool:
     return wide(spec) if wide_variant is None else bool(wide_variant)
 
 
+def _in_fragments(spec: SubnetSpec, wide_variant: bool) -> bool:
+    """Whether the variant's packing is in B-fragment order: every bf16
+    one and the float32 narrow one (tf32 products)."""
+    return spec.compute_dtype == "bfloat16" or not wide_variant
+
+
 class _Pack(torch.autograd.Function):
     """:func:`pack` with :func:`unpack` as its backward. Every flax value
     lies in exactly one packed slot (:func:`_mma_index` asserts it), so the
-    adjoint of the bf16 packing's gather is the gather by the inverse
+    adjoint of the fragment packing's gather is the gather by the inverse
     indices: no scatter-add, and nothing for the padding."""
 
     @staticmethod
@@ -662,7 +775,7 @@ def _pack(spec: SubnetSpec, flat, wide_variant: bool):
         (kernels if name.endswith("kernel") else biases).append(t.reshape(-1))
     dt = getattr(torch, spec.compute_dtype)
     kernels, biases = torch.cat(kernels), torch.cat(biases)
-    if spec.compute_dtype == "bfloat16":
+    if _in_fragments(spec, wide_variant):
         w_src, b_src, _, _ = _mma_index_on(spec, kernels.device, wide_variant)
         kernels = torch.where(w_src >= 0, kernels[w_src.clamp(min=0)], 0)
         biases = torch.where(b_src >= 0, biases[b_src.clamp(min=0)], 0)
@@ -674,8 +787,9 @@ def unpack(spec: SubnetSpec, packed, wide_variant=None):
     with the flax shapes, in :func:`flax_param_order`'s order (views of the
     buffers in float32)."""
     weights, biases = packed
-    if spec.compute_dtype == "bfloat16":
-        _, _, w_inv, b_inv = _mma_index_on(spec, weights.device, _variant(spec, wide_variant))
+    wide_variant = _variant(spec, wide_variant)
+    if _in_fragments(spec, wide_variant):
+        _, _, w_inv, b_inv = _mma_index_on(spec, weights.device, wide_variant)
         weights, biases = weights[w_inv], biases[b_inv]
     out, offsets = [], {True: 0, False: 0}
     for name, shape in flax_param_order(spec):
@@ -686,28 +800,26 @@ def unpack(spec: SubnetSpec, packed, wide_variant=None):
     return out
 
 
-def packed_sizes(spec: SubnetSpec) -> Tuple[int, int]:
-    """Elements of :func:`pack`'s two buffers: (kernels, biases)."""
-    if spec.compute_dtype == "bfloat16":
+def packed_sizes(spec: SubnetSpec, wide_variant=None) -> Tuple[int, int]:
+    """Elements of :func:`pack`'s two buffers, (kernels, biases), for the
+    variant :func:`wide` picks unless ``wide_variant`` says."""
+    if _in_fragments(spec, _variant(spec, wide_variant)):
         L = mma_layout(spec)
         return L.w_total, L.b_total
     return _flax_sizes(spec)
 
 
 def _f32_stage_bytes(spec: SubnetSpec) -> Tuple[int, int]:
-    """The float32 kernel's stage input (16-byte aligned) and its tile of
-    rows, in bytes: shared memory in the narrow kernel, scratch in the wide."""
+    """The float32 wide kernel's (CUDA cores) stage input (16-byte
+    aligned) and its tile of rows, in bytes, in the sample's scratch."""
     act = spec.h * spec.w * max(spec.cin, spec.kernels) * 4
     return (act + 15) // 16 * 16, TILE * max(sum(spec.widths), spec.kernels) * 4
 
 
 def shared_bytes(spec: SubnetSpec) -> int:
-    """Dynamic shared memory of one block of the narrow kernels (the wide
-    variant's is :func:`wide_shared_bytes`). float32: the stage input
-    (16-byte aligned), then a tile of rows. bf16: :func:`narrow_plan`'s."""
-    if spec.compute_dtype == "bfloat16":
-        return narrow_plan(spec).shared
-    return sum(_f32_stage_bytes(spec))
+    """Dynamic shared memory of one block of the narrow kernel,
+    :func:`narrow_plan`'s (the wide variant's is :func:`wide_shared_bytes`)."""
+    return narrow_plan(spec).shared
 
 
 def wide_shared_bytes(spec: SubnetSpec) -> int:
@@ -718,33 +830,48 @@ def wide_shared_bytes(spec: SubnetSpec) -> int:
 
 
 def wide(spec: SubnetSpec) -> bool:
-    """Whether ``spec`` takes the wide variant: more than
-    :data:`NARROW_BRANCHES` dilations, a bf16 trunk over
-    ``8 * MAX_TRUNK_TILES`` or head over ``8 * MAX_HEAD_TILES`` channels, or
-    a narrow kernel's shared memory past :data:`MAX_SHARED_BYTES`. Every
-    other spec runs the narrow kernels."""
+    """Whether ``spec`` takes the wide variant (in bf16 a Hopper kernel of
+    its own, in float32 the CUDA-core kernel): more than
+    :data:`NARROW_BRANCHES` dilations, a trunk over ``8 * MAX_TRUNK_TILES``
+    or head over ``8 * MAX_HEAD_TILES`` channels, or a narrow plan's shared
+    memory past :data:`MAX_SHARED_BYTES`. Every other spec runs the narrow
+    tensor-core kernel of its dtype."""
     if len(spec.dilations) > NARROW_BRANCHES:
         return True
-    if spec.compute_dtype == "bfloat16":
-        L = mma_layout(spec)
-        if L.nt > MAX_TRUNK_TILES or L.no > MAX_HEAD_TILES:
-            return True
+    L = mma_layout(spec)
+    if L.nt > MAX_TRUNK_TILES or L.no > MAX_HEAD_TILES:
+        return True
     return shared_bytes(spec) > MAX_SHARED_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_build(spec: SubnetSpec) -> str:
+    """The build of ``csrc/fused_subnet.cu`` that a launch at ``spec``
+    runs: the narrow tensor-core kernel's plan (``"bf16 on chip"``,
+    ``"tf32 scratch"``, ...), ``"bf16 wide"`` or ``"float32 CUDA cores"``."""
+    bf16 = spec.compute_dtype == "bfloat16"
+    if wide(spec):
+        return "bf16 wide" if bf16 else "float32 CUDA cores"
+    return f"{'bf16' if bf16 else 'tf32'} {'on chip' if narrow_plan(spec).on_chip else 'scratch'}"
 
 
 def scratch_per_sample(spec: SubnetSpec, wide_variant: bool) -> int:
     """float32 scratch elements a sample: the trunk (none in the narrow
-    bf16 kernel's on-chip plan), in its scratch plan then a bf16 copy of the
-    next stage input (``narrow_scratch`` in the CUDA source); in the wide
-    variant then the stage input, in bf16 only where it does not fit shared
-    memory (``wide_scratch`` and ``make_layout`` there)."""
-    if spec.compute_dtype == "bfloat16":
-        L = mma_layout(spec)
-        if not wide_variant:  # the trunk, then the next stage input's rows (bf16)
-            return 0 if L.on_chip else L.trunk_per_sample + spec.h * spec.w * L.ts // 2
-        return L.trunk_per_sample + (0 if L.act_in_shared else L.act_bytes // 4)
-    extra = sum(_f32_stage_bytes(spec)) // 4 if wide_variant else 0
-    return spec.h * spec.w * spec.kernels + extra
+    kernel's on-chip plan), in its scratch plan then a copy of the next
+    stage input in the compute dtype and, in float32, the split tiles'
+    shares of the post 1x1 (``narrow_scratch`` in the CUDA source); in the
+    wide variant then the stage input, in bf16 only where it does not fit
+    shared memory (``wide_scratch`` and ``make_layout`` there)."""
+    if spec.compute_dtype == "float32" and wide_variant:
+        return spec.h * spec.w * spec.kernels + sum(_f32_stage_bytes(spec)) // 4
+    L = mma_layout(spec)
+    if not wide_variant:  # the trunk, then the next stage input's rows, then the shares
+        if L.on_chip:
+            return 0
+        shares = 128 * _split_tiles(L.n_mt, L.ch_post) * L.ch_post * L.nt \
+            if _item(spec) == 4 else 0
+        return L.trunk_per_sample + spec.h * spec.w * L.ts * _item(spec) // 4 + shares
+    return L.trunk_per_sample + (0 if L.act_in_shared else L.act_bytes // 4)
 
 
 def trunk_elements(spec: SubnetSpec, batch: int, wide_variant=None) -> int:
@@ -767,12 +894,13 @@ def flops(spec: SubnetSpec, batch: int) -> int:
 
 
 def mma_flops(spec: SubnetSpec, batch: int) -> int:
-    """Operations the bf16 kernel issues on the tensor cores in one call:
-    :func:`flops` plus the zeros of its padded and block-diagonal tiles."""
-    L = mma_layout(spec)
+    """Operations the narrow kernel issues on the tensor cores in one call:
+    :func:`flops` plus the zeros of its padded and block-diagonal tiles,
+    three times in float32 (three TF32 products a chunk)."""
+    L, S = mma_layout(spec), _slices(spec)
     block = L.ch_pre * L.nt + sum(t.chunks for t in L.tiles) + L.ch_post * L.nt
     mmas = L.ch_entry * L.nt + spec.res_blocks * block + L.ch_head * L.no
-    return 2 * 16 * 8 * 16 * mmas * L.n_mt * batch
+    return (1 if S == 2 else 3) * 2 * 16 * 8 * 8 * S * mmas * L.n_mt * batch
 
 
 def io_bytes(spec: SubnetSpec, batch: int) -> int:
@@ -851,7 +979,7 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ints = ctypes.POINTER(ctypes.c_int)
     head = [p] * 5 + [i] * 9 + [ints] + [i] * 2 + [ll] * 3 + [ints, i]
-    lib.fused_subnet_forward.argtypes = head + [p]
+    lib.fused_subnet_forward.argtypes = head + [p, p]
     lib.fused_subnet_forward_wide.argtypes = head + [p, p]
     for fn in (lib.fused_subnet_forward, lib.fused_subnet_forward_wide):
         fn.restype = i
@@ -868,7 +996,8 @@ def _layout_table_on(spec: SubnetSpec, device: torch.device):
     """:func:`layout_table` as an int32 tensor on ``device``, made once (so
     that a CUDA graph may capture the launch), with its schedule written out
     piece by piece (each stage's round once a round): the wide bf16 kernel
-    reads its branch tiles from it and finds any piece with one load."""
+    reads its branch tiles from it, and it and the tf32 scratch plan find
+    any piece of their rings with one load."""
     L = mma_layout(spec)
     rounds = _ceil(L.n_mt, 4 * WIDE_GROUPS)
     head = list(_table_values(spec)[:TABLE_SCALARS + 2 * MAX_BRANCHES
@@ -889,8 +1018,8 @@ def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out,
     if wide_variant is None:
         wide_variant = wide(spec)
     dil = (ctypes.c_int * len(spec.dilations))(*spec.dilations)
-    bf16 = spec.compute_dtype == "bfloat16"
-    table = layout_table(spec) if bf16 else None
+    tensor_cores = _in_fragments(spec, wide_variant)
+    table = layout_table(spec) if tensor_cores else None
     args = (x.data_ptr(), weights.data_ptr(), biases.data_ptr(), trunk.data_ptr(),
             out.data_ptr(), x.shape[0], spec.h, spec.w, spec.cin, spec.kernels,
             spec.res_blocks, spec.cardinality, spec.ksize, len(spec.dilations), dil,
@@ -898,19 +1027,19 @@ def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out,
             trunk.numel(), table, len(table) if table is not None else 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if wide_variant:
-            on_card = _layout_table_on(spec, x.device).data_ptr() if bf16 else None
-            err = lib.fused_subnet_forward_wide(*args, on_card, stream)
-        else:
-            err = lib.fused_subnet_forward(*args, stream)
+        # the rings' schedules: the wide bf16 kernel's, the tf32 scratch plan's
+        ring = tensor_cores and (wide_variant or spec.compute_dtype == "float32")
+        on_card = _layout_table_on(spec, x.device).data_ptr() if ring else None
+        entry = lib.fused_subnet_forward_wide if wide_variant else lib.fused_subnet_forward
+        err = entry(*args, on_card, stream)
     if err != 0:
         raise RuntimeError(f"fused_subnet kernel launch failed with CUDA error {err}")
 
 
 def check_launch(spec: SubnetSpec, batch: int) -> None:
     """Raise ``ValueError``, before any launch, on what the kernel cannot be
-    launched with: too many threads or branches, sizes past int32 (the bf16
-    layout's ints, the packed buffers, a sample's scratch). Any trunk and
+    launched with: too many threads or branches, sizes past int32 (the
+    tensor-core layout's ints, the packed buffers, a sample's scratch). Any trunk and
     head width and any stage input size is taken: past the narrow kernels'
     limits, by the wide variant."""
     if THREADS > MAX_THREADS:
@@ -918,8 +1047,8 @@ def check_launch(spec: SubnetSpec, batch: int) -> None:
     if len(spec.dilations) > MAX_BRANCHES:
         raise ValueError(f"{len(spec.dilations)} dilations: the kernel takes at most "
                          f"{MAX_BRANCHES}")
-    if spec.compute_dtype == "bfloat16" and max(_table_values(spec)) > MAX_TABLE_VALUE:
-        raise ValueError(f"sizes past the bf16 layout's ints: {spec}")
+    if _in_fragments(spec, wide(spec)) and max(_table_values(spec)) > MAX_TABLE_VALUE:
+        raise ValueError(f"sizes past the tensor-core layout's ints: {spec}")
     pixels = spec.h * spec.w
     n_weights = sum(packed_sizes(spec))
     widest = max(spec.kernels, spec.cin, spec.out_total, sum(spec.widths))
@@ -1012,4 +1141,6 @@ def _subnet_forward(spec: SubnetSpec, x, weights, biases):
                       device=x.device)
     launch_library(_library(), spec, x, (weights, biases), trunk, out)
     LAUNCHES["fused_subnet"] += 1
+    build_name = kernel_build(spec)
+    BUILD_LAUNCHES[build_name] = BUILD_LAUNCHES.get(build_name, 0) + 1
     return out

@@ -6,12 +6,14 @@ Builds the port's CUDA kernels from ``csrc/`` with nvcc (one process per
 source, all at once) and holds each kernel against its plain PyTorch version
 at the shapes of the main path: the coupling law (K1/K2) and the coupling
 subnet's conv chain (K3, first at a small size, synchronised, then at the
-flagship's four specs, its float32 build timed beside its bound there too).
-``[sass]`` reads the built kernels' instructions: every instantiation of the
-narrow bf16 K3 (its on-chip and scratch plans) must run its products as
-HMMA, bring its weights by bulk copies (UBLKCP) and wait on mbarriers, and
-the wide one's must use HGMMA; the ``kernels`` line carries each one's
-registers, spills, shared bytes and threads a block. Then it drives two
+flagship's four specs, its float32 build (three TF32 products a chunk)
+timed there too at 128 and 2,048, beside its bound and the eager float32
+chain). ``[sass]`` reads the built kernels' instructions: every
+instantiation of the narrow K3 (its bf16 and tf32 builds on the on-chip and
+scratch plans) must run its products as HMMA (TF32 ones in the float32
+builds alone), bring its weights by bulk copies (UBLKCP) and wait on
+mbarriers, and the wide one's must use HGMMA; the ``kernels`` line carries
+each one's registers, spills, shared bytes and threads a block. Then it drives two
 serving paths of the flagship
 conv cINN at full width (batch 128, random weights from a seed), the
 ``pallas_coupling`` lowering (K1/K2) and the ``pallas_subnet`` lowering (K3):
@@ -44,7 +46,11 @@ the card memory that graphs of smaller batches reserve besides the 2,048
 one (they share its memory pool), a ``PipelinedSampler`` of 8 draws and 16
 graphs equal to sequential calls,
 and the eager single-draw request beside it; K3 is also held and timed at
-the serving batch of 2,048. ``[modes]`` trains (graphs of 4 steps at batch
+the serving batch of 2,048. ``[f32]`` drives the float32 ``pallas_subnet``
+path (``cnf-conv``'s default ``--dtype``) on the flagship: a graph of 4
+train steps at 128 against eager steps, then the seeded 16 x 128 serving
+call, each with its wall, busy share and K3's launches (16 a step and a
+call) and builds (its tf32 ones alone). ``[modes]`` trains (graphs of 4 steps at batch
 128) and serves (the seeded 16 x 128 call) the flagship under the other
 lowerings and precision modes: ``fused_dilated``, ``dense_groups``,
 ``flow_in_compute_dtype`` (alone and with ``pallas_coupling``, whose K1 and
@@ -211,6 +217,9 @@ RECORDS_EVAL_SAMPLES = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
+#: K3's float32 products: three TF32 products (split operands) at 495
+#: TFLOP/s dense TF32 on the tensor cores
+TF32_SPLIT_FLOPS_PER_S = 495e12 / 3
 
 KERNELS = {
     "affine_forward": dict(
@@ -496,6 +505,7 @@ def sass_summary():
         name = part.split(None, 1)[0]
         lines = part.splitlines()
         out[name] = dict(hmma=sum("HMMA" in ln for ln in lines),
+                         tf32_hmma=sum("HMMA" in ln and "TF32" in ln for ln in lines),
                          hgmma=sum("HGMMA" in ln for ln in lines),
                          ffma=sum("FFMA" in ln for ln in lines),
                          bulk_copies=sum("UBLKCP" in ln for ln in lines),
@@ -520,65 +530,79 @@ def chain_specs(model):
     return counts
 
 
-def chain_at_batch(spec, launches, seed, batch):
-    """K3 in bf16 at a batch larger than the main path's (the seeded serving
-    entry's 16 draws of 128 conditions, noise pre-training's 512): held
-    against its plain version, timed beside it, with the bound of that
-    batch."""
-    s = dataclasses.replace(spec, compute_dtype="bfloat16")
+def chain_at_batch(spec, launches, seed, batch, dtype="bfloat16"):
+    """K3 in ``dtype`` at a batch larger than the main path's (the seeded
+    serving entry's 16 draws of 128 conditions, noise pre-training's 512):
+    held against its plain version, timed beside it, with the bound of that
+    batch (float32: at its products' rate, TF32_SPLIT_FLOPS_PER_S)."""
+    s = dataclasses.replace(spec, compute_dtype=dtype)
     err, x, packed, _ = compare_chain(s, batch, seed)
     with torch.no_grad():
         ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=5, reps=7)
         plain_ms = device_time_ms(lambda: chain.subnet_apply_reference(s, x, packed),
                                   iters=2, reps=3)
     flops, nbytes = chain.flops(s, batch), chain.io_bytes(s, batch)
-    ops_s, bytes_s = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else TF32_SPLIT_FLOPS_PER_S
+    ops_s, bytes_s = flops / rate, nbytes / HBM_BYTES_PER_S
     bound_ms = max(ops_s, bytes_s) * 1e3
     trunk_mb = chain.trunk_elements(s, batch) * 4 / 1e6
-    row = dict(shape=[batch, s.h, s.w, s.cin], kernels=s.kernels,
+    row = dict(shape=[batch, s.h, s.w, s.cin], kernels=s.kernels, dtype=dtype,
+               build=chain.kernel_build(s),
                launches_per_pass=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by="operations" if ops_s >= bytes_s else "bytes",
                gflop=flops / 1e9, io_mb=nbytes / 1e6, trunk_scratch_mb=trunk_mb,
                achieved_tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
-    print(f"[kernel] fused_subnet {batch}x{s.h}x{s.w}x{s.cin} bf16: {ms * 1e3:.1f} us on "
+    print(f"[kernel] fused_subnet {batch}x{s.h}x{s.w}x{s.cin} {dtype} ({row['build']}): "
+          f"{ms * 1e3:.1f} us on "
           f"the card (bound {bound_ms * 1e3:.2f} us, {bound_ms / ms:.3f} of it; "
           f"{flops / ms / 1e9:.1f} TFLOP/s; trunk scratch {trunk_mb:.1f} MB), plain version "
           f"{plain_ms * 1e3:.1f} us", flush=True)
     return row
 
 
-def chain_f32_time(s, x, packed):
-    """The narrow float32 K3 (CUDA cores) at ``s``: its time, its plain
-    version's (TF32 off) and its bound at 67 TFLOP/s float32."""
+def chain_f32_time(s, x, packed, eager):
+    """The float32 K3 (the narrow kernel's tf32 products) at ``s``: its
+    time, its plain version's and the eager float32 chain's (``eager``, a
+    ConvCouplingNet on the same weights; cuDNN, TF32 off), its bound at its
+    products' rate (165 TFLOP/s: three TF32 products at 495) and, as the
+    CUDA-core kernel was held to, at 67 TFLOP/s float32."""
     with torch.no_grad():
-        ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=5, reps=5)
+        ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=10, reps=7)
         plain_ms = device_time_ms(lambda: chain.subnet_apply_reference(s, x, packed), iters=5,
                                   reps=5)
+        eager_ms = device_time_ms(lambda: eager(x), iters=10, reps=5)
     batch = x.shape[0]
     flops, nbytes = chain.flops(s, batch), chain.io_bytes(s, batch)
-    ops_s, bytes_s = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    bound_ms = max(ops_s, bytes_s) * 1e3
-    print(f"[kernel] fused_subnet {batch}x{s.h}x{s.w}x{s.cin} float32: {ms * 1e3:.1f} us on the "
-          f"card (CUDA cores; bound {bound_ms * 1e3:.2f} us for {flops / 1e9:.2f} GFLOP at 67 "
-          f"TFLOP/s, {bound_ms / ms:.4f} of it), plain version {plain_ms * 1e3:.1f} us",
-          flush=True)
-    return dict(ms_f32=ms, plain_ms_f32=plain_ms, bound_ms_f32=bound_ms,
-                bound_by_f32="operations" if ops_s >= bytes_s else "bytes",
-                bound_share_f32=bound_ms / ms)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    bound_ms = max(flops / TF32_SPLIT_FLOPS_PER_S, bytes_s) * 1e3
+    cores_ms = max(flops / F32_FLOPS_PER_S, bytes_s) * 1e3
+    build = chain.kernel_build(s)
+    print(f"[kernel] fused_subnet {batch}x{s.h}x{s.w}x{s.cin} float32 ({build}): "
+          f"{ms * 1e3:.1f} us on the card (bound {bound_ms * 1e3:.2f} us for "
+          f"{flops / 1e9:.2f} GFLOP at 165 TFLOP/s, {bound_ms / ms:.4f} of it; at 67 TFLOP/s "
+          f"{cores_ms * 1e3:.2f} us, {cores_ms / ms:.4f}), plain version {plain_ms * 1e3:.1f} us, "
+          f"eager float32 ConvCouplingNet chain {eager_ms * 1e3:.1f} us", flush=True)
+    return dict(ms_f32=ms, plain_ms_f32=plain_ms, eager_chain_ms_f32=eager_ms,
+                bound_ms_f32=bound_ms,
+                bound_by_f32="operations" if flops / TF32_SPLIT_FLOPS_PER_S >= bytes_s
+                else "bytes",
+                bound_share_f32=bound_ms / ms, bound_ms_f32_at_67=cores_ms,
+                bound_share_f32_at_67=cores_ms / ms, build_f32=build)
 
 
 def check_chain_kernel(specs, phases):
     """K3 against its plain version at each spec of the flagship, batch 128,
-    in bf16 and float32, and at the serving and pre-training batches in
-    bf16; times at bf16 (the main path's dtype) and, at 128, of the float32
-    kernel ([grad]'s float32 path). ``specs``: :func:`chain_specs`."""
-    results, serving, pretrain = [], [], []
+    in bf16 and float32, and at the serving batch in both, at the
+    pre-training batch in bf16; times at bf16 (the main path's dtype) and in
+    float32 (cnf-conv's default dtype) at 128 and 2,048. ``specs``:
+    :func:`chain_specs`."""
+    results, serving, pretrain, serving_f32 = [], [], [], []
     for i, spec in enumerate(specs):
         for dtype in ("bfloat16", "float32"):
             s = dataclasses.replace(spec, compute_dtype=dtype)
             err, x, packed, eager = compare_chain(s, BATCH, seed=10 + i)
             if dtype == "float32":
-                results[-1].update(max_abs_err_f32=err, **chain_f32_time(s, x, packed))
+                results[-1].update(max_abs_err_f32=err, **chain_f32_time(s, x, packed, eager))
                 continue
             with torch.no_grad():
                 ms = device_time_ms(lambda: chain.subnet_apply(s, x, packed), iters=20)
@@ -608,17 +632,21 @@ def check_chain_kernel(specs, phases):
                   flush=True)
         serving.append(chain_at_batch(spec, specs[spec], 20 + i, SERVE_BATCH))
         pretrain.append(chain_at_batch(spec, specs[spec], 30 + i, PRETRAIN_BATCH))
+        serving_f32.append(chain_at_batch(spec, specs[spec], 70 + i, SERVE_BATCH, "float32"))
     per_pass = {k: sum(r["launches_per_pass"] * r[k] for r in results)
-                for k in ("ms", "eager_chain_ms")}
+                for k in ("ms", "eager_chain_ms", "ms_f32", "eager_chain_ms_f32")}
     per_pass["serving_ms"] = sum(r["launches_per_pass"] * r["ms"] for r in serving)
     per_pass["pretrain_ms"] = sum(r["launches_per_pass"] * r["ms"] for r in pretrain)
+    per_pass["serving_ms_f32"] = sum(r["launches_per_pass"] * r["ms"] for r in serving_f32)
     print(f"[kernel] fused_subnet a pass's {sum(specs.values())} launches: "
           f"{per_pass['ms'] * 1e3:.1f} us, the eager chains at the same specs "
           f"{per_pass['eager_chain_ms'] * 1e3:.1f} us; at batch {SERVE_BATCH} "
           f"{per_pass['serving_ms'] * 1e3:.1f} us; at batch {PRETRAIN_BATCH} "
-          f"{per_pass['pretrain_ms'] * 1e3:.1f} us", flush=True)
+          f"{per_pass['pretrain_ms'] * 1e3:.1f} us; float32 {per_pass['ms_f32'] * 1e3:.1f} us "
+          f"(eager float32 chains {per_pass['eager_chain_ms_f32'] * 1e3:.1f} us), at batch "
+          f"{SERVE_BATCH} {per_pass['serving_ms_f32'] * 1e3:.1f} us", flush=True)
     phases.done("K3 against its plain version at the flagship's specs")
-    return results, serving, pretrain, per_pass
+    return results, serving, pretrain, per_pass, serving_f32
 
 
 def class_planes(request):
@@ -1356,6 +1384,50 @@ def check_serve(phases):
     return out
 
 
+#: [f32]: the flagship under pallas_subnet at cnf-conv's default --dtype,
+#: float32, whose 16 conv chains a pass run K3's tf32 build
+FLAGSHIP_SUBNET_F32 = dataclasses.replace(FLAGSHIP_SUBNET, compute_dtype="float32")
+
+
+def check_f32_subnet(phases):
+    """[f32]: the float32 pallas_subnet path end to end on the flagship: a
+    graph of LOWERING_INNER train steps at 128 against as many eager steps
+    (the [train] line), then the seeded 16 x 128 serving call (graphed ==
+    eager entry), each with its wall, busy share and K3's launches (16 a
+    step and a call, counted at the capture), and the builds of K3 that ran
+    (kernel_build: the tf32 ones alone)."""
+    n = 16
+    reset_launches()
+    train = train_graph_and_eager(FLAGSHIP_SUBNET_F32, LOWERING_INNER, phases,
+                                  name="pallas_subnet float32", profile_eager=False)
+    per_step = train["graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"]
+    check(train["couplings"] == n and per_step == n
+          and train["eager_port_kernel_launches_a_step"]["fused_subnet"] == n,
+          f"f32: K3 launches {n} times a train step in the replay and eagerly ({per_step})")
+    train_builds = dict(chain.BUILD_LAUNCHES)
+    torch.cuda.empty_cache()
+    model = ConvCFlow(FLAGSHIP_SUBNET_F32, seed=0)
+    reset_launches()
+    serve = modes_serve("pallas_subnet float32", model, FLAGSHIP_SUBNET_F32, phases, tag="f32")
+    serve_builds = dict(chain.BUILD_LAUNCHES)
+    k3_call = serve["port_kernel_launches_a_call"]["fused_subnet"]
+    check(serve["batch"] == SERVE_BATCH and k3_call == n,
+          f"f32: K3 launches {n} times a serving call of {SERVE_BATCH} ({k3_call})")
+    check(set(train_builds) == set(serve_builds) == {"tf32 on chip", "tf32 scratch"},
+          f"f32: K3 ran its tf32 builds alone ({train_builds}, {serve_builds})")
+    del model
+    torch.cuda.empty_cache()
+    out = dict(train_step_ms=train["graph_step_ms"],
+               train_samples_per_s=train["graph_samples_per_s"],
+               train_busy_share=train["graph_busy_share"], launches_a_train_step=per_step,
+               serve_call_ms=serve["call_ms"], serve_samples_per_s=serve["samples_per_s"],
+               serve_busy_share=serve["busy_share"],
+               launches_a_serving_call=serve["port_kernel_launches_a_call"]["fused_subnet"],
+               builds_in_train=train_builds, builds_in_serve=serve_builds)
+    print(f"[f32] summary {json.dumps(out)}", flush=True)
+    return dict(out, train=train, serve=serve)
+
+
 #: [modes]: the other lowerings and precision modes at the flagship arch
 #: (BENCH_CELL: bf16 subnets, fused heads, random weights from seed 0, the
 #: independent-draw init of --no-shared-init), each trained through a graph
@@ -1583,34 +1655,41 @@ WIDE_CLI = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-
 WIDE_PRETRAIN = ["--num-batches", "4", "--epochs", "1", "--scan-steps", "2", *PRESET_FLAGS]
 
 
+#: the narrow kernel's builds, by a piece of each one's mangled name: its
+#: bf16 and tf32 products, on chip for trunks of up to 4 n8 tiles and up to
+#: 8, and the scratch plans
+NARROW_BUILDS = {"Bf16ELi4E": "on_chip_4_tiles", "Bf16ELi8E": "on_chip_8_tiles",
+                 "fused_subnet_mma_kernel": "scratch", "Tf32ELi4E": "tf32_on_chip_4_tiles",
+                 "Tf32ELi8E": "tf32_on_chip_8_tiles", "tf32_ring_kernel": "tf32_scratch"}
+
+
 def narrow_resources(sass):
-    """The narrow bf16 kernel's plans (fused_subnet.py::narrow_plan): on
-    chip, in its instantiations for trunks of up to 4 n8 tiles (two blocks
-    an SM) and up to 8, and the scratch plan; for each, its registers and
-    spills from ``cuobjdump -res-usage``, its tensor-core instructions, bulk
-    copies and mbarrier waits, and, at each of the flagship's specs that
-    takes it, its threads and shared bytes a block."""
+    """The narrow kernel's builds (NARROW_BUILDS; the plans of
+    fused_subnet.py::narrow_plan): for each, its registers and spills from
+    ``cuobjdump -res-usage``, its tensor-core instructions (tf32 ones
+    apart), bulk copies and mbarrier waits, and, at each of the flagship's
+    specs that takes it (bf16 for the bf16 builds, float32 for the tf32
+    ones), its threads and shared bytes a block."""
     out = {}
     for name, info in sass.items():
-        if "mma_chip_kernel" in name:
-            key = "on_chip_4_tiles" if "mma_chip_kernelILi4E" in name else "on_chip_8_tiles"
-        elif "mma_kernel" in name and "wide" not in name:
-            key = "scratch"
-        else:
+        key = next((k for piece, k in NARROW_BUILDS.items() if piece in name), None)
+        if key is None:
             continue
         out[key] = dict(resources=info.get("resources"), hmma=info["hmma"],
-                        bulk_copies=info["bulk_copies"], barrier_waits=info["barrier_waits"],
-                        specs=[])
+                        tf32_hmma=info["tf32_hmma"], bulk_copies=info["bulk_copies"],
+                        barrier_waits=info["barrier_waits"], specs=[])
     for spec in chain_specs(ConvCFlow(FLAGSHIP_SUBNET, seed=0, device="cpu")):
-        plan = chain.narrow_plan(spec)
-        tiles = chain.mma_layout(spec).nt
-        key = "scratch" if not plan.on_chip else (
-            "on_chip_4_tiles" if tiles <= chain.CHIP_SMALL_TILES else "on_chip_8_tiles")
-        if key in out:
-            out[key]["specs"].append(dict(shape=[spec.h, spec.w, spec.cin], kernels=spec.kernels,
-                                          threads_a_block=plan.threads,
-                                          shared_bytes_a_block=plan.shared,
-                                          split_tiles=plan.split_tiles))
+        for dtype, prefix in (("bfloat16", ""), ("float32", "tf32_")):
+            s = dataclasses.replace(spec, compute_dtype=dtype)
+            plan = chain.narrow_plan(s)
+            tiles = chain.mma_layout(s).nt
+            key = prefix + ("scratch" if not plan.on_chip else (
+                "on_chip_4_tiles" if tiles <= chain.CHIP_SMALL_TILES else "on_chip_8_tiles"))
+            if key in out:
+                out[key]["specs"].append(dict(shape=[s.h, s.w, s.cin], kernels=s.kernels,
+                                              threads_a_block=plan.threads,
+                                              shared_bytes_a_block=plan.shared,
+                                              split_tiles=plan.split_tiles))
     return out
 
 
@@ -2990,11 +3069,13 @@ def main() -> int:
     check(len(wide_sass) == 2 and all(v["hgmma"] > 0 for v in wide_sass),
           "both paths of the wide bf16 kernel run their trunk-wide products on wgmma (HGMMA)")
     narrow = narrow_resources(sass)
-    check(set(narrow) == {"on_chip_4_tiles", "on_chip_8_tiles", "scratch"}
+    check(set(narrow) == set(NARROW_BUILDS.values())
           and all(v["hmma"] > 0 and v["bulk_copies"] > 0 and v["barrier_waits"] > 0
                   for v in narrow.values()),
-          "every instantiation of the narrow bf16 kernel runs its products on the tensor cores "
+          "every instantiation of the narrow kernel runs its products on the tensor cores "
           f"(HMMA), brings its weights by bulk copies (UBLKCP) and waits on mbarriers ({narrow})")
+    check(all((v["tf32_hmma"] > 0) == k.startswith("tf32") for k, v in narrow.items()),
+          "the float32 builds run their products as TF32 HMMA, the bf16 builds as bf16 ones")
     phases.done("SASS of the conv-chain kernels")
 
     results, floor_ms = check_kernels(phases)
@@ -3002,8 +3083,8 @@ def main() -> int:
     subnet_model = ConvCFlow(FLAGSHIP_SUBNET, seed=0)  # no device: the card
     phases.done("flagship built", arch=arch_string(FLAGSHIP),
                 params=sum(p.numel() for p in subnet_model.parameters()))
-    chain_results, chain_serving, chain_pretrain, chain_pass = check_chain_kernel(
-        chain_specs(subnet_model), phases)
+    chain_results, chain_serving, chain_pretrain, chain_pass, chain_serving_f32 = \
+        check_chain_kernel(chain_specs(subnet_model), phases)
 
     coupling_model = ConvCFlow(FLAGSHIP, seed=0)
     launches = run_main_path(coupling_model, FLAGSHIP, phases)
@@ -3014,6 +3095,8 @@ def main() -> int:
     train = check_train(phases)
     torch.cuda.empty_cache()
     serve = check_serve(phases)
+    torch.cuda.empty_cache()
+    f32 = check_f32_subnet(phases)
     torch.cuda.empty_cache()
     wide = check_wide(phases, chain_results, sass)
     torch.cuda.empty_cache()
@@ -3070,12 +3153,23 @@ def main() -> int:
         preset_specs=wide["specs"],
         wide_resources=wide["resources"], wide_forced_at_flagship=wide["forced_at_flagship"],
         narrow_resources=narrow_resources(sass),
-        # the narrow float32 kernel (CUDA cores) at the flagship's specs, 128:
-        # [grad]'s float32 path launches it 16 times a forward+backward
-        f32_specs=[{k: r[k] for k in ("shape", "kernels", "ms_f32", "plain_ms_f32",
-                                      "bound_ms_f32", "bound_by_f32", "bound_share_f32",
-                                      "max_abs_err_f32")} for r in chain_results],
+        # the float32 build (the narrow kernel's tf32 products) at the
+        # flagship's specs, 128 and 2,048: [grad]'s float32 path launches it
+        # 16 times a forward+backward, [f32]'s train step and serving call 16
+        f32_specs=[{k: r[k] for k in ("shape", "kernels", "build_f32", "ms_f32", "plain_ms_f32",
+                                      "eager_chain_ms_f32", "bound_ms_f32", "bound_by_f32",
+                                      "bound_share_f32", "bound_ms_f32_at_67",
+                                      "bound_share_f32_at_67", "max_abs_err_f32")}
+                   for r in chain_results],
+        f32_specs_at_serving_batch=chain_serving_f32,
+        f32_pass_ms=chain_pass["ms_f32"], f32_eager_pass_ms=chain_pass["eager_chain_ms_f32"],
+        f32_pass_ms_at_serving_batch=chain_pass["serving_ms_f32"],
         f32_launches_a_grad_pass=grads["pallas_subnet_f32"]["launches"]["fused_subnet"],
+        f32_launches_a_train_step=f32["launches_a_train_step"],
+        f32_launches_a_serving_call=f32["launches_a_serving_call"],
+        f32_path={k: f32[k] for k in ("train_step_ms", "train_samples_per_s", "train_busy_share",
+                                      "serve_call_ms", "serve_samples_per_s", "serve_busy_share",
+                                      "builds_in_train", "builds_in_serve")},
         launches_a_preset_train_step=wide["train"][
             "graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
         launches_a_preset_serving_call=wide["serve"]["port_kernel_launches_a_call"][

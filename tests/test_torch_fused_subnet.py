@@ -188,7 +188,8 @@ def test_packed_weights_follow_load_state_dict():
 
 
 def test_launch_guards_raise_before_launching():
-    # a stage input past shared memory: the wide variant's, no refusal
+    # a stage input past shared memory: the wide variant's (CUDA cores in
+    # float32), no refusal
     big = tfs.SubnetSpec(**dict(BASE, h=64, w=64, kernels=64, compute_dtype="float32"))
     assert tfs.shared_bytes(big) > tfs.MAX_SHARED_BYTES and tfs.wide(big)
     tfs.check_launch(big, 1)
@@ -216,7 +217,7 @@ def test_launch_guards_raise_before_launching():
 
 def test_launch_limits_mirror_the_cuda_source():
     src = _cuda_source()
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    consts = dict(re.findall(r"^constexpr int (k\w+) = (\d+);", src, re.M))
     assert int(consts["kThreads"]) == tfs.THREADS
     assert int(consts["kTile"]) == tfs.TILE
     assert int(consts["kMaxBranches"]) == tfs.MAX_BRANCHES
@@ -234,26 +235,42 @@ def test_launch_limits_mirror_the_cuda_source():
         assert int(consts[name]) == value, name
     for name, value in (("kPlanHead", tfs.PLAN_HEAD), ("kChipSmallTiles", tfs.CHIP_SMALL_TILES)):
         assert int(consts[name]) == value, name
-    # the narrow bf16 kernel's plan: the same two sizes on both sides
-    # (narrow_plan there, _narrow_plan here); the C entry launches from its
-    # own and refuses a table whose on_chip is not its own
+    # the two products' traits: chunk depth, fragment and element sizes
+    for trait, (slices, frag, item) in (("Bf16", (2, tfs.FRAG, 2)),
+                                        ("Tf32", (1, tfs.TF32_FRAG, 4))):
+        body = re.search(rf"struct {trait} \{{(.*?)\n\}};", src, re.S).group(1)
+        got = dict(re.findall(r"static constexpr int (k\w+) = (\d+);", body))
+        assert {k: int(v) for k, v in got.items()} == \
+            {"kSlices": slices, "kFrag": frag, "kItem": item}, trait
+    assert tfs.FRAG * 2 == tfs.TF32_FRAG * 4 == 256  # a fragment is 256 bytes either way
+    # the narrow kernel's plan: the same sizes on both sides (narrow_plan
+    # there, _narrow_plan here); the C entry launches from its own and
+    # refuses a table whose on_chip is not its own
     plan = re.search(r"NarrowPlan narrow_plan\(.*?\n\}", src, re.S).group(0)
     assert "kPlanHead + bias_bytes(L)" in plan
-    assert "head + 2LL * L.w_total + 2LL * L.act_bytes" in plan
+    assert "head + static_cast<int64_t>(Prod::kItem) * L.w_total + 2LL * L.act_bytes" in plan
     assert "L.n_mt <= kWarps && chip <= kMaxShared" in plan
+    assert "kBarrierBytes + kPlanHead + L.act_bytes + kSlots * kSlotBytes" in plan
     assert "head + x_room(d, L) + L.act_bytes + 4LL * L.w_stage" in plan
     split = re.search(r"int split_tiles\(.*?\n\}", src, re.S).group(0)
     assert "tail <= 2 && tail * L.ch_post <= kWarps ? tail : 0" in split
     assert "L.on_chip == (P.on_chip ? 1 : 0)" in src
-    assert src.count("<<<batch, P.threads, P.shared, stream>>>") == 3
+    assert src.count("<<<batch, P.threads, P.shared, stream>>>") == 4
     # the wide kernel: its warpgroups (one lane of which feeds the ring), a
     # slot one chunk of a wgmma pass (N <= 128) or of a branch group
     assert tfs.WIDE_THREADS == 128 * tfs.WIDE_GROUPS <= tfs.MAX_THREADS
     assert tfs.SLOT_BYTES == tfs.PASS_TILES * 2 * tfs.FRAG and tfs.BARRIER_BYTES == 16 * tfs.SLOTS
     assert tfs.PASS_TILES % tfs.GROUP_TILES == 0
-    # the bf16 kernel's B fragment: m16n8k16, 32 lanes x 4 values; the wide
-    # kernel's products: wgmma with A from registers, B from the ring
+    # the bf16 kernel's B fragment: m16n8k16, 32 lanes x 4 values; the
+    # float32 one's m16n8k8 tf32, 32 lanes x 2 values, and the split that
+    # _tf32_mm emulates (hi: the top 19 bits; lo = a - hi, read as tf32);
+    # the wide kernel's products: wgmma with A from registers, B from the ring
     assert tfs.FRAG == 16 * 8 and "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert tfs.TF32_FRAG == 8 * 8 and "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    split = re.search(r"void split\(float v, uint32_t& hi, uint32_t& lo\) \{(.*?)\}", src,
+                      re.S).group(1)
+    assert "hi = __float_as_uint(v) & 0xffffe000u;" in split
+    assert "lo = __float_as_uint(v - __uint_as_float(hi));" in split
     for n in (8, 16, 32, 64, 128):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" in src
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
@@ -444,15 +461,52 @@ def _bf16(a):
     return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
 
 
-def _im2col(t, q, lo8, dil, k, chunks):
-    """(B, h, w, 16 * chunks): the bf16 kernel's A operand of a SAME k x k
-    conv over t — slice s is tap s // q, channels lo8 + 8 (s % q) + [0, 8)."""
+def _tf32_b(buf, off, chunks, tiles):
+    """A stage's (8 * chunks, 8 * tiles) B matrix from its m16n8k8 tf32
+    fragments: lane l of fragment (c, j) holds B[8c + t + 4e, 8j + l // 4]
+    as value e, t = l % 4."""
+    frags = buf[off: off + chunks * tiles * tfs.TF32_FRAG].reshape(chunks, tiles, 32, 2)
+    b = np.zeros((8 * chunks, 8 * tiles), np.float32)
+    c, j, lane, e = np.meshgrid(np.arange(chunks), np.arange(tiles), np.arange(32),
+                                np.arange(2), indexing="ij")
+    b[8 * c + lane % 4 + 4 * e, 8 * j + lane // 4] = frags
+    return b
+
+
+def _tf32(a):
+    """``a`` as the tensor cores read a tf32 operand: its top 19 bits (sign,
+    exponent, 10 bits of mantissa), the low 13 bits dropped."""
+    return (np.asarray(a, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_mm(a, b, lo_products=True):
+    """a @ b as the kernel's tf32 products: each operand split into hi =
+    tf32(v) and lo = v - hi (which the tensor cores read as tf32(lo)), then
+    lo @ hi + hi @ lo + hi @ hi with float32 sums (``lo_products`` False:
+    hi @ hi alone, one TF32 product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not lo_products:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _handoff(a):
+    """An accumulator-fed operand (the pre and post 1x1s' A in tf32) as the
+    kernel holds it: in each k8 chunk, column k is channel HANDOFF_ROWS[k]."""
+    n = a.shape[-1]
+    return a[..., np.arange(n) // 8 * 8 + tfs.HANDOFF_ROWS[np.arange(n) % 8]]
+
+
+def _im2col(t, q, lo8, dil, k, chunks, S=2):
+    """(B, h, w, 8 S * chunks): the tensor-core kernel's A operand of a SAME
+    k x k conv over t, S slices a chunk (2 in bf16, 1 in tf32) — slice s
+    is tap s // q, channels lo8 + 8 (s % q) + [0, 8)."""
     n, h, w, c = t.shape
     total = dil * (k - 1)
     lo = total // 2
     tp = np.pad(t, ((0, 0), (lo, total - lo), (lo, total - lo), (0, max(0, 8 * q + lo8 - c))))
     cols = []
-    for s in range(2 * chunks):
+    for s in range(S * chunks):
         tap, c8 = divmod(s, q)
         if tap >= k * k:
             cols.append(np.zeros((n, h, w, 8), np.float32))
@@ -463,35 +517,47 @@ def _im2col(t, q, lo8, dil, k, chunks):
     return np.concatenate(cols, axis=-1)
 
 
-def _mma_chain(spec, x, packed, wide_variant=False):
-    """The chain computed from the bf16 packing (``wide_variant``: the wide
-    variant's) the way the kernel does: each stage an implicit GEMM of im2col
-    slices by the B fragments, operands rounded to bf16 where the kernel
-    rounds them."""
+def _mma_chain(spec, x, packed, wide_variant=False, lo_products=True):
+    """The chain computed from the tensor-core packing (``wide_variant``:
+    the bf16 wide variant's) the way the kernel does: each stage an implicit
+    GEMM of im2col slices by the B fragments. bf16: operands rounded to bf16
+    where the kernel rounds them. float32: k8 chunks, every product as the
+    kernel's three TF32 products (:func:`_tf32_mm`), the pre and post 1x1s'
+    A in the hand-off's column order."""
     L, k = tfs.mma_layout(spec), spec.ksize
+    tf32 = spec.compute_dtype == "float32"
+    S = 1 if tf32 else 2
     buf, bias = packed[0].float().numpy(), packed[1].numpy()
-    _b = _core_b if wide_variant else _dense_b
+    _b = _core_b if wide_variant else (_tf32_b if tf32 else _dense_b)
+    rnd = (lambda a: a) if tf32 else _bf16  # noqa: E731
+    mm = (lambda a, b: _tf32_mm(a, b, lo_products)) if tf32 else np.matmul  # noqa: E731
+    fed = _handoff if tf32 else (lambda a: a)  # noqa: E731
     lrelu = lambda v: np.where(v > 0, v, np.float32(0.3) * v)  # noqa: E731
 
     def pad_to(a, c):
         return np.pad(a, ((0, 0),) * 3 + ((0, c - a.shape[-1]),))
 
-    xp = pad_to(_bf16(x), 8 * L.qx)
-    y = _im2col(xp, L.qx, 0, 1, k, L.ch_entry) @ _b(buf, 0, L.ch_entry, L.nt) \
+    def tile_b(w0, i):
+        t = L.tiles[i]
+        return _tf32_b(buf, w0 + t.w_off, t.chunks, 1) if tf32 else \
+            _tile_b(buf, w0, L, i, wide_variant)
+
+    xp = pad_to(rnd(x), 8 * L.qx)
+    y = mm(_im2col(xp, L.qx, 0, 1, k, L.ch_entry, S), _b(buf, 0, L.ch_entry, L.nt)) \
         + bias[:L.kp]
     for r in range(spec.res_blocks):
         w0, b0 = L.w_block0 + r * L.w_block, L.b_block0 + r * L.b_block
-        a = pad_to(_bf16(lrelu(y)), 16 * L.ch_pre)
-        t = _bf16(lrelu(a @ _b(buf, w0, L.ch_pre, L.nt) + bias[b0: b0 + L.kp]))
-        s = [_bf16(lrelu(_im2col(t, tile.q, tile.lo8, tile.dil, k, tile.chunks)
-                         @ _tile_b(buf, w0, L, i, wide_variant)
-                         + bias[b0 + tile.b_off: b0 + tile.b_off + 8]))
+        a = fed(pad_to(rnd(lrelu(y)), 8 * S * L.ch_pre))
+        t = rnd(lrelu(mm(a, _b(buf, w0, L.ch_pre, L.nt)) + bias[b0: b0 + L.kp]))
+        s = [rnd(lrelu(mm(_im2col(t, tile.q, tile.lo8, tile.dil, k, tile.chunks, S),
+                          tile_b(w0, i))
+                       + bias[b0 + tile.b_off: b0 + tile.b_off + 8]))
              for i, tile in enumerate(L.tiles)]
-        s = pad_to(np.concatenate(s, axis=-1), 16 * L.ch_post)
-        u = s @ _b(buf, w0 + L.w_post, L.ch_post, L.nt)
+        s = fed(pad_to(np.concatenate(s, axis=-1), 8 * S * L.ch_post))
+        u = mm(s, _b(buf, w0 + L.w_post, L.ch_post, L.nt))
         y = y + u + bias[b0 + L.b_post: b0 + L.b_post + L.kp]
-    a = _bf16(lrelu(y))
-    out = _im2col(a, L.nt, 0, 1, k, L.ch_head) @ _b(buf, L.w_head, L.ch_head, L.no) \
+    a = rnd(lrelu(y))
+    out = mm(_im2col(a, L.nt, 0, 1, k, L.ch_head, S), _b(buf, L.w_head, L.ch_head, L.no)) \
         + bias[L.b_head: L.b_head + 8 * L.no]
     return out[..., :spec.out_total]
 
@@ -556,7 +622,11 @@ def test_bf16_launch_guards():
         assert tfs.wide(spec)
         tfs.check_launch(spec, 1)
         tfs.check_launch(dataclasses.replace(spec, compute_dtype="float32"), 1)
-    assert not tfs.wide(tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="float32"))
+    # the float32 narrow kernel has the bf16 one's tiles: past them, the
+    # CUDA-core kernel
+    assert tfs.wide(tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="float32"))
+    assert tfs.kernel_build(tfs.SubnetSpec(**dict(BASE, kernels=72),
+                                           compute_dtype="float32")) == "float32 CUDA cores"
     many = tfs.SubnetSpec(**ELEVEN, compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="dilations"):
         tfs.check_launch(many, 1)
@@ -610,8 +680,8 @@ def test_narrow_plan_follows_the_spec(name):
     if not tfs.wide(spec):
         assert tfs.shared_bytes(spec) == plan.shared <= tfs.MAX_SHARED_BYTES
         assert tfs.trunk_elements(spec, 3) == want
-    with pytest.raises(ValueError, match="plan"):
-        tfs.narrow_plan(dataclasses.replace(spec, compute_dtype="float32"))
+    assert tfs.kernel_build(spec) == ("bf16 wide" if tfs.wide(spec) else
+                                      f"bf16 {'on chip' if plan.on_chip else 'scratch'}")
 
 
 def test_narrow_plan_at_the_flagship_and_the_preset():
@@ -640,7 +710,7 @@ def test_narrow_plan_at_the_flagship_and_the_preset():
 PRESET_SPECS = {(14, 14, 4, 64, (1, 2, 4), 8): (False, False),
                 (28, 28, 1, 128, (1, 2, 4), 2): (True, True),
                 (7, 7, 8, 64, (1, 2), 16): (False, False),
-                (14, 14, 2, 128, (1, 2), 4): (True, False)}
+                (14, 14, 2, 128, (1, 2), 4): (True, True)}
 
 
 def test_every_config_schedule_fits_the_kernels_branches():
@@ -792,3 +862,206 @@ def test_wide_schedule_covers_every_stage(name):
     assert sum(on_device[head + 1::2]) == rounds * stage_bytes
     if name == "preset_28x28x1":  # 13 64-pixel tiles: 4 rounds of 4 warpgroups, 484 pieces
         assert -(-L.n_mt // (4 * tfs.WIDE_GROUPS)) == 4 and 4 * L.n_pieces == 484
+
+
+# ---------------------------------------------------------------------------
+# float32: the narrow kernel's tf32 products
+# ---------------------------------------------------------------------------
+
+
+def _f32_spec(name):
+    return tfs.SubnetSpec(**LAYOUT_SPECS[name], compute_dtype="float32")
+
+
+#: the specs of LAYOUT_SPECS that the float32 narrow kernel takes (the rest,
+#: five dilations or a trunk of 128, take the CUDA-core kernel)
+TF32_SPECS = [n for n in LAYOUT_SPECS if n not in ("dil5", "wide", "preset_28x28x1",
+                                                    "preset_14x14x2")]
+TF32_SMALL_SPECS = [n for n in TF32_SPECS if n in SMALL_LAYOUT_SPECS]
+#: the emulated tf32 chain against JAX's float32 subnet_apply_ref. Each
+#: product keeps ~20 bits of its operands (an error of order 2**-19 ~ 2e-6
+#: relative at worst), and the sums run in another order: measured over
+#: TF32_SMALL_SPECS, at most 3.8e-6 on outputs up to 3.5 (the port's plain
+#: float32 chain is 2.5e-6 from JAX's); one TF32 product alone is 9.1e-4 to
+#: 5.9e-3 off. 1e-5 leaves room and stays ten times inside the 1e-4 that
+#: the card holds the kernel to
+TF32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("name", TF32_SPECS)
+def test_tf32_unpack_of_pack_gives_the_weights(name):
+    """The float32 fragment layout holds every flax value once: unpack
+    gives back the weights and biases exactly, and the rest is padding."""
+    spec = _f32_spec(name)
+    assert not tfs.wide(spec)
+    flat = [torch.from_numpy(w) for w in weights(spec)]
+    packed = tfs.pack(spec, flat)
+    L = tfs.mma_layout(spec)
+    assert tuple(t.numel() for t in packed) == tfs.packed_sizes(spec) == (L.w_total, L.b_total)
+    assert packed[0].dtype == packed[1].dtype == torch.float32
+    assert int((packed[0] != 0).sum() + (packed[1] != 0).sum()) == sum(w.numel() for w in flat)
+    for (pname, shape), w, back in zip(tfs.flax_param_order(spec), flat, tfs.unpack(spec, packed)):
+        assert tuple(back.shape) == shape and torch.equal(back, w), pname
+
+
+def test_tf32_packing_is_in_fragment_order():
+    """At the flagship's largest spec in float32: the pre 1x1, read back
+    through the m16n8k8 fragment layout, is the flax (K, K) kernel with each
+    k8 chunk's rows in the trunk hand-off's order (A's column t holds
+    channel 2t, column t + 4 channel 2t + 1); a branch tile is the grouped
+    kernel expanded block-diagonally, one tap a chunk, rows in order; the
+    post 1x1's chunk i is branch tile i's 8 outputs, hand-off order again."""
+    spec = _f32_spec("flagship_28x28x1")
+    L = tfs.mma_layout(spec)
+    flat = weights(spec)
+    buf = tfs.pack(spec, [torch.from_numpy(w) for w in flat])[0].numpy()
+    assert list(tfs.HANDOFF_ROWS) == [0, 2, 4, 6, 1, 3, 5, 7]
+    assert L.ch_pre == L.nt == 8 and L.ch_post == L.n_tiles == 14
+    pre = _tf32_b(buf, L.w_block0, L.ch_pre, L.nt)
+    kern = flat[2][0, 0]
+    np.testing.assert_array_equal(pre, kern.reshape(8, 8, 64)[:, tfs.HANDOFF_ROWS].reshape(64, 64))
+    np.testing.assert_array_equal(pre[8 + 1], kern[8 + 2])  # chunk 1, column 1: channel 2
+    np.testing.assert_array_equal(pre[8 + 4], kern[8 + 1])  # chunk 1, column 4: channel 1
+    # the third tile of the dilation-1 branch: columns 16..23, groups of 8
+    t = L.tiles[2]
+    assert (t.branch, t.c0, t.lo8, t.q, t.chunks) == (0, 16, 16, 1, 9)
+    b = _tf32_b(buf, L.w_block0 + t.w_off, t.chunks, 1)
+    for tap in range(9):
+        np.testing.assert_array_equal(b[8 * tap: 8 * tap + 8], flat[4][tap // 3, tap % 3, :, 16:24])
+    # the dilation-4 branch (16 wide, groups of 2): block-diagonal in its tile
+    t = L.tiles[12]
+    assert (t.branch, t.c0, t.lo8, t.q, t.chunks) == (2, 0, 0, 1, 9)
+    b = _tf32_b(buf, L.w_block0 + t.w_off, t.chunks, 1)
+    for col in range(8):
+        g0 = col // 2 * 2
+        rows = b[:, col].reshape(9, 8)
+        np.testing.assert_array_equal(rows[:, g0: g0 + 2], flat[8][:, :, :, col].reshape(9, 2))
+        assert not np.delete(rows, [g0, g0 + 1], axis=1).any()
+    post = _tf32_b(buf, L.w_block0 + L.w_post, L.ch_post, L.nt)
+    np.testing.assert_array_equal(
+        post, flat[10][0, 0].reshape(14, 8, 64)[:, tfs.HANDOFF_ROWS].reshape(112, 64))
+
+
+@pytest.mark.parametrize("name", TF32_SMALL_SPECS)
+def test_tf32_layout_computes_the_chain(name):
+    """What the float32 kernel computes from its packing — k8 chunks, input
+    windows, padding, offsets, the hand-off's permutation and three TF32
+    products a chunk on split operands, emulated at matrix level — is JAX's
+    float32 subnet_apply_ref within TF32_TOL; one TF32 product alone is
+    not within the card's 1e-4."""
+    spec = _f32_spec(name)
+    jspec = jfs.SubnetSpec(batch_tile=2, **LAYOUT_SPECS[name], compute_dtype="float32")
+    x, flat = x_for(spec, batch=2), weights(spec)
+    packed = tfs.pack(spec, [torch.from_numpy(w) for w in flat])
+    out = _mma_chain(spec, x, packed)
+    ref = np.asarray(jfs.subnet_apply_ref(jspec, jnp.asarray(x), [jnp.asarray(w) for w in flat]))
+    np.testing.assert_allclose(out, ref, rtol=TF32_TOL, atol=TF32_TOL)
+    one = _mma_chain(spec, x, packed, lo_products=False)
+    assert np.abs(one - ref).max() > 1e-4
+
+
+#: (threads, shared bytes a block, scratch bytes a sample) of the float32
+#: narrow kernel's plans at the flagship's four specs and the preset's two
+#: of K 64
+TF32_PLANS = {
+    # on chip: the barriers and tap table (672), the biases, the whole
+    # packing, two stage inputs of 197 rows of 36 floats
+    (14, 14, 4, 32, 8, (1, 2, 4), 8): ("tf32 on chip", 416, 672 + 4 * 400 + 4 * 25152 + 2 * 28368,
+                                       0),
+    # the scratch plan: the ring's barriers (64), the plan head (672), 785
+    # rows of 68 floats (213,520 bytes), four slots of 4,096; its scratch
+    # the trunk (200,704 bytes), a float32 copy of the stage input and the
+    # 49th tile's 14 shares of the post 1x1 (8 n8 tiles of 512 bytes each)
+    (28, 28, 1, 64, 8, (1, 2, 4), 2): ("tf32 scratch", 512, 64 + 672 + 213520 + 16384,
+                                       200704 + 784 * 68 * 4 + 14 * 8 * 512),
+    (7, 7, 8, 16, 4, (1, 2), 16): ("tf32 on chip", 128, 672 + 4 * 200 + 4 * 10560 + 2 * 4000, 0),
+    (14, 14, 2, 32, 4, (1, 2), 4): ("tf32 on chip", 416, 672 + 4 * 376 + 4 * 22656 + 2 * 28368,
+                                    0),
+    # the preset's: their packing (67,200 and 65,280 floats) does not fit
+    # on chip beside two stage inputs
+    (14, 14, 4, 64, 8, (1, 2, 4), 8): ("tf32 scratch", 512, 64 + 672 + 53584 + 16384,
+                                       13 * 16 * 64 * 4 + 196 * 68 * 4),
+    (7, 7, 8, 64, 8, (1, 2), 16): ("tf32 scratch", 512, 64 + 672 + 13600 + 16384,
+                                   4 * 16 * 64 * 4 + 49 * 68 * 4),
+}
+
+
+def test_tf32_plan_at_the_flagship_and_the_preset():
+    """The float32 narrow kernel's plans: the flagship's three small specs on
+    chip (159,616, 51,712 and 149,536 bytes a block), its 28 x 28 on
+    the scratch plan in 230,640 bytes; the preset's two K 64 specs on the
+    scratch plan; the preset's two K 128 specs, and only they, on the
+    CUDA-core kernel."""
+    for (h, w, cin, k, card, dil, out), (build, threads, shared, scratch) in TF32_PLANS.items():
+        spec = tfs.SubnetSpec(h, w, cin, k, 3, card, 3, dil, out, compute_dtype="float32")
+        plan = tfs.narrow_plan(spec)
+        assert tfs.kernel_build(spec) == build and not tfs.wide(spec)
+        split = 1 if (h, w) == (28, 28) else 0  # the 49th tile; 13 and 4 tiles fill one round
+        assert (plan.threads, plan.shared, plan.split_tiles) == (threads, shared, split)
+        assert 4 * tfs.scratch_per_sample(spec, False) == scratch
+    assert [TF32_PLANS[s][2] for s in list(TF32_PLANS)[:4]] == [159616, 230640, 51712, 149536]
+    cfg = arch.perf_arch_config(experimental_lowering="pallas_subnet", compute_dtype="float32")
+    specs = {m.spec for m in ConvCFlow(cfg, device="cpu", seed=0).modules()
+             if isinstance(m, tsubnets.FusedChainCouplingNet)}
+    cores = {(s.h, s.w, s.cin, s.kernels) for s in specs if tfs.wide(s)}
+    assert cores == {(28, 28, 1, 128), (14, 14, 2, 128)}
+    assert all(tfs.kernel_build(s) == "float32 CUDA cores" for s in specs if tfs.wide(s))
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
+def test_tf32_plan_follows_the_spec(name):
+    """narrow_plan in float32: on chip where a warp a 16-pixel tile fits a
+    block and the tap table, the biases, the packing and two stage inputs
+    of float32 fit shared memory; else the scratch plan of 512 threads with
+    the stage input and the ring, its last round's one or two tiles split
+    across warps where their branch tiles are at most one a warp; past the
+    kernel's tiles or shared memory the CUDA-core kernel (wide). The table
+    carries on_chip to the C entry."""
+    spec = _f32_spec(name)
+    L, plan = tfs.mma_layout(spec), tfs.narrow_plan(spec)
+    chip = tfs.PLAN_HEAD + 4 * L.b_total + 4 * L.w_total + 2 * L.act_bytes
+    on_chip = L.n_mt <= tfs.THREADS // 32 and chip <= tfs.MAX_SHARED_BYTES
+    ring = tfs.BARRIER_BYTES + tfs.PLAN_HEAD + L.act_bytes + tfs.SLOTS * tfs.SLOT_BYTES
+    tail = L.n_mt % 16
+    split = 0 if on_chip or not (tail <= 2 and tail * L.n_tiles <= 16) else tail
+    assert L.ch_post == L.n_tiles  # a k8 chunk of the post 1x1 a branch tile
+    assert plan == tfs.NarrowPlan(on_chip, 32 * L.n_mt if on_chip else tfs.THREADS,
+                                  chip if on_chip else ring, split)
+    assert L.on_chip == list(tfs.layout_table(spec))[tfs.TABLE_FIELDS.index("on_chip")]
+    # rows of an odd number of 16-byte units, the stage input and its zero row
+    assert L.xs == 8 * L.qx + 4 and L.ts == L.kp + 4
+    assert L.act_bytes == -(-(spec.h * spec.w + 1) * max(L.xs, L.ts) * 4 // 16) * 16
+    is_wide = (len(spec.dilations) > tfs.NARROW_BRANCHES or L.nt > tfs.MAX_TRUNK_TILES
+               or L.no > tfs.MAX_HEAD_TILES or plan.shared > tfs.MAX_SHARED_BYTES)
+    assert tfs.wide(spec) == is_wide and (name in TF32_SPECS) == (not is_wide)
+    if not is_wide:
+        hw = spec.h * spec.w
+        want = 0 if on_chip else L.trunk_per_sample + hw * L.ts + split * L.n_tiles * L.nt * 128
+        assert tfs.trunk_elements(spec, 3) == 3 * want
+        assert tfs.kernel_build(spec) == f"tf32 {'on chip' if on_chip else 'scratch'}"
+
+
+@pytest.mark.parametrize("name", TF32_SPECS)
+def test_tf32_ring_schedule_carries_every_weight_once_a_round(name):
+    """The float32 scratch plan's ring (wide_schedule in float32): one stage
+    a phase (the entry with block 0's pre 1x1, each residual block with the
+    next block's pre 1x1, the head), every piece a multiple of 16 bytes, at
+    most a slot, inside the packing; a round carries every weight once; the
+    device's table repeats each phase's round once a round."""
+    spec = _f32_spec(name)
+    L, stages = tfs.mma_layout(spec), tfs.wide_schedule(spec)
+    assert len(stages) == 2 + spec.res_blocks and all(stages)
+    pieces = [piece for st in stages for piece in st]
+    assert len(pieces) == L.n_pieces
+    for src, nbytes in pieces:
+        assert 0 < nbytes <= tfs.SLOT_BYTES and nbytes % 16 == 0 and src % 4 == 0
+        assert src + nbytes // 4 <= L.w_total
+    covered = np.zeros(L.w_total, int)
+    for src, nbytes in pieces:
+        covered[src: src + nbytes // 4] += 1
+    assert (covered == 1).all()
+    rounds = -(-L.n_mt // (tfs.THREADS // 32))
+    head = len(tfs.TABLE_FIELDS) + 2 * tfs.MAX_BRANCHES + len(tfs.TILE_FIELDS) * L.n_tiles
+    on_device = tfs._layout_table_on(spec, torch.device("cpu")).tolist()
+    assert len(on_device) == head + 2 * rounds * L.n_pieces
+    assert sum(on_device[head + 1::2]) == rounds * 4 * L.w_total

@@ -223,18 +223,28 @@ def deterministic_cudnn(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
 
 
+def _builds_after(spec, before):
+    """Whether the launches by build since ``before`` (a copy of
+    BUILD_LAUNCHES) are one launch of the build that ``spec`` names."""
+    build = tfs.kernel_build(spec)
+    return {k: v - before.get(k, 0) for k, v in tfs.BUILD_LAUNCHES.items()
+            if v != before.get(k, 0)} == {build: 1}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(CHAIN_SPECS))
 def test_chain_kernel_matches_plain_version(cuda, no_tf32, name, dtype):
     spec = tfs.SubnetSpec(**CHAIN_SPECS[name], compute_dtype=dtype)
     batch = BATCH if name.startswith("flagship") else 3
     x, packed = _chain_inputs(spec, batch, cuda)
-    before = tfs.LAUNCHES["fused_subnet"]
+    before, builds = tfs.LAUNCHES["fused_subnet"], dict(tfs.BUILD_LAUNCHES)
     with torch.no_grad():
         out = tfs.subnet_apply(spec, x, packed)
         ref = tfs.subnet_apply_reference(spec, x, packed)
     torch.cuda.synchronize()
-    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1 and _builds_after(spec, builds)
+    # every spec here takes the narrow tensor-core kernel of its dtype
+    assert tfs.kernel_build(spec).startswith("bf16" if dtype == "bfloat16" else "tf32")
     assert out.shape == (batch, spec.h, spec.w, spec.out_total) and out.dtype == torch.float32
     # float32: sums in another order; bf16: a float32 sum in another order
     # can land on the other side of a bf16 rounding of an intermediate,
@@ -351,12 +361,12 @@ def test_chain_kernel_matches_plain_version_at_the_preset(cuda, no_tf32, name, d
         assert not tfs.mma_layout(spec).act_in_shared
     batch = BATCH if name.startswith("preset") else 3
     x, packed = _chain_inputs(spec, batch, cuda)
-    before = tfs.LAUNCHES["fused_subnet"]
+    before, builds = tfs.LAUNCHES["fused_subnet"], dict(tfs.BUILD_LAUNCHES)
     with torch.no_grad():
         out = tfs.subnet_apply(spec, x, packed)
         ref = tfs.subnet_apply_reference(spec, x, packed)
     torch.cuda.synchronize()
-    assert tfs.LAUNCHES["fused_subnet"] == before + 1
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1 and _builds_after(spec, builds)
     assert out.shape == (batch, spec.h, spec.w, spec.out_total)
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
@@ -406,6 +416,43 @@ def test_narrow_bf16_kernel_matches_plain_version_at_every_batch(cuda, no_tf32, 
     assert tfs.LAUNCHES["fused_subnet"] == before + 1
     assert out.shape == (batch, spec.h, spec.w, spec.out_total)
     torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+
+
+#: the build of csrc/fused_subnet.cu that each float32 spec names
+#: (fused_subnet.py::kernel_build): the narrow kernel's tf32 products on
+#: chip or on the scratch plan, the CUDA-core kernel past its tiles
+F32_BUILDS = {"flagship_14x14x4": "tf32 on chip", "flagship_28x28x1": "tf32 scratch",
+              "flagship_7x7x8": "tf32 on chip", "flagship_14x14x2": "tf32 on chip",
+              "preset_14x14x4": "tf32 scratch", "preset_7x7x8": "tf32 scratch",
+              "preset_28x28x1": "float32 CUDA cores", "preset_14x14x2": "float32 CUDA cores",
+              "scratch_23x23x1": "tf32 scratch", "scratch_20x20x2": "tf32 scratch",
+              "scratch_32x16x3": "tf32 scratch", "scratch_17x16x1": "tf32 scratch"}
+
+
+@pytest.mark.parametrize("batch", [3, 2048])
+@pytest.mark.parametrize("name", list(F32_BUILDS))
+def test_float32_kernel_matches_plain_version_at_every_batch(cuda, no_tf32, name, batch):
+    """Each float32 spec of the flagship, the preset and the scratch plan's
+    at a batch that is a multiple of nothing the kernel tiles and at the
+    serving call's 2,048: one launch of the build its spec names (the
+    narrow kernel's tf32 products on its plan, or the CUDA-core kernel),
+    within 1e-4 of the plain version, TF32 off."""
+    spec = tfs.SubnetSpec(**(CHAIN_SPECS.get(name) or WIDE_SPECS.get(name)
+                             or SCRATCH_SPECS[name]), compute_dtype="float32")
+    assert tfs.kernel_build(spec) == F32_BUILDS[name]
+    plan = tfs.narrow_plan(spec)
+    assert tfs.wide(spec) == (F32_BUILDS[name] == "float32 CUDA cores")
+    assert tfs.wide(spec) or plan.on_chip == F32_BUILDS[name].endswith("on chip")
+    x, packed = _chain_inputs(spec, batch, cuda)
+    before, builds = tfs.LAUNCHES["fused_subnet"], dict(tfs.BUILD_LAUNCHES)
+    with torch.no_grad():
+        out = tfs.subnet_apply(spec, x, packed)
+        torch.cuda.synchronize()
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1 and _builds_after(spec, builds)
+    assert out.shape == (batch, spec.h, spec.w, spec.out_total)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
