@@ -101,7 +101,7 @@
 // most 3.8e-6 from JAX, whose plain float32 chain the port's is 2.5e-6 from).
 // Bound: operations, the products' rate, 165 TFLOP/s (495 TF32 / 3): at the
 // flagship's (128, 28, 28, 1) K 64, 10.77 GFLOP, 65.3 us (160.8 at the 67
-// TFLOP/s of float32 FMAs that the CUDA-core kernel was held to). The
+// TFLOP/s of float32 FMAs that the retired CUDA-core kernel was held to). The
 // design keeps the bf16 kernel's: A by ldmatrix.x4 from the stage input in
 // shared memory (rows of K + 4 floats, an odd number of 16-byte units), split
 // once a gather and used for every n8 tile it feeds; B packed by the wrapper
@@ -117,11 +117,11 @@
 //    does not fit on chip): the stage input in shared memory (213,520 B at
 //    28 x 28), the weights streamed through a ring of kSlots bulk copies as
 //    the wide kernel's are (fused_subnet_tf32_ring_kernel), 230,640 B;
-// past the tiles or shared memory the CUDA-core kernel below (wide).
+// past the tiles or shared memory the wide variant's tf32 build (below).
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's [kernel]
 // lines, a call of 128 from a CUDA graph, inputs warm in L2): 620.5 us at
 // the flagship's (28, 28, 1) K 64, 0.105 of its bound at 165 TFLOP/s (0.259
-// at 67; the CUDA-core kernel: 2,487-2,502 us in chain_ablation.py
+// at 67; the CUDA-core kernel it replaced: 2,487-2,502 us in chain_ablation.py
 // --against), 22.4-53.6 us at its three small specs (67-252 us); at 2,048
 // 9,228 us at 28 x 28. What bounds it now: at 28 x 28 the products (three
 // mma and the split a chunk) take about half the launch, and the rest is
@@ -142,11 +142,8 @@
 // The narrow kernel holds the stage input in shared memory and all K/8
 // trunk tiles of a pixel tile in registers, so it stops at K 64, out_total
 // 32 and a plan of ~227 KB (narrow_plan), and at kNarrowBranches branches,
-// so that what it takes by value stays small.
-//  - float32: on CUDA cores (float32 FMAs, each thread kRows pixels of one
-//    output channel), its weights flat in flax's HWIO, its stage input and
-//    rows in the sample's slice of the scratch tensor: the first float32
-//    kernel of this port, kept for the capacity preset's two K 128 specs.
+// so that what it takes by value stays small. One kernel templated over its
+// product, as the narrow one is (fused_subnet_mma_wide_kernel<Bf16 | Tf32>):
 //  - bfloat16, written for Hopper. Bound: operations (the capacity preset's
 //    (28, 28, 1) K 128: 42.4 GFLOP a call of 128, 42.9 us at 989 TFLOP/s,
 //    against 1.6 MB of inputs and outputs). One block a sample, kWideGroups
@@ -200,6 +197,45 @@
 //    a 4th round for 16 pixels (784 = 3 x 256 + 16). Forced at the
 //    flagship's K 64 it was 1.5x the narrow kernel of its time (354 against
 //    241 us), and is 1.9x the narrow kernel of the on-chip and scratch plans.
+//  - float32 (the capacity preset's two K 128 chains at cnf-conv's default
+//    dtype, and any spec past the narrow kernel): the same skeleton, three
+//    TF32 products a k8 chunk on split operands as in the narrow Tf32
+//    build. Bound: operations at 165 TFLOP/s (495 TF32 / 3): 256.9 us for
+//    the 42.39 GFLOP of (128, 28, 28, 1) K 128, 60.5 us at (128, 14, 14, 2).
+//    What differs from bf16, and why:
+//    * the trunk-wide stages run wgmma.m64nNk8 tf32, three a chunk (lo*hi,
+//      hi*lo, hi*hi), A from registers split once a gather or a hand-off
+//      (Tf32::tile_a: the wrapper permutes each chunk's rows, HANDOFF_ROWS).
+//      wgmma reads B from shared memory, so B's lo cannot be made in
+//      registers: B lands in the ring as the float32 packing holds it (the
+//      tensor cores read its top 19 bits, which is hi) and each warpgroup
+//      writes the piece's lo plane into one of its own two planes by turns
+//      (LoPlane: a warpgroup barrier and a proxy fence a piece). The ring
+//      carrying a hi and a lo plane instead would double its bytes and the
+//      packing; the planes cost 23-202 us a launch at 128 (chain_ablation.py);
+//    * tf32 wgmma takes B K-major only: each k8 x n8 tile is two core
+//      matrices of 8 n rows of 4 floats (fused_subnet.py::TF32_CORE_ORDER),
+//      the descriptor bf16's, ldmatrix giving the branch tiles' B registers;
+//    * a slot is kTf32SlotBytes, two k8 chunks of a 128-wide pass, so that a
+//      piece is as much work as bf16's; the post 1x1 takes a pair of branch
+//      tiles' two k8 chunks a piece where a pass takes every tile;
+//    * the stage input is twice bf16's: at 14 x 14 x 128 (104,016 B) it
+//      still lives in shared memory (202,384 B a block with the ring and the
+//      planes); at 28 x 28 x 128 (414,480 B) it does not and stays in the
+//      sample's scratch, each lane reading its A values of a chunk as two
+//      8-byte loads, channels 2t, 2t+1 of rows g and g+8 (the wrapper
+//      permutes the k x k stages' rows there as the 1x1s',
+//      fused_subnet.py::scratch_pairs).
+//    Measured on an NVIDIA H100 80GB HBM3 at 700 W (chain_ablation.py
+//    --against, a call of 128 from a CUDA graph, inputs warm in L2):
+//    2,643-2,647 us at (128, 28, 28, 1) K 128, 0.097 of its bound (the
+//    CUDA-core kernel it replaced: 7,712-7,775 us), 391-393 us at (128, 14,
+//    14, 2), 0.155 (1,612-1,624 us); 40.9-41.0 and 6.0 ms at 2,048 (95.2-96.0
+//    and 21.4-21.6 ms). What bounds it now: at 28 x 28 the stage input's
+//    loads from L1 or L2 (a third of the launch), the two lo products
+//    (~18%) and the lo planes (~8%); past those the same chain of waits as
+//    bf16 (each piece waited for, split, multiplied and released by every
+//    warp) and its fourth round of one tile.
 // A two-block cluster per sample sharing the stage input through distributed
 // shared memory was the alternative for a stage input past shared memory;
 // it still fails at ~450 KB and halves the blocks a batch has, where
@@ -207,9 +243,12 @@
 //
 // Barriers: every __syncthreads() is at the top level of a kernel or inside
 // loops whose trip counts (res_blocks, pixel tiles of the float32 path) are
-// the same for every thread of the block. In the wide bf16 kernel every warp
+// the same for every thread of the block. In the wide kernel every warp
 // takes every piece of the ring and releases it, a warpgroup that has no
 // pixels in a round included; a wait for a piece traps after kWaitLimitNs.
+// Its tf32 build's warpgroup barriers (1 + the warpgroup; 0 is the block's)
+// are taken by a warpgroup's four warps together: whether it has pixels in
+// a round is the same for all four.
 // The entry points return cudaGetLastError(), and cudaErrorInvalidValue for
 // sizes they do not take or packed buffers of another size than its
 // layout's, without launching.
@@ -222,8 +261,6 @@ namespace {
 
 // Mirrored in ops/kernels/fused_subnet.py (a CPU test compares them).
 constexpr int kThreads = 512;
-constexpr int kTile = 32;  // float32: pixels per tile of the 1x1 stages
-constexpr int kRows = 4;   // float32: pixels per thread in the tiled stages
 // the most dilations a block has: ConvFlowConfig's schedule (models/arch.py::
 // _dilation_schedule, as JAX's) stops at its guard of 10 levels. The wide
 // variant takes that many; the narrow kernels 4, so that the parameters they
@@ -251,16 +288,16 @@ constexpr int kChipSmallTiles = 4;
 constexpr int kWalkSlices = 10;
 constexpr int kTapTable = 16 * kNarrowBranches * kWalkSlices;  // narrow: its bytes
 static_assert(kPlanHead == 32 + kTapTable, "the mbarriers, then the tap table");
-constexpr int kWideGroups = 4;     // wide bfloat16: warpgroups a block
-constexpr int kWideThreads = 512;  // wide bfloat16: threads a block
-constexpr int kSlotBytes = 4096;   // wide bfloat16: a slot of the weights' ring
-constexpr int kSlots = 4;          // wide bfloat16: slots of the ring
-constexpr int kBarrierBytes = 64;  // wide bfloat16: a full mbarrier and a counter a slot
-constexpr int kSlack = 2048;       // wide bfloat16: bytes past the ring wgmma may over-read
-constexpr int kGroupTiles = 8;     // wide bfloat16: branch tiles that share a walk over the chunks
-constexpr int kPassTiles = 16;     // wide bfloat16: n8 tiles of one wgmma (N <= 128)
+constexpr int kWideGroups = 4;     // wide: warpgroups a block
+constexpr int kWideThreads = 512;  // wide: threads a block
+constexpr int kSlotBytes = 4096;   // wide bfloat16 and the tf32 scratch plan: a slot of a ring
+constexpr int kTf32SlotBytes = 8192;  // wide tf32: a slot of its ring
+constexpr int kSlots = 4;          // wide: slots of the ring
+constexpr int kBarrierBytes = 64;  // wide: a full mbarrier and a counter a slot
+constexpr int kSlack = 2048;       // wide: bytes past the ring wgmma may over-read
+constexpr int kGroupTiles = 8;     // wide: branch tiles that share a walk over the chunks
+constexpr int kPassTiles = 16;     // wide: n8 tiles of one wgmma (N <= 128)
 constexpr float kSlope = 0.3f;
-static_assert(kTile % kRows == 0, "a tile holds whole row groups");
 
 // B: the branches the struct has room for (kNarrowBranches in the narrow
 // kernels, kMaxBranches in the wide variant)
@@ -299,212 +336,6 @@ cudaError_t allow_shared(Kernel kernel, bool (&done)[kMaxDevices]) {
     done[dev] = true;
   }
   return cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// float32 past the narrow kernel (the wide variant): CUDA cores
-// ---------------------------------------------------------------------------
-
-// Offsets, in elements, of each weight and bias in the packed buffers. The
-// order is flax_param_order's: kernels in one buffer, biases in another,
-// entry, then each residual block, then the head.
-template <int B>
-struct Layout {
-  int sum_w;
-  int width[B], group[B], col[B];
-  int w_block0, w_block, w_branch[B], w_post, w_head;
-  int b_block0, b_block, b_branch[B], b_post, b_head;
-  int64_t w_total, b_total;
-  int act_bytes, stage_bytes;
-  int scratch_per_sample;  // f32 scratch elements a sample: the trunk, then act and rows
-};
-
-// SAME k x k conv at dilation 1 over act (h*w pixels of cs channels) into dst
-// (h*w pixels of cout channels), plus bias. No barrier inside.
-template <class D>
-__device__ void conv_same(const D& d, const float* act, int cs, const float* __restrict__ wt,
-                          const float* __restrict__ bias, int cout, float* dst) {
-  const int hw = d.h * d.w, k = d.ksize, lo = (k - 1) / 2;
-  for (int e = threadIdx.x; e < hw * cout; e += kThreads) {
-    const int p = e / cout, co = e - p * cout;
-    const int py = p / d.w, px = p - py * d.w;
-    float acc = 0.f;
-    for (int ty = 0; ty < k; ++ty) {
-      const int iy = py + ty - lo;
-      if (iy < 0 || iy >= d.h) continue;
-      for (int tx = 0; tx < k; ++tx) {
-        const int ix = px + tx - lo;
-        if (ix < 0 || ix >= d.w) continue;
-        const float* a = act + (iy * d.w + ix) * cs;
-        const float* wtap = wt + (ty * k + tx) * cs * cout + co;
-        for (int ci = 0; ci < cs; ++ci) acc = fmaf(a[ci], wtap[ci * cout], acc);
-      }
-    }
-    dst[e] = acc + bias[co];
-  }
-}
-
-// rows [0, kTile) of `in` (n channels each) times w (n x cout): calls put(pixel
-// row, output channel, sum) for the first `np` rows. No barrier inside.
-template <typename Put>
-__device__ __forceinline__ void tile_1x1(const float* in, int n, int np,
-                                         const float* __restrict__ w, int cout, Put put) {
-  const int groups = (np + kRows - 1) / kRows;
-  for (int task = threadIdx.x; task < groups * cout; task += kThreads) {
-    const int r0 = task / cout * kRows, co = task - task / cout * cout;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int ci = 0; ci < n; ++ci) {
-      const float wv = w[ci * cout + co];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[(r0 + r) * n + ci], wv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r0 + r < np) put(r0 + r, co, acc[r]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_subnet_f32_kernel(const float* __restrict__ x, const float* __restrict__ wts,
-                        const float* __restrict__ bias, float* trunk,
-                        float* __restrict__ out, const Dims<kMaxBranches> d,
-                        const Layout<kMaxBranches> L) {
-  const int hw = d.h * d.w, K = d.K, k = d.ksize, S = L.sum_w;
-  const int64_t n = blockIdx.x;
-  const float* xs = x + n * hw * d.cin;
-  // y, act and stage are written and read back by other threads of the
-  // block: plain loads, never the read-only path
-  float* y = trunk + n * L.scratch_per_sample;
-  // the stage input and kTile pixel rows, in the sample's scratch after its trunk
-  float* act = y + hw * K;
-  float* stage = act + L.act_bytes / 4;
-  float* o = out + n * hw * d.out_total;
-
-  for (int e = threadIdx.x; e < hw * d.cin; e += kThreads) act[e] = xs[e];
-  __syncthreads();
-  conv_same(d, act, d.cin, wts, bias, K, y);
-  __syncthreads();
-
-  for (int blk = 0; blk < d.res_blocks; ++blk) {
-    const float* wb = wts + L.w_block0 + blk * L.w_block;
-    const float* bb = bias + L.b_block0 + blk * L.b_block;
-
-    // pre 1x1, tile by tile: act <- lrelu(lrelu(y) @ pre_w + pre_b)
-    for (int p0 = 0; p0 < hw; p0 += kTile) {
-      const int np = min(kTile, hw - p0);
-      for (int e = threadIdx.x; e < np * K; e += kThreads) stage[e] = lrelu(y[p0 * K + e]);
-      __syncthreads();
-      tile_1x1(stage, K, np, wb, K, [&](int r, int co, float v) {
-        act[(p0 + r) * K + co] = lrelu(v + bb[co]);
-      });
-      __syncthreads();
-    }
-
-    // branches then post 1x1, tile by tile:
-    // stage <- lrelu(gconv(act) + bb) for every branch column,
-    // y <- y + stage @ post_w + post_b
-    for (int p0 = 0; p0 < hw; p0 += kTile) {
-      const int np = min(kTile, hw - p0);
-      const int groups = (np + kRows - 1) / kRows;
-      for (int task = threadIdx.x; task < groups * S; task += kThreads) {
-        const int r0 = task / S * kRows;
-        const int col = task - task / S * S;
-        int br = 0;
-        while (br + 1 < d.nd && col >= L.col[br + 1]) ++br;
-        const int wd = L.width[br], g = L.group[br], dil = d.dil[br];
-        const int j = col - L.col[br], ci0 = j / g * g, lo = dil * (k - 1) / 2;
-        const float* wbr = wb + L.w_branch[br] + j;  // (k, k, g, wd) from column j
-        int py[kRows], px[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int p = min(p0 + r0 + r, hw - 1);  // rows past np are computed, not stored
-          py[r] = p / d.w;
-          px[r] = p - py[r] * d.w;
-        }
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-        for (int ty = 0; ty < k; ++ty) {
-          for (int tx = 0; tx < k; ++tx) {
-            int off[kRows];
-            bool in[kRows];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const int iy = py[r] + ty * dil - lo, ix = px[r] + tx * dil - lo;
-              in[r] = iy >= 0 && iy < d.h && ix >= 0 && ix < d.w;
-              off[r] = in[r] ? (iy * d.w + ix) * K + ci0 : 0;
-            }
-            const float* wtap = wbr + (ty * k + tx) * g * wd;
-            for (int c = 0; c < g; ++c) {
-              const float wv = wtap[c * wd];
-#pragma unroll
-              for (int r = 0; r < kRows; ++r)
-                if (in[r]) acc[r] = fmaf(act[off[r] + c], wv, acc[r]);
-            }
-          }
-        }
-        const float b = bb[L.b_branch[br] + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) stage[(r0 + r) * S + col] = lrelu(acc[r] + b);
-      }
-      __syncthreads();
-      tile_1x1(stage, S, np, wb + L.w_post, K, [&](int r, int co, float v) {
-        const int i = (p0 + r) * K + co;
-        y[i] = (y[i] + v) + bb[L.b_post + co];
-      });
-      __syncthreads();
-    }
-  }
-
-  // head: act <- lrelu(y); out <- conv_k(act, head_w) + head_b
-  for (int e = threadIdx.x; e < hw * K; e += kThreads) act[e] = lrelu(y[e]);
-  __syncthreads();
-  conv_same(d, act, K, wts + L.w_head, bias + L.b_head, d.out_total, o);
-}
-
-// Fills L from d; false for sizes the kernel does not take.
-template <int B>
-bool make_layout(const Dims<B>& d, Layout<B>& L) {
-  if (!dims_ok(d)) return false;
-  const int64_t kk = static_cast<int64_t>(d.ksize) * d.ksize;
-  int64_t sum_w = 0, branch_w = 0;
-  for (int i = 0; i < d.nd; ++i) {
-    const int wd = d.K / d.dil[i];
-    L.width[i] = wd;
-    L.group[i] = wd / d.card;
-    L.col[i] = static_cast<int>(sum_w);
-    L.w_branch[i] = static_cast<int>(static_cast<int64_t>(d.K) * d.K + branch_w);
-    L.b_branch[i] = static_cast<int>(d.K + sum_w);
-    branch_w += kk * L.group[i] * wd;
-    sum_w += wd;
-  }
-  const int64_t hw = static_cast<int64_t>(d.h) * d.w;
-  const int64_t w_entry = kk * d.cin * d.K;
-  const int64_t w_block = static_cast<int64_t>(d.K) * d.K + branch_w + sum_w * d.K;
-  const int64_t act_elems = hw * (d.cin > d.K ? d.cin : d.K);
-  const int64_t act_bytes = (act_elems * 4 + 15) / 16 * 16;
-  const int64_t stage_bytes = kTile * (sum_w > d.K ? sum_w : d.K) * 4;
-  L.w_total = w_entry + d.res_blocks * w_block + kk * d.K * d.out_total;
-  L.b_total = d.K + d.res_blocks * (2 * d.K + sum_w) + d.out_total;
-  const int64_t scratch = hw * d.K + (act_bytes + stage_bytes) / 4;
-  if (L.w_total > INT32_MAX || hw * d.K > INT32_MAX || hw * d.out_total > INT32_MAX ||
-      scratch > INT32_MAX)
-    return false;
-  L.scratch_per_sample = static_cast<int>(scratch);
-  L.sum_w = static_cast<int>(sum_w);
-  L.w_block0 = static_cast<int>(w_entry);
-  L.w_block = static_cast<int>(w_block);
-  L.w_post = static_cast<int>(d.K * d.K + branch_w);
-  L.w_head = static_cast<int>(w_entry + d.res_blocks * w_block);
-  L.b_block0 = d.K;
-  L.b_block = static_cast<int>(2 * d.K + sum_w);
-  L.b_post = static_cast<int>(d.K + sum_w);
-  L.b_head = d.K + d.res_blocks * L.b_block;
-  L.act_bytes = static_cast<int>(act_bytes);
-  L.stage_bytes = static_cast<int>(stage_bytes);
-  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -633,6 +464,13 @@ struct Tf32 {
     return split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
                    __uint_as_float(r[3]));
   }
+  // a lane's B fragment from its two 32-bit words (as ldmatrix gives them)
+  static __device__ __forceinline__ B split_b(uint32_t v0, uint32_t v1) {
+    B b;
+    split(__uint_as_float(v0), b.hi[0], b.lo[0]);
+    split(__uint_as_float(v1), b.hi[1], b.lo[1]);
+    return b;
+  }
   static __device__ __forceinline__ B load_b(const T* w, int frag) {
     const float2 v = reinterpret_cast<const float2*>(w + frag * kFrag)[threadIdx.x & 31];
     B b;
@@ -698,8 +536,8 @@ struct MmaLayout {
 // The table's scalars that the narrow bf16 kernel does not read (kept out of
 // MmaLayout, so that its parameters stay as they were).
 struct WidePlan {
-  int act_in_shared;  // bf16 wide: 1 if the stage input lives in shared memory
-  int wide_shared;    // bf16 wide: dynamic shared memory a block
+  int act_in_shared;  // wide: 1 if the stage input lives in shared memory
+  int wide_shared;    // wide: dynamic shared memory a block
   int n_pieces;       // pieces of one round of every stage of a ring (the table's schedule)
 };
 static_assert(sizeof(Dims<kMaxBranches>) + sizeof(MmaLayout<kMaxBranches>) + sizeof(WidePlan) +
@@ -745,7 +583,7 @@ bool read_mma_layout(const int* t, int n, MmaLayout<B>& L, WidePlan& W) {
   return true;
 }
 
-// float32 scratch elements a sample of the wide bf16 kernel: the trunk, then
+// float32 scratch elements a sample of the wide kernel: the trunk, then
 // the stage input (act_bytes, a multiple of 16) where it does not fit shared
 // memory
 template <int B>
@@ -753,13 +591,25 @@ int64_t wide_scratch(const MmaLayout<B>& L, const WidePlan& W) {
   return L.trunk_per_sample + (W.act_in_shared ? 0 : L.act_bytes / 4);
 }
 
+// the wide kernel's slot of its ring: in tf32 twice bf16's, so that a piece
+// of a 128-wide stage is two k8 chunks, as much work as bf16's k16 one
+template <class Prod>
+constexpr int kWideSlot = Prod::kSlices == 1 ? kTf32SlotBytes : kSlotBytes;
+
+// wide tf32: the lo planes after the ring, two a warpgroup, each a slot's
+// bytes (the lo half of the piece it multiplies, split in shared memory)
+template <class Prod>
+constexpr int kLoPlanes = Prod::kSlices == 1 ? 2 * kWideGroups * kWideSlot<Prod> : 0;
+
 // The wide kernel's shared memory: the ring's barriers, the ring of
-// weights, then the stage input if it fits beside them (else kSlack bytes,
-// what wgmma may read past the ring). Whether it fits is the layout's
-// (fused_subnet.py::_wide_plan); this checks it.
-template <int B>
+// weights, in tf32 the lo planes, then the stage input if it fits beside
+// them (else kSlack bytes, what wgmma may read past the ring or a plane).
+// Whether it fits is the layout's (fused_subnet.py::_wide_plan); this
+// checks it.
+template <class Prod, int B>
 bool wide_plan_ok(const MmaLayout<B>& L, const WidePlan& W) {
-  const int64_t ring = static_cast<int64_t>(kSlots) * kSlotBytes + kBarrierBytes;
+  const int64_t ring =
+      static_cast<int64_t>(kSlots) * kWideSlot<Prod> + kBarrierBytes + kLoPlanes<Prod>;
   const int64_t with_act = ring + (L.act_bytes > kSlack ? L.act_bytes : kSlack);
   const bool fits = with_act <= kMaxShared;
   return W.act_in_shared == (fits ? 1 : 0) && W.wide_shared == (fits ? with_act : ring + kSlack);
@@ -853,7 +703,7 @@ bool mma_layout_ok(const Dims<B>& d, const MmaLayout<B>& L, const WidePlan& W, c
       hw * d.out_total <= INT32_MAX && L.n_mt == (hw + 15) / 16 &&
       L.trunk_per_sample == 16 * static_cast<int64_t>(L.n_mt) * Kp &&
       L.act_bytes % 16 == 0 && L.act_bytes >= (hw + 1) * row * item &&
-      (S == 1 || wide_plan_ok(L, W));
+      wide_plan_ok<Prod>(L, W);
   const bool stages =
       S * L.ch_entry >= kk * L.qx && L.ch_pre == (L.NT + S - 1) / S &&
       L.ch_post == (L.n_tiles + S - 1) / S && S * L.ch_head >= kk * L.NT &&
@@ -1899,11 +1749,12 @@ fused_subnet_mma_kernel(const float* __restrict__ x, const __nv_bfloat16* __rest
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, wide: any trunk and head width, any stage input size
+// wide: any trunk and head width, any stage input size (bf16 and tf32)
 // ---------------------------------------------------------------------------
 
 constexpr int kWideWarps = 4 * kWideGroups;
-constexpr int kRingBytes = kSlots * kSlotBytes;
+template <class Prod>
+constexpr int kRingBytes = kSlots * kWideSlot<Prod>;
 constexpr int kLoadTiles = 4;  // the trunk's float4s a lane loads together
 static_assert(kWideThreads == 32 * kWideWarps, "warpgroups of 128 threads");
 static_assert(kBarrierBytes == 16 * kSlots, "a full mbarrier and a counter (padded) a slot");
@@ -1911,6 +1762,10 @@ static_assert(kSlotBytes == kPassTiles * 2 * kFrag, "a slot holds one chunk of a
 static_assert(kSlack >= (kPassTiles / 2 - 1) * 2 * kFrag + 64,
               "the slack covers wgmma's widest over-read (N a power of two at or above 8 nt)");
 static_assert(kGroupTiles % 2 == 0 && kPassTiles % kGroupTiles == 0, "groups of tile pairs");
+constexpr int kFragBytes = 2 * kFrag;  // a B fragment of either product (k16 bf16, k8 tf32)
+static_assert(kFragBytes == Tf32::kFrag * Tf32::kItem, "a fragment is 256 bytes either way");
+static_assert(kTf32SlotBytes == 2 * kPassTiles * kFragBytes && kTf32SlotBytes % (16 * 128) == 0,
+              "a tf32 slot holds two k8 chunks of a pass, split by 128 threads in float4s");
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -2032,6 +1887,104 @@ __device__ __forceinline__ void wgmma_tiles<16>(float (&d)[4 * kPassTiles],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d += a x B: wgmma.mma_async m64nNk8, N = 8 kTiles, tf32 x tf32 -> f32 (the
+// tensor cores read each operand's top 19 bits), A from registers (each warp
+// its 16 rows, in mma.m16n8k8's tf32 A layout), B from shared memory at desc
+// (K-major, as bf16's: a k8 x n8 tile is two core matrices of 8 n rows x 4
+// floats, fused_subnet.py::TF32_CORE_ORDER); d in the accumulator layout
+template <int kTiles>
+__device__ __forceinline__ void wgmma_tf32_tiles(float (&d)[4 * kPassTiles],
+                                                 const uint32_t (&a)[4], uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_tiles<1>(float (&d)[4 * kPassTiles],
+                                                     const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_tiles<2>(float (&d)[4 * kPassTiles],
+                                                     const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_tiles<4>(float (&d)[4 * kPassTiles],
+                                                     const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_tiles<8>(float (&d)[4 * kPassTiles],
+                                                     const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_tiles<16>(float (&d)[4 * kPassTiles],
+                                                     const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // A SAME k x k conv's A operand in the wide kernel, read from the stage input
 // in scratch: this lane's pixel rows g and g + 8 of a 16-pixel tile, the
 // input's 8-channel slices per tap, the dilation and the row stride.
@@ -2077,6 +2030,26 @@ __device__ __forceinline__ void fragment_a_scratch(const __nv_bfloat16* act, con
     a[e] = off[e] < 0 ? 0u : *reinterpret_cast<const uint32_t*>(act + off[e] + lo8);
 }
 
+// Element offsets, from the input window's first channel, of this lane's A
+// values in tf32 chunk c (one slice) of rows g and g+8: channels 2t and 2t+1
+// of the slice (t = lane % 4), which are A's columns t and t+4 in the
+// scratch route's packing (its k x k stages' rows permuted as the pre and
+// post 1x1s' are, fused_subnet.py::HANDOFF_ROWS), so that a row is one
+// 8-byte load; -1 where the values are zero (chunk_offsets' cases).
+template <class D>
+__device__ __forceinline__ void tf32_offsets(const D& d, const WideGather& G, int c,
+                                             int (&off)[2]) {
+  const int t = threadIdx.x & 3, tap = c / G.q, c8 = c - tap * G.q;
+  const int ty = tap / d.ksize, tx = tap - ty * d.ksize;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int iy = G.r.py[i] + ty * G.dil - G.pad, ix = G.r.px[i] + tx * G.dil - G.pad;
+    const bool in = G.r.ok[i] && tap < d.ksize * d.ksize && iy >= 0 && iy < d.h && ix >= 0 &&
+                    ix < d.w;
+    off[i] = in ? (iy * d.w + ix) * G.stride + 8 * c8 + 2 * t : -1;
+  }
+}
+
 // d += a x the B tiles at shared address b for n8 tiles [0, nt) of d: N is
 // the power of two at or above 8 nt, so the columns past nt read what lies
 // past the piece (inside kSlack) and are never used
@@ -2095,21 +2068,88 @@ __device__ __forceinline__ void wgmma_n(int nt, float (&d)[4 * kPassTiles],
     wgmma_tiles<1>(d, a, desc);
 }
 
+// wgmma_n in tf32 (wgmma_tf32_tiles)
+__device__ __forceinline__ void wgmma_tf32_n(int nt, float (&d)[4 * kPassTiles],
+                                             const uint32_t (&a)[4], uint32_t b) {
+  const uint64_t desc = b_descriptor(b);
+  if (nt > 8)
+    wgmma_tf32_tiles<16>(d, a, desc);
+  else if (nt > 4)
+    wgmma_tf32_tiles<8>(d, a, desc);
+  else if (nt > 2)
+    wgmma_tf32_tiles<4>(d, a, desc);
+  else if (nt > 1)
+    wgmma_tf32_tiles<2>(d, a, desc);
+  else
+    wgmma_tf32_tiles<1>(d, a, desc);
+}
+
+// d += a x B as Tf32::product's three TF32 products, lo*hi + hi*lo + hi*hi:
+// B as it stands at b (the tensor cores read its top 19 bits, hi) and its lo
+// plane at lo (LoPlane)
+__device__ __forceinline__ void wgmma_split(int nt, float (&d)[4 * kPassTiles], const Tf32::A& a,
+                                            uint32_t b, uint32_t lo) {
+  wgmma_tf32_n(nt, d, a.lo, b);
+  wgmma_tf32_n(nt, d, a.hi, lo);
+  wgmma_tf32_n(nt, d, a.hi, b);
+}
+
+// the 128 threads of warpgroup barrier `bar` (1 + the warpgroup: 0 is the block's)
+__device__ __forceinline__ void warpgroup_sync(int bar) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+}
+
+// The wide tf32 kernel's lo planes. wgmma reads B from shared memory, so the
+// lo half of a ring piece (B - hi, hi its top 19 bits: Tf32::split) cannot be
+// made in registers as the branch tiles' is; each warpgroup writes the lo
+// plane of the piece it multiplies into one of its own two planes of
+// kWideSlot bytes after the ring, by turns, once a piece: the plane written, made
+// visible to the async proxy (which wgmma reads through), and every warp of
+// the warpgroup past it. That barrier is also what frees the other plane: a
+// warp reaches it only after waiting for its products of the piece before,
+// which read that plane.
+struct LoPlane {
+  unsigned char* smem;  // the block's shared memory, and its shared address
+  uint32_t smem_s;
+  uint32_t planes;  // shared address of this warpgroup's two planes
+  int bar;          // its barrier
+  int turn;         // the pieces it has split
+  // the plane of the piece's first `bytes` at shared address slot; returns
+  // its shared address
+  __device__ __forceinline__ uint32_t split(uint32_t slot, int bytes) {
+    const uint32_t plane = planes + (turn++ & 1) * kTf32SlotBytes;
+    const float4* b = reinterpret_cast<const float4*>(smem + (slot - smem_s));
+    float4* lo = reinterpret_cast<float4*>(smem + (plane - smem_s));
+    for (int e = threadIdx.x & 127; e < bytes / 16; e += 128) {
+      const float4 v = b[e];
+      lo[e] = make_float4(lo_part(v.x), lo_part(v.y), lo_part(v.z), lo_part(v.w));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    warpgroup_sync(bar);
+    return plane;
+  }
+  static __device__ __forceinline__ float lo_part(float v) {
+    return v - __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+  }
+};
+
 // rounds of the warpgroups over a sample's 64-pixel tiles
 __host__ __device__ __forceinline__ int wide_rounds(const MmaLayout<kMaxBranches>& L) {
   return (L.n_mt + kWideWarps - 1) / kWideWarps;
 }
 
-// k16 chunks a piece of a pass over a stage of NTs n8 tiles that takes its
-// tiles [j0, j0 + nt): as many as a slot holds where the pass takes every
-// tile (its chunks lie end to end), one otherwise
+// chunks (k16 in bf16, k8 in tf32) a piece of a pass over a stage of NTs n8
+// tiles that takes its tiles [j0, j0 + nt): as many as a slot holds where
+// the pass takes every tile (its chunks lie end to end), one otherwise
+template <class Prod>
 __host__ __device__ __forceinline__ int chunks_a_piece(int NTs, int nt) {
-  return nt == NTs ? kPassTiles / nt : 1;
+  return nt == NTs ? kWideSlot<Prod> / kFragBytes / nt : 1;
 }
 
-// element offset of chunk c, tile j0 of a stage of NTs tiles at w
-__host__ __device__ __forceinline__ int64_t pass_src(int64_t w, int c, int NTs, int j0) {
-  return w + (static_cast<int64_t>(c) * NTs + j0) * kFrag;
+// element offset of chunk c, tile j0 of a stage of NTs tiles at w, of
+// fragments of f elements
+__host__ __device__ __forceinline__ int64_t pass_src(int64_t w, int c, int NTs, int j0, int f) {
+  return w + (static_cast<int64_t>(c) * NTs + j0) * f;
 }
 
 // The schedule's entry of piece p of the chain: each stage (the entry, per
@@ -2138,8 +2178,8 @@ inline int schedule_entry(const int* lens, int stages, int rounds, int p) {
 // 17th warp would put 5 on one of the SM's four sub-partitions, whose 16,384
 // registers would then give each thread 96), and a slot is refilled the
 // moment it is free. The tf32 scratch plan's kernel walks its own ring so,
-// its weights float32 (T).
-template <class T>
+// its weights float32 (T); the wide tf32 kernel's slots are kTf32SlotBytes.
+template <class T, int kBytes = kSlotBytes>
 struct Ring {
   uint32_t slots, full;
   int* freed;
@@ -2147,12 +2187,12 @@ struct Ring {
   int n;  // pieces of the whole chain
   const int* sched;  // (element offset, bytes) a piece
   const T* w;
-  __device__ __forceinline__ uint32_t slot() const { return slots + (k % kSlots) * kSlotBytes; }
+  __device__ __forceinline__ uint32_t slot() const { return slots + (k % kSlots) * kBytes; }
   // one lane: piece p into its slot
   __device__ __forceinline__ void issue(int p) const {
     const int s = p % kSlots, bytes = __ldg(sched + 2 * p + 1);
     barrier_expect(full + 8 * s, bytes);
-    bulk_copy(slots + s * kSlotBytes, w + __ldg(sched + 2 * p), bytes, full + 8 * s);
+    bulk_copy(slots + s * kBytes, w + __ldg(sched + 2 * p), bytes, full + 8 * s);
   }
   __device__ __forceinline__ void wait() const {
     barrier_wait(full + 8 * (k % kSlots), (k / kSlots) & 1);
@@ -2174,10 +2214,11 @@ struct Ring {
 
 using WideRing = Ring<__nv_bfloat16>;
 
-// Where a k x k conv's A fragments come from: the stage input in dt, in
+// Where a k x k conv's A fragments come from: the stage input in dt (T), in
 // shared memory (act_s, its row of zeros at zero_s) or in scratch (act).
+template <class T>
 struct StageIn {
-  const __nv_bfloat16* act;
+  const T* act;
   uint32_t act_s, zero_s;
 };
 
@@ -2190,8 +2231,8 @@ struct Taps<true> {
   Gather G;
   uint32_t at;
   template <class D>
-  __device__ __forceinline__ void start(const D& d, const StageIn& in, int mt, int stride, int q,
-                                        int dil) {
+  __device__ __forceinline__ void start(const D& d, const StageIn<__nv_bfloat16>& in, int mt,
+                                        int stride, int q, int dil) {
     G = gather_at(d, mt, in.act_s, in.zero_s, stride, q, dil);
   }
   template <class D>
@@ -2211,8 +2252,8 @@ struct Taps<false> {
   const __nv_bfloat16* act;
   int c, off[4];
   template <class D>
-  __device__ __forceinline__ void start(const D& d, const StageIn& in, int mt, int stride, int q,
-                                        int dil) {
+  __device__ __forceinline__ void start(const D& d, const StageIn<__nv_bfloat16>& in, int mt,
+                                        int stride, int q, int dil) {
     G = wide_gather(d, mt, q, dil, stride);
     act = in.act;
     c = 0;
@@ -2226,30 +2267,111 @@ struct Taps<false> {
   }
 };
 
+// The tf32 counterpart of Taps: one slice a k8 chunk, each A fragment split
+// as it is read (Tf32::load_a, Tf32::split_a). In shared memory the narrow
+// kernel's walk (TileTaps, ldmatrix.x4); in scratch four plain loads.
+template <bool kShared>
+struct TfTaps;
+
+template <>
+struct TfTaps<true> {
+  TileTaps<1> G;
+  uint32_t at;
+  template <class D>
+  __device__ __forceinline__ void start(const D& d, const StageIn<float>& in, int mt, int stride,
+                                        int q, int dil) {
+    const int mts[1] = {mt};
+    G = taps_at<Tf32>(d, mts, in.act_s, in.zero_s, stride, q, dil);
+  }
+  template <class D>
+  __device__ __forceinline__ void next(const D& d) {
+    uint32_t a[1];
+    taps_take<Tf32>(d, G, a);
+    at = a[0];
+  }
+  __device__ __forceinline__ void fetch(int lo8, Tf32::A& a) const {
+    a = Tf32::load_a(at + Tf32::kItem * lo8);
+  }
+};
+
+template <>
+struct TfTaps<false> {
+  WideGather G;
+  const float* act;
+  int c, off[2];
+  template <class D>
+  __device__ __forceinline__ void start(const D& d, const StageIn<float>& in, int mt, int stride,
+                                        int q, int dil) {
+    G = wide_gather(d, mt, q, dil, stride);
+    act = in.act;
+    c = 0;
+  }
+  template <class D>
+  __device__ __forceinline__ void next(const D& d) {
+    tf32_offsets(d, G, c++, off);
+  }
+  // plain loads of what this kernel writes, never the read-only path: rows
+  // g and g+8, channels 2t and 2t+1 each, as an accumulator tile holds them
+  __device__ __forceinline__ void fetch(int lo8, Tf32::A& a) const {
+    float2 v[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      v[i] = off[i] < 0 ? make_float2(0.f, 0.f)
+                        : *reinterpret_cast<const float2*>(act + off[i] + lo8);
+    a = Tf32::tile_a(v[0].x, v[0].y, v[1].x, v[1].y);
+  }
+};
+
+// the A walk of product Prod with the stage input in shared memory or not
+template <class Prod, bool kShared>
+struct TapsOf {
+  using type = Taps<kShared>;
+};
+template <bool kShared>
+struct TapsOf<Tf32, kShared> {
+  using type = TfTaps<kShared>;
+};
+
 // acc = the SAME k x k conv (dilation 1) of this warp's 16-pixel tile mt of
 // the stage input (`stride` elements a pixel, q slices a tap) over `ch` k16
-// chunks, into n8 tiles [j0, j0 + nt) of a stage of NTs tiles whose B pieces
-// come from the ring. `active`: the warpgroup has pixels this round; an
-// idle one only walks the ring.
-template <bool kShared, class D>
-__device__ __forceinline__ void conv_pass(const D& d, const StageIn& in, int mt, int stride, int q,
-                                          int ch, int NTs, int j0, int nt, bool active,
-                                          WideRing& ring, float (&acc)[4 * kPassTiles]) {
+// (bf16) or k8 (tf32) chunks, into n8 tiles [j0, j0 + nt) of a stage of NTs
+// tiles whose B pieces come from the ring (in tf32 with the piece's lo
+// plane, LoPlane). `active`: the warpgroup has pixels this round; an idle
+// one only walks the ring.
+template <class Prod, bool kShared, class D>
+__device__ __forceinline__ void conv_pass(const D& d, const StageIn<typename Prod::T>& in, int mt,
+                                          int stride, int q, int ch, int NTs, int j0, int nt,
+                                          bool active,
+                                          Ring<typename Prod::T, kWideSlot<Prod>>& ring,
+                                          LoPlane& lo, float (&acc)[4 * kPassTiles]) {
 #pragma unroll
   for (int i = 0; i < 4 * kPassTiles; ++i) acc[i] = 0.f;
-  Taps<kShared> A;
+  typename TapsOf<Prod, kShared>::type A;
   if (active) A.start(d, in, mt, stride, q, 1);
-  const int per = chunks_a_piece(NTs, nt);
+  const int per = chunks_a_piece<Prod>(NTs, nt);
   for (int c0 = 0; c0 < ch; c0 += per) {
     ring.wait();
     if (active) {
-      for (int i = 0; i < min(per, ch - c0); ++i) {
-        uint32_t a[4];
-        A.next(d);
-        A.fetch(0, a);
-        wgmma_fence();
-        wgmma_n(nt, acc, a, ring.slot() + i * nt * 2 * kFrag);
-        wgmma_commit();
+      if constexpr (Prod::kSlices == 2) {
+        for (int i = 0; i < min(per, ch - c0); ++i) {
+          uint32_t a[4];
+          A.next(d);
+          A.fetch(0, a);
+          wgmma_fence();
+          wgmma_n(nt, acc, a, ring.slot() + i * nt * 2 * kFrag);
+          wgmma_commit();
+        }
+      } else {
+        const int n = min(per, ch - c0);
+        const uint32_t plane = lo.split(ring.slot(), n * nt * kFragBytes);
+        for (int i = 0; i < n; ++i) {
+          Tf32::A a;
+          A.next(d);
+          A.fetch(0, a);
+          wgmma_fence();
+          wgmma_split(nt, acc, a, ring.slot() + i * nt * kFragBytes, plane + i * nt * kFragBytes);
+          wgmma_commit();
+        }
       }
       wgmma_wait_all(acc);
     }
@@ -2271,29 +2393,57 @@ __device__ __forceinline__ void post_piece(WideRing& ring, bool active, int nt,
   ring.release();
 }
 
+using Tf32Ring = Ring<float, kTf32SlotBytes>;
+
+// tf32: u += the post 1x1's k8 chunks whose A fragments are a[0, n) (n one
+// or two branch tiles' outputs, Tf32::tile_a), their B the ring's next piece
+// (the chunks end to end) with its lo plane
+__device__ __forceinline__ void post_piece(Tf32Ring& ring, LoPlane& lo, bool active, int nt,
+                                           const Tf32::A (&a)[2], int n,
+                                           float (&u)[4 * kPassTiles]) {
+  ring.wait();
+  if (active) {
+    const uint32_t plane = lo.split(ring.slot(), n * nt * kFragBytes);
+    wgmma_fence();
+    wgmma_split(nt, u, a[0], ring.slot(), plane);
+    if (n > 1) wgmma_split(nt, u, a[1], ring.slot() + nt * kFragBytes, plane + nt * kFragBytes);
+    wgmma_commit();
+    wgmma_wait_all(u);
+  }
+  ring.release();
+}
+
 // The chain of fused_subnet_mma_kernel for any trunk and head width, as the
 // source note's wide variant: kWideGroups warpgroups, each a 64-pixel
 // tile a round (its warps the 16-pixel tiles 4M..4M+3), that feed every
 // stage's weights through a ring of kSlots shared slots themselves (Ring).
-// kShared: the stage input lives in shared memory after the ring (else in
-// the sample's scratch after its trunk). `tiles`: the layout table's tiles,
-// then every piece of the schedule, in device memory; per_sample: the
-// scratch elements a sample (wide_scratch).
-template <bool kShared>
+// Prod: Bf16 (one k16 product a chunk) or Tf32 (three TF32 products a k8
+// chunk on split operands: A split once a gather or a hand-off, a branch
+// tile's B in registers, a trunk-wide stage's B lo plane in shared memory,
+// LoPlane). kShared: the stage input lives in shared memory after the ring
+// (and in tf32 the lo planes), else in the sample's scratch after its
+// trunk. `tiles`: the layout table's tiles, then every piece of the
+// schedule, in device memory; per_sample: the scratch elements a sample
+// (wide_scratch).
+template <class Prod, bool kShared>
 __global__ void __launch_bounds__(kWideThreads, 1)
-fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wts,
+fused_subnet_mma_wide_kernel(const float* __restrict__ x,
+                             const typename Prod::T* __restrict__ wts,
                              const float* __restrict__ bias, float* scratch,
                              float* __restrict__ out, const Dims<kMaxBranches> d,
                              const MmaLayout<kMaxBranches> L, const WidePlan W,
                              const int* __restrict__ tiles, int64_t per_sample) {
+  using T = typename Prod::T;
+  constexpr bool kTf32 = Prod::kSlices == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   // the barriers first, so that what wgmma reads past a slot is the next
-  // slot, the stage input or the slack, never an mbarrier
+  // slot, a lo plane, the stage input or the slack, never an mbarrier
   const uint32_t full = shared_addr(smem), slots = full + kBarrierBytes;
   int* freed = reinterpret_cast<int*>(smem + 8 * kSlots);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rounds = wide_rounds(L);
-  WideRing ring{slots, full, freed, 0, rounds * W.n_pieces, tiles + 5 * L.n_tiles, wts};
+  Ring<T, kWideSlot<Prod>> ring{slots, full, freed, 0, rounds * W.n_pieces,
+                                tiles + 5 * L.n_tiles, wts};
   if (threadIdx.x == 0) {
     for (int s = 0; s < kSlots; ++s) {
       barrier_init(full + 8 * s, 1);
@@ -2307,6 +2457,8 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
   // warpgroup and warp within it, uniform as the compiler sees them (so that
   // no wgmma sits on a path it takes for divergent)
   const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), wq = __shfl_sync(0xffffffffu, warp & 3, 0);
+  // tf32: this warpgroup's two lo planes, after the ring
+  LoPlane plane{smem, full, slots + kRingBytes<Prod> + 2 * wg * kTf32SlotBytes, 1 + wg, 0};
   const int hw = d.h * d.w, NT = L.NT;
   const int64_t n = blockIdx.x;
   const float* xs = x + n * hw * d.cin;
@@ -2317,24 +2469,27 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
   // the stage input, rows as in the narrow kernel's shared memory, then (in
   // shared memory) a row of zeros: what a padding pixel reads
   const int row = L.xs > L.ts ? L.xs : L.ts;
-  __nv_bfloat16* act =
-      kShared ? reinterpret_cast<__nv_bfloat16*>(smem + kBarrierBytes + kRingBytes)
-              : reinterpret_cast<__nv_bfloat16*>(mine + L.trunk_per_sample);
-  StageIn in{act, 0u, 0u};
+  T* act = kShared ? reinterpret_cast<T*>(smem + kBarrierBytes + kRingBytes<Prod> +
+                                          kLoPlanes<Prod>)
+                   : reinterpret_cast<T*>(mine + L.trunk_per_sample);
+  StageIn<T> in{act, 0u, 0u};
   if (kShared) {
     in.act_s = shared_addr(act);
-    in.zero_s = in.act_s + 2 * hw * row;
-    for (int e = threadIdx.x; e < row; e += kWideThreads)
-      act[hw * row + e] = __float2bfloat16(0.f);
+    in.zero_s = in.act_s + Prod::kItem * hw * row;
+    for (int e = threadIdx.x; e < row; e += kWideThreads) act[hw * row + e] = Prod::zero();
   }
   float* o = out + n * hw * d.out_total;
   auto y_at = [&](int mt, int j) -> float4& { return y[(mt * NT + j) * 32 + lane]; };
 
-  // x -> bf16, channels zero-padded to the slices
+  // x -> dt, channels zero-padded to the slices
   const int cin_p = 8 * L.qx;
   for (int e = threadIdx.x; e < hw * cin_p; e += kWideThreads) {
     const int p = e / cin_p, c = e - p * cin_p;
-    act[p * L.xs + c] = __float2bfloat16(c < d.cin ? xs[p * d.cin + c] : 0.f);
+    const float v = c < d.cin ? xs[p * d.cin + c] : 0.f;
+    if constexpr (kTf32)
+      act[p * L.xs + c] = v;
+    else
+      act[p * L.xs + c] = __float2bfloat16(v);
   }
   __syncthreads();
 
@@ -2345,7 +2500,8 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
     for (int j0 = 0; j0 < NT; j0 += kPassTiles) {
       const int nt = min(kPassTiles, NT - j0);
       float acc[4 * kPassTiles];
-      conv_pass<kShared>(d, in, mt, L.xs, L.qx, L.ch_entry, NT, j0, nt, active, ring, acc);
+      conv_pass<Prod, kShared>(d, in, mt, L.xs, L.qx, L.ch_entry, NT, j0, nt, active, ring, plane,
+                               acc);
       if (mt < L.n_mt) {
 #pragma unroll
         for (int j = 0; j < kPassTiles; ++j) {
@@ -2362,45 +2518,68 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
   for (int blk = 0; blk < d.res_blocks; ++blk) {
     const float* bb = bias + L.b_block0 + static_cast<int64_t>(blk) * L.b_block;
 
-    // pre 1x1: t = bf16(lrelu(bf16(lrelu(y)) @ pre_w + pre_b)) into the stage
-    // input; accumulator tiles 2c and 2c+1 of y are chunk c's A fragment, up
-    // to kPassTiles / 2 chunks loaded together
+    // pre 1x1: t = dt(lrelu(dt(lrelu(y)) @ pre_w + pre_b)) into the stage
+    // input. bf16: accumulator tiles 2c and 2c+1 of y are chunk c's A
+    // fragment, up to kPassTiles / 2 chunks loaded together; tf32: tile c is
+    // chunk c's (Tf32::tile_a), split as the chunk comes
     for (int r = 0; r < rounds; ++r) {
       const int mt = 4 * (r * kWideGroups + wg) + wq;
       const bool active = 4 * (r * kWideGroups + wg) < L.n_mt, mine_ok = mt < L.n_mt;
       for (int j0 = 0; j0 < NT; j0 += kPassTiles) {
-        const int nt = min(kPassTiles, NT - j0), per = chunks_a_piece(NT, nt);
+        const int nt = min(kPassTiles, NT - j0), per = chunks_a_piece<Prod>(NT, nt);
         float acc[4 * kPassTiles];
 #pragma unroll
         for (int i = 0; i < 4 * kPassTiles; ++i) acc[i] = 0.f;
-        for (int cb = 0; cb < L.ch_pre; cb += kPassTiles / 2) {
-          uint32_t a[kPassTiles / 2][4];
-#pragma unroll
-          for (int c = 0; c < kPassTiles / 2; ++c) {
-            const int cc = cb + c;
-            float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-            if (mine_ok && cc < L.ch_pre) {
-              lo = y_at(mt, 2 * cc);
-              if (2 * cc + 1 < NT) hi = y_at(mt, 2 * cc + 1);
+        if constexpr (kTf32) {
+          uint32_t lo = 0;  // the piece's lo plane
+          for (int cc = 0; cc < L.ch_pre; ++cc) {
+            const int cp = cc % per;  // cc's chunk within its piece
+            if (cp == 0) {
+              ring.wait();
+              if (active) lo = plane.split(ring.slot(), min(per, L.ch_pre - cc) * nt * kFragBytes);
             }
-            a[c][0] = pack_bf16(lrelu(lo.x), lrelu(lo.y));
-            a[c][1] = pack_bf16(lrelu(lo.z), lrelu(lo.w));
-            a[c][2] = pack_bf16(lrelu(hi.x), lrelu(hi.y));
-            a[c][3] = pack_bf16(lrelu(hi.z), lrelu(hi.w));
-          }
-#pragma unroll
-          for (int c = 0; c < kPassTiles / 2; ++c) {
-            const int cc = cb + c;
-            if (cc >= L.ch_pre) break;
-            if (cc % per == 0) ring.wait();
             if (active) {
+              const float4 v = mine_ok ? y_at(mt, cc) : make_float4(0.f, 0.f, 0.f, 0.f);
+              const Tf32::A a = Tf32::tile_a(lrelu(v.x), lrelu(v.y), lrelu(v.z), lrelu(v.w));
               wgmma_fence();
-              wgmma_n(nt, acc, a[c], ring.slot() + (cc % per) * nt * 2 * kFrag);
+              wgmma_split(nt, acc, a, ring.slot() + cp * nt * kFragBytes, lo + cp * nt * kFragBytes);
               wgmma_commit();
             }
-            if ((cc + 1) % per == 0 || cc + 1 == L.ch_pre) {
+            if (cp + 1 == per || cc + 1 == L.ch_pre) {
               if (active) wgmma_wait_all(acc);
               ring.release();
+            }
+          }
+        } else {
+          for (int cb = 0; cb < L.ch_pre; cb += kPassTiles / 2) {
+            uint32_t a[kPassTiles / 2][4];
+#pragma unroll
+            for (int c = 0; c < kPassTiles / 2; ++c) {
+              const int cc = cb + c;
+              float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+              if (mine_ok && cc < L.ch_pre) {
+                lo = y_at(mt, 2 * cc);
+                if (2 * cc + 1 < NT) hi = y_at(mt, 2 * cc + 1);
+              }
+              a[c][0] = pack_bf16(lrelu(lo.x), lrelu(lo.y));
+              a[c][1] = pack_bf16(lrelu(lo.z), lrelu(lo.w));
+              a[c][2] = pack_bf16(lrelu(hi.x), lrelu(hi.y));
+              a[c][3] = pack_bf16(lrelu(hi.z), lrelu(hi.w));
+            }
+#pragma unroll
+            for (int c = 0; c < kPassTiles / 2; ++c) {
+              const int cc = cb + c;
+              if (cc >= L.ch_pre) break;
+              if (cc % per == 0) ring.wait();
+              if (active) {
+                wgmma_fence();
+                wgmma_n(nt, acc, a[c], ring.slot() + (cc % per) * nt * 2 * kFrag);
+                wgmma_commit();
+              }
+              if ((cc + 1) % per == 0 || cc + 1 == L.ch_pre) {
+                if (active) wgmma_wait_all(acc);
+                ring.release();
+              }
             }
           }
         }
@@ -2414,8 +2593,8 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
 #pragma unroll
             for (int i = 0; i < 2; ++i)
               if (rw.ok[i])
-                *reinterpret_cast<uint32_t*>(act + (rw.py[i] * d.w + rw.px[i]) * L.ts + ch) =
-                    pack_bf16(lrelu(acc[4 * j + 2 * i] + b.x), lrelu(acc[4 * j + 2 * i + 1] + b.y));
+                Prod::store2(act + (rw.py[i] * d.w + rw.px[i]) * L.ts + ch,
+                             lrelu(acc[4 * j + 2 * i] + b.x), lrelu(acc[4 * j + 2 * i + 1] + b.y));
           }
         }
       }
@@ -2424,9 +2603,9 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
 
     // branches and post 1x1: the branch tiles in groups of kGroupTiles, each
     // group's chunks located once for all its tiles (mma.sync, B from the
-    // ring); s = bf16(lrelu(gconv(t) + bb)), two tiles a k16 chunk of the
-    // post 1x1's A operand, multiplied in as soon as both are done (wgmma);
-    // y = y + u + post_b
+    // ring); s = dt(lrelu(gconv(t) + bb)) multiplied into the post 1x1 as
+    // soon as it is done (wgmma): in bf16 two tiles a k16 chunk of its A
+    // operand, in tf32 each tile a k8 chunk; y = y + u + post_b
     for (int r = 0; r < rounds; ++r) {
       const int mt = 4 * (r * kWideGroups + wg) + wq;
       const bool active = 4 * (r * kWideGroups + wg) < L.n_mt;
@@ -2435,17 +2614,21 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
         float u[4 * kPassTiles];
 #pragma unroll
         for (int i = 0; i < 4 * kPassTiles; ++i) u[i] = 0.f;
-        uint32_t pend[2] = {0u, 0u};  // an even tile's fragment half, waiting for its pair
+        uint32_t pend[2] = {0u, 0u};  // bf16: an even tile's fragment half, waiting for its pair
+        // tf32: an even tile's A fragment, waiting for its pair where the pass
+        // takes every tile (two k8 chunks of the post 1x1 lie end to end)
+        Tf32::A pair[2];
+        const bool pairs = nt == NT;
         for (int br = 0; br < d.nd; ++br) {
           const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br];
           const int q = __ldg(tiles + 5 * t0 + 1), chunks = __ldg(tiles + 5 * t0 + 2);
           for (int g0 = t0; g0 < end; g0 += kGroupTiles) {
-            const int ng = min(kGroupTiles, end - g0), per = kPassTiles / ng;
+            const int ng = min(kGroupTiles, end - g0), per = kWideSlot<Prod> / kFragBytes / ng;
             int lo8[kGroupTiles];
 #pragma unroll
             for (int j = 0; j < kGroupTiles; ++j) lo8[j] = __ldg(tiles + 5 * (g0 + min(j, ng - 1)));
             float s[kGroupTiles][4] = {};
-            Taps<kShared> A;
+            typename TapsOf<Prod, kShared>::type A;
             if (active) A.start(d, in, mt, L.ts, q, d.dil[br]);
             for (int c0 = 0; c0 < chunks; c0 += per) {
               ring.wait();
@@ -2458,14 +2641,26 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
 #pragma unroll
                   for (int j = 0; j < kGroupTiles; j += 2) {
                     if (j >= ng) break;
-                    uint32_t b[4], a[4];
+                    uint32_t b[4];
                     fragment_a(bq + j * 2 * kFrag, b);
-                    A.fetch(lo8[j], a);
-                    mma(s[j], a, make_uint2(b[0], b[1]));
-                    if (j + 1 < ng) {
-                      // tiles of one group of a wide branch share their window
-                      if (lo8[j + 1] != lo8[j]) A.fetch(lo8[j + 1], a);
-                      mma(s[j + 1], a, make_uint2(b[2], b[3]));
+                    if constexpr (kTf32) {
+                      Tf32::A a;
+                      A.fetch(lo8[j], a);
+                      Tf32::product(s[j], a, Tf32::split_b(b[0], b[1]));
+                      if (j + 1 < ng) {
+                        // tiles of one group of a wide branch share their window
+                        if (lo8[j + 1] != lo8[j]) A.fetch(lo8[j + 1], a);
+                        Tf32::product(s[j + 1], a, Tf32::split_b(b[2], b[3]));
+                      }
+                    } else {
+                      uint32_t a[4];
+                      A.fetch(lo8[j], a);
+                      mma(s[j], a, make_uint2(b[0], b[1]));
+                      if (j + 1 < ng) {
+                        // tiles of one group of a wide branch share their window
+                        if (lo8[j + 1] != lo8[j]) A.fetch(lo8[j + 1], a);
+                        mma(s[j + 1], a, make_uint2(b[2], b[3]));
+                      }
                     }
                   }
                 }
@@ -2477,21 +2672,31 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
               if (j >= ng) break;
               const int gt = g0 + j;
               const float2 b = bias2(bb + __ldg(tiles + 5 * gt + 4), 0);
-              const uint32_t lo = pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y));
-              const uint32_t hi = pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y));
-              if (gt % 2 == 0) {
-                pend[0] = lo;
-                pend[1] = hi;
+              if constexpr (kTf32) {
+                const int h = pairs ? gt % 2 : 0;
+                pair[h] = Tf32::tile_a(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y),
+                                       lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y));
+                if (h == 1 || !pairs || gt + 1 == L.n_tiles)
+                  post_piece(ring, plane, active, nt, pair, h + 1, u);
               } else {
-                const uint32_t a[4] = {pend[0], pend[1], lo, hi};
-                post_piece(ring, active, nt, a, u);
+                const uint32_t lo = pack_bf16(lrelu(s[j][0] + b.x), lrelu(s[j][1] + b.y));
+                const uint32_t hi = pack_bf16(lrelu(s[j][2] + b.x), lrelu(s[j][3] + b.y));
+                if (gt % 2 == 0) {
+                  pend[0] = lo;
+                  pend[1] = hi;
+                } else {
+                  const uint32_t a[4] = {pend[0], pend[1], lo, hi};
+                  post_piece(ring, active, nt, a, u);
+                }
               }
             }
           }
         }
-        if (L.n_tiles % 2) {
-          const uint32_t a[4] = {pend[0], pend[1], 0u, 0u};
-          post_piece(ring, active, nt, a, u);
+        if constexpr (!kTf32) {
+          if (L.n_tiles % 2) {
+            const uint32_t a[4] = {pend[0], pend[1], 0u, 0u};
+            post_piece(ring, active, nt, a, u);
+          }
         }
         // kLoadTiles of y's float4s loaded together, then updated
         if (mt < L.n_mt) {
@@ -2517,7 +2722,7 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
     __syncthreads();
   }
 
-  // head: t = bf16(lrelu(y)) into the stage input; out = conv_k(t) + head_b
+  // head: t = dt(lrelu(y)) into the stage input; out = conv_k(t) + head_b
   for (int r = 0; r < rounds; ++r) {
     const int mt = 4 * (r * kWideGroups + wg) + wq;
     if (mt >= L.n_mt) continue;
@@ -2532,11 +2737,11 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
         if (jb + j >= NT) break;
         const int ch = 8 * (jb + j) + 2 * (lane & 3);
         if (rw.ok[0])
-          *reinterpret_cast<uint32_t*>(act + (rw.py[0] * d.w + rw.px[0]) * L.ts + ch) =
-              pack_bf16(lrelu(v[j].x), lrelu(v[j].y));
+          Prod::store2(act + (rw.py[0] * d.w + rw.px[0]) * L.ts + ch, lrelu(v[j].x),
+                       lrelu(v[j].y));
         if (rw.ok[1])
-          *reinterpret_cast<uint32_t*>(act + (rw.py[1] * d.w + rw.px[1]) * L.ts + ch) =
-              pack_bf16(lrelu(v[j].z), lrelu(v[j].w));
+          Prod::store2(act + (rw.py[1] * d.w + rw.px[1]) * L.ts + ch, lrelu(v[j].z),
+                       lrelu(v[j].w));
       }
     }
   }
@@ -2548,7 +2753,8 @@ fused_subnet_mma_wide_kernel(const float* __restrict__ x, const __nv_bfloat16* _
     for (int j0 = 0; j0 < L.NO; j0 += kPassTiles) {
       const int nt = min(kPassTiles, L.NO - j0);
       float acc[4 * kPassTiles];
-      conv_pass<kShared>(d, in, mt, L.ts, NT, L.ch_head, L.NO, j0, nt, active, ring, acc);
+      conv_pass<Prod, kShared>(d, in, mt, L.ts, NT, L.ch_head, L.NO, j0, nt, active, ring, plane,
+                               acc);
       if (mt < L.n_mt) {
         const Rows rw = tile_rows(d, mt);
 #pragma unroll
@@ -2961,20 +3167,22 @@ void ring_walk(const Dims<kNarrowBranches>& d, const MmaLayout<kNarrowBranches>&
 
 // Every piece the kernel's warps take from the ring, in their order, to
 // piece(element offset, bytes): each loop here is one of
-// fused_subnet_mma_wide_kernel's (its stages, rounds, passes, branch groups
-// and post chunks). On the host: the schedule the wrapper hands over is
-// checked against it.
-template <class Piece>
+// fused_subnet_mma_wide_kernel<Prod>'s (its stages, rounds, passes, branch
+// groups and post chunks: in bf16 one k16 chunk a pair of branch tiles, in
+// tf32 two k8 chunks a pair where the pass takes every tile, else one a
+// tile). On the host: the schedule the wrapper hands over is checked
+// against it.
+template <class Prod, class Piece>
 void walk_pieces(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, const int* tiles,
                  Piece piece) {
-  const int rounds = wide_rounds(L), NT = L.NT;
+  const int rounds = wide_rounds(L), NT = L.NT, F = Prod::kFrag, S = Prod::kSlices;
   auto imin = [](int a, int b) { return a < b ? a : b; };
   auto trunk_stage = [&](int64_t w, int ch, int NTs) {
     for (int r = 0; r < rounds; ++r)
       for (int j0 = 0; j0 < NTs; j0 += kPassTiles) {
-        const int nt = imin(kPassTiles, NTs - j0), per = chunks_a_piece(NTs, nt);
+        const int nt = imin(kPassTiles, NTs - j0), per = chunks_a_piece<Prod>(NTs, nt);
         for (int c0 = 0; c0 < ch; c0 += per)
-          piece(pass_src(w, c0, NTs, j0), imin(per, ch - c0) * nt * 2 * kFrag);
+          piece(pass_src(w, c0, NTs, j0, F), imin(per, ch - c0) * nt * kFragBytes);
       }
   };
   trunk_stage(0, L.ch_entry, NT);
@@ -2987,16 +3195,25 @@ void walk_pieces(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, 
         for (int br = 0; br < d.nd; ++br) {
           const int t0 = L.br_tile0[br], end = t0 + L.br_tiles[br], chunks = tiles[5 * t0 + 2];
           for (int g0 = t0; g0 < end; g0 += kGroupTiles) {
-            const int ng = imin(kGroupTiles, end - g0), per = kPassTiles / ng;
+            const int ng = imin(kGroupTiles, end - g0), per = kWideSlot<Prod> / kFragBytes / ng;
             const int64_t wg = wb + tiles[5 * g0 + 3];
             for (int c0 = 0; c0 < chunks; c0 += per)
-              piece(wg + static_cast<int64_t>(c0) * ng * kFrag,
-                    imin(per, chunks - c0) * ng * 2 * kFrag);
-            for (int gt = g0; gt < g0 + ng; ++gt)
-              if (gt % 2) piece(pass_src(wb + L.w_post, gt / 2, NT, j0), nt * 2 * kFrag);
+              piece(wg + static_cast<int64_t>(c0) * ng * F,
+                    imin(per, chunks - c0) * ng * kFragBytes);
+            for (int gt = g0; gt < g0 + ng; ++gt) {
+              if (S == 2) {  // a k16 chunk of two tiles
+                if (gt % 2) piece(pass_src(wb + L.w_post, gt / 2, NT, j0, F), nt * kFragBytes);
+              } else if (nt < NT) {  // a k8 chunk of one tile
+                piece(pass_src(wb + L.w_post, gt, NT, j0, F), nt * kFragBytes);
+              } else if (gt % 2 || gt + 1 == L.n_tiles) {  // the k8 chunks of a pair of tiles
+                piece(pass_src(wb + L.w_post, gt - gt % 2, NT, j0, F),
+                      (1 + gt % 2) * nt * kFragBytes);
+              }
+            }
           }
         }
-        if (L.n_tiles % 2) piece(pass_src(wb + L.w_post, L.n_tiles / 2, NT, j0), nt * 2 * kFrag);
+        if (S == 2 && L.n_tiles % 2)
+          piece(pass_src(wb + L.w_post, L.n_tiles / 2, NT, j0, F), nt * kFragBytes);
       }
   }
   trunk_stage(L.w_head, L.ch_head, L.NO);
@@ -3006,10 +3223,10 @@ void walk_pieces(const Dims<kMaxBranches>& d, const MmaLayout<kMaxBranches>& L, 
 // is the order in which walk(piece) visits a ring's pieces over `rounds`
 // rounds: `stages` stage lengths adding up to n_pieces, then as many
 // (element offset, bytes) pairs, every piece a multiple of 16 bytes, at most
-// a slot, inside the weights (of `item` bytes an element).
+// a slot (`slot` bytes), inside the weights (of `item` bytes an element).
 template <int B, class Walk>
 bool schedule_matches(const MmaLayout<B>& L, int stages, int rounds, int n_pieces,
-                      const int* lens, int64_t n_sched, int item, Walk walk) {
+                      const int* lens, int64_t n_sched, int item, int slot, Walk walk) {
   if (n_sched != stages + 2 * static_cast<int64_t>(n_pieces)) return false;
   int64_t sum = 0;
   for (int s = 0; s < stages; ++s) {
@@ -3023,26 +3240,11 @@ bool schedule_matches(const MmaLayout<B>& L, int stages, int rounds, int n_piece
     const int* piece =
         lens + stages + 2 * schedule_entry(lens, stages, rounds, static_cast<int>(k));
     ok = ok && k < static_cast<int64_t>(rounds) * n_pieces && piece[0] == src &&
-         piece[1] == bytes && bytes > 0 && bytes % 16 == 0 && bytes <= kSlotBytes &&
+         piece[1] == bytes && bytes > 0 && bytes % 16 == 0 && bytes <= slot &&
          src * item % 16 == 0 && src + bytes / item <= L.w_total;
     ++k;
   });
   return ok && k == static_cast<int64_t>(rounds) * n_pieces;
-}
-
-// The float32 wide variant: the CUDA-core kernel on flat HWIO weights.
-int launch_f32(const void* x, const void* wts, const void* bias, void* trunk, void* out,
-               int batch, const Dims<kMaxBranches>& d, int64_t n_weights, int64_t n_biases,
-               int64_t n_trunk, cudaStream_t stream) {
-  Layout<kMaxBranches> L;
-  if (batch < 1 || !make_layout(d, L) || L.w_total != n_weights || L.b_total != n_biases ||
-      n_trunk < static_cast<int64_t>(batch) * L.scratch_per_sample)
-    return static_cast<int>(cudaErrorInvalidValue);
-  fused_subnet_f32_kernel<<<batch, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wts),
-      static_cast<const float*>(bias), static_cast<float*>(trunk), static_cast<float*>(out), d,
-      L);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The narrow tensor-core kernel of product Prod on the plan narrow_plan
@@ -3089,7 +3291,7 @@ int launch_narrow(const void* x, const void* wts, const void* bias, void* trunk,
     const int* lens = table + kTableTiles + 5 * L.n_tiles;
     if (device_table == nullptr ||
         !schedule_matches(L, 2 + d.res_blocks, rounds, W.n_pieces, lens,
-                          n_table - kTableTiles - 5 * L.n_tiles, Prod::kItem,
+                          n_table - kTableTiles - 5 * L.n_tiles, Prod::kItem, kSlotBytes,
                           [&](auto piece) { ring_walk(d, L, piece); }))
       return static_cast<int>(cudaErrorInvalidValue);
     static bool limit_set[kMaxDevices] = {};
@@ -3102,7 +3304,10 @@ int launch_narrow(const void* x, const void* wts, const void* bias, void* trunk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 wide kernel, the stage input in shared memory where it fits.
+// The wide kernel of product Prod (bf16, or tf32 for float32), the stage
+// input in shared memory where it fits; its table checked against its own
+// layout, plan and schedule (walk_pieces) before any launch.
+template <class Prod>
 int launch_wide(const void* x, const void* wts, const void* bias, void* trunk, void* out,
                 int batch, const Dims<kMaxBranches>& d, int64_t n_weights, int64_t n_biases,
                 int64_t n_trunk, const int* table, int n_table, const int* device_table,
@@ -3110,32 +3315,33 @@ int launch_wide(const void* x, const void* wts, const void* bias, void* trunk, v
   MmaLayout<kMaxBranches> L{};
   WidePlan W{};
   if (batch < 1 || !read_mma_layout(table, n_table, L, W) ||
-      !mma_layout_ok<Bf16>(d, L, W, table + kTableTiles, true, n_weights, n_biases))
+      !mma_layout_ok<Prod>(d, L, W, table + kTableTiles, true, n_weights, n_biases))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t per_sample = wide_scratch(L, W);
   const int* tiles = table + kTableTiles;
   if (n_trunk < static_cast<int64_t>(batch) * per_sample || device_table == nullptr ||
       !schedule_matches(L, 2 + 2 * d.res_blocks, wide_rounds(L), W.n_pieces,
                         tiles + 5 * L.n_tiles, n_table - kTableTiles - 5 * L.n_tiles,
-                        Bf16::kItem, [&](auto piece) { walk_pieces(d, L, tiles, piece); }))
+                        Prod::kItem, kWideSlot<Prod>,
+                        [&](auto piece) { walk_pieces<Prod>(d, L, tiles, piece); }))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xf = static_cast<const float*>(x);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wts);
+  const auto* wt = static_cast<const typename Prod::T*>(wts);
   const float* bf = static_cast<const float*>(bias);
   float* of = static_cast<float*>(out);
   static bool limit_set[2][kMaxDevices] = {};
   float* sf = static_cast<float*>(trunk);
   const int* on_card = device_table + kTableTiles;
   if (W.act_in_shared) {
-    cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<true>, limit_set[1]);
+    cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<Prod, true>, limit_set[1]);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_subnet_mma_wide_kernel<true><<<batch, kWideThreads, W.wide_shared, stream>>>(
-        xf, wb, bf, sf, of, d, L, W, on_card, per_sample);
+    fused_subnet_mma_wide_kernel<Prod, true><<<batch, kWideThreads, W.wide_shared, stream>>>(
+        xf, wt, bf, sf, of, d, L, W, on_card, per_sample);
   } else {
-    cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<false>, limit_set[0]);
+    cudaError_t err = allow_shared(fused_subnet_mma_wide_kernel<Prod, false>, limit_set[0]);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_subnet_mma_wide_kernel<false><<<batch, kWideThreads, W.wide_shared, stream>>>(
-        xf, wb, bf, sf, of, d, L, W, on_card, per_sample);
+    fused_subnet_mma_wide_kernel<Prod, false><<<batch, kWideThreads, W.wide_shared, stream>>>(
+        xf, wt, bf, sf, of, d, L, W, on_card, per_sample);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -3157,10 +3363,10 @@ int launch(const void* x, const void* weights, const void* biases, void* trunk, 
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kWide) {
     if (dtype == 0)
-      return launch_f32(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk,
-                        stream);
-    return launch_wide(x, weights, biases, trunk, out, batch, d, n_weights, n_biases, n_trunk,
-                       table, n_table, device_table, stream);
+      return launch_wide<Tf32>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
+                               n_trunk, table, n_table, device_table, stream);
+    return launch_wide<Bf16>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
+                             n_trunk, table, n_table, device_table, stream);
   } else {
     if (dtype == 0)
       return launch_narrow<Tf32>(x, weights, biases, trunk, out, batch, d, n_weights, n_biases,
@@ -3212,8 +3418,8 @@ extern "C" int fused_subnet_forward(const void* x, const void* weights, const vo
 
 // The wide variant (the source note), with fused_subnet_forward's arguments;
 // trunk is the wide scratch (fused_subnet.py::trunk_elements), and
-// device_table, for bfloat16, a copy of `table` in device memory, from which
-// the kernel reads the branch tiles; float32 reads no table (flat weights).
+// device_table a copy of `table` in device memory with its ring's schedule
+// written out, from which the kernel reads the branch tiles and the pieces.
 extern "C" int fused_subnet_forward_wide(const void* x, const void* weights, const void* biases,
                                          void* trunk, void* out, int batch, int h, int w,
                                          int cin, int kernels, int res_blocks, int cardinality,

@@ -33,31 +33,32 @@ Two variants, picked by the spec (:func:`wide`): the narrow kernels above
 take up to 4 dilated branches, a trunk up to 64 channels, a head up to 32
 and a plan that fits shared memory; the wide variant
 (``fused_subnet_forward_wide``) takes any width and size, as JAX's kernel
-does. In float32 it is the CUDA-core kernel (float32 FMAs), its stage input
-in the sample's slice of the scratch tensor. In bf16 it is written for Hopper (the source note gives
-what bounds it and its times): the stage input in shared memory where it
-fits beside the ring (:func:`wide_shared_bytes`; else in scratch), the
-weights streamed through a ring of :data:`SLOTS` shared slots by
-``cp.async.bulk`` in the order of :func:`wide_schedule`, the entry, pre and
-post 1x1 and head on ``wgmma`` (N up to 128 a pass), the branch tiles on
-``mma.sync`` in groups of :data:`GROUP_TILES`, their outputs multiplied
-straight into the post 1x1, so that the scratch is the trunk alone. On an
-NVIDIA H100 80GB HBM3 (700 W) it takes 820.0 us at the capacity preset's
-(128, 28, 28, 1) K 128, 0.052 of its bound (the first version 2,218-2,222
-us), and 182.9 us at (128, 14, 14, 2) K 128; it is latency-bound.
+does. It is written for Hopper in both dtypes (the source note gives what
+bounds it and its times): the stage input in shared memory where it fits
+beside the ring (:func:`wide_shared_bytes`; else in scratch), the weights
+streamed through a ring of :data:`SLOTS` shared slots by ``cp.async.bulk``
+in the order of :func:`wide_schedule`, the entry, pre and post 1x1 and head
+on ``wgmma`` (N up to 128 a pass), the branch tiles on ``mma.sync`` in
+groups of :data:`GROUP_TILES`, their outputs multiplied straight into the
+post 1x1, so that the scratch is the trunk alone. In float32 each k8 chunk
+is three TF32 ``wgmma`` products on split operands, B's ``lo`` plane split
+in shared memory by each warpgroup as its ring piece lands. On an NVIDIA
+H100 80GB HBM3 (700 W) the bf16 build takes 820.0 us at the capacity
+preset's (128, 28, 28, 1) K 128, 0.052 of its bound, and 182.9 us at (128,
+14, 14, 2) K 128; it is latency-bound.
 
 Weights are packed once per parameter version (:func:`pack`), every kernel
 into one ``compute_dtype`` buffer and every bias into one float32 buffer.
 For the tensor cores each stage is written in their B-fragment order with K
 and N zero-padded (:func:`mma_layout`), so the kernel reshuffles nothing; in
 float32 the pre and post 1x1s' rows permuted chunk by chunk for the trunk
-hand-off (:data:`HANDOFF_ROWS`); for the bf16 wide variant each fragment as
-two 8 x 8 core matrices, and each branch group chunk by chunk
-(:func:`_wide_order`), at the same offsets. The float32 wide variant (CUDA
-cores) keeps ``flax_param_order``'s order and flax's HWIO layout. The
-layout is derived here only: each launch hands it to the kernel as a table
-of ints (:func:`layout_table`), which the C entry checks and does not derive
-again.
+hand-off (:data:`HANDOFF_ROWS`); for the wide variant each fragment as two
+core matrices (:data:`CORE_ORDER`, :data:`TF32_CORE_ORDER`), and each branch
+group chunk by chunk (:func:`_wide_order`), at the same offsets; in float32
+where its stage input lies in scratch, the k x k stages' rows permuted as
+the 1x1s' are (:func:`scratch_pairs`). The layout is derived here only: each
+launch hands it to the kernel as a table of ints (:func:`layout_table`),
+which the C entry checks and does not derive again.
 
 Dispatch: a CPU tensor goes to the plain version :func:`subnet_apply_reference`;
 a CUDA tensor launches the kernel or raises. :func:`subnet_apply` counts its
@@ -98,7 +99,6 @@ LEAKY_SLOPE = 0.3
 
 # launch limits and tile constants, mirrored from csrc/fused_subnet.cu
 THREADS = 512
-TILE = 32  # float32: pixels per tile of the 1x1 stages
 MAX_BRANCHES = 10  # the most dilations ConvFlowConfig's schedule gives (its guard)
 NARROW_BRANCHES = 4  # the narrow kernels' most; more take the wide variant
 MAX_SHARED_BYTES = 232448
@@ -110,14 +110,15 @@ MAX_TABLE_VALUE = 2**30  # the largest int of layout_table the C entry takes
 TABLE_SCALARS = 29  # the scalars that open layout_table (TABLE_FIELDS)
 PLAN_HEAD = 672  # narrow kernels: their mbarriers and the branch walks' tap table
 CHIP_SMALL_TILES = 4  # narrow, on chip: trunk n8 tiles of the build sized to small trunks
-WIDE_GROUPS = 4  # wide bf16: warpgroups a block
-WIDE_THREADS = 512  # wide bf16: threads a block
-SLOT_BYTES = 4096  # wide bf16: a slot of the weights' ring, 16 B fragments
-SLOTS = 4  # wide bf16: slots of the ring
-BARRIER_BYTES = 64  # wide bf16: a full mbarrier and a counter a slot
-SLACK_BYTES = 2048  # wide bf16: shared memory past the ring that wgmma may over-read
-GROUP_TILES = 8  # wide bf16: branch tiles that share a walk over the chunks
-PASS_TILES = 16  # wide bf16: n8 tiles of one wgmma (N <= 128)
+WIDE_GROUPS = 4  # wide: warpgroups a block
+WIDE_THREADS = 512  # wide: threads a block
+SLOT_BYTES = 4096  # wide bf16 and the tf32 scratch plan: a slot of a ring, 16 fragments
+TF32_SLOT_BYTES = 8192  # wide tf32: a slot of its ring, 32 fragments (two k8 chunks of a pass)
+SLOTS = 4  # wide: slots of the ring
+BARRIER_BYTES = 64  # wide: a full mbarrier and a counter a slot
+SLACK_BYTES = 2048  # wide: shared memory past the ring (or a lo plane) that wgmma may over-read
+GROUP_TILES = 8  # wide: branch tiles that share a walk over the chunks
+PASS_TILES = 16  # wide: n8 tiles of one wgmma (N <= 128)
 MAX_THREADS = 1024  # threads a block may have on the card
 _INT_MAX = 2**31 - 1
 _DTYPE_CODE = {"float32": 0, "bfloat16": 1}
@@ -270,8 +271,8 @@ class MmaLayout:
     trunk_per_sample: int  # float32 scratch elements a sample
     act_bytes: int  # shared memory of the stage input and a row of zeros
     w_stage: int  # weights of the largest stage (entry, a residual block, head)
-    act_in_shared: int  # bf16: 1 where the wide variant holds the stage input in shared memory
-    wide_shared: int  # bf16: the wide variant's dynamic shared memory a block
+    act_in_shared: int  # 1 where the wide variant holds the stage input in shared memory
+    wide_shared: int  # the wide variant's dynamic shared memory a block
     n_pieces: int = 0  # pieces of one round of every stage of a ring (:func:`wide_schedule`)
     on_chip: int = 0  # 1: :func:`narrow_plan` puts the narrow kernel on chip
 
@@ -280,12 +281,19 @@ class MmaLayout:
         return len(self.tiles)
 
 
-def _wide_plan(act_bytes: int) -> Tuple[int, int]:
-    """(act_in_shared, wide_shared) of the wide bf16 kernel: the ring's
-    barriers, the ring of weights, then the stage input where it fits beside
-    them (else it lives in scratch), at least :data:`SLACK_BYTES` past the
-    ring either way."""
-    ring = SLOTS * SLOT_BYTES + BARRIER_BYTES
+def _wide_plan(act_bytes: int, item: int) -> Tuple[int, int]:
+    """(act_in_shared, wide_shared) of the wide kernel whose weights have
+    ``item`` bytes an element: the ring's barriers, the ring of weights
+    (:data:`SLOTS` slots of :data:`SLOT_BYTES`, in float32 of
+    :data:`TF32_SLOT_BYTES`), in float32 (tf32 products) each warpgroup's two
+    lo planes of the pieces it multiplies (a slot's bytes each, taken by
+    turns), then the stage input where it fits beside them (else it lives in
+    scratch), at least :data:`SLACK_BYTES` past the ring or the planes either
+    way."""
+    if item == 4:
+        ring = (SLOTS + 2 * WIDE_GROUPS) * TF32_SLOT_BYTES + BARRIER_BYTES
+    else:
+        ring = SLOTS * SLOT_BYTES + BARRIER_BYTES
     with_act = ring + max(act_bytes, SLACK_BYTES)
     if with_act <= MAX_SHARED_BYTES:
         return 1, with_act
@@ -412,7 +420,7 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
     n_mt = _ceil(spec.h * spec.w, 16)
     w_total = w_head + ch_head * no * frag
     act_bytes = _ceil((spec.h * spec.w + 1) * max(xs, ts) * item, 16) * 16
-    act_in_shared, wide_shared = _wide_plan(act_bytes) if S == 2 else (0, 0)
+    act_in_shared, wide_shared = _wide_plan(act_bytes, item)
     L = MmaLayout(
         kp=kp, nt=nt, no=no, xs=xs, ts=ts, qx=qx, n_mt=n_mt, ch_entry=ch_entry,
         ch_pre=ch_pre, ch_post=ch_post, ch_head=ch_head, tiles=tuple(tiles),
@@ -421,8 +429,10 @@ def mma_layout(spec: SubnetSpec) -> MmaLayout:
         w_total=w_total, b_total=b_head + 8 * no, trunk_per_sample=n_mt * 16 * kp,
         act_bytes=act_bytes, w_stage=max(w_entry, wb, w_total - w_head),
         act_in_shared=act_in_shared, wide_shared=wide_shared)
-    return dataclasses.replace(L, n_pieces=sum(map(len, _schedule(spec, L))),
-                               on_chip=_narrow_plan(*_plan_sizes(spec, L))[0])
+    on_chip, _, shared = _narrow_plan(*_plan_sizes(spec, L))
+    return dataclasses.replace(
+        L, on_chip=on_chip,
+        n_pieces=sum(map(len, _schedule(spec, L, _wide_at(spec, L.nt, L.no, shared)))))
 
 
 #: the scalars of :func:`layout_table`, in the order the C entry reads them
@@ -435,19 +445,24 @@ TABLE_FIELDS = ("kp", "nt", "no", "xs", "ts", "qx", "n_mt", "ch_entry", "ch_pre"
 TILE_FIELDS = ("lo8", "q", "chunks", "w_off", "b_off")
 
 
-@functools.lru_cache(maxsize=None)
-def layout_table(spec: SubnetSpec):
+def layout_table(spec: SubnetSpec, wide_variant=None):
     """:func:`mma_layout` as the int32 array the C entry reads: the
     :data:`TABLE_FIELDS`, then each of :data:`MAX_BRANCHES` branches' first
     tile and tile count (0, 0 past the last branch), then the
-    :data:`TILE_FIELDS` of each tile, then :func:`wide_schedule`: its
-    stages' lengths, then their pieces."""
-    values = _table_values(spec)
+    :data:`TILE_FIELDS` of each tile, then :func:`wide_schedule` of the
+    variant (:func:`wide`'s unless ``wide_variant`` says): its stages'
+    lengths, then their pieces (``n_pieces`` counts them)."""
+    return _layout_table(spec, _variant(spec, wide_variant))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_table(spec: SubnetSpec, wide_variant: bool):
+    values = _table_values(spec, wide_variant)
     return (ctypes.c_int * len(values))(*values)
 
 
 @functools.lru_cache(maxsize=None)
-def _table_values(spec: SubnetSpec) -> Tuple[int, ...]:
+def _table_values(spec: SubnetSpec, wide_variant: bool) -> Tuple[int, ...]:
     """:func:`layout_table`'s values as Python ints (the array would wrap
     one past int32)."""
     L = mma_layout(spec)
@@ -456,47 +471,55 @@ def _table_values(spec: SubnetSpec) -> Tuple[int, ...]:
         if branches[2 * t.branch + 1] == 0:
             branches[2 * t.branch] = t_i
         branches[2 * t.branch + 1] += 1
-    schedule = wide_schedule(spec)
-    return tuple([getattr(L, f) for f in TABLE_FIELDS] + branches
-                 + [getattr(t, f) for t in L.tiles for f in TILE_FIELDS]
+    schedule = _schedule(spec, L, wide_variant)
+    n_pieces = sum(map(len, schedule))
+    return tuple([n_pieces if f == "n_pieces" else getattr(L, f) for f in TABLE_FIELDS]
+                 + branches + [getattr(t, f) for t in L.tiles for f in TILE_FIELDS]
                  + [len(stage) for stage in schedule]
                  + [v for stage in schedule for piece in stage for v in piece])
 
 
-def wide_schedule(spec: SubnetSpec):
+def wide_schedule(spec: SubnetSpec, wide_variant=None):
     """The pieces a ring of weights carries, (element offset in the packed
     weights, bytes) each, in the order the warps take them: one tuple a
-    stage of the pieces of one round, which every round takes again.
+    stage of the pieces of one round, which every round takes again; for
+    the variant :func:`wide` picks unless ``wide_variant`` says.
 
-    bf16: the wide kernel's ring (the C source's ``walk_pieces``, which its
-    entry checks this against): the stages are the entry, per residual block
-    the pre 1x1 and then the branches with the post 1x1, the head; a round
-    is :data:`WIDE_GROUPS` 64-pixel tiles, each pass of up to
-    :data:`PASS_TILES` output tiles in turn. A trunk-wide stage is a k16
-    chunk a piece (several where its tiles are fewer), a branch group
-    :data:`SLOT_BYTES` of its chunks a piece, each post 1x1 chunk a piece as
-    soon as its two branch tiles are done.
+    The wide kernel's ring (the C source's ``walk_pieces``, which its entry
+    checks this against): the stages are the entry, per residual block the
+    pre 1x1 and then the branches with the post 1x1, the head; a round is
+    :data:`WIDE_GROUPS` 64-pixel tiles, each pass of up to
+    :data:`PASS_TILES` output tiles in turn. A trunk-wide stage is a slot of
+    its chunks a piece where a pass takes every tile, else a chunk (k16 in
+    bf16 in slots of :data:`SLOT_BYTES`, k8 in float32 in slots of
+    :data:`TF32_SLOT_BYTES`: two chunks of a 128-wide pass), a branch group
+    a slot of its chunks a piece, the post 1x1 a piece as soon as a pair of
+    branch tiles is done (bf16: their k16 chunk; float32: their two k8
+    chunks where the pass takes every tile, else a tile's chunk at a time).
 
-    float32: the narrow tf32 kernel's scratch plan (``ring_walk`` there):
-    the stages are its phases, the entry with block 0's pre 1x1, each
-    residual block (each branch tile's chunks, up to a slot of them a
+    float32 on the narrow kernel: its scratch plan's ring (``ring_walk``
+    there): the stages are its phases, the entry with block 0's pre 1x1,
+    each residual block (each branch tile's chunks, up to a slot of them a
     piece, and after each pair of tiles their two post 1x1 chunks; then the
     next block's pre 1x1) and the head; a round is a 16-pixel tile a warp;
-    a trunk-wide stage is as many k8 chunks a piece as a slot holds."""
-    return _schedule(spec, mma_layout(spec))
+    a trunk-wide stage is as many k8 chunks a piece as a slot holds. (The
+    narrow bf16 kernel has no ring: its table carries the wide one's.)"""
+    return _schedule(spec, mma_layout(spec), _variant(spec, wide_variant))
 
 
-def _schedule(spec: SubnetSpec, L: MmaLayout):
-    if spec.compute_dtype != "bfloat16":
+def _schedule(spec: SubnetSpec, L: MmaLayout, wide_variant: bool):
+    if spec.compute_dtype != "bfloat16" and not wide_variant:
         return _ring_schedule(spec, L)
-    frag = 2 * FRAG
+    F, S = _frag(spec), _slices(spec)
+    frag = 256  # bytes of a B fragment of either product
+    slot = (SLOT_BYTES if S == 2 else TF32_SLOT_BYTES) // frag  # fragments a slot holds
 
     def trunk_stage(w, ch, nts):
         out = []
         for j0 in range(0, nts, PASS_TILES):
             nt = min(PASS_TILES, nts - j0)
-            per = PASS_TILES // nt if nt == nts else 1
-            out += [(w + (c0 * nts + j0) * FRAG, min(per, ch - c0) * nt * frag)
+            per = slot // nt if nt == nts else 1
+            out += [(w + (c0 * nts + j0) * F, min(per, ch - c0) * nt * frag)
                     for c0 in range(0, ch, per)]
         return tuple(out)
 
@@ -505,15 +528,26 @@ def _schedule(spec: SubnetSpec, L: MmaLayout):
         for j0 in range(0, L.nt, PASS_TILES):
             nt = min(PASS_TILES, L.nt - j0)
 
-            def post(c):
-                return wb + L.w_post + (c * L.nt + j0) * FRAG, nt * frag
+            def post(c, n=1):
+                return wb + L.w_post + (c * L.nt + j0) * F, n * nt * frag
+
+            def posts(gt):
+                """the post 1x1's pieces once branch tile gt is done: in bf16
+                a k16 chunk a pair of tiles; in float32 the k8 chunks of a
+                pair where the pass takes every tile (end to end), else one
+                a tile"""
+                if S == 2:
+                    return [post(gt // 2)] if gt % 2 else []
+                if nt < L.nt:
+                    return [post(gt)]
+                return [post(gt - gt % 2, 1 + gt % 2)] if gt % 2 or gt + 1 == L.n_tiles else []
 
             for g0, ng in branch_groups(L):
-                per, chunks, wg = PASS_TILES // ng, L.tiles[g0].chunks, wb + L.tiles[g0].w_off
-                out += [(wg + c0 * ng * FRAG, min(per, chunks - c0) * ng * frag)
+                per, chunks, wg = slot // ng, L.tiles[g0].chunks, wb + L.tiles[g0].w_off
+                out += [(wg + c0 * ng * F, min(per, chunks - c0) * ng * frag)
                         for c0 in range(0, chunks, per)]
-                out += [post(gt // 2) for gt in range(g0, g0 + ng) if gt % 2]
-            if L.n_tiles % 2:
+                out += [p for gt in range(g0, g0 + ng) for p in posts(gt)]
+            if S == 2 and L.n_tiles % 2:
                 out.append(post(L.n_tiles // 2))
         return tuple(out)
 
@@ -588,6 +622,11 @@ HANDOFF_ROWS = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 #: (lane 4n + k % 8 // 2, value k % 2 + 2 (k half))
 _kh, _n, _k8 = np.meshgrid(np.arange(2), np.arange(8), np.arange(8), indexing="ij")
 CORE_ORDER = ((4 * _n + _k8 // 2) * 4 + _k8 % 2 + 2 * _kh).reshape(-1)
+#: the same in float32: position (k half, n, k % 4) of a k8 x n8 B tile, two
+#: core matrices of 8 n rows of 4 floats (tf32 wgmma takes B K-major only),
+#: taken from the m16n8k8 tf32 order (lane 4n + k % 4, value k half)
+_kh, _n, _k4 = np.meshgrid(np.arange(2), np.arange(8), np.arange(4), indexing="ij")
+TF32_CORE_ORDER = ((4 * _n + _k4) * 2 + _kh).reshape(-1)
 
 
 def branch_groups(L: MmaLayout) -> Tuple[Tuple[int, int], ...]:
@@ -605,28 +644,32 @@ def branch_groups(L: MmaLayout) -> Tuple[Tuple[int, int], ...]:
 
 def _wide_order(spec: SubnetSpec):
     """For each element of the wide variant's packing, its position in the
-    narrow one: every fragment in :data:`CORE_ORDER`, and each branch
-    group's fragments chunk by chunk (``[chunk][tile]``, so that a chunk of
-    the whole group is one copy) where the narrow packing has them tile by
-    tile. Every offset of :func:`mma_layout` holds for both."""
-    L = mma_layout(spec)
-    frags = np.arange(L.w_total // FRAG)
+    narrow one: every fragment in :data:`CORE_ORDER` (float32:
+    :data:`TF32_CORE_ORDER`), and each branch group's fragments chunk by
+    chunk (``[chunk][tile]``, so that a chunk of the whole group is one
+    copy) where the narrow packing has them tile by tile. Every offset of
+    :func:`mma_layout` holds for both."""
+    L, F = mma_layout(spec), _frag(spec)
+    core = CORE_ORDER if spec.compute_dtype == "bfloat16" else TF32_CORE_ORDER
+    frags = np.arange(L.w_total // F)
     for r in range(spec.res_blocks):
         for g0, ng in branch_groups(L):
             ch = L.tiles[g0].chunks
-            base = (L.w_block0 + r * L.w_block + L.tiles[g0].w_off) // FRAG
+            base = (L.w_block0 + r * L.w_block + L.tiles[g0].w_off) // F
             c, i = np.meshgrid(np.arange(ch), np.arange(ng), indexing="ij")
             frags[base + (c * ng + i).reshape(-1)] = (base + i * ch + c).reshape(-1)
-    return (frags[:, None] * FRAG + CORE_ORDER[None, :]).reshape(-1)
+    return (frags[:, None] * F + core[None, :]).reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)
 def _mma_index(spec: SubnetSpec, wide_variant: bool):
-    """For the tensor cores' packing (the bf16 wide variant's if
+    """For the tensor cores' packing (the wide variant's if
     ``wide_variant``): ``(w_src, b_src, w_inv, b_inv)`` — for each packed
     element the index of the flat flax value it holds, -1 for padding; and
     for each flat value its position in the packing. In tf32 the pre and
-    post 1x1s' rows are permuted chunk by chunk (:data:`HANDOFF_ROWS`)."""
+    post 1x1s' rows are permuted chunk by chunk (:data:`HANDOFF_ROWS`), and
+    so are the k x k stages' where the wide variant reads its stage input
+    from scratch (:func:`scratch_pairs`)."""
     L, offs = mma_layout(spec), _flat_offsets(spec)
     k2, K, cin, out = spec.ksize ** 2, spec.kernels, spec.cin, spec.out_total
     S, L_frag = _slices(spec), _frag(spec)
@@ -645,6 +688,10 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
             return b
         return b.reshape(-1, 8, b.shape[1])[:, HANDOFF_ROWS].reshape(b.shape)
 
+    def gathered(b):
+        """b's rows as a k x k stage takes them (:func:`scratch_pairs`)"""
+        return handoff(b) if wide_variant and scratch_pairs(spec) else b
+
     def slices(n_chunks, q):
         """(tap, channel) of each K row of a k x k conv stage, tap k2 past
         the last."""
@@ -658,8 +705,8 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
         return b
 
     tap, ch = slices(L.ch_entry, L.qx)
-    w_src[:L.w_block0] = fragments(dense(stage(8 * S * L.ch_entry, 8 * L.nt), tap, ch, cin, K,
-                                         offs["Conv_0/kernel"]))
+    w_src[:L.w_block0] = fragments(gathered(dense(stage(8 * S * L.ch_entry, 8 * L.nt), tap, ch,
+                                                  cin, K, offs["Conv_0/kernel"])))
     b_src[:K] = offs["Conv_0/bias"] + np.arange(K)
     nd = len(spec.dilations)
     for r in range(spec.res_blocks):
@@ -682,7 +729,7 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
                 & (ch[:, None] < start + g)
             src = kern + ((tap[:, None] * g + ch[:, None] - start) * w_ + col)
             w_src[w0 + t.w_off: w0 + t.w_off + t.chunks * L_frag] = \
-                fragments(np.where(ok, src, -1))
+                fragments(gathered(np.where(ok, src, -1)))
             real = col < w_
             b_src[b0 + t.b_off: b0 + t.b_off + 8][real] = \
                 offs[f"{blk}/Conv_{1 + t.branch}/bias"] + col[real]
@@ -691,8 +738,8 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
         w_src[w0 + L.w_post: w0 + L.w_post + post.size] = fragments(handoff(post))
         b_src[b0 + L.b_post: b0 + L.b_post + K] = offs[f"{blk}/Conv_{1 + nd}/bias"] + np.arange(K)
     tap, ch = slices(L.ch_head, L.nt)
-    w_src[L.w_head:] = fragments(dense(stage(8 * S * L.ch_head, 8 * L.no), tap, ch, K, out,
-                                       offs["Conv_1/kernel"]))
+    w_src[L.w_head:] = fragments(gathered(dense(stage(8 * S * L.ch_head, 8 * L.no), tap, ch, K,
+                                                out, offs["Conv_1/kernel"])))
     b_src[L.b_head: L.b_head + out] = offs["Conv_1/bias"] + np.arange(out)
     if wide_variant:
         w_src = w_src[_wide_order(spec)]
@@ -708,6 +755,18 @@ def _mma_index(spec: SubnetSpec, wide_variant: bool):
         invs.append(inv)
     return (torch.from_numpy(w_src), torch.from_numpy(b_src),
             torch.from_numpy(invs[0]), torch.from_numpy(invs[1]))
+
+
+def scratch_pairs(spec: SubnetSpec) -> bool:
+    """Whether the float32 wide variant reads its stage input from scratch
+    (it does not fit shared memory: the preset's 28 x 28) as pairs of
+    channels: each lane's A values of a k8 chunk, columns t and t + 4 of
+    rows g and g + 8, are channels 2t and 2t + 1 of each row, one 8-byte
+    load a row, because the packing permutes the rows of every chunk of its
+    k x k stages (entry, branches, head) by :data:`HANDOFF_ROWS`, as it does
+    the 1x1s' for the trunk hand-off. In shared memory ldmatrix gathers the
+    chunk as it stands."""
+    return spec.compute_dtype == "float32" and not mma_layout(spec).act_in_shared
 
 
 @functools.lru_cache(maxsize=None)
@@ -728,11 +787,9 @@ def pack(spec: SubnetSpec, flat, wide_variant=None):
     """``(weights, biases)``: the tensors of ``flat`` (flax shapes, in
     :func:`flax_param_order`'s order) packed for the kernel — every kernel
     into one ``compute_dtype`` buffer, every bias into one float32 buffer;
-    in B-fragment order (:func:`mma_layout`) for the tensor-core kernels,
-    reordered for the bf16 wide variant (:func:`_wide_order`); flat in
-    flax's HWIO for the float32 wide variant (CUDA cores); the variant
-    :func:`wide` picks unless ``wide_variant`` says. Differentiable: the
-    backward is :func:`unpack`."""
+    in B-fragment order (:func:`mma_layout`), reordered for the wide
+    variant (:func:`_wide_order`), the variant :func:`wide` picks unless
+    ``wide_variant`` says. Differentiable: the backward is :func:`unpack`."""
     order = flax_param_order(spec)
     if len(flat) != len(order):
         raise ValueError(f"expected {len(order)} tensors, got {len(flat)}")
@@ -741,12 +798,6 @@ def pack(spec: SubnetSpec, flat, wide_variant=None):
 
 def _variant(spec: SubnetSpec, wide_variant) -> bool:
     return wide(spec) if wide_variant is None else bool(wide_variant)
-
-
-def _in_fragments(spec: SubnetSpec, wide_variant: bool) -> bool:
-    """Whether the variant's packing is in B-fragment order: every bf16
-    one and the float32 narrow one (tf32 products)."""
-    return spec.compute_dtype == "bfloat16" or not wide_variant
 
 
 class _Pack(torch.autograd.Function):
@@ -775,10 +826,9 @@ def _pack(spec: SubnetSpec, flat, wide_variant: bool):
         (kernels if name.endswith("kernel") else biases).append(t.reshape(-1))
     dt = getattr(torch, spec.compute_dtype)
     kernels, biases = torch.cat(kernels), torch.cat(biases)
-    if _in_fragments(spec, wide_variant):
-        w_src, b_src, _, _ = _mma_index_on(spec, kernels.device, wide_variant)
-        kernels = torch.where(w_src >= 0, kernels[w_src.clamp(min=0)], 0)
-        biases = torch.where(b_src >= 0, biases[b_src.clamp(min=0)], 0)
+    w_src, b_src, _, _ = _mma_index_on(spec, kernels.device, wide_variant)
+    kernels = torch.where(w_src >= 0, kernels[w_src.clamp(min=0)], 0)
+    biases = torch.where(b_src >= 0, biases[b_src.clamp(min=0)], 0)
     return kernels.to(dt), biases.float()
 
 
@@ -787,10 +837,8 @@ def unpack(spec: SubnetSpec, packed, wide_variant=None):
     with the flax shapes, in :func:`flax_param_order`'s order (views of the
     buffers in float32)."""
     weights, biases = packed
-    wide_variant = _variant(spec, wide_variant)
-    if _in_fragments(spec, wide_variant):
-        _, _, w_inv, b_inv = _mma_index_on(spec, weights.device, wide_variant)
-        weights, biases = weights[w_inv], biases[b_inv]
+    _, _, w_inv, b_inv = _mma_index_on(spec, weights.device, _variant(spec, wide_variant))
+    weights, biases = weights[w_inv], biases[b_inv]
     out, offsets = [], {True: 0, False: 0}
     for name, shape in flax_param_order(spec):
         is_kernel = name.endswith("kernel")
@@ -800,20 +848,11 @@ def unpack(spec: SubnetSpec, packed, wide_variant=None):
     return out
 
 
-def packed_sizes(spec: SubnetSpec, wide_variant=None) -> Tuple[int, int]:
-    """Elements of :func:`pack`'s two buffers, (kernels, biases), for the
-    variant :func:`wide` picks unless ``wide_variant`` says."""
-    if _in_fragments(spec, _variant(spec, wide_variant)):
-        L = mma_layout(spec)
-        return L.w_total, L.b_total
-    return _flax_sizes(spec)
-
-
-def _f32_stage_bytes(spec: SubnetSpec) -> Tuple[int, int]:
-    """The float32 wide kernel's (CUDA cores) stage input (16-byte
-    aligned) and its tile of rows, in bytes, in the sample's scratch."""
-    act = spec.h * spec.w * max(spec.cin, spec.kernels) * 4
-    return (act + 15) // 16 * 16, TILE * max(sum(spec.widths), spec.kernels) * 4
+def packed_sizes(spec: SubnetSpec) -> Tuple[int, int]:
+    """Elements of :func:`pack`'s two buffers, (kernels, biases): the
+    layout's, the same for both variants."""
+    L = mma_layout(spec)
+    return L.w_total, L.b_total
 
 
 def shared_bytes(spec: SubnetSpec) -> int:
@@ -823,36 +862,40 @@ def shared_bytes(spec: SubnetSpec) -> int:
 
 
 def wide_shared_bytes(spec: SubnetSpec) -> int:
-    """Dynamic shared memory of one block of the wide variant: none in
-    float32; in bf16 the ring of weights, its barriers and, where it fits,
-    the stage input (``MmaLayout.wide_shared``)."""
-    return mma_layout(spec).wide_shared if spec.compute_dtype == "bfloat16" else 0
+    """Dynamic shared memory of one block of the wide variant: the ring of
+    weights, its barriers, in float32 the warpgroups' lo planes and, where
+    it fits, the stage input (``MmaLayout.wide_shared``)."""
+    return mma_layout(spec).wide_shared
 
 
 def wide(spec: SubnetSpec) -> bool:
-    """Whether ``spec`` takes the wide variant (in bf16 a Hopper kernel of
-    its own, in float32 the CUDA-core kernel): more than
+    """Whether ``spec`` takes the wide variant, a Hopper kernel of its own
+    in either dtype (wgmma, the weights through a ring): more than
     :data:`NARROW_BRANCHES` dilations, a trunk over ``8 * MAX_TRUNK_TILES``
     or head over ``8 * MAX_HEAD_TILES`` channels, or a narrow plan's shared
     memory past :data:`MAX_SHARED_BYTES`. Every other spec runs the narrow
-    tensor-core kernel of its dtype."""
-    if len(spec.dilations) > NARROW_BRANCHES:
-        return True
+    tensor-core kernel of its dtype. Decided by the spec alone."""
     L = mma_layout(spec)
-    if L.nt > MAX_TRUNK_TILES or L.no > MAX_HEAD_TILES:
-        return True
-    return shared_bytes(spec) > MAX_SHARED_BYTES
+    return _wide_at(spec, L.nt, L.no, narrow_plan(spec).shared)
+
+
+def _wide_at(spec: SubnetSpec, nt: int, no: int, narrow_shared: int) -> bool:
+    """:func:`wide` from the layout's trunk and head tiles and the narrow
+    plan's shared bytes (what :func:`mma_layout` knows before it is made)."""
+    return (len(spec.dilations) > NARROW_BRANCHES or nt > MAX_TRUNK_TILES
+            or no > MAX_HEAD_TILES or narrow_shared > MAX_SHARED_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_build(spec: SubnetSpec) -> str:
     """The build of ``csrc/fused_subnet.cu`` that a launch at ``spec``
     runs: the narrow tensor-core kernel's plan (``"bf16 on chip"``,
-    ``"tf32 scratch"``, ...), ``"bf16 wide"`` or ``"float32 CUDA cores"``."""
-    bf16 = spec.compute_dtype == "bfloat16"
+    ``"tf32 scratch"``, ...) or the wide variant (``"bf16 wide"``,
+    ``"tf32 wide"``)."""
+    prod = "bf16" if spec.compute_dtype == "bfloat16" else "tf32"
     if wide(spec):
-        return "bf16 wide" if bf16 else "float32 CUDA cores"
-    return f"{'bf16' if bf16 else 'tf32'} {'on chip' if narrow_plan(spec).on_chip else 'scratch'}"
+        return f"{prod} wide"
+    return f"{prod} {'on chip' if narrow_plan(spec).on_chip else 'scratch'}"
 
 
 def scratch_per_sample(spec: SubnetSpec, wide_variant: bool) -> int:
@@ -860,10 +903,8 @@ def scratch_per_sample(spec: SubnetSpec, wide_variant: bool) -> int:
     kernel's on-chip plan), in its scratch plan then a copy of the next
     stage input in the compute dtype and, in float32, the split tiles'
     shares of the post 1x1 (``narrow_scratch`` in the CUDA source); in the
-    wide variant then the stage input, in bf16 only where it does not fit
-    shared memory (``wide_scratch`` and ``make_layout`` there)."""
-    if spec.compute_dtype == "float32" and wide_variant:
-        return spec.h * spec.w * spec.kernels + sum(_f32_stage_bytes(spec)) // 4
+    wide variant then the stage input where it does not fit shared memory
+    (``wide_scratch`` there)."""
     L = mma_layout(spec)
     if not wide_variant:  # the trunk, then the next stage input's rows, then the shares
         if L.on_chip:
@@ -991,19 +1032,24 @@ def _library():
     return bind_library(build.load_libraries("fused_subnet")["fused_subnet"])
 
 
-@functools.lru_cache(maxsize=None)
-def _layout_table_on(spec: SubnetSpec, device: torch.device):
-    """:func:`layout_table` as an int32 tensor on ``device``, made once (so
+def _layout_table_on(spec: SubnetSpec, device: torch.device, wide_variant=None):
+    """:func:`layout_table` (of the variant :func:`wide` picks unless
+    ``wide_variant`` says) as an int32 tensor on ``device``, made once (so
     that a CUDA graph may capture the launch), with its schedule written out
-    piece by piece (each stage's round once a round): the wide bf16 kernel
-    reads its branch tiles from it, and it and the tf32 scratch plan find
-    any piece of their rings with one load."""
+    piece by piece (each stage's round once a round): the wide kernel reads
+    its branch tiles from it, and it and the tf32 scratch plan find any
+    piece of their rings with one load."""
+    return _layout_table_tensor(spec, device, _variant(spec, wide_variant))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_table_tensor(spec: SubnetSpec, device: torch.device, wide_variant: bool):
     L = mma_layout(spec)
     rounds = _ceil(L.n_mt, 4 * WIDE_GROUPS)
-    head = list(_table_values(spec)[:TABLE_SCALARS + 2 * MAX_BRANCHES
-                                    + len(TILE_FIELDS) * L.n_tiles])
-    pieces = [v for stage in wide_schedule(spec) for _ in range(rounds) for piece in stage
-              for v in piece]
+    head = list(_table_values(spec, wide_variant)[:TABLE_SCALARS + 2 * MAX_BRANCHES
+                                                  + len(TILE_FIELDS) * L.n_tiles])
+    pieces = [v for stage in _schedule(spec, L, wide_variant) for _ in range(rounds)
+              for piece in stage for v in piece]
     return torch.tensor(head + pieces, dtype=torch.int32, device=device)
 
 
@@ -1018,18 +1064,17 @@ def launch_library(lib: ctypes.CDLL, spec: SubnetSpec, x, packed, trunk, out,
     if wide_variant is None:
         wide_variant = wide(spec)
     dil = (ctypes.c_int * len(spec.dilations))(*spec.dilations)
-    tensor_cores = _in_fragments(spec, wide_variant)
-    table = layout_table(spec) if tensor_cores else None
+    table = layout_table(spec, wide_variant)
     args = (x.data_ptr(), weights.data_ptr(), biases.data_ptr(), trunk.data_ptr(),
             out.data_ptr(), x.shape[0], spec.h, spec.w, spec.cin, spec.kernels,
             spec.res_blocks, spec.cardinality, spec.ksize, len(spec.dilations), dil,
             spec.out_total, _DTYPE_CODE[spec.compute_dtype], weights.numel(), biases.numel(),
-            trunk.numel(), table, len(table) if table is not None else 0)
+            trunk.numel(), table, len(table))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # the rings' schedules: the wide bf16 kernel's, the tf32 scratch plan's
-        ring = tensor_cores and (wide_variant or spec.compute_dtype == "float32")
-        on_card = _layout_table_on(spec, x.device).data_ptr() if ring else None
+        # the rings' schedules: the wide kernel's, the tf32 scratch plan's
+        ring = wide_variant or spec.compute_dtype == "float32"
+        on_card = _layout_table_on(spec, x.device, wide_variant).data_ptr() if ring else None
         entry = lib.fused_subnet_forward_wide if wide_variant else lib.fused_subnet_forward
         err = entry(*args, on_card, stream)
     if err != 0:
@@ -1047,7 +1092,7 @@ def check_launch(spec: SubnetSpec, batch: int) -> None:
     if len(spec.dilations) > MAX_BRANCHES:
         raise ValueError(f"{len(spec.dilations)} dilations: the kernel takes at most "
                          f"{MAX_BRANCHES}")
-    if _in_fragments(spec, wide(spec)) and max(_table_values(spec)) > MAX_TABLE_VALUE:
+    if max(_table_values(spec, wide(spec))) > MAX_TABLE_VALUE:
         raise ValueError(f"sizes past the tensor-core layout's ints: {spec}")
     pixels = spec.h * spec.w
     n_weights = sum(packed_sizes(spec))

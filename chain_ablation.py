@@ -1,14 +1,17 @@
-"""Where the narrow conv-chain kernel (K3) spends its time, on one CUDA card.
+"""Where the conv-chain kernel (K3) spends its time, on one CUDA card.
 
     python3 chain_ablation.py [--dtype float32]
 
 Builds the kernel of ``csrc/fused_subnet.cu`` as it is and in altered
-copies, each with one part of the narrow kernel's work cut out (so their
+copies, each with one part of the kernel's work cut out (so their
 outputs are wrong on purpose), and times every build at each conv-chain
-spec of the flagship that ``chip_smoke.py`` drives, at batch 128 and at
-the serving call's 2,048 (:data:`BATCHES`), on its weights, in bf16 (the
-default) or float32 (the tf32 products). A part's cost is the time the
-full kernel loses over the copy without it. The parts (:data:`VARIANTS`),
+spec of the flagship that ``chip_smoke.py`` drives (the narrow kernel),
+at batch 128 and at the serving call's 2,048 (:data:`BATCHES`), on its
+weights, in bf16 (the default) or float32 (the tf32 products); in
+float32 also at the capacity preset's two K 128 specs, which take the
+wide variant's tf32 build, with the copies that alter it
+(:data:`WIDE_PARTS`). A part's cost is the time the full kernel loses
+over the copy without it. The parts (:data:`VARIANTS`),
 of the skeleton both products share: the branch convs, the head conv, the
 post 1x1, the entry conv, the pre 1x1, and a copy in which every sample
 shares one scratch (trunk and stage-input copy), which on a scratch plan
@@ -16,11 +19,20 @@ also makes the samples contend for the same L2 lines; of the bf16 scratch
 plan: the overlap of the weights' bulk copies (TMA) with the stage before
 them; of both scratch plans: the split of the last round's tiles across
 warps (every tile whole instead); of the tf32 products: the two ``lo`` products (one TF32 product a
-chunk, which prices the split), and B loaded as a ``hi`` and a ``lo`` plane
+chunk, which prices the split; in the wide build the trunk-wide stages'
+two ``lo`` wgmma too), and B loaded as a ``hi`` and a ``lo`` plane
 (16 bytes a lane and no split in registers, which prices the other packing;
-its values are wrong). Each edit is a piece of the kernel's text and raises
-if that text has changed. Times are ``chip_smoke.device_time_ms``. Needs a
-card; exits 1 without one.
+its values are wrong); of the wide tf32 build alone: its B lo planes (each
+warpgroup's split of a trunk-wide piece in shared memory and its
+warpgroup barrier cut, so that wgmma reads a stale plane: the price of
+the route that B takes there), its stage input's loads from scratch
+(the 28 x 28 route: two 8-byte loads a lane a chunk, from L1 or L2; cut,
+A is a constant: the most that holding it in shared memory could save),
+and each of its stages' products and loads (entry, pre 1x1, branch convs,
+post 1x1, head: the warps still walk the ring). Each
+edit is a piece of the kernel's text and raises if that text has changed.
+Times are ``chip_smoke.device_time_ms``. Needs a card; exits 1 without
+one.
 
     python3 chain_ablation.py --against OTHER_TREE [--dtype float32]
 
@@ -32,8 +44,9 @@ that it builds and launches that tree's own K3 (its source, its packing,
 the variant its ``wide`` picks) through ``subnet_apply``, and times it
 with that tree's ``chip_smoke.device_time_ms`` at :data:`AB_SPECS`, at
 each of :data:`BATCHES`, on the same seeded weights and inputs, held
-against the tree's plain chain. In float32 only the flagship's four specs
-(the preset's two of K 128 run the CUDA-core kernel in both trees). Prints
+against the tree's plain chain; in either dtype every spec of
+:data:`AB_SPECS`, the preset's two of K 128 on the wide variant (in
+float32 its tf32 build, in a tree before it the CUDA-core kernel). Prints
 one line a turn, spec and batch, then each tree's times side by side and as
 JSON.
 """
@@ -105,17 +118,50 @@ VARIANTS = {
                        ("const int split = split_tiles(L), whole",
                         "const int split = 0, whole")],
     "no lo products": [("    mma_tf32(c, a.lo, b.hi);\n    mma_tf32(c, a.hi, b.lo);\n", ""),
-                       ("    mma_tf32(x, a.lo, b.hi);\n    mma_tf32(x, a.hi, b.lo);\n", "")],
+                       ("    mma_tf32(x, a.lo, b.hi);\n    mma_tf32(x, a.hi, b.lo);\n", ""),
+                       ("  wgmma_tf32_n(nt, d, a.lo, b);\n  wgmma_tf32_n(nt, d, a.hi, lo);\n", "")],
     "B in hi and lo planes": [
         ("    const float2 v = reinterpret_cast<const float2*>(w + frag * kFrag)"
          "[threadIdx.x & 31];\n    B b;\n    split(v.x, b.hi[0], b.lo[0]);\n    split(v.y, b.hi[1], b.lo[1]);\n"
          "    return b;",
          "    const uint4 v = reinterpret_cast<const uint4*>(w + (frag & ~1) * kFrag)"
          "[threadIdx.x & 31];\n    return B{{v.x, v.y}, {v.z, v.w}};")],
+    "no B lo planes": [("    const float4* b = reinterpret_cast<const float4*>(smem + (slot - smem_s));\n",
+                        "    return plane;\n"
+                        "    const float4* b = reinterpret_cast<const float4*>(smem + (slot - smem_s));\n")],
+    "no scratch A loads": [(": *reinterpret_cast<const float2*>(act + off[i] + lo8);",
+                            ": make_float2(0.5f, 0.5f);")],
+    "no wide entry conv": [("L.qx, L.ch_entry, NT, j0, nt, active, ring, plane,",
+                            "L.qx, L.ch_entry, NT, j0, nt, false, ring, plane,")],
+    "no wide pre 1x1": [
+        ("              if (active) lo = plane.split(ring.slot(), min(per, L.ch_pre - cc) * nt * "
+         "kFragBytes);\n            }\n            if (active) {",
+         "              if (false) lo = plane.split(ring.slot(), min(per, L.ch_pre - cc) * nt * "
+         "kFragBytes);\n            }\n            if (false) {"),
+        ("              if (active) wgmma_wait_all(acc);\n              ring.release();",
+         "              if (false) wgmma_wait_all(acc);\n              ring.release();")],
+    "no wide branch convs": [
+        ("            if (active) A.start(d, in, mt, L.ts, q, d.dil[br]);\n"
+         "            for (int c0 = 0; c0 < chunks; c0 += per) {\n              ring.wait();\n"
+         "              if (active) {",
+         "            if (false) A.start(d, in, mt, L.ts, q, d.dil[br]);\n"
+         "            for (int c0 = 0; c0 < chunks; c0 += per) {\n              ring.wait();\n"
+         "              if (false) {")],
+    "no wide post 1x1": [("  ring.wait();\n  if (active) {\n    const uint32_t plane = lo.split(ring.slot(), "
+                          "n * nt * kFragBytes);",
+                          "  ring.wait();\n  if (false) {\n    const uint32_t plane = lo.split(ring.slot(), "
+                          "n * nt * kFragBytes);")],
+    "no wide head conv": [("L.ch_head, L.NO, j0, nt, active, ring, plane,",
+                           "L.ch_head, L.NO, j0, nt, false, ring, plane,")],
 }
 #: the variants that alter one dtype's build alone
+#: the variants timed at the preset's wide specs (float32): those that alter
+#: the wide tf32 build; all but the first two alter it alone
+WIDE_PARTS = ("full", "no lo products", "no B lo planes", "no scratch A loads",
+              "no wide entry conv", "no wide pre 1x1", "no wide branch convs", "no wide post 1x1",
+              "no wide head conv")
 ONLY = {"no weight prefetch": "bfloat16", "no lo products": "float32",
-        "B in hi and lo planes": "float32"}
+        "B in hi and lo planes": "float32", **{n: "float32" for n in WIDE_PARTS[2:]}}
 
 
 def build_variant(name: str) -> ctypes.CDLL:
@@ -139,7 +185,7 @@ BATCHES = (chip_smoke.BATCH, chip_smoke.SERVE_BATCH)
 
 #: --against: (h, w, cin, K, cardinality, dilations, out_total) of the
 #: capacity preset's wide specs and the flagship's four (res_blocks 3 and
-#: ksize 3 each); in float32 the flagship's alone
+#: ksize 3 each)
 AB_SPECS = {"preset_28x28x1_k128": (28, 28, 1, 128, 8, (1, 2, 4), 2),
             "preset_14x14x2_k128": (14, 14, 2, 128, 8, (1, 2), 4),
             "flagship_28x28x1_k64": (28, 28, 1, 64, 8, (1, 2, 4), 2),
@@ -178,11 +224,10 @@ print(json.dumps(out))
 
 
 def ab_turn(tree: Path, dtype: str) -> dict:
-    """One turn of --against in ``tree``: its K3's times at AB_SPECS (in
-    float32 the flagship's) and BATCHES."""
+    """One turn of --against in ``tree``: its K3's times at AB_SPECS and
+    BATCHES."""
     env = dict(os.environ, PYTHONPATH=str(tree))
-    specs = {k: v for k, v in AB_SPECS.items() if dtype == "bfloat16" or k.startswith("flagship")}
-    done = subprocess.run([sys.executable, "-c", AB_TURN, json.dumps(specs),
+    done = subprocess.run([sys.executable, "-c", AB_TURN, json.dumps(AB_SPECS),
                            json.dumps(BATCHES), dtype], cwd=tree, env=env, capture_output=True,
                           text=True, timeout=600)
     if done.returncode:
@@ -226,9 +271,16 @@ def main() -> int:
     names = [n for n in VARIANTS if ONLY.get(n, dtype) == dtype]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         libs = dict(zip(names, pool.map(build_variant, names)))
-    specs = chip_smoke.chain_specs(ConvCFlow(chip_smoke.FLAGSHIP_SUBNET, seed=0))
+    specs = list(chip_smoke.chain_specs(ConvCFlow(chip_smoke.FLAGSHIP_SUBNET, seed=0)))
+    if dtype == "float32":
+        specs += [s for s in chip_smoke.chain_specs(ConvCFlow(chip_smoke.PRESET, seed=0))
+                  if chain.wide(dataclasses.replace(s, compute_dtype=dtype))]
     for batch, (i, spec) in itertools.product(BATCHES, enumerate(specs)):
         spec = dataclasses.replace(spec, compute_dtype=dtype)
+        # a wide spec: the copies that alter the wide build; else all but
+        # those that alter the wide build alone
+        wide_spec = chain.wide(spec)
+        parts = [n for n in libs if (n in WIDE_PARTS if wide_spec else n not in WIDE_PARTS[2:])]
         net, _ = chip_smoke.chain_nets(spec, seed=10 + i)
         g = torch.Generator(device="cuda").manual_seed(10 + i)
         x = torch.randn(batch, spec.h, spec.w, spec.cin, generator=g, device="cuda")
@@ -236,13 +288,14 @@ def main() -> int:
         trunk = torch.empty(chain.trunk_elements(spec, batch), device="cuda")
         out = torch.empty(batch, spec.h, spec.w, spec.out_total, device="cuda")
         times = {name: 1e3 * chip_smoke.device_time_ms(
-            lambda lib=lib: chain.launch_library(lib, spec, x, packed, trunk, out), iters=20)
-            for name, lib in libs.items()}
+            lambda lib=libs[name]: chain.launch_library(lib, spec, x, packed, trunk, out),
+            iters=20)
+            for name in parts}
         full = times["full"]
-        parts = ", ".join(f"{name} {t:.1f} us ({full - t:+.1f})"
-                          for name, t in times.items() if name != "full")
-        print(f"[ablation] {batch}x{spec.h}x{spec.w}x{spec.cin} {dtype}: full {full:.1f} us; "
-              f"{parts}", flush=True)
+        cuts = ", ".join(f"{name} {t:.1f} us ({full - t:+.1f})"
+                         for name, t in times.items() if name != "full")
+        print(f"[ablation] {batch}x{spec.h}x{spec.w}x{spec.cin} K={spec.kernels} {dtype} "
+              f"({chain.kernel_build(spec)}): full {full:.1f} us; {cuts}", flush=True)
     return 0
 
 

@@ -12,7 +12,9 @@ chain). ``[sass]`` reads the built kernels' instructions: every
 instantiation of the narrow K3 (its bf16 and tf32 builds on the on-chip and
 scratch plans) must run its products as HMMA (TF32 ones in the float32
 builds alone), bring its weights by bulk copies (UBLKCP) and wait on
-mbarriers, and the wide one's must use HGMMA; the ``kernels`` line carries
+mbarriers, the wide one's four (bf16 and tf32, stage input in shared
+memory or in scratch) must use HGMMA (its tf32 ones TF32 HMMA besides), and
+no kernel of the library may be left on FFMA products alone; the ``kernels`` line carries
 each one's registers, spills, shared bytes and threads a block. Then it drives two
 serving paths of the flagship
 conv cINN at full width (batch 128, random weights from a seed), the
@@ -119,7 +121,14 @@ step, counted at the capture), then the graph captured again on its default
 algorithms with samples/s, busy share and the step's conv roofline; the
 seeded 16 x 128
 serving call (K3 16 times a replay); ``cnf-conv`` on the class workload and
-``cnf-pretrain-noise`` with the preset's flags.
+``cnf-pretrain-noise`` with the preset's flags. ``[wide f32]`` drives the
+same preset at ``cnf-conv``'s default dtype, float32, where its two K 128
+chains take the wide variant's tf32 build (three TF32 products a k8 chunk
+on ``wgmma``): K3 at its four specs at 128 and 2,048 beside its bound and
+its plain version, a graph of 2 train steps against 2 eager ones
+(deterministic cuDNN), the seeded 16 x 128 serving call (K3 16 times a step
+and a call, on the tf32 wide build and the tf32 scratch plan alone) and
+``cnf-conv`` for one epoch with the preset's flags and no ``--dtype``.
 ``[dist2]`` runs only where the machine has two cards or more (on one it
 prints that it did not run): 2 NCCL processes, graphed steps with a data
 axis of 2 against one process on the rows together, a (1, 2) FSDP graph
@@ -1013,7 +1022,7 @@ def check_grads(coupling_model, subnet_model, phases):
 BENCH_CELL = dataclasses.replace(FLAGSHIP, experimental_lowering=None)
 TRAIN_LR = 3e-4
 TRAIN_INNER = 16
-TRAIN_CALLS = 3  # timed calls of the graph and of the eager steps, after the first
+TRAIN_CALLS = 2  # timed calls of the graph and of the eager steps, after the first
 LOWERING_INNER = 4  # steps a graph under pallas_coupling and pallas_subnet
 #: the cnf-conv class workload (drivers/conv.py defaults): the flagship arch
 #: in float32 with unfused subnets and the shared-shape init, classes 0-3,
@@ -1640,7 +1649,7 @@ def check_modes(phases):
 #: (K 64) the narrow kernel
 PRESET = perf_arch_config(experimental_lowering="pallas_subnet")
 WIDE_INNER = 2  # steps a graph
-WIDE_CALLS = 2  # timed calls of the graph and of the eager steps
+WIDE_CALLS = 1  # timed calls of the graph and of the eager steps
 #: the preset's flags for the drivers (--no-shared-init: the shared-shape
 #: init refuses pallas_subnet, as JAX's does)
 PRESET_FLAGS = ["--kernels", "128", "128", "128", "128", "--cardinality", "8", "8", "8", "8",
@@ -1653,6 +1662,14 @@ WIDE_CLI = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-per-
             "--checkpoint-every", "0", "--eval-samples", "16", *PRESET_FLAGS]
 #: cnf-pretrain-noise at its batch of 512: 4 batches, one epoch of stacks of 2
 WIDE_PRETRAIN = ["--num-batches", "4", "--epochs", "1", "--scan-steps", "2", *PRESET_FLAGS]
+#: [wide f32]: the preset at cnf-conv's default --dtype, float32, where the
+#: wide variant runs its tf32 build (the K 128 specs) beside the narrow
+#: kernel's tf32 scratch plan (the K 64 ones)
+PRESET_F32 = perf_arch_config(experimental_lowering="pallas_subnet", compute_dtype="float32")
+PRESET_F32_BUILDS = {"tf32 wide", "tf32 scratch"}
+#: WIDE_CLI without --dtype: cnf-conv's default, float32
+WIDE_F32_CLI = [a for i, a in enumerate(WIDE_CLI)
+                if a != "--dtype" and WIDE_CLI[i - 1:i] != ["--dtype"]]
 
 
 #: the narrow kernel's builds, by a piece of each one's mangled name: its
@@ -1694,15 +1711,17 @@ def narrow_resources(sass):
 
 
 def wide_resources(sass):
-    """The wide bf16 kernel's two instantiations (stage input in shared
-    memory, in scratch): registers, stack and local bytes (spills) from
-    ``cuobjdump -res-usage``."""
+    """The wide kernel's four instantiations (bf16 and tf32 products, stage
+    input in shared memory or in scratch), keyed "bf16 shared" and so on:
+    registers, stack and local bytes (spills) from ``cuobjdump -res-usage``,
+    its wgmma (HGMMA) and mma.sync (HMMA, tf32 ones apart) instructions."""
     out = {}
     for name, info in sass.items():
         if "mma_wide_kernel" in name:
-            path = "shared" if "ILb1E" in name else "scratch"
-            out[path] = dict(resources=info.get("resources"), hgmma=info["hgmma"],
-                             hmma=info["hmma"])
+            prod = "tf32" if "Tf32" in name else "bf16"
+            path = "shared" if "ELb1E" in name else "scratch"
+            out[f"{prod} {path}"] = dict(resources=info.get("resources"), hgmma=info["hgmma"],
+                                         hmma=info["hmma"], tf32_hmma=info["tf32_hmma"])
     return out
 
 
@@ -1789,7 +1808,7 @@ def check_wide(phases, narrow, sass=None):
                   f"{path} memory, {chain.wide_shared_bytes(spec)} bytes of shared memory a "
                   f"block ({chain.WIDE_THREADS} threads), scratch "
                   f"{4 * chain.scratch_per_sample(spec, True)} bytes a sample; "
-                  f"{json.dumps(resources.get(path))}", flush=True)
+                  f"{json.dumps(resources.get('bf16 ' + path))}", flush=True)
     phases.done("wide: K3 at the preset's specs")
     forced = wide_at_flagship(narrow)
     phases.done("wide: the wide variant at the flagship's specs")
@@ -1856,6 +1875,114 @@ def check_wide(phases, narrow, sass=None):
           f"{serve['busy_share']:.3f})", flush=True)
     return dict(specs=rows, train=train, serve=serve, cli=cli, device=kind,
                 resources=resources, forced_at_flagship=forced)
+
+
+def check_wide_f32(phases, sass):
+    """[wide f32]: the capacity preset at cnf-conv's default dtype, float32,
+    under pallas_subnet, full width and depth: K3 at its four specs at 128
+    and 2,048 (the K 128 ones on the wide variant's tf32 build, the K 64
+    ones on the narrow kernel's tf32 scratch plan), each beside its bound at
+    165 TFLOP/s and its plain version; a graph of WIDE_INNER train steps
+    against as many eager steps (deterministic cuDNN, as [wide]); the seeded
+    16 x 128 serving call (graphed == eager entry); K3 16 times a step and a
+    call, counted at the capture, on the two tf32 builds alone; cnf-conv for
+    one epoch with the preset's flags and no --dtype. ``sass``:
+    :func:`sass_summary`'s."""
+    from arl_conditional_normalizing_flows_tpu_torch.drivers import conv as cnf_conv
+
+    model = ConvCFlow(PRESET_F32, seed=0)
+    n = len(model.couplings)
+    specs = chain_specs(model)
+    wide = [s for s in specs if chain.wide(s)]
+    check(len(specs) == 4 and all(s.compute_dtype == "float32" for s in specs)
+          and sorted(s.kernels for s in wide) == [128, 128]
+          and {chain.kernel_build(s) for s in specs} == PRESET_F32_BUILDS,
+          f"wide f32: the preset's 4 chains in float32, its 2 of K 128 on the tf32 wide build "
+          f"({[(s.h, s.w, s.kernels, chain.kernel_build(s)) for s in specs]})")
+    rows = []
+    for i, (spec, launches) in enumerate(specs.items()):
+        for batch in (BATCH, SERVE_BATCH):
+            row = chain_at_batch(spec, launches, 80 + i, batch, dtype="float32")
+            row.update(wide=chain.wide(spec), dilations=list(spec.dilations),
+                       out_total=spec.out_total,
+                       bound_ms_at_67=max(chain.flops(spec, batch) / F32_FLOPS_PER_S,
+                                          chain.io_bytes(spec, batch) / HBM_BYTES_PER_S) * 1e3)
+            if chain.wide(spec):
+                row.update(wide_shared_bytes=chain.wide_shared_bytes(spec),
+                           act_in_shared=bool(chain.mma_layout(spec).act_in_shared),
+                           scratch_bytes_a_sample=4 * chain.scratch_per_sample(spec, True))
+            rows.append(row)
+    resources = wide_resources(sass)
+    for spec in wide:
+        path = "shared" if chain.mma_layout(spec).act_in_shared else "scratch"
+        print(f"[wide f32] {spec.h}x{spec.w}x{spec.cin} K={spec.kernels}: stage input in {path} "
+              f"memory, {chain.wide_shared_bytes(spec)} bytes of shared memory a block, scratch "
+              f"{4 * chain.scratch_per_sample(spec, True)} bytes a sample; "
+              f"{json.dumps(resources.get('tf32 ' + path))}", flush=True)
+    phases.done("wide f32: K3 at the preset's specs in float32")
+
+    reset_launches()
+    train = train_graph_and_eager(PRESET_F32, WIDE_INNER, phases, calls=WIDE_CALLS,
+                                  name="preset pallas_subnet float32", profile_eager=False,
+                                  deterministic=True)
+    k3 = (train["graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
+          train["eager_port_kernel_launches_a_step"]["fused_subnet"])
+    check(k3 == (n, n), f"wide f32: K3 launches {n} times a train step in the replay and "
+          f"eagerly ({k3})")
+    train_builds = dict(chain.BUILD_LAUNCHES)
+    torch.cuda.empty_cache()
+    reset_launches()
+    serve = modes_serve("preset pallas_subnet float32", model, PRESET_F32, phases,
+                        tag="wide f32")
+    serve_builds = dict(chain.BUILD_LAUNCHES)
+    k3_call = serve["port_kernel_launches_a_call"]["fused_subnet"]
+    check(serve["batch"] == SERVE_BATCH and k3_call == n,
+          f"wide f32: K3 launches {n} times a serving call of {SERVE_BATCH} ({serve['batch']}, "
+          f"{k3_call})")
+    check(set(train_builds) == set(serve_builds) == PRESET_F32_BUILDS,
+          f"wide f32: K3 ran the tf32 wide build and the tf32 scratch plan alone "
+          f"({train_builds}, {serve_builds})")
+    del model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = os.path.join(tmp, "cnf-conv")
+        reset_launches()
+        t = time.perf_counter()
+        res = cnf_conv.main(WIDE_F32_CLI + ["--outdir", outdir])
+        seconds = time.perf_counter() - t
+        history = history_rows(outdir)
+        per_step = res.train_step.launches  # counted at the capture
+        cli_builds = dict(chain.BUILD_LAUNCHES)
+        check(per_step["fused_subnet"] == n, f"wide f32 cnf-conv: K3 {n} times a step ({per_step})")
+        check(set(cli_builds) == PRESET_F32_BUILDS,
+              f"wide f32 cnf-conv: the two tf32 builds alone ({cli_builds})")
+        check(history and all(math.isfinite(r[k]) for r in history
+                              for k in ("loss", "z_loss", "y_loss", "detJ_loss")),
+              "wide f32 cnf-conv: finite losses")
+        with open(os.path.join(outdir, "eval.json")) as f:
+            final = json.load(f)
+        check(math.isfinite(final["val_bits_per_dim"]),
+              "wide f32 cnf-conv: eval.json has a finite val_bits_per_dim")
+        cli = dict(seconds=seconds, rows=history, k3_launches_a_step=per_step,
+                   builds=cli_builds, val_bits_per_dim=final["val_bits_per_dim"])
+        print(f"[wide f32] cnf-conv {json.dumps(cli)}", flush=True)
+        phases.done("wide f32: cnf-conv with the preset's flags, float32",
+                    seconds=f"{seconds:.2f}")
+        del res
+        torch.cuda.empty_cache()
+    at = {b: sum(r["launches_per_pass"] * r["ms"] for r in rows if r["shape"][0] == b)
+          for b in (BATCH, SERVE_BATCH)}
+    out = dict(pass_ms=at[BATCH], pass_ms_at_serving_batch=at[SERVE_BATCH],
+               train_step_ms=train["graph_step_ms"],
+               train_samples_per_s=train["graph_samples_per_s"],
+               train_busy_share=train["graph_busy_share"], launches_a_train_step=k3[0],
+               serve_call_ms=serve["call_ms"], serve_samples_per_s=serve["samples_per_s"],
+               serve_busy_share=serve["busy_share"], launches_a_serving_call=k3_call,
+               builds_in_train=train_builds, builds_in_serve=serve_builds)
+    print(f"[wide f32] summary {json.dumps(out)}", flush=True)
+    return dict(out, specs=rows, cli=cli, resources={k: v for k, v in resources.items()
+                                                      if k.startswith("tf32")})
 
 
 #: [cli]: the port's drivers through main(argv), on synthetic digits
@@ -1952,6 +2079,8 @@ PRETRAIN_RUNS = (
     ("default", ["--scan-steps", "4", "--epochs", "1"], None),
 )
 PRETRAIN_INNER = 4
+#: timed calls of a pre-training run's graphed step (few: the smoke's time limit)
+PRETRAIN_TIMED = 1
 PRETRAIN_BATCHES = 20  # the driver's --num-batches default
 
 
@@ -1984,7 +2113,7 @@ def pretrain_lowering(name, flags, kernel, tmp, phases):
 
     g = torch.Generator(device="cuda").manual_seed(5)
     stack = torch.randn((PRETRAIN_INNER, PRETRAIN_BATCH, 28, 28, 2), generator=g, device="cuda")
-    call_walls = walls(lambda: res.train_step(res.state, stack), 2)
+    call_walls = walls(lambda: res.train_step(res.state, stack), PRETRAIN_TIMED)
     prof = kernel_breakdown(lambda: res.train_step(res.state, stack), top=6)
     step_ms = statistics.median(call_walls) * 1e3 / PRETRAIN_INNER
     line = dict(
@@ -2234,7 +2363,7 @@ RECORDS_FLAGS = ["--batch-size", "128", "--experimental-lowering", "pallas_coupl
 RECORDS_INNER = 16
 #: stacks of a records run timed (after an untimed one; few: the smoke's
 #: time limit)
-RECORDS_TIMED = 4
+RECORDS_TIMED = 2
 #: batches of the streaming sources held against the in-RAM ones, bit for bit
 PARITY_BATCHES = 32
 #: losses of the streamed and in-RAM runs: the same batches through the same
@@ -2522,7 +2651,7 @@ DIST_FLAGS = ["--model-type", "class", "--dataset", "synthetic", "--synthetic-pe
 DIST_INNER = 16
 #: stacks of each run timed, in turns with the other run's (few: the smoke's
 #: time limit)
-DIST_TIMED = 3
+DIST_TIMED = 2
 #: (b): eager steps, 2 processes of DIST_ROWS rows over gloo on the one
 #: card (NCCL refuses two processes on one card) against one process on
 #: 2 * DIST_ROWS, from the same state, with instance noise at alpha 0.5
@@ -2730,7 +2859,7 @@ FSDP_SUBNET_INNER = 4
 FSDP_CALLS = 2
 #: stacks of each graph timed, in turns with the other graph's (few: the
 #: smoke's time limit)
-FSDP_TIMED = 3
+FSDP_TIMED = 2
 #: what a graphed FSDP step launches of the collectives, counted at the
 #: capture: the reduce-scatter of the gradients and the all-reduce of the
 #: shards' gradients over "data", the replicated scalars' all-reduce, the
@@ -3065,9 +3194,15 @@ def main() -> int:
     for variant in ("mma_kernel", "mma_wide_kernel"):
         check(any(v["hmma"] + v["hgmma"] > 0 for k, v in sass.items() if variant in k),
               f"the bf16 conv-chain kernel ({variant}) runs its products on the tensor cores")
-    wide_sass = [v for k, v in sass.items() if "mma_wide_kernel" in k]
-    check(len(wide_sass) == 2 and all(v["hgmma"] > 0 for v in wide_sass),
-          "both paths of the wide bf16 kernel run their trunk-wide products on wgmma (HGMMA)")
+    wide_sass = {k: v for k, v in sass.items() if "mma_wide_kernel" in k}
+    check(len(wide_sass) == 4 and all(v["hgmma"] > 0 for v in wide_sass.values()),
+          "the wide kernel's four builds (bf16 and tf32, each path) run their trunk-wide "
+          "products on wgmma (HGMMA)")
+    check(all((v["tf32_hmma"] > 0) == ("Tf32" in k) for k, v in wide_sass.items()),
+          "the wide tf32 build runs its branch tiles as TF32 HMMA, the bf16 one as bf16 ones")
+    check(all(v["hmma"] + v["hgmma"] > 0 for v in sass.values()),
+          "no kernel of the conv-chain library is left on FFMA products alone "
+          f"({ {k: (v['hmma'], v['hgmma'], v['ffma']) for k, v in sass.items()} })")
     narrow = narrow_resources(sass)
     check(set(narrow) == set(NARROW_BUILDS.values())
           and all(v["hmma"] > 0 and v["bulk_copies"] > 0 and v["barrier_waits"] > 0
@@ -3099,6 +3234,8 @@ def main() -> int:
     f32 = check_f32_subnet(phases)
     torch.cuda.empty_cache()
     wide = check_wide(phases, chain_results, sass)
+    torch.cuda.empty_cache()
+    wide_f32 = check_wide_f32(phases, sass)
     torch.cuda.empty_cache()
     modes = check_modes(phases)
     torch.cuda.empty_cache()
@@ -3174,6 +3311,18 @@ def main() -> int:
             "graph_port_kernel_launches_a_step_at_capture"]["fused_subnet"],
         launches_a_preset_serving_call=wide["serve"]["port_kernel_launches_a_call"][
             "fused_subnet"],
+        # the preset at float32 ([wide f32]): its four chains at 128 and 2,048
+        # (the K 128 ones on the wide variant's tf32 build), its graphed train
+        # step's and serving call's launches and times, its cnf-conv epoch
+        preset_f32_specs=wide_f32["specs"], preset_f32_resources=wide_f32["resources"],
+        launches_a_preset_f32_train_step=wide_f32["launches_a_train_step"],
+        launches_a_preset_f32_serving_call=wide_f32["launches_a_serving_call"],
+        preset_f32_path={k: wide_f32[k] for k in (
+            "pass_ms", "pass_ms_at_serving_batch", "train_step_ms", "train_samples_per_s",
+            "train_busy_share", "serve_call_ms", "serve_samples_per_s", "serve_busy_share",
+            "builds_in_train", "builds_in_serve")},
+        preset_f32_cnf_conv={k: wide_f32["cli"][k] for k in ("seconds", "val_bits_per_dim",
+                                                            "builds")},
     ))
     entries[0]["grad"] = grads["pallas_coupling"]
     # launches a training step inside the CUDA-graph replays (counted at the

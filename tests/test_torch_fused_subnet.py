@@ -188,7 +188,7 @@ def test_packed_weights_follow_load_state_dict():
 
 
 def test_launch_guards_raise_before_launching():
-    # a stage input past shared memory: the wide variant's (CUDA cores in
+    # a stage input past shared memory: the wide variant's (its tf32 build in
     # float32), no refusal
     big = tfs.SubnetSpec(**dict(BASE, h=64, w=64, kernels=64, compute_dtype="float32"))
     assert tfs.shared_bytes(big) > tfs.MAX_SHARED_BYTES and tfs.wide(big)
@@ -219,7 +219,6 @@ def test_launch_limits_mirror_the_cuda_source():
     src = _cuda_source()
     consts = dict(re.findall(r"^constexpr int (k\w+) = (\d+);", src, re.M))
     assert int(consts["kThreads"]) == tfs.THREADS
-    assert int(consts["kTile"]) == tfs.TILE
     assert int(consts["kMaxBranches"]) == tfs.MAX_BRANCHES
     assert int(consts["kNarrowBranches"]) == tfs.NARROW_BRANCHES
     assert int(consts["kMaxShared"]) == tfs.MAX_SHARED_BYTES
@@ -230,6 +229,7 @@ def test_launch_limits_mirror_the_cuda_source():
     assert int(consts["kTableScalars"]) == tfs.TABLE_SCALARS == len(tfs.TABLE_FIELDS)
     for name, value in (("kWideGroups", tfs.WIDE_GROUPS), ("kWideThreads", tfs.WIDE_THREADS),
                         ("kSlotBytes", tfs.SLOT_BYTES), ("kSlots", tfs.SLOTS),
+                        ("kTf32SlotBytes", tfs.TF32_SLOT_BYTES),
                         ("kBarrierBytes", tfs.BARRIER_BYTES), ("kSlack", tfs.SLACK_BYTES),
                         ("kGroupTiles", tfs.GROUP_TILES), ("kPassTiles", tfs.PASS_TILES)):
         assert int(consts[name]) == value, name
@@ -273,6 +273,11 @@ def test_launch_limits_mirror_the_cuda_source():
     assert "lo = __float_as_uint(v - __uint_as_float(hi));" in split
     for n in (8, 16, 32, 64, 128):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" in src
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32" in src
+    # the tf32 wide build's lo planes: Tf32::split's lo, written by the
+    # generic proxy and fenced for wgmma's async proxy
+    assert "return v - __uint_as_float(__float_as_uint(v) & 0xffffe000u);" in src
+    assert "fence.proxy.async.shared::cta" in src
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
 
 
@@ -414,16 +419,18 @@ def _core_b(buf, off, chunks, tiles):
     return frags.transpose(0, 2, 4, 1, 3).reshape(16 * chunks, 8 * tiles)
 
 
-def _tile_b(buf, w0, L, i, wide_variant):
-    """Branch tile i's (16 * chunks, 8) B matrix in the block whose weights
-    start at w0: its fragments one after another, or (wide) chunk by chunk
-    across its group."""
+def _tile_b(buf, w0, L, i, wide_variant, tf32=False):
+    """Branch tile i's (16 * chunks, 8) B matrix (tf32: (8 * chunks, 8)) in
+    the block whose weights start at w0: its fragments one after another,
+    or (wide) chunk by chunk across its group."""
     t = L.tiles[i]
+    frag, dense, core = (tfs.TF32_FRAG, _tf32_b, _tf32_core_b) if tf32 else \
+        (tfs.FRAG, _dense_b, _core_b)
     if not wide_variant:
-        return _dense_b(buf, w0 + t.w_off, t.chunks, 1)
+        return dense(buf, w0 + t.w_off, t.chunks, 1)
     g0, ng = next(g for g in tfs.branch_groups(L) if g[0] <= i < g[0] + g[1])
     first = w0 + L.tiles[g0].w_off
-    return np.concatenate([_core_b(buf, first + (c * ng + i - g0) * tfs.FRAG, 1, 1)
+    return np.concatenate([core(buf, first + (c * ng + i - g0) * frag, 1, 1)
                            for c in range(t.chunks)])
 
 
@@ -473,6 +480,14 @@ def _tf32_b(buf, off, chunks, tiles):
     return b
 
 
+def _tf32_core_b(buf, off, chunks, tiles):
+    """A stage's (8 * chunks, 8 * tiles) B matrix from the float32 wide
+    variant's fragments: fragment (c, j) holds B[8c + 4h + k, 8j + n] at
+    32h + 4n + k (two core matrices, n rows of 4 floats)."""
+    frags = buf[off: off + chunks * tiles * tfs.TF32_FRAG].reshape(chunks, tiles, 2, 8, 4)
+    return frags.transpose(0, 2, 4, 1, 3).reshape(8 * chunks, 8 * tiles)
+
+
 def _tf32(a):
     """``a`` as the tensor cores read a tf32 operand: its top 19 bits (sign,
     exponent, 10 bits of mantissa), the low 13 bits dropped."""
@@ -519,37 +534,38 @@ def _im2col(t, q, lo8, dil, k, chunks, S=2):
 
 def _mma_chain(spec, x, packed, wide_variant=False, lo_products=True):
     """The chain computed from the tensor-core packing (``wide_variant``:
-    the bf16 wide variant's) the way the kernel does: each stage an implicit
+    the wide variant's) the way the kernel does: each stage an implicit
     GEMM of im2col slices by the B fragments. bf16: operands rounded to bf16
     where the kernel rounds them. float32: k8 chunks, every product as the
     kernel's three TF32 products (:func:`_tf32_mm`), the pre and post 1x1s'
-    A in the hand-off's column order."""
+    A in the hand-off's column order, and the k x k stages' too where the
+    wide variant reads its stage input from scratch as channel pairs
+    (``scratch_pairs``)."""
     L, k = tfs.mma_layout(spec), spec.ksize
     tf32 = spec.compute_dtype == "float32"
     S = 1 if tf32 else 2
     buf, bias = packed[0].float().numpy(), packed[1].numpy()
-    _b = _core_b if wide_variant else (_tf32_b if tf32 else _dense_b)
+    _b = (_tf32_core_b if tf32 else _core_b) if wide_variant else (_tf32_b if tf32 else _dense_b)
     rnd = (lambda a: a) if tf32 else _bf16  # noqa: E731
     mm = (lambda a, b: _tf32_mm(a, b, lo_products)) if tf32 else np.matmul  # noqa: E731
     fed = _handoff if tf32 else (lambda a: a)  # noqa: E731
+    kxk = fed if wide_variant and tfs.scratch_pairs(spec) else (lambda a: a)  # noqa: E731
     lrelu = lambda v: np.where(v > 0, v, np.float32(0.3) * v)  # noqa: E731
 
     def pad_to(a, c):
         return np.pad(a, ((0, 0),) * 3 + ((0, c - a.shape[-1]),))
 
     def tile_b(w0, i):
-        t = L.tiles[i]
-        return _tf32_b(buf, w0 + t.w_off, t.chunks, 1) if tf32 else \
-            _tile_b(buf, w0, L, i, wide_variant)
+        return _tile_b(buf, w0, L, i, wide_variant, tf32)
 
     xp = pad_to(rnd(x), 8 * L.qx)
-    y = mm(_im2col(xp, L.qx, 0, 1, k, L.ch_entry, S), _b(buf, 0, L.ch_entry, L.nt)) \
+    y = mm(kxk(_im2col(xp, L.qx, 0, 1, k, L.ch_entry, S)), _b(buf, 0, L.ch_entry, L.nt)) \
         + bias[:L.kp]
     for r in range(spec.res_blocks):
         w0, b0 = L.w_block0 + r * L.w_block, L.b_block0 + r * L.b_block
         a = fed(pad_to(rnd(lrelu(y)), 8 * S * L.ch_pre))
         t = rnd(lrelu(mm(a, _b(buf, w0, L.ch_pre, L.nt)) + bias[b0: b0 + L.kp]))
-        s = [rnd(lrelu(mm(_im2col(t, tile.q, tile.lo8, tile.dil, k, tile.chunks, S),
+        s = [rnd(lrelu(mm(kxk(_im2col(t, tile.q, tile.lo8, tile.dil, k, tile.chunks, S)),
                           tile_b(w0, i))
                        + bias[b0 + tile.b_off: b0 + tile.b_off + 8]))
              for i, tile in enumerate(L.tiles)]
@@ -557,7 +573,7 @@ def _mma_chain(spec, x, packed, wide_variant=False, lo_products=True):
         u = mm(s, _b(buf, w0 + L.w_post, L.ch_post, L.nt))
         y = y + u + bias[b0 + L.b_post: b0 + L.b_post + L.kp]
     a = rnd(lrelu(y))
-    out = mm(_im2col(a, L.nt, 0, 1, k, L.ch_head, S), _b(buf, L.w_head, L.ch_head, L.no)) \
+    out = mm(kxk(_im2col(a, L.nt, 0, 1, k, L.ch_head, S)), _b(buf, L.w_head, L.ch_head, L.no)) \
         + bias[L.b_head: L.b_head + 8 * L.no]
     return out[..., :spec.out_total]
 
@@ -623,10 +639,10 @@ def test_bf16_launch_guards():
         tfs.check_launch(spec, 1)
         tfs.check_launch(dataclasses.replace(spec, compute_dtype="float32"), 1)
     # the float32 narrow kernel has the bf16 one's tiles: past them, the
-    # CUDA-core kernel
+    # wide variant's tf32 build
     assert tfs.wide(tfs.SubnetSpec(**dict(BASE, kernels=72), compute_dtype="float32"))
     assert tfs.kernel_build(tfs.SubnetSpec(**dict(BASE, kernels=72),
-                                           compute_dtype="float32")) == "float32 CUDA cores"
+                                           compute_dtype="float32")) == "tf32 wide"
     many = tfs.SubnetSpec(**ELEVEN, compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="dilations"):
         tfs.check_launch(many, 1)
@@ -733,8 +749,8 @@ def test_check_launch_takes_the_capacity_preset(dtype):
     """Every conv chain that the JAX package's perf_arch_config builds under
     pallas_subnet launches, at 128 and 2,048: the flagship's specs and the
     preset's narrow ones on the narrow kernels, the rest on the wide variant,
-    whose scratch holds the trunk, the stage input and (bf16) the branch
-    outputs."""
+    whose scratch holds the trunk and, where it does not fit shared memory,
+    the stage input (float32 at 28 x 28)."""
     cfg = arch.perf_arch_config(experimental_lowering="pallas_subnet", compute_dtype=dtype)
     model = ConvCFlow(cfg, device="cpu", seed=0)
     specs = {}
@@ -752,14 +768,15 @@ def test_check_launch_takes_the_capacity_preset(dtype):
         hw = spec.h * spec.w
         if not is_wide:
             assert tfs.trunk_elements(spec, 2) == 2 * tfs.scratch_per_sample(spec, False)
-        elif dtype == "bfloat16":
-            # the stage input in shared memory, the branch outputs in
-            # registers: the scratch is the trunk alone
-            L = tfs.mma_layout(spec)
-            assert L.act_in_shared and tfs.trunk_elements(spec, 2) == 2 * L.trunk_per_sample
         else:
-            act, rows = tfs._f32_stage_bytes(spec)
-            assert tfs.trunk_elements(spec, 2) == 2 * (hw * spec.kernels + (act + rows) // 4)
+            # the branch outputs in registers: the scratch is the trunk, and
+            # the stage input where it does not fit shared memory (float32's
+            # 785 rows of 132 floats at 28 x 28)
+            L = tfs.mma_layout(spec)
+            in_scratch = dtype == "float32" and hw == 784
+            assert bool(L.act_in_shared) == (not in_scratch)
+            assert tfs.trunk_elements(spec, 2) == \
+                2 * (L.trunk_per_sample + (L.act_bytes // 4 if in_scratch else 0))
     for name in LAYOUT_SPECS:  # the flagship's and the small specs stay on the narrow kernel
         if name.startswith("flagship"):
             assert not tfs.wide(_bf16_spec(name))
@@ -800,8 +817,14 @@ def test_wide_shared_memory_plan(name):
     if name == "preset_28x28x1":
         assert 4 * tfs.scratch_per_sample(spec, True) == 401408
         assert (L.act_bytes, tfs.wide_shared_bytes(spec)) == (213520, 229968)
-    # the float32 wide kernel uses no shared memory
-    assert tfs.wide_shared_bytes(dataclasses.replace(spec, compute_dtype="float32")) == 0
+    # the float32 wide build: the ring (slots twice bf16's), the
+    # warpgroups' lo planes (two each, a slot each), then the stage input
+    # where it fits (twice bf16's rows), else the slack
+    f32 = dataclasses.replace(spec, compute_dtype="float32")
+    L32 = tfs.mma_layout(f32)
+    planes = tfs.BARRIER_BYTES + (tfs.SLOTS + 2 * tfs.WIDE_GROUPS) * tfs.TF32_SLOT_BYTES
+    assert tfs.wide_shared_bytes(f32) == planes + (L32.act_bytes if L32.act_in_shared
+                                                   else tfs.SLACK_BYTES)
 
 
 def test_wide_packing_groups_and_core_order():
@@ -874,7 +897,7 @@ def _f32_spec(name):
 
 
 #: the specs of LAYOUT_SPECS that the float32 narrow kernel takes (the rest,
-#: five dilations or a trunk of 128, take the CUDA-core kernel)
+#: five dilations or a trunk of 128, take the wide variant's tf32 build)
 TF32_SPECS = [n for n in LAYOUT_SPECS if n not in ("dil5", "wide", "preset_28x28x1",
                                                     "preset_14x14x2")]
 TF32_SMALL_SPECS = [n for n in TF32_SPECS if n in SMALL_LAYOUT_SPECS]
@@ -991,7 +1014,7 @@ def test_tf32_plan_at_the_flagship_and_the_preset():
     chip (159,616, 51,712 and 149,536 bytes a block), its 28 x 28 on
     the scratch plan in 230,640 bytes; the preset's two K 64 specs on the
     scratch plan; the preset's two K 128 specs, and only they, on the
-    CUDA-core kernel."""
+    wide variant's tf32 build."""
     for (h, w, cin, k, card, dil, out), (build, threads, shared, scratch) in TF32_PLANS.items():
         spec = tfs.SubnetSpec(h, w, cin, k, 3, card, 3, dil, out, compute_dtype="float32")
         plan = tfs.narrow_plan(spec)
@@ -1005,7 +1028,7 @@ def test_tf32_plan_at_the_flagship_and_the_preset():
              if isinstance(m, tsubnets.FusedChainCouplingNet)}
     cores = {(s.h, s.w, s.cin, s.kernels) for s in specs if tfs.wide(s)}
     assert cores == {(28, 28, 1, 128), (14, 14, 2, 128)}
-    assert all(tfs.kernel_build(s) == "float32 CUDA cores" for s in specs if tfs.wide(s))
+    assert all(tfs.kernel_build(s) == "tf32 wide" for s in specs if tfs.wide(s))
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
@@ -1015,7 +1038,7 @@ def test_tf32_plan_follows_the_spec(name):
     of float32 fit shared memory; else the scratch plan of 512 threads with
     the stage input and the ring, its last round's one or two tiles split
     across warps where their branch tiles are at most one a warp; past the
-    kernel's tiles or shared memory the CUDA-core kernel (wide). The table
+    kernel's tiles or shared memory the wide variant's tf32 build. The table
     carries on_chip to the C entry."""
     spec = _f32_spec(name)
     L, plan = tfs.mma_layout(spec), tfs.narrow_plan(spec)
@@ -1065,3 +1088,195 @@ def test_tf32_ring_schedule_carries_every_weight_once_a_round(name):
     on_device = tfs._layout_table_on(spec, torch.device("cpu")).tolist()
     assert len(on_device) == head + 2 * rounds * L.n_pieces
     assert sum(on_device[head + 1::2]) == rounds * 4 * L.w_total
+
+
+# ---------------------------------------------------------------------------
+# float32: the wide variant's tf32 build
+# ---------------------------------------------------------------------------
+
+#: the specs of LAYOUT_SPECS that take the float32 wide build: five
+#: dilations, a trunk of 128 (the capacity preset's two K 128 specs)
+TF32_WIDE_SPECS = [n for n in LAYOUT_SPECS if n not in TF32_SPECS]
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_SPECS))
+def test_tf32_wide_unpack_of_pack_gives_the_weights(name):
+    """The float32 wide variant's packing (each fragment in core matrices,
+    each branch group chunk by chunk) holds every flax value once, at the
+    specs that take it and, launched by hand, at the narrow ones: unpack
+    gives back the weights and biases exactly, the rest is padding, and it
+    holds the narrow packing's values, reordered. The spec picks the wide
+    build exactly at TF32_WIDE_SPECS."""
+    assert TF32_WIDE_SPECS == ["dil5", "wide", "preset_28x28x1", "preset_14x14x2"]
+    spec = _f32_spec(name)
+    assert tfs.wide(spec) == (name in TF32_WIDE_SPECS)
+    assert (tfs.kernel_build(spec) == "tf32 wide") == tfs.wide(spec)
+    flat = [torch.from_numpy(w) for w in weights(spec)]
+    packed = tfs.pack(spec, flat, wide_variant=True)
+    L = tfs.mma_layout(spec)
+    assert tuple(t.numel() for t in packed) == tfs.packed_sizes(spec) == (L.w_total, L.b_total)
+    assert packed[0].dtype == packed[1].dtype == torch.float32
+    assert int((packed[0] != 0).sum() + (packed[1] != 0).sum()) == sum(w.numel() for w in flat)
+    for (pname, shape), w, back in zip(tfs.flax_param_order(spec), flat,
+                                       tfs.unpack(spec, packed, wide_variant=True)):
+        assert tuple(back.shape) == shape and torch.equal(back, w), pname
+    narrow = tfs.pack(spec, flat, wide_variant=False)
+    assert torch.equal(packed[0].sort().values, narrow[0].sort().values)
+    assert torch.equal(packed[1], narrow[1])
+
+
+def _chunk_rows(b):
+    """b's rows permuted in each k8 chunk as HANDOFF_ROWS says"""
+    return b.reshape(-1, 8, b.shape[1])[:, tfs.HANDOFF_ROWS].reshape(b.shape)
+
+
+def test_tf32_wide_packing_is_in_fragment_order():
+    """At the preset's (28, 28, 1) K 128 in float32: each fragment two core
+    matrices of 8 n rows of 4 floats (TF32_CORE_ORDER: what tf32 wgmma
+    reads, K-major, and what ldmatrix gives as m16n8k8's B registers, lane
+    l's values e at row l // 4, column l % 4 of matrix e); the pre 1x1 read
+    back so is the flax (K, K) kernel in the hand-off's row order, as the
+    narrow packing holds it; the post 1x1's chunk i is branch tile i's 8
+    outputs; its stage input in scratch, read as channel pairs
+    (scratch_pairs), so a branch tile read back through its group, chunk by
+    chunk, and the entry and the head are the narrow packing's with each
+    chunk's rows in the hand-off's order too (at 14 x 14, in shared memory,
+    as they stand); a slot holds one k8 chunk of a 128-wide stage."""
+    spec = _f32_spec("preset_28x28x1")
+    L = tfs.mma_layout(spec)
+    assert tfs.scratch_pairs(spec) and not tfs.scratch_pairs(_f32_spec("preset_14x14x2"))
+    assert sorted(tfs.TF32_CORE_ORDER) == list(range(tfs.TF32_FRAG))
+    lane = np.arange(32)
+    for e in range(2):
+        np.testing.assert_array_equal(tfs.TF32_CORE_ORDER[32 * e + 4 * (lane // 4) + lane % 4],
+                                      2 * lane + e)
+    assert tfs.branch_groups(L) == ((0, 8), (8, 8), (16, 8), (24, 4))
+    assert L.ch_pre == L.nt == 16 and L.ch_post == L.n_tiles == 28
+    assert L.nt * tfs.TF32_FRAG * 4 == tfs.SLOT_BYTES
+    flat = weights(spec)
+    torch_flat = [torch.from_numpy(w) for w in flat]
+    narrow = tfs.pack(spec, torch_flat, wide_variant=False)[0].numpy()
+    wide_buf = tfs.pack(spec, torch_flat, wide_variant=True)[0].numpy()
+    pre = _tf32_core_b(wide_buf, L.w_block0, L.ch_pre, L.nt)
+    np.testing.assert_array_equal(pre, _tf32_b(narrow, L.w_block0, L.ch_pre, L.nt))
+    np.testing.assert_array_equal(
+        pre, flat[2][0, 0].reshape(16, 8, 128)[:, tfs.HANDOFF_ROWS].reshape(128, 128))
+    post = _tf32_core_b(wide_buf, L.w_block0 + L.w_post, L.ch_post, L.nt)
+    np.testing.assert_array_equal(
+        post, flat[10][0, 0].reshape(28, 8, 128)[:, tfs.HANDOFF_ROWS].reshape(224, 128))
+    for i in range(L.n_tiles):
+        np.testing.assert_array_equal(
+            _tile_b(wide_buf, L.w_block0, L, i, True, tf32=True),
+            _chunk_rows(_tile_b(narrow, L.w_block0, L, i, False, tf32=True)))
+    for off, ch, nts in ((0, L.ch_entry, L.nt), (L.w_head, L.ch_head, L.no)):
+        np.testing.assert_array_equal(_tf32_core_b(wide_buf, off, ch, nts),
+                                      _chunk_rows(_tf32_b(narrow, off, ch, nts)))
+    small = _f32_spec("preset_14x14x2")
+    Ls = tfs.mma_layout(small)
+    flat_s = [torch.from_numpy(w) for w in weights(small)]
+    np.testing.assert_array_equal(
+        _tf32_core_b(tfs.pack(small, flat_s, wide_variant=True)[0].numpy(), 0, Ls.ch_entry, Ls.nt),
+        _tf32_b(tfs.pack(small, flat_s, wide_variant=False)[0].numpy(), 0, Ls.ch_entry, Ls.nt))
+
+
+@pytest.mark.parametrize("name", ["dil5", "wide", "odd", "groups3_k24", "tiles_5x3x3",
+                                  "flagship_28x28x1"])
+def test_tf32_wide_layout_computes_the_chain(name):
+    """What the float32 wide build computes from its packing — k8 chunks
+    read through core matrices and branch groups, the hand-off's
+    permutation, three TF32 products a chunk on split operands — emulated
+    at matrix level, is JAX's float32 subnet_apply_ref within TF32_TOL, at
+    the small specs that take it and, launched by hand, at small narrow
+    ones and at 28 x 28 K 64, whose stage input is read from scratch as
+    channel pairs; one TF32 product alone is not within the card's 1e-4."""
+    assert tfs.scratch_pairs(_f32_spec(name)) == (name == "flagship_28x28x1")
+    spec = _f32_spec(name)
+    jspec = jfs.SubnetSpec(batch_tile=2, **LAYOUT_SPECS[name], compute_dtype="float32")
+    x, flat = x_for(spec, batch=2), weights(spec)
+    packed = tfs.pack(spec, [torch.from_numpy(w) for w in flat], wide_variant=True)
+    out = _mma_chain(spec, x, packed, wide_variant=True)
+    ref = np.asarray(jfs.subnet_apply_ref(jspec, jnp.asarray(x), [jnp.asarray(w) for w in flat]))
+    np.testing.assert_allclose(out, ref, rtol=TF32_TOL, atol=TF32_TOL)
+    one = _mma_chain(spec, x, packed, wide_variant=True, lo_products=False)
+    assert np.abs(one - ref).max() > 1e-4
+
+
+#: (shared bytes a block, scratch bytes a sample) of the float32 wide build
+#: at the preset's two K 128 specs
+TF32_WIDE_PLANS = {
+    # the stage input past shared memory (785 rows of 132 floats, 414,480
+    # bytes): the ring's barriers (64), its 4 slots of 8,192 bytes, the 4
+    # warpgroups' two lo planes of a slot each and the slack; its scratch
+    # the trunk (49 tiles of 16 pixels of 128 floats) and the stage input
+    (28, 28, 1, 128, (1, 2, 4), 2): (64 + 32768 + 65536 + 2048, 401408 + 414480),
+    # 197 rows of 132 floats in shared memory beside them; the trunk alone
+    (14, 14, 2, 128, (1, 2), 4): (64 + 32768 + 65536 + 104016, 13 * 16 * 128 * 4),
+}
+
+
+def test_tf32_wide_plan_at_the_preset():
+    """The float32 wide build's plans at the preset's two K 128 specs: at
+    14 x 14 the stage input in shared memory beside the ring and the lo
+    planes (202,384 bytes a block), at 28 x 28 in scratch after the trunk
+    (100,416 bytes a block); the table carries the plan to the C entry,
+    which checks it against its own (wide_plan_ok)."""
+    for (h, w, cin, k, dil, out), (shared, scratch) in TF32_WIDE_PLANS.items():
+        spec = tfs.SubnetSpec(h, w, cin, k, 3, 8, 3, dil, out, compute_dtype="float32")
+        L = tfs.mma_layout(spec)
+        assert tfs.kernel_build(spec) == "tf32 wide" and tfs.wide(spec)
+        assert tfs.wide_shared_bytes(spec) == shared <= tfs.MAX_SHARED_BYTES
+        assert bool(L.act_in_shared) == ((h, w) == (14, 14))
+        assert 4 * tfs.scratch_per_sample(spec, True) == scratch
+        assert tfs.trunk_elements(spec, 128) == 128 * scratch // 4
+        table = list(tfs.layout_table(spec))
+        assert [table[tfs.TABLE_FIELDS.index(f)] for f in ("act_in_shared", "wide_shared")] == \
+            [L.act_in_shared, shared]
+    assert [v[0] for v in TF32_WIDE_PLANS.values()] == [100416, 202384]
+
+
+def rounds_of(L):
+    """rounds of the wide kernel's four warpgroups over a sample's 64-pixel tiles"""
+    return -(-L.n_mt // (4 * tfs.WIDE_GROUPS))
+
+
+@pytest.mark.parametrize("name", ["wide", "preset_28x28x1", "preset_14x14x2", "groups3_k12",
+                                  "dil5", "odd", "k256_28x28x1"])
+def test_tf32_wide_schedule_covers_every_stage(name):
+    """The float32 wide build's ring schedule, as the bf16 one's: one round
+    of each stage, every piece at most a slot (TF32_SLOT_BYTES), a multiple
+    of 16 bytes, inside the packing, each stage's weights carried once a
+    round and pass; its trunk-wide pieces k8 chunks, two a piece of a
+    128-wide pass, and the post 1x1 a pair of branch tiles' two chunks a
+    piece where a pass takes every tile, else a tile's. The table of the
+    wide variant carries it (at a narrow spec too, launched by hand); the
+    device's copy repeats each stage's round once a round."""
+    spec = tfs.SubnetSpec(**(LAYOUT_SPECS.get(name) or K256), compute_dtype="float32")
+    L = tfs.mma_layout(spec)
+    stages = tfs.wide_schedule(spec, wide_variant=True)
+    sched = [piece for st in stages for piece in st]
+    assert len(stages) == 2 + 2 * spec.res_blocks and all(stages)
+    table = list(tfs.layout_table(spec, wide_variant=True))
+    n_pieces = table[tfs.TABLE_FIELDS.index("n_pieces")]
+    assert len(sched) == n_pieces and (not tfs.wide(spec) or L.n_pieces == n_pieces)
+    for src, nbytes in sched:
+        assert 0 < nbytes <= tfs.TF32_SLOT_BYTES and nbytes % 16 == 0 and src % 4 == 0
+        assert src + nbytes // 4 <= L.w_total
+    passes = -(-L.nt // tfs.PASS_TILES)
+    branches = L.w_post - L.ch_pre * L.nt * tfs.TF32_FRAG
+    stage_bytes = 4 * (L.w_block0 + (L.w_total - L.w_head)
+                       + spec.res_blocks * (L.w_block + (passes - 1) * branches))
+    assert sum(b for _, b in sched) == stage_bytes
+    # a branch stage: each pass, each group's chunks a slot at a time, then
+    # its tiles' post 1x1 chunks, a pair a piece in one pass, else one
+    slot = tfs.TF32_SLOT_BYTES // (4 * tfs.TF32_FRAG)
+    groups = sum(-(-L.tiles[g0].chunks // (slot // ng)) for g0, ng in tfs.branch_groups(L))
+    posts = -(-L.n_tiles // 2) if passes == 1 else L.n_tiles
+    assert all(len(st) == passes * (groups + posts) for st in stages[2:-1:2])
+    if name == "preset_28x28x1":  # 13 64-pixel tiles: 4 rounds, 121 pieces each
+        assert rounds_of(L) == 4 and n_pieces == 121
+    rounds = rounds_of(L)
+    head = len(tfs.TABLE_FIELDS) + 2 * tfs.MAX_BRANCHES + len(tfs.TILE_FIELDS) * L.n_tiles
+    on_device = tfs._layout_table_on(spec, torch.device("cpu"), wide_variant=True).tolist()
+    assert on_device[:head] == table[:head]
+    assert len(on_device) == head + 2 * rounds * n_pieces
+    assert sum(on_device[head + 1::2]) == rounds * stage_bytes

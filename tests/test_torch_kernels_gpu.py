@@ -420,11 +420,11 @@ def test_narrow_bf16_kernel_matches_plain_version_at_every_batch(cuda, no_tf32, 
 
 #: the build of csrc/fused_subnet.cu that each float32 spec names
 #: (fused_subnet.py::kernel_build): the narrow kernel's tf32 products on
-#: chip or on the scratch plan, the CUDA-core kernel past its tiles
+#: chip or on the scratch plan, the wide variant's tf32 build past its tiles
 F32_BUILDS = {"flagship_14x14x4": "tf32 on chip", "flagship_28x28x1": "tf32 scratch",
               "flagship_7x7x8": "tf32 on chip", "flagship_14x14x2": "tf32 on chip",
               "preset_14x14x4": "tf32 scratch", "preset_7x7x8": "tf32 scratch",
-              "preset_28x28x1": "float32 CUDA cores", "preset_14x14x2": "float32 CUDA cores",
+              "preset_28x28x1": "tf32 wide", "preset_14x14x2": "tf32 wide",
               "scratch_23x23x1": "tf32 scratch", "scratch_20x20x2": "tf32 scratch",
               "scratch_32x16x3": "tf32 scratch", "scratch_17x16x1": "tf32 scratch"}
 
@@ -435,13 +435,14 @@ def test_float32_kernel_matches_plain_version_at_every_batch(cuda, no_tf32, name
     """Each float32 spec of the flagship, the preset and the scratch plan's
     at a batch that is a multiple of nothing the kernel tiles and at the
     serving call's 2,048: one launch of the build its spec names (the
-    narrow kernel's tf32 products on its plan, or the CUDA-core kernel),
-    within 1e-4 of the plain version, TF32 off."""
+    narrow kernel's tf32 products on its plan, or the wide variant's tf32
+    build, its stage input in scratch at the preset's 28 x 28 and in shared
+    memory at its 14 x 14), within 1e-4 of the plain version, TF32 off."""
     spec = tfs.SubnetSpec(**(CHAIN_SPECS.get(name) or WIDE_SPECS.get(name)
                              or SCRATCH_SPECS[name]), compute_dtype="float32")
     assert tfs.kernel_build(spec) == F32_BUILDS[name]
     plan = tfs.narrow_plan(spec)
-    assert tfs.wide(spec) == (F32_BUILDS[name] == "float32 CUDA cores")
+    assert tfs.wide(spec) == (F32_BUILDS[name] == "tf32 wide")
     assert tfs.wide(spec) or plan.on_chip == F32_BUILDS[name].endswith("on chip")
     x, packed = _chain_inputs(spec, batch, cuda)
     before, builds = tfs.LAUNCHES["fused_subnet"], dict(tfs.BUILD_LAUNCHES)
@@ -474,6 +475,39 @@ def test_wide_variant_matches_plain_version_at_narrow_specs(cuda, no_tf32, name,
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+#: the float32 wide build past the preset: six dilated branches (groups of
+#: 1 to 32 channels), and a trunk of 200 (25 n8 tiles: a wgmma pass of 16
+#: and one of 9, whose N of 128 reads past the piece) with a head of 2 tiles
+TF32_WIDE_SPECS = {
+    "dil6_10x10x2": dict(h=10, w=10, cin=2, kernels=64, res_blocks=2, cardinality=2, ksize=3,
+                         dilations=(1, 2, 4, 8, 16, 32), out_total=4),
+    "k200_9x9x3": dict(h=9, w=9, cin=3, kernels=200, res_blocks=2, cardinality=2, ksize=3,
+                       dilations=(1, 2, 4), out_total=12),
+}
+
+
+@pytest.mark.parametrize("batch", [3, BATCH])
+@pytest.mark.parametrize("name", list(TF32_WIDE_SPECS))
+def test_tf32_wide_build_matches_plain_version_past_the_preset(cuda, no_tf32, name, batch):
+    """The float32 wide build at a spec of six dilations and at a trunk
+    that is no multiple of PASS_TILES x 8 (two wgmma passes, the second
+    over 9 tiles): one launch of "tf32 wide" within 1e-4 of the plain
+    version, TF32 off."""
+    spec = tfs.SubnetSpec(**TF32_WIDE_SPECS[name], compute_dtype="float32")
+    assert tfs.kernel_build(spec) == "tf32 wide"
+    assert len(spec.dilations) >= 5 or spec.kernels % (tfs.PASS_TILES * 8)
+    x, packed = _chain_inputs(spec, batch, cuda)
+    before, builds = tfs.LAUNCHES["fused_subnet"], dict(tfs.BUILD_LAUNCHES)
+    with torch.no_grad():
+        out = tfs.subnet_apply(spec, x, packed)
+        torch.cuda.synchronize()
+        ref = tfs.subnet_apply_reference(spec, x, packed)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES["fused_subnet"] == before + 1 and _builds_after(spec, builds)
+    assert out.shape == (batch, spec.h, spec.w, spec.out_total)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
