@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: ``python -m pytest cnfbench/tests`` from the
+repository root. They import neither JAX nor the JAX package."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
