@@ -21,6 +21,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from arl_conditional_normalizing_flows_tpu_torch.utils.profiling import span
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -100,7 +102,8 @@ def load_host_library(source) -> ctypes.CDLL:
             path = host_library_path(source)
             if not path.is_file():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                _compile([gxx_path(), *GXX_FLAGS], source, path)
+                with span("cnf.kernels.build"):
+                    _compile([gxx_path(), *GXX_FLAGS], source, path)
             _loaded[key] = ctypes.CDLL(str(path))
         return _loaded[key]
 
@@ -108,7 +111,7 @@ def load_host_library(source) -> ctypes.CDLL:
 def _build(targets: dict) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = [nvcc_path(), *NVCC_FLAGS]
-    with ThreadPoolExecutor(max_workers=len(targets)) as pool:
+    with span("cnf.kernels.build"), ThreadPoolExecutor(max_workers=len(targets)) as pool:
         futures = [pool.submit(_compile, nvcc, CSRC_DIR / f"{n}.cu", p)
                    for n, p in targets.items()]
         for f in futures:

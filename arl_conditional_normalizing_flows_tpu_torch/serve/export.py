@@ -46,6 +46,7 @@ from arl_conditional_normalizing_flows_tpu_torch.sample.sampler import (
     postprocess_sampled_xy,
 )
 from arl_conditional_normalizing_flows_tpu_torch.utils import graphs
+from arl_conditional_normalizing_flows_tpu_torch.utils.profiling import span
 
 FORMAT = "arl_conditional_normalizing_flows_tpu_torch.ServingArtifact/1"
 PLATFORMS = ("cuda", "cpu")
@@ -181,10 +182,11 @@ class _Graphed:
     def replay(self, inputs):
         """Copy ``inputs`` into the static buffers and replay, on the current
         stream; returns the static output, which the next replay overwrites."""
-        for static, t in zip(self.inputs, inputs):
-            if t is not static:
-                static.copy_(t)
-        self.graph.replay()
+        with span("cnf.serve.replay"):
+            for static, t in zip(self.inputs, inputs):
+                if t is not static:
+                    static.copy_(t)
+            self.graph.replay()
         return self.output
 
 
@@ -327,15 +329,21 @@ class ServingArtifact:
         """One replay of ``graphed`` for these inputs (z drawn from ``seed``
         when given); returns its static output."""
         if seed is not None:
-            z = draw_latent(seed, graphed.inputs[0].shape, self.device, out=graphed.inputs[0])
+            with span("cnf.serve.draw"):
+                z = draw_latent(seed, graphed.inputs[0].shape, self.device,
+                                out=graphed.inputs[0])
         return graphed.replay([z, y])
 
     def call(self, *args):
-        seed, z, y = self._args(args)
-        if self.device.type == "cpu":
-            return self.entry(seed, y) if seed is not None else self.entry(z, y)
-        graphed = self.graph(y.shape, None if z is None else z.shape)
-        return self._replay(graphed, seed, z, y).clone()
+        with span("cnf.serve.call"):
+            with span("cnf.serve.args"):
+                seed, z, y = self._args(args)
+            if self.device.type == "cpu":
+                return self.entry(seed, y) if seed is not None else self.entry(z, y)
+            graphed = self.graph(y.shape, None if z is None else z.shape)
+            out = self._replay(graphed, seed, z, y)
+            with span("cnf.serve.copy_out"):
+                return out.clone()
 
 
 def export_sampler(fn, arg_shapes: Sequence[Tuple[int, ...]], *,

@@ -54,6 +54,7 @@ from arl_conditional_normalizing_flows_tpu_torch.train.metrics import (
     restore_params,
 )
 from arl_conditional_normalizing_flows_tpu_torch.utils import graphs
+from arl_conditional_normalizing_flows_tpu_torch.utils.profiling import span
 
 #: eager steps on a side stream before a step is captured: they make every
 #: lazy first use (Adam's state, cuDNN plans, the conv-chain kernel's
@@ -377,26 +378,33 @@ class _GraphedSteps:
         self._key = self._capture_key(state, xy_stack, generator)
 
     def __call__(self, state: TrainState, xy_stack, generator=None, alpha=1.0):
-        _check_stack(xy_stack, self.num_inner)
-        if self.graph is None or self._capture_key(state, xy_stack, generator) != self._key:
-            self.capture(state, xy_stack, generator)
-        self._acc.zero_()
-        if self.add_noise is not None:
-            if torch.is_tensor(alpha):
-                self._alpha.copy_(alpha)
-            else:
-                self._alpha.fill_(alpha)
-        for xy in xy_stack:
-            self._xy.copy_(xy)
-            self.graph.replay()
-        # the replays wrote the parameters in place behind autograd's back;
-        # bump their versions so that caches keyed on them (the conv-chain
-        # kernel's packed weights) see the change
-        for p in state.model.parameters():
-            increment_version(p)
-        acc = self._acc if self.parallel is None else self.parallel.mean(self._acc.clone())
-        mean = acc / self.num_inner
-        return state, dict(zip(LOSS_KEYS, mean.unbind()))
+        with span("cnf.train.call"):
+            _check_stack(xy_stack, self.num_inner)
+            with span("cnf.train.key"):
+                stale = (self.graph is None
+                         or self._capture_key(state, xy_stack, generator) != self._key)
+            if stale:
+                self.capture(state, xy_stack, generator)
+            self._acc.zero_()
+            if self.add_noise is not None:
+                if torch.is_tensor(alpha):
+                    self._alpha.copy_(alpha)
+                else:
+                    self._alpha.fill_(alpha)
+            for xy in xy_stack:
+                with span("cnf.train.replay"):
+                    self._xy.copy_(xy)
+                    self.graph.replay()
+            # the replays wrote the parameters in place behind autograd's back;
+            # bump their versions so that caches keyed on them (the conv-chain
+            # kernel's packed weights) see the change
+            with span("cnf.train.versions"):
+                for p in state.model.parameters():
+                    increment_version(p)
+            with span("cnf.train.loss_mean"):
+                acc = self._acc if self.parallel is None else self.parallel.mean(self._acc.clone())
+                mean = acc / self.num_inner
+            return state, dict(zip(LOSS_KEYS, mean.unbind()))
 
 
 def _check_stack(xy_stack, num_inner):
@@ -429,12 +437,13 @@ def make_scan_train_step(model, num_inner: int, mesh=None, noise_mode: str = "fu
         return _GraphedSteps(model, num_inner, add_noise, parallel if mesh is not None else None)
 
     def multi(state, xy_stack, generator=None, alpha=1.0):
-        _check_stack(xy_stack, num_inner)
-        _check_model(state, model)
-        outs = [_apply_step(state, xy, add_noise, generator, alpha, parallel)
-                for xy in xy_stack]
-        mean = torch.stack([torch.stack([o[k] for o in outs]).mean() for k in LOSS_KEYS])
-        return state, dict(zip(LOSS_KEYS, parallel.mean(mean).unbind()))
+        with span("cnf.train.call"):
+            _check_stack(xy_stack, num_inner)
+            _check_model(state, model)
+            outs = [_apply_step(state, xy, add_noise, generator, alpha, parallel)
+                    for xy in xy_stack]
+            mean = torch.stack([torch.stack([o[k] for o in outs]).mean() for k in LOSS_KEYS])
+            return state, dict(zip(LOSS_KEYS, parallel.mean(mean).unbind()))
 
     return multi
 

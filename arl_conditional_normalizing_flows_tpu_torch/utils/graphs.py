@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from arl_conditional_normalizing_flows_tpu_torch.ops.kernels import affine_coupling, fused_subnet
+from arl_conditional_normalizing_flows_tpu_torch.utils.profiling import span
 
 
 def _launches() -> dict:
@@ -27,20 +28,21 @@ def capture(fn, device, *, warmup: int = 1, pool=None, generator=None, before_ca
     launches its wrapper counted during the capture: what every replay
     launches (the wrappers count at capture, not in replays).
     """
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    current.wait_stream(side)
-    if before_capture is not None:
-        before_capture()
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    before = _launches()
-    with torch.cuda.graph(graph, pool=pool):
-        output = fn()
-    launches = {k: v - before[k] for k, v in _launches().items()}
-    return graph, output, launches
+    with span("cnf.graph.capture"):
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        current.wait_stream(side)
+        if before_capture is not None:
+            before_capture()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = _launches()
+        with torch.cuda.graph(graph, pool=pool):
+            output = fn()
+        launches = {k: v - before[k] for k, v in _launches().items()}
+        return graph, output, launches

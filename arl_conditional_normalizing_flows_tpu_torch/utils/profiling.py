@@ -2,9 +2,13 @@
 
 The reference has no performance instrumentation (conv_cINN_make_model.py:50-52
 only comments out ``@tf.function``). Here: ``torch.profiler`` traces written
-as Chrome traces (open in Perfetto or ``chrome://tracing``), named regions
-for the hot paths, which also show as NVTX ranges on the card, and a light
-step timer with wall-time percentiles.
+as Chrome traces (open in Perfetto or ``chrome://tracing``), the program's
+named spans on its per-call host paths, and a light step timer with
+wall-time percentiles.
+
+A span is recorded only while a profiler records: it then lands in the
+profiler's trace beside the card's activity, on the same clock. Otherwise it
+costs a check of the profiler's state.
 """
 
 from __future__ import annotations
@@ -18,19 +22,18 @@ from typing import Dict, List, Optional
 import torch
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region in the profiler's trace (``record_function``) and, on
-    a machine with a card, an NVTX range of the same name."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+#: what :func:`span` returns while no profiler records
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named region of the program in the profiler's trace: a
+    ``record_function`` while a profiler records, else one shared no-op
+    context (an idle ``record_function`` costs about ten microseconds a
+    call). The program's names start with ``cnf.``."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

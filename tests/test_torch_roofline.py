@@ -171,11 +171,15 @@ def test_step_timer_summary_is_jaxs():
 
 
 def test_profile_trace_and_annotate(tmp_path):
+    """A span inside ``profile_trace`` lands in its sums and in its Chrome
+    trace; one outside any profiler leaves nothing behind."""
+    with profiling.span("cnf.outside"):
+        torch.ones(8) * 2
     with profiling.profile_trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("coupling_law"):
+        with profiling.span("cnf.coupling_law"):
             torch.ones(8) * 2
     names = {e.key for e in prof.key_averages()}
-    assert "coupling_law" in names
+    assert "cnf.coupling_law" in names and "cnf.outside" not in names
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "coupling_law" for e in events)
+    assert any(e.get("name") == "cnf.coupling_law" for e in events)
